@@ -1,0 +1,47 @@
+"""Build a port :class:`Scene` from plain arrays.
+
+This is how scene parameters cross from the JAX package: take the leaves
+of a JAX ``Scene`` with ``np.asarray`` under the names below and hand them
+over, so both packages compute on identical float32 numbers.
+
+Keys: ``camera.{lookfrom, lookat, vertical, vertical_fov, aspect_ratio}``,
+``background.{color_a, color_b}``,
+``spheres.{center, radius, material, neg_inv_density}`` and
+``materials.{kind, albedo, fuzz, ir, emission, mix_first, mix_second,
+mix_factor}``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .backgrounds import Background
+from .camera import Camera
+from .materials import MaterialTable
+from .scene import RenderSettings, Scene, SphereArray
+
+
+def scene_from_arrays(arrays: dict[str, np.ndarray], settings: RenderSettings,
+                      background_kind: int) -> Scene:
+    def t(name, dtype):
+        return torch.as_tensor(np.array(arrays[name], dtype))
+
+    f32, i32 = np.float32, np.int32
+    camera = Camera(t("camera.lookfrom", f32), t("camera.lookat", f32),
+                    t("camera.vertical", f32), t("camera.vertical_fov", f32),
+                    t("camera.aspect_ratio", f32))
+    background = Background(background_kind, t("background.color_a", f32),
+                            t("background.color_b", f32))
+    spheres = SphereArray(t("spheres.center", f32), t("spheres.radius", f32),
+                          t("spheres.material", i32),
+                          t("spheres.neg_inv_density", f32))
+    materials = MaterialTable(
+        kind=t("materials.kind", i32), albedo=t("materials.albedo", f32),
+        fuzz=t("materials.fuzz", f32), ir=t("materials.ir", f32),
+        emission=t("materials.emission", f32),
+        mix_first=t("materials.mix_first", i32),
+        mix_second=t("materials.mix_second", i32),
+        mix_factor=t("materials.mix_factor", f32),
+    )
+    return Scene(camera, background, spheres, materials, settings)
