@@ -2,10 +2,10 @@
 
 A port of ``raytracingrust_tpu`` (JAX on a TPU) to one NVIDIA H100.  It
 reads the same scene JSON and draws the same Threefry random numbers.
-This slice renders sphere scenes: the radiance comes from a CUDA kernel
-written by hand for Hopper (``csrc/megakernel.cu``), with a plain PyTorch
-version beside it that runs on the CPU.  The package imports torch and
-numpy, never JAX.
+It renders sphere scenes and fits their parameters: the radiance, its
+gradient and the fit's fused loss come from CUDA kernels written by hand
+for Hopper (``csrc/``), each with a plain PyTorch version beside it that
+runs on the CPU.  The package imports torch and numpy, never JAX.
 """
 
 __version__ = "0.1.0"

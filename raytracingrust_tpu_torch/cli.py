@@ -1,11 +1,12 @@
-"""Command-line interface of the port: ``render`` and ``info``.
+"""Command-line interface of the port: ``render``, ``fit`` and ``info``.
 
     rtrt-torch render scenes/benchmark.json -o out.png --width 512 --height 512
     rtrt-torch render scene.json --spp 64 --depth 8 --mode Clay --device cpu
+    rtrt-torch fit scene.json target.png --params albedo,emission --steps 50
     rtrt-torch info scene.json
 
-``--device cuda`` (the default) renders with the CUDA kernel and fails when
-no GPU is present; ``--device cpu`` runs its plain PyTorch version.
+``--device cuda`` (the default) runs the CUDA kernels and fails when no GPU
+is present; ``--device cpu`` runs their plain PyTorch versions.
 """
 
 from __future__ import annotations
@@ -24,6 +25,12 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--depth", type=int, help="override max_ray_depth")
     p.add_argument("--clamp", type=float, help="override clamp_indirect")
     p.add_argument("--mode", choices=_MODES)
+
+
+def _add_device_arg(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
+                   help="cuda: the CUDA kernels (default); cpu: their plain "
+                        "PyTorch versions")
 
 
 def _load(args):
@@ -62,6 +69,36 @@ def cmd_render(args) -> int:
     return 0
 
 
+def cmd_fit(args) -> int:
+    """Inverse rendering: optimize scene parameters to match a target PNG."""
+    import numpy as np
+
+    from .diff.inverse import fit
+    from .io.png import read_png, write_png
+    from .render.render import render
+
+    scene = _load(args).build()
+    target_u8 = read_png(args.target)[..., :3].astype(np.float32) / 255.0
+    target = target_u8 ** 2  # invert the sqrt gamma -> linear radiance
+    h, w = target.shape[:2]
+
+    def log(i, value, params):
+        if i % 10 == 0:
+            print(f"step {i}: loss {value:.6f}")
+
+    out_scene, params, history = fit(
+        scene, target, args.params.split(","), w, h, steps=args.steps,
+        learning_rate=args.lr, seed=args.seed, device=args.device,
+        callback=log)
+    print(f"final loss {history[-1]:.6f}")
+    for name, value in params.items():
+        print(f"{name}: {np.round(value.cpu().numpy(), 4).tolist()}")
+    if args.output:
+        write_png(args.output, render(out_scene, w, h, seed=args.seed,
+                                      device=args.device))
+    return 0
+
+
 def cmd_info(args) -> int:
     builder = _load(args)
     scene = builder.build()
@@ -88,11 +125,22 @@ def main(argv=None) -> int:
     p_render.add_argument("--width", type=int, default=1000)
     p_render.add_argument("--height", type=int, default=1000)
     p_render.add_argument("--seed", type=int, default=0)
-    p_render.add_argument("--device", choices=["cuda", "cpu"],
-                          default="cuda",
-                          help="cuda: the CUDA kernel (default); cpu: its "
-                               "plain PyTorch version")
+    _add_device_arg(p_render)
     p_render.set_defaults(fn=cmd_render)
+
+    p_fit = sub.add_parser("fit",
+                           help="inverse rendering against a target PNG")
+    _add_scene_args(p_fit)
+    p_fit.add_argument("target", help="target PNG (as written by `render`)")
+    p_fit.add_argument("--params", default="albedo",
+                       help="comma list: albedo,fuzz,ir,emission,"
+                            "bg_color_a,cam_lookfrom,cam_fov,...")
+    p_fit.add_argument("--steps", type=int, default=100)
+    p_fit.add_argument("--lr", type=float, default=5e-2)
+    p_fit.add_argument("-o", "--output", help="render the fitted scene here")
+    p_fit.add_argument("--seed", type=int, default=0)
+    _add_device_arg(p_fit)
+    p_fit.set_defaults(fn=cmd_fit)
 
     p_info = sub.add_parser("info", help="print scene statistics")
     _add_scene_args(p_info)

@@ -81,6 +81,13 @@ class SphereArray:
         return self.center.shape[0]
 
 
+def _tensors_to(obj, device):
+    return dataclasses.replace(obj, **{
+        f.name: getattr(obj, f.name).to(device)
+        for f in dataclasses.fields(obj)
+        if isinstance(getattr(obj, f.name), torch.Tensor)})
+
+
 @dataclasses.dataclass
 class Scene:
     camera: Camera
@@ -88,6 +95,15 @@ class Scene:
     spheres: SphereArray
     materials: MaterialTable
     settings: RenderSettings = RenderSettings()
+
+    def to(self, device) -> "Scene":
+        """The scene with every tensor leaf on ``device`` (differentiable:
+        a leaf that requires grad stays in the graph)."""
+        return dataclasses.replace(
+            self, camera=_tensors_to(self.camera, device),
+            background=_tensors_to(self.background, device),
+            spheres=_tensors_to(self.spheres, device),
+            materials=_tensors_to(self.materials, device))
 
 
 class SceneBuilder:

@@ -1,11 +1,14 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-``nvcc`` compiles ``csrc/megakernel.cu`` into a shared library with a plain
-C interface, which ``ctypes`` loads.  The build runs at first use, into
-``build/kernels/`` beside the package, and is keyed by a hash of the source
-and the flags, so an edited source rebuilds and an unchanged one loads the
-library already built.  The compiler's register report (``-Xptxas -v``) is
-kept beside the library in a ``.log`` file.
+Each kernel source (``csrc/*.cu``, all including ``csrc/radiance.cuh``) is
+compiled by ``nvcc`` into a shared library of its own with a plain C
+interface, which ``ctypes`` loads.  A build runs at first use, into
+``build/kernels/`` beside the package, and is keyed by a hash of the
+source, the header and the flags, so an edited source rebuilds and an
+unchanged one loads the library already built.  The first :func:`load` that
+finds its library missing builds every missing one, one ``nvcc`` per
+source, all started together.  The compiler's register report
+(``-Xptxas -v``) is kept beside each library in a ``.log`` file.
 """
 
 from __future__ import annotations
@@ -19,11 +22,32 @@ import subprocess
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "megakernel.cu"
+_CSRC = _PKG / "csrc"
+# library name -> its source
+SOURCES = {
+    "megakernel": _CSRC / "megakernel.cu",        # forward radiance
+    "radiance_grad": _CSRC / "radiance_grad.cu",  # its backward
+    "mse_loss": _CSRC / "mse_loss.cu",            # fused loss + gradient
+}
+HEADER = _CSRC / "radiance.cuh"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+_P, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
+                        ctypes.c_float)
+# C entry -> (argument types, result type)
+_SIGNATURES = {
+    "rtrt_radiance": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
+                       _I32, _I32, _P, _P], _I32),
+    "rtrt_uniforms": ([_P, _I32, _U32, _U32, _U32, _I32, _P, _P], _I32),
+    "rtrt_radiance_grad": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
+                            _I32, _I32, _P, _P, _I32, _P, _P], _I32),
+    "rtrt_mse_loss": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
+                       _I32, _I32, _F32, _P, _P, _I32, _P, _P], _I32),
+    "rtrt_error_string": ([_I32], ctypes.c_char_p),
+}
 
 
 def _nvcc() -> str:
@@ -36,45 +60,71 @@ def _nvcc() -> str:
                        "CUDA toolkit (set CUDA_HOME or put nvcc on PATH)")
 
 
-def library_path(flags: tuple[str, ...] = NVCC_FLAGS) -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(flags: tuple[str, ...] = NVCC_FLAGS,
+                 name: str = "megakernel") -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes() + HEADER.read_bytes()
                             + " ".join(flags).encode()).hexdigest()
-    return BUILD_DIR / f"megakernel_{digest[:16]}.so"
+    return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 
-def build(path: Path, flags: tuple[str, ...] = NVCC_FLAGS) -> None:
+def _start(path: Path, flags, name: str):
+    """Start nvcc on one source; -> (process, temporary output, command)."""
     path.parent.mkdir(parents=True, exist_ok=True)
     tmp = path.with_name(f"{path.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *flags, "-o", str(tmp), str(SOURCE)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
+    cmd = [_nvcc(), *flags, "-o", str(tmp), str(SOURCES[name])]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    return proc, tmp, cmd
+
+
+def _finish(path: Path, proc, tmp: Path, cmd) -> None:
+    out, _ = proc.communicate()
+    if proc.returncode != 0:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed with exit code {res.returncode}:\n"
-                           f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
-    path.with_suffix(".log").write_text(res.stdout + res.stderr)
+        raise RuntimeError(f"nvcc failed with exit code {proc.returncode}:\n"
+                           f"{' '.join(cmd)}\n{out}")
+    path.with_suffix(".log").write_text(out)
     os.replace(tmp, path)  # atomic: a concurrent loader sees all or nothing
 
 
+def build(path: Path, flags: tuple[str, ...] = NVCC_FLAGS,
+          name: str = "megakernel") -> None:
+    _finish(path, *_start(path, flags, name))
+
+
+def _build_missing(flags: tuple[str, ...] = NVCC_FLAGS) -> None:
+    """Build every library not built yet, one nvcc per source, all started
+    together; raises after all have ended if any failed."""
+    jobs = [(path, *_start(path, flags, name)) for name in SOURCES
+            if not (path := library_path(flags, name)).exists()]
+    errors = []
+    for job in jobs:
+        try:
+            _finish(*job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
 @functools.cache
-def load() -> ctypes.CDLL:
-    """Build the kernels if needed, load them, declare their signatures."""
-    path = library_path()
+def load(name: str = "megakernel") -> ctypes.CDLL:
+    """Load one library and declare its signatures; if it is not built
+    yet, build it and every other missing one first."""
+    path = library_path(name=name)
     if not path.exists():
-        build(path)
+        _build_missing()
     return bind(path)
 
 
 def bind(path: Path) -> ctypes.CDLL:
-    """Load a built library and declare its signatures."""
+    """Load a built library and declare the signatures of its entries."""
     lib = ctypes.CDLL(str(path))
-    ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.rtrt_radiance.argtypes = [ptr, ptr, i32, u32, u32, i32, i32, i32,
-                                  i32, i32, i32, ptr, ptr]
-    lib.rtrt_radiance.restype = i32
-    lib.rtrt_uniforms.argtypes = [ptr, i32, u32, u32, u32, i32, ptr, ptr]
-    lib.rtrt_uniforms.restype = i32
-    lib.rtrt_error_string.argtypes = [i32]
-    lib.rtrt_error_string.restype = ctypes.c_char_p
+    for entry, (args, res) in _SIGNATURES.items():
+        if hasattr(lib, entry):
+            fn = getattr(lib, entry)
+            fn.argtypes = args
+            fn.restype = res
     return lib
 
 

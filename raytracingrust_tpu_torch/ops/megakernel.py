@@ -20,7 +20,11 @@ Metal, Dielectric and Emission materials; a uniform or gradient background;
 Full or Clay mode; any depth.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.
+launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.  The
+plain version is differentiable by autograd; on the card the gradient is a
+kernel of its own (ops/radiance_grad.py, ops/mse_loss.py), whose limits
+(``MAX_DEPTH``, the partial-sum blocks) sit here beside the input checks
+that all kernels share.
 """
 
 from __future__ import annotations
@@ -43,10 +47,18 @@ _INV_W = 18
 _INV_H = 19
 _SPHERES = 20
 _SPHERE_STRIDE = 12
+# offsets within one sphere's row
+_CENTER, _RADIUS, _ALBEDO, _FUZZ, _IR, _EMISSION = 0, 3, 4, 7, 8, 9
 # rays per step of the plain version: bounds its temporaries
 TILE_RAYS = 1 << 22
 # 2 * float32(pi), the float32 constant of the sphere sample's angle
 _TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
+
+# the gradient kernels' per-thread tape, in bounces
+# (pallas_megakernel.UNROLL_MAX_DEPTH, the JAX fit path's depth gate)
+MAX_DEPTH = 12
+# gradient-kernel blocks per SM
+BLOCKS_PER_SM = 8
 
 LAUNCHES = 0
 
@@ -95,14 +107,15 @@ def select_engine(device: torch.device) -> str:
 # ------------------------------------------------------------- host prep
 
 def pack_fparams(scene: Scene, width: int, height: int) -> torch.Tensor:
-    """Scene constants -> (20 + 12 N,) float32 on the CPU, in the layout of
-    ``pallas_megakernel._pack_fparams``."""
+    """Scene constants -> (20 + 12 N,) float32 on the scene's device, in the
+    layout of ``pallas_megakernel._pack_fparams``.  Differentiable in every
+    scene leaf that requires grad."""
     origin, horizontal, vertical, lower_left = scene.camera.ray_origin()
     bg = scene.background
     head = torch.cat([
         origin, horizontal, vertical, lower_left, bg.color_a, bg.color_b,
         torch.tensor([1.0 / (width - 1), 1.0 / (height - 1)],
-                     dtype=torch.float32),
+                     dtype=torch.float32, device=origin.device),
     ])
     mats = scene.materials
     mid = scene.spheres.material.long()
@@ -132,22 +145,20 @@ def _dot3(ax, ay, az, bx, by, bz):
 
 
 def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
-                   clay):
-    """One tile of :func:`radiance_plain`.  ``fp`` is the list of packed
-    constants as Python floats (each an exact float32 value)."""
+                   clay, observe=None):
+    """One tile of :func:`radiance_plain`.  ``fp`` is the packed constants
+    tensor on the rays' device; every constant is read by indexing it, so
+    autograd reaches each packed entry."""
     n = kinds.shape[0]
-    oxc, oyc, ozc = fp[_CAM:_CAM + 3]
-    hx, hy, hz = fp[_CAM + 3:_CAM + 6]
-    vx, vy, vz = fp[_CAM + 6:_CAM + 9]
-    llx, lly, llz = fp[_CAM + 9:_CAM + 12]
-    bg_a = fp[_BG:_BG + 3]
-    bg_b = fp[_BG + 3:_BG + 6]
-    dev = px.device
-    tab = torch.tensor(fp[_SPHERES:_SPHERES + n * _SPHERE_STRIDE],
-                       dtype=torch.float32, device=dev).view(n, _SPHERE_STRIDE)
-    inv_r_tab = 1.0 / tab[:, 3]
-    spheres = [fp[_SPHERES + i * _SPHERE_STRIDE:_SPHERES + i * _SPHERE_STRIDE
-                  + 4] for i in range(n)]
+    oxc, oyc, ozc = fp[_CAM:_CAM + 3].unbind()
+    hx, hy, hz = fp[_CAM + 3:_CAM + 6].unbind()
+    vx, vy, vz = fp[_CAM + 6:_CAM + 9].unbind()
+    llx, lly, llz = fp[_CAM + 9:_CAM + 12].unbind()
+    bg_a = fp[_BG:_BG + 3].unbind()
+    bg_b = fp[_BG + 3:_BG + 6].unbind()
+    tab = fp[_SPHERES:_SPHERES + n * _SPHERE_STRIDE].view(n, _SPHERE_STRIDE)
+    inv_r_tab = 1.0 / tab[:, _RADIUS]
+    spheres = [tab[i, _CENTER:_RADIUS + 1].unbind() for i in range(n)]
 
     # camera ray from the pixel jitter (stream 0)
     j = ray_uniforms(key, ray_ids, 0, 2)
@@ -197,21 +208,23 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
         is_met = kind == M.METAL
         is_die = kind == M.DIELECTRIC
         is_emi = kind == M.EMISSION
-        al = row[:, 4:7].unbind(-1)
-        fuzz, ir = row[:, 7], row[:, 8]
-        em = row[:, 9:12].unbind(-1)
+        al = row[:, _ALBEDO:_ALBEDO + 3].unbind(-1)
+        fuzz, ir = row[:, _FUZZ], row[:, _IR]
+        em = row[:, _EMISSION:_EMISSION + 3].unbind(-1)
         inv_r = inv_r_tab[idx]
 
         safe_t = torch.where(hit, t_best, 1.0)
         ptx = ox + safe_t * dx
         pty = oy + safe_t * dy
         ptz = oz + safe_t * dz
-        nx = (ptx - row[:, 0]) * inv_r
-        ny = (pty - row[:, 1]) * inv_r
-        nz = (ptz - row[:, 2]) * inv_r
+        nx = (ptx - row[:, _CENTER]) * inv_r
+        ny = (pty - row[:, _CENTER + 1]) * inv_r
+        nz = (ptz - row[:, _CENTER + 2]) * inv_r
 
         # background on a miss
         missed = alive & ~hit
+        if observe is not None:
+            observe(alive, hit, kind)
         if bg_kind == B.UNIFORM:
             bg = bg_a
             rad = [rad[c] + torch.where(missed, thr[c] * bg[c], 0.0)
@@ -311,21 +324,26 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
 def radiance_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                    key: tuple[int, int], ray_ids: torch.Tensor,
                    px: torch.Tensor, py: torch.Tensor, *, max_depth: int,
-                   bg_kind: int, clay: bool) -> torch.Tensor:
-    """Per-ray radiance (R, 3) float32, in tensor ops on any device.
+                   bg_kind: int, clay: bool, observe=None) -> torch.Tensor:
+    """Per-ray radiance (R, 3) float32, in tensor ops on any device, and
+    differentiable in ``fparams`` by autograd.
 
     Mirrors ``_radiance_math``'s op order (not the XLA integrator's): the
     direct quadratic with ``inv_a = 1/a``, ``<=``/``<`` tie rules, the
     normal as ``(p - c) * (1/r)``, the [u1, u2, coin] bounce stream and the
     lobe where-chain.  Where the JAX kernel calls ``rsqrt`` this computes
     ``1 / sqrt``, as the CUDA kernel does.  Frames larger than
-    ``TILE_RAYS`` run tile by tile."""
-    fp = fparams.tolist()
+    ``TILE_RAYS`` run tile by tile.
+
+    ``observe``, for measurement only, is called once per bounce traced
+    with the rays' masks ``(alive, hit, kind)``: alive at the bounce's
+    start, hit something, the winner's material kind."""
+    fp = fparams.to(px.device)
     kinds = kinds.to(px.device)
     return torch.cat([
         _radiance_tile(fp, kinds, key, ray_ids[i:i + TILE_RAYS],
                        px[i:i + TILE_RAYS], py[i:i + TILE_RAYS], max_depth,
-                       bg_kind, clay)
+                       bg_kind, clay, observe)
         for i in range(0, ray_ids.shape[0], TILE_RAYS)
     ]) if ray_ids.shape[0] else torch.zeros((0, 3), device=px.device)
 
@@ -349,6 +367,37 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} is not contiguous")
 
 
+def check_depth(max_depth: int) -> None:
+    """The gradient kernels record at most ``MAX_DEPTH`` bounces a ray."""
+    if not 0 <= max_depth <= MAX_DEPTH:
+        raise ValueError(f"depth {max_depth}: the gradient kernels record at "
+                         f"most {MAX_DEPTH} bounces a ray")
+
+
+def max_blocks(device: torch.device) -> int:
+    """Blocks of a gradient kernel's launch: each one's sums become one row
+    of partials."""
+    return (torch.cuda.get_device_properties(device).multi_processor_count
+            * BLOCKS_PER_SM)
+
+
+def check_scene_inputs(fn: str, fparams: torch.Tensor, kinds: torch.Tensor,
+                       key: tuple[int, int]) -> int:
+    """Check what every kernel of csrc/ takes (CUDA tensors, the packed
+    constants and kinds of 1 to MAX_SPHERES spheres, a key); -> the sphere
+    count."""
+    if fparams.device.type != "cuda":
+        raise ValueError(f"{fn} needs CUDA tensors, got {fparams.device}")
+    n = kinds.shape[0]
+    if not 0 < n <= MAX_SPHERES:
+        raise ValueError(f"{n} spheres; the kernel takes 1 to {MAX_SPHERES}")
+    _check(fparams, "fparams", torch.float32, (_SPHERES + n * _SPHERE_STRIDE,),
+           fparams.device)
+    _check(kinds, "kinds", torch.int32, (n,), fparams.device)
+    _check_key(key)
+    return n
+
+
 def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                   key: tuple[int, int], n_rays: int, spp: int, width: int, *,
                   max_depth: int, bg_kind: int, clay: bool) -> torch.Tensor:
@@ -358,16 +407,7 @@ def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
     global LAUNCHES
     from . import _build
 
-    if fparams.device.type != "cuda":
-        raise ValueError(f"radiance_cuda needs CUDA tensors, got "
-                         f"{fparams.device}")
-    n = kinds.shape[0]
-    if not 0 < n <= MAX_SPHERES:
-        raise ValueError(f"{n} spheres; the kernel takes 1 to {MAX_SPHERES}")
-    _check(fparams, "fparams", torch.float32, (_SPHERES + n * _SPHERE_STRIDE,),
-           fparams.device)
-    _check(kinds, "kinds", torch.int32, (n,), fparams.device)
-    _check_key(key)
+    n = check_scene_inputs("radiance_cuda", fparams, kinds, key)
     if not 0 <= n_rays < 2 ** 31 or spp < 1 or width < 1 or max_depth < 0:
         raise ValueError(f"bad launch: n_rays={n_rays} spp={spp} "
                          f"width={width} max_depth={max_depth}")
@@ -423,7 +463,9 @@ def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
              key: tuple[int, int], n_pixels: int, spp: int, width: int, *,
              max_depth: int, bg_kind: int, clay: bool) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3) of pixels 0 .. n_pixels - 1:
-    the kernel for CUDA tensors, the plain version for CPU tensors."""
+    the kernel for CUDA tensors, the plain version for CPU tensors (which
+    autograd differentiates).  ops/radiance_grad.radiance adds the card's
+    gradient."""
     opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay)
     if select_engine(fparams.device) == "cuda":
         return radiance_cuda(fparams, kinds, key, n_pixels * spp, spp, width,
@@ -432,19 +474,12 @@ def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
     return radiance_plain(fparams, kinds, key, ray_ids, px, py, **opts)
 
 
-def pixel_radiance(scene: Scene, width: int, height: int,
-                   key: tuple[int, int], device: torch.device) -> torch.Tensor:
-    """(width * height, 3) mean radiance per pixel: each sample clamped to
-    [0, clamp_indirect], then averaged over the pixel's samples."""
-    reason = unsupported(scene)
-    if reason is not None:
-        raise NotImplementedError(reason)
-    s = scene.settings
-    spp = s.samples_per_pixel
-    fparams = pack_fparams(scene, width, height).to(device)
-    kinds = sphere_kinds(scene).to(device)
-    rad = radiance(fparams, kinds, key, width * height, spp, width,
-                   max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
-                   clay=s.mode == MODE_CLAY)
-    rad.clamp_(0.0, s.clamp_indirect)  # in place: rad is ours, and large
-    return rad.view(width * height, spp, 3).mean(dim=1)
+def clip_samples(rad: torch.Tensor, clamp: float) -> torch.Tensor:
+    """Each sample clipped to [0, clamp].  Under autograd the gradient is
+    ``jnp.clip``'s: half of it at a sample exactly on a bound (which
+    ``torch.clamp`` would pass whole).  Without it ``rad`` is clipped in
+    place."""
+    if rad.requires_grad:
+        return torch.minimum(torch.maximum(rad, rad.new_zeros(())),
+                             rad.new_full((), clamp))
+    return rad.clamp_(0.0, clamp)  # in place: rad is ours, and large

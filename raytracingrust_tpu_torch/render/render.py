@@ -11,8 +11,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.scene import Scene
-from ..ops.megakernel import pixel_radiance
+from ..models.scene import MODE_CLAY, Scene
+from ..ops import megakernel as K
+from ..ops.radiance_grad import radiance
 from ..utils import color as color_mod
 from ..utils import rng
 
@@ -28,13 +29,34 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
+def pixel_radiance(scene: Scene, width: int, height: int,
+                   key: tuple[int, int], device: torch.device) -> torch.Tensor:
+    """(width * height, 3) mean radiance per pixel: each sample clamped to
+    [0, clamp_indirect], then averaged over the pixel's samples.
+    Differentiable in the scene's leaves."""
+    reason = K.unsupported(scene)
+    if reason is not None:
+        raise NotImplementedError(reason)
+    s = scene.settings
+    spp = s.samples_per_pixel
+    fparams = K.pack_fparams(scene, width, height).to(device)
+    kinds = K.sphere_kinds(scene).to(device)
+    rad = radiance(fparams, kinds, key, width * height, spp, width,
+                   max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
+                   clay=s.mode == MODE_CLAY)
+    rad = K.clip_samples(rad, s.clamp_indirect)
+    return rad.view(width * height, spp, 3).mean(dim=1)
+
+
 def render_linear(scene: Scene, width: int, height: int, *, seed: int = 0,
-                  device=None) -> torch.Tensor:
-    """(H, W, 3) float32 mean radiance (clamped, before gamma) on ``device``.
-    A scene outside the port's envelope raises NotImplementedError naming
-    the ROADMAP item that ports it."""
-    mean = pixel_radiance(scene, width, height, rng.base_key(seed),
-                          resolve_device(device))
+                  key=None, device=None) -> torch.Tensor:
+    """(H, W, 3) float32 mean radiance (clamped, before gamma) on ``device``,
+    differentiable in the scene's leaves.  ``key``, two cipher words as
+    :func:`..utils.rng.base_key` gives them, overrides ``seed``.  A scene
+    outside the port's envelope raises NotImplementedError naming the
+    ROADMAP item that ports it."""
+    key = rng.base_key(seed) if key is None else tuple(int(w) for w in key)
+    mean = pixel_radiance(scene, width, height, key, resolve_device(device))
     return mean.view(height, width, 3)
 
 

@@ -8,7 +8,7 @@ Stream 0 is the pixel jitter, stream 1 + b is bounce b.
 
 The tensor version runs in int64 with every sum and shift masked to 32
 bits: PyTorch on the CPU implements neither ``+`` nor the shifts for
-``uint32``.  The CUDA kernel (csrc/megakernel.cu) runs the same cipher on
+``uint32``.  The CUDA kernels (csrc/radiance.cuh) run the same cipher on
 native ``uint32``; chip_smoke.py holds the two to each other bit for bit.
 """
 

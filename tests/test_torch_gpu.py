@@ -1,4 +1,4 @@
-"""The CUDA kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card.
 
 These tests need a CUDA device and skip without one.  They import no JAX,
 so they run on a machine that has PyTorch and CUDA alone:
@@ -15,8 +15,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+import numpy as np
+
 import raytracingrust_tpu_torch as T
+from raytracingrust_tpu_torch.diff import grad as TG
 from raytracingrust_tpu_torch.ops import megakernel as TK
+from raytracingrust_tpu_torch.ops import mse_loss as TM
+from raytracingrust_tpu_torch.ops import radiance_grad as TR
 from raytracingrust_tpu_torch.utils import rng as trng
 
 CORNELL = os.path.join(os.path.dirname(__file__), "..", "scenes",
@@ -110,3 +115,85 @@ def test_render_on_card_counts_launches(cuda_device):
     assert img.shape == (24, 32, 3) and bool(torch.isfinite(img).all())
     cpu = T.render_linear(scene, 32, 24, seed=0, device="cpu")
     assert (img.cpu() - cpu).abs().mean().item() < 4e-2
+
+
+# ------------------------------------------------------ the gradient kernels
+
+def _close(got, want, rtol=2e-3, atol=2e-5):
+    """Each entry within rtol of the plain version's, or atol of its largest
+    entry: the kernels' sums run in another order (shared atomics, per-block
+    partials) than autograd's."""
+    err = (got - want).abs()
+    return bool((err <= rtol * want.abs() + atol * want.abs().max()).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [
+    lambda: _benchmark_like("Full"), lambda: _benchmark_like("Clay"),
+    lambda: _benchmark_like("Full", gradient=True)],
+    ids=["full", "clay", "gradient"])
+def test_gradient_kernels_match_plain_on_card(cuda_device, make):
+    """Kernel #3 (radiance gradient) and kernel #4 (fused loss) against
+    autograd through the plain version, on the same inputs on the card."""
+    scene = make()
+    w, h = 64, 48
+    s = scene.settings
+    spp = s.samples_per_pixel
+    fp = TK.pack_fparams(scene, w, h).to(cuda_device)
+    kinds = TK.sphere_kinds(scene).to(cuda_device)
+    opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
+                clay=s.mode == "Clay")
+    key = trng.base_key(3)
+    gen = np.random.default_rng(0)
+    cts = torch.tensor(gen.standard_normal((w * h * spp, 3)),
+                       dtype=torch.float32, device=cuda_device)
+    ker = TR.radiance_grad_cuda(fp, kinds, key, cts, spp, w, **opts)
+    plain = TR.radiance_grad_plain(fp, kinds, key, cts, spp, w, **opts)
+    assert bool(torch.isfinite(ker).all()) and _close(ker, plain)
+
+    target = torch.tensor(gen.random((w * h, 3)), dtype=torch.float32,
+                          device=cuda_device)
+    loss, dfp = TM.mse_loss_cuda(fp, kinds, key, target, spp, w,
+                                 clamp=s.clamp_indirect, **opts)
+    fpg = fp.clone().requires_grad_(True)
+    want = TM.mse_loss_plain(fpg, kinds, key, target, spp, w,
+                             clamp=s.clamp_indirect, **opts)
+    (want_dfp,) = torch.autograd.grad(want, fpg)
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    assert _close(dfp, want_dfp)
+
+
+@pytest.mark.gpu
+def test_gradient_kernels_refuse_depth_13(cuda_device):
+    scene = _benchmark_like()
+    fp = TK.pack_fparams(scene, 8, 6).to(cuda_device)
+    kinds = TK.sphere_kinds(scene).to(cuda_device)
+    opts = dict(max_depth=13, bg_kind=0, clay=False)
+    cts = torch.ones((8 * 6 * 2, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="at most 12"):
+        TR.radiance_grad_cuda(fp, kinds, (0, 0), cts, 2, 8, **opts)
+    with pytest.raises(ValueError, match="at most 12"):
+        TM.mse_loss_cuda(fp, kinds, (0, 0), cts[:48], 2, 8, clamp=10.0,
+                         **opts)
+
+
+@pytest.mark.gpu
+def test_fit_step_on_card_is_one_fused_launch(cuda_device):
+    """make_loss under autograd launches the fused kernel once a step and
+    nothing else of csrc/; without grad it launches the forward kernel."""
+    scene = _benchmark_like()
+    target = T.render_linear(scene, 32, 24, seed=5, device="cpu") * 0.9
+    loss = TG.make_loss(scene, target, 32, 24, device=cuda_device)
+    params = {k: v.to(cuda_device).requires_grad_(True) for k, v in
+              TG.extract_params(scene, ["albedo", "bg_color_a"]).items()}
+    counts = (TK.LAUNCHES, TR.LAUNCHES, TM.LAUNCHES)
+    value = loss(params)
+    value.backward()
+    assert (TK.LAUNCHES, TR.LAUNCHES, TM.LAUNCHES) == (
+        counts[0], counts[1], counts[2] + 1)
+    assert bool(torch.isfinite(params["albedo"].grad).all())
+    assert params["bg_color_a"].grad.abs().sum() > 0
+    with torch.no_grad():
+        again = loss(params)
+    assert TK.LAUNCHES == counts[0] + 1
+    assert abs(again.item() - value.item()) <= 1e-5 * value.item()

@@ -22,7 +22,8 @@ from raytracingrust_tpu.render.render import render_linear as j_render_linear
 import raytracingrust_tpu_torch as T
 from raytracingrust_tpu_torch.models.scene import SceneBuilder as TBuilder
 from raytracingrust_tpu_torch.ops import megakernel as TK
-from raytracingrust_tpu_torch.render.render import render_linear
+from raytracingrust_tpu_torch.render.render import (pixel_radiance,
+                                                    render_linear)
 from raytracingrust_tpu_torch.utils import rng as trng
 
 SCENES = os.path.join(os.path.dirname(__file__), "..", "scenes")
@@ -144,7 +145,7 @@ def test_pixel_radiance_is_clamped_spp_mean():
     w, h = 8, 6
     per_ray = _port_per_ray(t, w, h, 5)
     want = np.clip(per_ray, 0.0, 0.7).reshape(w * h, 3, 3).mean(axis=1)
-    got = TK.pixel_radiance(t, w, h, trng.base_key(5), torch.device("cpu"))
+    got = pixel_radiance(t, w, h, trng.base_key(5), torch.device("cpu"))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-6, atol=0)
 
 
@@ -166,3 +167,22 @@ def test_tiles_equal_one_pass(monkeypatch):
     whole = _port_per_ray(t, 8, 6, 4)
     monkeypatch.setattr(TK, "TILE_RAYS", 7)
     np.testing.assert_array_equal(_port_per_ray(t, 8, 6, 4), whole)
+
+
+def test_observe_sees_each_bounce_and_changes_nothing():
+    """``radiance_plain(observe=...)`` (chip_smoke.py's count of the work
+    the rays traced) gets each bounce's masks and leaves the radiance as it
+    was."""
+    _, t = _load_pair("benchmark", 3, spp=2)
+    w, h = 8, 6
+    seen = []
+    ids, px, py = TK.prep_rays(torch.arange(w * h), 2, w)
+    got = TK.radiance_plain(
+        TK.pack_fparams(t, w, h), TK.sphere_kinds(t), trng.base_key(4), ids,
+        px, py, max_depth=3, bg_kind=0, clay=False,
+        observe=lambda alive, hit, kind: seen.append(
+            (int(alive.sum()), int((alive & hit).sum()))))
+    np.testing.assert_array_equal(got.numpy(), _port_per_ray(t, w, h, 4))
+    assert len(seen) == 3 and seen[0][0] == w * h * 2
+    # a bounce's rays are among the rays that hit at the one before
+    assert all(b[0] <= a[1] for a, b in zip(seen, seen[1:]))

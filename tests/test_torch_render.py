@@ -114,9 +114,13 @@ def test_cli_info_matches_jax(capsys):
 def test_port_never_imports_jax():
     code = ("import sys, raytracingrust_tpu_torch, raytracingrust_tpu_torch."
             "cli, raytracingrust_tpu_torch.models.convert, "
-            "raytracingrust_tpu_torch.ops._build; "
+            "raytracingrust_tpu_torch.ops._build, "
+            "raytracingrust_tpu_torch.ops.radiance_grad, "
+            "raytracingrust_tpu_torch.ops.mse_loss, "
+            "raytracingrust_tpu_torch.diff.grad, "
+            "raytracingrust_tpu_torch.diff.inverse; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
-            "('jax', 'jaxlib', 'raytracingrust_tpu')]; "
+            "('jax', 'jaxlib', 'optax', 'raytracingrust_tpu')]; "
             "assert not bad, bad")
     env = dict(os.environ, PYTHONPATH=os.path.abspath(ROOT))
     subprocess.run([sys.executable, "-c", code], check=True, env=env,
