@@ -39,15 +39,29 @@ non-zero exit, and prints no result:
    primary Mrays/s fwd+bwd of ``fit``, its device time by kernel under
    ``torch.profiler`` (four steps), and two steps of a loss of its own
    through ``render_linear`` under autograd (forward kernel, then the
-   radiance gradient kernel as its backward).
+   radiance gradient kernel as its backward);
+7. the BVH path (kernel #5) at full size on three shapes: the repo's
+   scenes/bvh_stress.json (1,189 spheres) at the CLI's default 1000x1000
+   with its own spp 8 and depth 4; "grid8k", 8,000 Lambertian spheres
+   (scripts/exp_bvh.py's grid) at 512x512 spp 5 depth 6; and a sheet of
+   8,192 triangles plus two spheres (tests/test_pallas_bvh.py's
+   mesh_builder, n_side 64, read from an OBJ) at 512x512 spp 8 depth 6.
+   The kernel against its plain version on the card, same inputs: per-ray
+   radiance bit for bit equal at depth 1 and at full depth, on every ray.
+   Then the CLI ``render`` of each shape (the kernel's launch count must
+   grow, the brute kernel's must not; PNGs in build/smoke/), the kernel's
+   and the plain version's times, the kernel's bound from the work the
+   plain version's rays did, its registers, and the warm render wall and
+   primary Mrays/s.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
 phase 4, the radiance gradient kernel's under ``render_linear``'s
-backward, the fused kernel's in the CLI fit; the other paths' counts are
-in the phase lines), and its least possible time for one forward and one
-reverse sweep of the FP32 operations the run's rays traced, or for the
-bytes it must move; the last line is
+backward, the fused kernel's in the CLI fit, the BVH kernel's in the CLI
+renders of phase 7; the other paths' counts are in the phase lines), and
+its least possible time for one forward and one reverse sweep of the FP32
+operations the run's rays traced, or for the bytes it must move; the last
+line is
 ``{"ok": true, "device": {...}}``.  The run needs one CUDA device and
 fails without one.
 """
@@ -66,6 +80,7 @@ import time
 
 BENCH = "scenes/benchmark.json"
 CORNELL = "scenes/cornell_spheres.json"
+STRESS = "scenes/bvh_stress.json"
 OUT_DIR = os.path.join("build", "smoke")
 SEED_WORDS_HIGH = 0xDEADBEEFCAFEBABE  # both 32-bit words >= 2^31
 BENCH_PARAMS = "albedo,fuzz,ir,emission,cam_lookfrom,bg_color_a"
@@ -107,6 +122,15 @@ OPS_ADJ_LOBE = {0: 0, 1: 52, 2: 60}
 # its square and the cotangent
 OPS_LOSS_RAY = 15
 OPS_LOSS_PIXEL = 15
+# csrc/bvh_forward.cu, counted from its source: per bounce a ray enters
+# (a, 1/d, the uniforms), per node a walk visits (the slab test: 6
+# differences, 6 products, 12 min/max, the compare), per sphere and per
+# triangle a leaf tests, with the merge's compare; the camera ray, hit,
+# lobes and background are radiance.cuh's, counted as above
+OPS_BVH_BOUNCE = 12
+OPS_NODE = 25
+OPS_SPHERE_TEST = 30
+OPS_TRI_TEST = 55
 
 
 def _cuda_time_ms(fn, reps: int) -> float:
@@ -199,6 +223,191 @@ class _Tally(_Count):
                 + int(absorbed.sum()) * OPS_ADJ_ABSORB
                 + sum(n * (OPS_ADJ_HIT + OPS_ADJ_LOBE[k])
                       for k, n in enumerate(scatter)))
+
+
+def _sheet_obj(path: str, n_side: int) -> None:
+    """tests/test_pallas_bvh.py::mesh_builder's sheet, 2 n_side^2
+    triangles, as an OBJ."""
+    import numpy as np
+
+    xs = np.linspace(-2, 2, n_side + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    gy = 0.3 * np.sin(gx * 2.1) * np.cos(gz * 1.7)
+    verts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
+    lines = [f"v {x:.9g} {y:.9g} {z:.9g}" for x, y, z in verts]
+    for i in range(n_side):
+        for j in range(n_side):
+            a = i * (n_side + 1) + j + 1  # 1-based
+            lines.append(f"f {a} {a + 1} {a + n_side + 1}")
+            lines.append(f"f {a + 1} {a + n_side + 2} {a + n_side + 1}")
+    with open(path, "w") as f:
+        f.write("\n".join(lines) + "\n")
+
+
+def bvh_scenes() -> list:
+    """Phase 7's shapes: (label, scene JSON, width, height, CLI flags).
+    grid8k and the sheet are written as JSON (and OBJ) to OUT_DIR, so the
+    CLI reads them as a user's files."""
+    from raytracingrust_tpu_torch import (Camera, Emission, Lambertian,
+                                          Metal, RenderSettings,
+                                          SceneBuilder)
+    from raytracingrust_tpu_torch.models.mesh import Mesh
+
+    b = SceneBuilder()  # scripts/exp_bvh.py's grid8k
+    m = b.add_material(Lambertian((0.5, 0.5, 0.5)))
+    for i in range(20):
+        for j in range(20):
+            for k in range(20):
+                b.add_sphere((i * 1.0, j * 1.0, k * 1.0), 0.3, m)
+    c = (9.5, 9.5, 9.5)
+    b.camera = Camera.create(tuple(ci + 2.2 * 20 * v for ci, v in
+                                   zip(c, (0.7, 0.6, 0.8))), c, (0, 1, 0),
+                             45.0, 1.0)
+    b.settings = RenderSettings(samples_per_pixel=5, max_ray_depth=6)
+    grid = os.path.join(OUT_DIR, "grid8k.json")
+    b.save(grid)
+
+    obj = os.path.join(OUT_DIR, "sheet64.obj")
+    _sheet_obj(obj, 64)
+    b = SceneBuilder()  # tests/test_pallas_bvh.py::mesh_builder(n_side=64)
+    b.camera = Camera.create((0, 2.5, 4), (0, 0, 0), (0, 1, 0), 55.0, 1.0)
+    b.settings = RenderSettings(samples_per_pixel=8, max_ray_depth=6)
+    ml = b.add_material(Lambertian((0.6, 0.5, 0.3)))
+    mm = b.add_material(Metal((0.9, 0.85, 0.8), 0.05))
+    me = b.add_material(Emission((2.5, 2.2, 1.8)))
+    b.add_mesh(Mesh.from_file(obj, ml))
+    b.add_sphere((0.8, 1.2, 0.0), 0.4, mm)
+    b.add_sphere((-1.2, 1.8, 0.5), 0.35, me)
+    sheet = os.path.join(OUT_DIR, "sheet64.json")
+    b.save(sheet)
+    size = ["--width", "512", "--height", "512"]
+    return [("bvh_stress", STRESS, 1000, 1000, []),  # the CLI's defaults
+            ("grid8k", grid, 512, 512, size),
+            ("sheet64", sheet, 512, 512, size)]
+
+
+def bvh_phase(dev, card: str) -> dict:
+    """Phase 7; -> kernel #5's entries of the kernel report."""
+    import torch
+
+    from raytracingrust_tpu_torch import cli
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+    from raytracingrust_tpu_torch.ops import _build
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                        select_engine)
+    from raytracingrust_tpu_torch.utils import rng
+
+    log = _build.library_path(name="bvh_forward").with_suffix(".log")
+    regs = " | ".join(ln.strip() for ln in log.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln)
+    shapes = bvh_scenes()
+    key = rng.base_key(11)
+    out = {}
+    for label, path, w, h, _ in shapes:
+        scene = SceneBuilder.from_file(path).build()
+        if select_engine(scene) != "bvh":
+            raise AssertionError(f"{label}: not sent to the BVH kernel")
+        s = scene.settings
+        spp, depth = s.samples_per_pixel, s.max_ray_depth
+        sc = BK.pack(scene, w, h, dev)
+        n_rays = w * h * spp
+        ids, px, py = K.prep_rays(torch.arange(w * h, device=dev), spp, w)
+        opts = dict(bg_kind=scene.background.kind, clay=False)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        for d in (1, depth):
+            ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, w, max_depth=d,
+                                       **opts)
+            start.record()
+            plain = BK.radiance_bvh_plain(sc, key, ids, px, py, max_depth=d,
+                                          **opts)
+            end.record()
+            torch.cuda.synchronize()
+            if not torch.equal(ker.view(torch.int32),
+                               plain.view(torch.int32)):
+                bad = (ker.view(torch.int32)
+                       != plain.view(torch.int32)).any(dim=1)
+                raise AssertionError(
+                    f"{label}: kernel #5 != plain in {int(bad.sum())} of "
+                    f"{bad.numel()} rays (depth {d}), max abs diff "
+                    f"{(ker - plain).abs().max().item():.3e}")
+        err = (ker - plain).abs().max().item()
+        plain_ms = start.elapsed_time(end)  # the full-depth run above
+        tally = collections.Counter()
+        with torch.no_grad():
+            BK.radiance_bvh_plain(sc, key, ids, px, py, max_depth=depth,
+                                  tally=tally, **opts)
+        hits = [tally[f"hits_{k}"] for k in range(4)]
+        ops = (
+            n_rays * OPS_RAY + tally["bounces"] * OPS_BVH_BOUNCE
+            + tally["nodes"] * OPS_NODE
+            + tally["sphere_tests"] * OPS_SPHERE_TEST
+            + tally["triangle_tests"] * OPS_TRI_TEST
+            + sum(hits) * OPS_HIT
+            + sum(n * OPS_LOBE[k] for k, n in enumerate(hits))
+            + tally["misses"] * OPS_MISS[scene.background.kind])
+        scene_bytes = sum(t.numel() * t.element_size() for t in (
+            sc.head, sc.mats, sc.kinds, *(sc.spheres or ()),
+            *(sc.triangles or ())) if isinstance(t, torch.Tensor))
+        bound = _bound(ops, scene_bytes + 12 * n_rays)
+        ker_ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
+            sc, key, n_rays, spp, w, max_depth=depth, **opts), 5)
+        out[label] = dict(ms=ker_ms, plain_ms=plain_ms, bound=bound,
+                          err=err)
+        print(f"phase 7 {label} {w}x{h} spp {spp} depth {depth} "
+              f"({len(scene.spheres)} spheres, {len(scene.triangles)} "
+              f"triangles): per-ray radiance bit for bit equal at depth 1 "
+              f"and depth {depth} on all {n_rays} rays; per ray "
+              f"{tally['bounces'] / n_rays:.3f} bounces, "
+              f"{tally['nodes'] / n_rays:.2f} node visits, "
+              f"{tally['sphere_tests'] / n_rays:.1f} sphere and "
+              f"{tally['triangle_tests'] / n_rays:.1f} triangle tests; "
+              f"kernel {ker_ms:.4f} ms, plain {plain_ms:.2f} ms, "
+              f"bound {bound[0]:.5f} ms ({bound[1]}; {ops:.4g} FP32 "
+              f"operations)")
+
+    # the main path, through the CLI entry
+    BK.LAUNCHES = K.LAUNCHES = 0
+    for label, path, *_, flags in shapes:
+        rc = cli.main(["render", path, *flags, "-o",
+                       os.path.join(OUT_DIR, label + ".png"), "--seed", "0"])
+        if rc != 0:
+            raise AssertionError(f"cli render {path} returned {rc}")
+    launches, brute = BK.LAUNCHES, K.LAUNCHES
+    if launches < len(shapes) or brute != 0:
+        raise AssertionError(f"the CLI renders launched kernel #5 {launches}"
+                             f" times and #1 {brute} times, expected "
+                             f"{len(shapes)} and 0")
+    for label, path, w, h, _ in shapes:
+        png = read_png(os.path.join(OUT_DIR, label + ".png"))
+        if png.shape != (h, w, 4) or png[..., :3].min() == png[..., :3].max():
+            raise AssertionError(f"{label}: PNG {png.shape} is flat or "
+                                 f"misshapen")
+        scene = SceneBuilder.from_file(path).build()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = render_linear(scene, w, h, seed=0, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(img).all()) or img.std().item() == 0.0:
+            raise AssertionError(f"{label}: image not finite or flat")
+        best = min(times)
+        spp = scene.settings.samples_per_pixel
+        print(f"phase 7 {label} {w}x{h} spp {spp}: warm render {best:.4f} s,"
+              f" {w * h * spp / best / 1e6:.1f} primary Mrays/s (kernel #5), "
+              f"image mean {img.mean().item():.5f}")
+    print(f"phase 7 CLI renders: {launches} launches of kernel #5, {brute} "
+          f"of #1; {card}; ptxas: {regs}")
+    main_shape = out["bvh_stress"]
+    return {"launches": launches,
+            "max_abs_err": max(o["err"] for o in out.values()),
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound"][0],
+            "bound_by": main_shape["bound"][1]}
 
 
 def main() -> int:
@@ -692,6 +901,8 @@ def main() -> int:
           f"at 512x512 spp 8 depth 6: launches forward {render_counts[0]}, "
           f"radiance grad {render_counts[1]}; gradients finite, nonzero")
 
+    # ---- 7. the BVH path (kernel #5)
+    bvh = bvh_phase(dev, card)
 
     replaces = "raytracingrust_tpu/ops/pallas_megakernel.py:"
     report = {"kernels": [{
@@ -729,6 +940,13 @@ def main() -> int:
         "plain_ms": times["mse"][1],
         "bound_ms": bounds["mse"][0],
         "bound_by": bounds["mse"][1],
+        "library_ms": None,
+    }, {
+        "name": "bvh_forward",
+        "route": "cuda",
+        "source": "raytracingrust_tpu_torch/csrc/bvh_forward.cu",
+        "replaces": replaces + "3001",
+        **bvh,  # the CLI renders of phase 7; times at bvh_stress 1000x1000
         "library_ms": None,
     }]}
     print(f"card: {card}; kernel build {build_s:.3f} s")

@@ -102,12 +102,18 @@ def cmd_fit(args) -> int:
 def cmd_info(args) -> int:
     builder = _load(args)
     scene = builder.build()
+    trees = {}  # the chunk-leaf BVH's size, where it was built
+    for kind in ("spheres", "triangles"):
+        tree = getattr(scene.cbvh, kind, None)
+        trees[f"bvh_{kind}_nodes"] = tree.n_nodes if tree else 0
+        trees[f"bvh_{kind}_chunks"] = tree.n_chunks if tree else 0
     print(json.dumps({
         "objects": len(builder.objects),
         "spheres": len(scene.spheres),
         "volumes": scene.spheres.num_volumes,
-        "triangles": 0,  # mesh objects are refused at load
+        "triangles": len(scene.triangles),
         "materials": len(builder.materials),
+        **trees,
         "settings": builder.settings.to_json(),
     }, indent=2))
     return 0
@@ -116,7 +122,7 @@ def cmd_info(args) -> int:
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="rtrt-torch",
-        description="path tracer on PyTorch and CUDA (sphere scenes)")
+        description="path tracer on PyTorch and CUDA")
     sub = parser.add_subparsers(dest="cmd", required=True)
 
     p_render = sub.add_parser("render", help="render a scene to PNG")

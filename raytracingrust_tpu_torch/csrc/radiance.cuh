@@ -1,4 +1,5 @@
-// Device code shared by the sphere kernels of csrc/: the Threefry draw, the
+// Device code shared by the kernels of csrc/: the Threefry draw, the camera
+// ray, the background and the material lobes (every intersect stage), the
 // forward bounce chain of the brute sphere kernel, its hand-derived adjoint,
 // and the per-block gradient sums.
 //
@@ -6,6 +7,8 @@
 //   radiance_grad.cu  grad_kernel       d(sum cts . radiance)/d(fparams)
 //   mse_loss.cu       mse_kernel        MSE of the clamped pixel means, and
 //                                       its gradient, in one launch
+//   bvh_forward.cu    bvh_kernel        forward over the chunk-leaf BVH,
+//                                       per-ray RGB
 //
 // The forward chain is raytracingrust_tpu/ops/pallas_megakernel.py's
 // _radiance_math for the envelope of ops/megakernel.py.  The adjoint is the
@@ -129,6 +132,142 @@ struct Tape {
 
 // ---------------------------------------------------------------- forward
 
+// The jittered camera ray of ray `rid` (stream 0), from the packed head.
+__device__ __forceinline__ void camera_ray(const float* f, uint32_t k0,
+                                           uint32_t k1, uint32_t rid,
+                                           float px, float py, float& ox,
+                                           float& oy, float& oz, float& dx,
+                                           float& dy, float& dz) {
+  float j1, j2;
+  uniform_pair(k0, k1, rid, 0u, 0u, j1, j2);
+  const float s = (px + j1) * f[kInvW];
+  const float t = (py + j2) * f[kInvH];
+  const float oxc = f[kCam + 0], oyc = f[kCam + 1], ozc = f[kCam + 2];
+  dx = f[kCam + 9] + s * f[kCam + 3] - t * f[kCam + 6] - oxc;
+  dy = f[kCam + 10] + s * f[kCam + 4] - t * f[kCam + 7] - oyc;
+  dz = f[kCam + 11] + s * f[kCam + 5] - t * f[kCam + 8] - ozc;
+  ox = 0.0f + oxc;
+  oy = 0.0f + oyc;
+  oz = 0.0f + ozc;
+}
+
+// The background's radiance along d.
+__device__ __forceinline__ void background(const float* f, int bg_kind,
+                                           float dx, float dy, float dz,
+                                           float& r, float& g, float& b) {
+  r = f[kBg + 0];
+  g = f[kBg + 1];
+  b = f[kBg + 2];
+  if (bg_kind == kGradient) {
+    const float norm = 1.0f / sqrtf(dot3(dx, dy, dz, dx, dy, dz));
+    const float tt = 0.5f * (dy * norm + 1.0f);
+    r = (1.0f - tt) * f[kBg + 0] + tt * f[kBg + 3];
+    g = (1.0f - tt) * f[kBg + 1] + tt * f[kBg + 4];
+    b = (1.0f - tt) * f[kBg + 2] + tt * f[kBg + 5];
+  }
+}
+
+// The lobe of a hit, shared by every intersect stage: the winner's material
+// `mat` (albedo rgb, fuzz, ir, emission rgb) and `kind`, the ray d with
+// a = d.d, the front-facing normal n and the bounce's uniforms -> the
+// throughput factor `at`, the new direction nd, whether the path goes on,
+// and the lobe's decisions added to `code`.
+__device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
+                                        bool front, float a, float dx,
+                                        float dy, float dz, float nx,
+                                        float ny, float nz, float u1,
+                                        float u2, float u_coin, float& at_r,
+                                        float& at_g, float& at_b, float& ndx,
+                                        float& ndy, float& ndz,
+                                        bool& scatters, int& code) {
+  // unit-sphere-surface sample
+  const float zs = 1.0f - 2.0f * u1;
+  const float rs = sqrtf(fmaxf(0.0f, 1.0f - zs * zs));
+  const float phi = kTwoPi * u2;
+  const float sx = rs * cosf(phi);
+  const float sy = rs * sinf(phi);
+  const float sz = zs;
+  float ldx = nx + sx, ldy = ny + sy, ldz = nz + sz;
+  if (fabsf(ldx) < 1e-8f && fabsf(ldy) < 1e-8f && fabsf(ldz) < 1e-8f) {
+    ldx = nx;
+    ldy = ny;
+    ldz = nz;
+  }
+
+  at_r = at_g = at_b = 0.0f;
+  ndx = nx;
+  ndy = ny;
+  ndz = nz;
+  scatters = true;
+  if (clay) {  // a gray Lambertian everywhere
+    at_r = at_g = at_b = 0.8f;
+    ndx = ldx;
+    ndy = ldy;
+    ndz = ldz;
+  } else if (kind == kLambertian) {
+    at_r = mat[0];
+    at_g = mat[1];
+    at_b = mat[2];
+    ndx = ldx;
+    ndy = ldy;
+    ndz = ldz;
+  } else if (kind == kMetal) {
+    const float fuzz = mat[3];
+    const float dn = dot3(dx, dy, dz, nx, ny, nz);
+    const float rfx = dx - 2.0f * dn * nx;
+    const float rfy = dy - 2.0f * dn * ny;
+    const float rfz = dz - 2.0f * dn * nz;
+    const float inv_len =
+        1.0f / sqrtf(fmaxf(dot3(rfx, rfy, rfz, rfx, rfy, rfz), 1e-30f));
+    ndx = rfx * inv_len + fuzz * sx;
+    ndy = rfy * inv_len + fuzz * sy;
+    ndz = rfz * inv_len + fuzz * sz;
+    scatters = dot3(ndx, ndy, ndz, nx, ny, nz) > 0.0f;
+    if (scatters) {
+      at_r = mat[0];
+      at_g = mat[1];
+      at_b = mat[2];
+      code |= kMetalOk;
+    }
+  } else if (kind == kDielectric) {
+    const float ir = mat[4];
+    const float ratio = front ? 1.0f / ir : ir;
+    const float inv_len = 1.0f / sqrtf(fmaxf(a, 1e-30f));
+    const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
+    const float cos_t = fminf(-dot3(nx, ny, nz, udx, udy, udz), 1.0f);
+    const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+    float r0 = (1.0f - ratio) / (1.0f + ratio);
+    r0 = r0 * r0;
+    const float omc = 1.0f - cos_t;
+    const float omc2 = omc * omc;
+    const float schl = r0 + (1.0f - r0) * omc2 * omc2 * omc;
+    if (ratio * sin_t > 1.0f || schl > u_coin) {  // reflect
+      const float udn = dot3(udx, udy, udz, nx, ny, nz);
+      ndx = udx - 2.0f * udn * nx;
+      ndy = udy - 2.0f * udn * ny;
+      ndz = udz - 2.0f * udn * nz;
+      code |= kReflect;
+    } else {  // refract
+      const float perp_x = ratio * (udx + cos_t * nx);
+      const float perp_y = ratio * (udy + cos_t * ny);
+      const float perp_z = ratio * (udz + cos_t * nz);
+      const float par = -sqrtf(fmaxf(
+          fabsf(1.0f - dot3(perp_x, perp_y, perp_z, perp_x, perp_y,
+                            perp_z)),
+          1e-12f));
+      ndx = perp_x + par * nx;
+      ndy = perp_y + par * ny;
+      ndz = perp_z + par * nz;
+    }
+    at_r = at_g = at_b = 1.0f;
+  } else if (kind == kEmission) {
+    at_r = mat[5];
+    at_g = mat[6];
+    at_b = mat[7];
+    scatters = false;
+  }
+}
+
 // One ray's radiance.  With kRecord the bounces go to `tape` (the caller
 // keeps max_depth <= kMaxTape); without it `tape` is unused, and the
 // arithmetic is the same either way.  A thread stops at its own ray's end: a
@@ -141,16 +280,8 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
                                       int max_depth, int bg_kind, int clay,
                                       float& rad_r, float& rad_g,
                                       float& rad_b, Tape* tape) {
-  // camera ray from the pixel jitter (stream 0)
-  float j1, j2;
-  uniform_pair(k0, k1, rid, 0u, 0u, j1, j2);
-  const float s = (px + j1) * f[kInvW];
-  const float t = (py + j2) * f[kInvH];
-  const float oxc = f[kCam + 0], oyc = f[kCam + 1], ozc = f[kCam + 2];
-  float dx = f[kCam + 9] + s * f[kCam + 3] - t * f[kCam + 6] - oxc;
-  float dy = f[kCam + 10] + s * f[kCam + 4] - t * f[kCam + 7] - oyc;
-  float dz = f[kCam + 11] + s * f[kCam + 5] - t * f[kCam + 8] - ozc;
-  float ox = 0.0f + oxc, oy = 0.0f + oyc, oz = 0.0f + ozc;
+  float ox, oy, oz, dx, dy, dz;
+  camera_ray(f, k0, k1, rid, px, py, ox, oy, oz, dx, dy, dz);
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   rad_r = 0.0f;
   rad_g = 0.0f;
@@ -196,14 +327,8 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
     }
 
     if (best < 0) {  // miss: the background ends the path
-      float bg_r = f[kBg + 0], bg_g = f[kBg + 1], bg_b = f[kBg + 2];
-      if (bg_kind == kGradient) {
-        const float norm = 1.0f / sqrtf(dot3(dx, dy, dz, dx, dy, dz));
-        const float tt = 0.5f * (dy * norm + 1.0f);
-        bg_r = (1.0f - tt) * f[kBg + 0] + tt * f[kBg + 3];
-        bg_g = (1.0f - tt) * f[kBg + 1] + tt * f[kBg + 4];
-        bg_b = (1.0f - tt) * f[kBg + 2] + tt * f[kBg + 5];
-      }
+      float bg_r, bg_g, bg_b;
+      background(f, bg_kind, dx, dy, dz, bg_r, bg_g, bg_b);
       rad_r = rad_r + thr_r * bg_r;
       rad_g = rad_g + thr_g * bg_g;
       rad_b = rad_b + thr_b * bg_b;
@@ -226,91 +351,10 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
     nz = nz * sgn;
     int code = best | (root2 ? kRoot2 : 0) | (front ? kFront : 0);
 
-    // unit-sphere-surface sample
-    const float zs = 1.0f - 2.0f * u1;
-    const float rs = sqrtf(fmaxf(0.0f, 1.0f - zs * zs));
-    const float phi = kTwoPi * u2;
-    const float sx = rs * cosf(phi);
-    const float sy = rs * sinf(phi);
-    const float sz = zs;
-    float ldx = nx + sx, ldy = ny + sy, ldz = nz + sz;
-    if (fabsf(ldx) < 1e-8f && fabsf(ldy) < 1e-8f && fabsf(ldz) < 1e-8f) {
-      ldx = nx;
-      ldy = ny;
-      ldz = nz;
-    }
-
-    float at_r = 0.0f, at_g = 0.0f, at_b = 0.0f;
-    float ndx = nx, ndy = ny, ndz = nz;
-    bool scatters = true;
-    const int kind = kind_of[best];
-    if (clay) {  // a gray Lambertian everywhere
-      at_r = at_g = at_b = 0.8f;
-      ndx = ldx;
-      ndy = ldy;
-      ndz = ldz;
-    } else if (kind == kLambertian) {
-      at_r = sp[4];
-      at_g = sp[5];
-      at_b = sp[6];
-      ndx = ldx;
-      ndy = ldy;
-      ndz = ldz;
-    } else if (kind == kMetal) {
-      const float fuzz = sp[7];
-      const float dn = dot3(dx, dy, dz, nx, ny, nz);
-      const float rfx = dx - 2.0f * dn * nx;
-      const float rfy = dy - 2.0f * dn * ny;
-      const float rfz = dz - 2.0f * dn * nz;
-      const float inv_len =
-          1.0f / sqrtf(fmaxf(dot3(rfx, rfy, rfz, rfx, rfy, rfz), 1e-30f));
-      ndx = rfx * inv_len + fuzz * sx;
-      ndy = rfy * inv_len + fuzz * sy;
-      ndz = rfz * inv_len + fuzz * sz;
-      scatters = dot3(ndx, ndy, ndz, nx, ny, nz) > 0.0f;
-      if (scatters) {
-        at_r = sp[4];
-        at_g = sp[5];
-        at_b = sp[6];
-        code |= kMetalOk;
-      }
-    } else if (kind == kDielectric) {
-      const float ir = sp[8];
-      const float ratio = front ? 1.0f / ir : ir;
-      const float inv_len = 1.0f / sqrtf(fmaxf(a, 1e-30f));
-      const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
-      const float cos_t = fminf(-dot3(nx, ny, nz, udx, udy, udz), 1.0f);
-      const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-      float r0 = (1.0f - ratio) / (1.0f + ratio);
-      r0 = r0 * r0;
-      const float omc = 1.0f - cos_t;
-      const float omc2 = omc * omc;
-      const float schl = r0 + (1.0f - r0) * omc2 * omc2 * omc;
-      if (ratio * sin_t > 1.0f || schl > u_coin) {  // reflect
-        const float udn = dot3(udx, udy, udz, nx, ny, nz);
-        ndx = udx - 2.0f * udn * nx;
-        ndy = udy - 2.0f * udn * ny;
-        ndz = udz - 2.0f * udn * nz;
-        code |= kReflect;
-      } else {  // refract
-        const float perp_x = ratio * (udx + cos_t * nx);
-        const float perp_y = ratio * (udy + cos_t * ny);
-        const float perp_z = ratio * (udz + cos_t * nz);
-        const float par = -sqrtf(fmaxf(
-            fabsf(1.0f - dot3(perp_x, perp_y, perp_z, perp_x, perp_y,
-                              perp_z)),
-            1e-12f));
-        ndx = perp_x + par * nx;
-        ndy = perp_y + par * ny;
-        ndz = perp_z + par * nz;
-      }
-      at_r = at_g = at_b = 1.0f;
-    } else if (kind == kEmission) {
-      at_r = sp[9];
-      at_g = sp[10];
-      at_b = sp[11];
-      scatters = false;
-    }
+    float at_r, at_g, at_b, ndx, ndy, ndz;
+    bool scatters;
+    scatter(sp + 4, kind_of[best], clay, front, a, dx, dy, dz, nx, ny, nz,
+            u1, u2, u_coin, at_r, at_g, at_b, ndx, ndy, ndz, scatters, code);
     if (kRecord) tape->b[b].code = code;
 
     if (!scatters) {  // absorbed or emitted: the path ends

@@ -18,9 +18,10 @@ from typing import Iterable
 import torch
 
 from ..models.scene import MODE_CLAY, Scene
+from ..ops.bvh_kernel import NO_GRAD
 from ..ops.megakernel import pack_fparams, sphere_kinds
 from ..ops.mse_loss import mse_loss, supports_fused_mse
-from ..render.render import render_linear, resolve_device
+from ..render.render import render_linear, resolve_device, select_engine
 from ..utils import rng
 
 # Trainable leaf names -> (sub-object, field) paths
@@ -74,10 +75,13 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
     target is (H, W, 3), the loss is the fused render -> MSE -> gradient
     path: on the card one kernel launch gives the loss and its gradient.
     Otherwise it is ``render_linear`` plus the mean in PyTorch.  ``device``
-    as in ``render_linear`` (None means cuda)."""
+    as in ``render_linear`` (None means cuda).  A scene that takes the BVH
+    kernel, which is forward only, raises NotImplementedError."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded fits are not ported yet (ROADMAP A9)")
+    if select_engine(scene) == "bvh":
+        raise NotImplementedError(NO_GRAD)
     dev = resolve_device(device)
     scene = scene.to(dev)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)

@@ -1,12 +1,13 @@
-"""Scene model: settings, sphere arrays, the scene and its builder, with the
-reference JSON schema (raytracingrust_tpu/models/scene.py).
+"""Scene model: settings, sphere and triangle arrays, the chunk-leaf BVH,
+the scene and its builder, with the reference JSON schema
+(raytracingrust_tpu/models/scene.py).
 
-The port covers sphere scenes.  A ``Mesh`` object, or a ``Volume`` whose
-boundary is not a sphere, raises on load (ROADMAP A5).  A sphere-bounded
-``Volume`` loads, as in the JAX package (volume rows sort last), and the
-render path refuses it.  No BVH is built: the brute kernel needs none, and
-``enable_bvh_tree`` is kept in the settings and ignored, as the JAX package
-ignores it for sphere scenes on its brute kernel.
+A sphere-bounded ``Volume`` loads, as in the JAX package (volume rows sort
+last), and the render path refuses it; a ``Volume`` whose boundary is a
+mesh raises on load (ROADMAP B4).  ``build(with_bvh=None)`` builds the
+chunk-leaf BVH when ``settings.enable_bvh_tree`` asks for it; the render
+path sends a scene to the BVH kernel only when the brute kernel cannot take
+it (render/render.select_engine).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from .backgrounds import Background
 from .camera import Camera
 from .materials import (AnyMaterial, MaterialTable, build_table,
                         material_from_json, material_to_json)
+from .mesh import Mesh
 
 MODE_FULL = "Full"
 MODE_CLAY = "Clay"
@@ -81,6 +83,61 @@ class SphereArray:
         return self.center.shape[0]
 
 
+@dataclasses.dataclass
+class TriangleArray:
+    """All mesh triangles, flat-shaded."""
+
+    v0: torch.Tensor        # (T, 3) float32
+    e1: torch.Tensor        # (T, 3) v1 - v0 (Moller-Trumbore edge)
+    e2: torch.Tensor        # (T, 3) v2 - v0
+    normal: torch.Tensor    # (T, 3) the reference's face normal
+    material: torch.Tensor  # (T,) int32 material handle
+
+    @staticmethod
+    def empty() -> "TriangleArray":
+        z = torch.zeros((0, 3), dtype=torch.float32)
+        return TriangleArray(z, z, z, z, torch.zeros(0, dtype=torch.int32))
+
+    def __len__(self) -> int:
+        return self.v0.shape[0]
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkTree:
+    """One chunk-leaf skip-link tree (ops/bvh.py), host numpy arrays.  A
+    leaf's primitives are slots [chunk * leaf_size, chunk * leaf_size +
+    its count) of ``perm``; the rest of its chunk is padding (-1)."""
+
+    nodes_f: np.ndarray  # (K, 6) float32 [min xyz | max xyz]
+    nodes_i: np.ndarray  # (K, 3) int32 [hit_link, miss_link, chunk or -1]
+    perm: np.ndarray     # (n_chunks * leaf_size,) int32 primitive ids
+    leaf_size: int
+
+    @property
+    def n_nodes(self) -> int:
+        return self.nodes_f.shape[0]
+
+    @property
+    def n_chunks(self) -> int:
+        return self.perm.shape[0] // self.leaf_size
+
+    @property
+    def chunk_len(self) -> np.ndarray:
+        """(n_chunks,) int32 primitives in each chunk."""
+        return (self.perm.reshape(-1, self.leaf_size) >= 0).sum(
+            axis=1).astype(np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class ChunkedBVH:
+    """The JAX package's ChunkedBVH for the kinds the port renders: a tree
+    over the solid spheres and one over the triangles, traversed in that
+    order (the triangle pass starts from the sphere pass's nearest hit)."""
+
+    spheres: Optional[ChunkTree]
+    triangles: Optional[ChunkTree]
+
+
 def _tensors_to(obj, device):
     return dataclasses.replace(obj, **{
         f.name: getattr(obj, f.name).to(device)
@@ -95,6 +152,13 @@ class Scene:
     spheres: SphereArray
     materials: MaterialTable
     settings: RenderSettings = RenderSettings()
+    triangles: TriangleArray = dataclasses.field(
+        default_factory=TriangleArray.empty)
+    cbvh: Optional[ChunkedBVH] = None  # built by SceneBuilder.build
+
+    @property
+    def num_primitives(self) -> int:
+        return len(self.spheres) + len(self.triangles)
 
     def to(self, device) -> "Scene":
         """The scene with every tensor leaf on ``device`` (differentiable:
@@ -103,7 +167,8 @@ class Scene:
             self, camera=_tensors_to(self.camera, device),
             background=_tensors_to(self.background, device),
             spheres=_tensors_to(self.spheres, device),
-            materials=_tensors_to(self.materials, device))
+            materials=_tensors_to(self.materials, device),
+            triangles=_tensors_to(self.triangles, device))
 
 
 class SceneBuilder:
@@ -127,16 +192,20 @@ class SceneBuilder:
                              "material": int(material)})
         return len(self.objects) - 1
 
+    def add_mesh(self, mesh: Mesh) -> int:
+        self.objects.append({"kind": "mesh", "mesh": mesh})
+        return len(self.objects) - 1
+
     def build(self, with_bvh: Optional[bool] = None) -> Scene:
-        if with_bvh:
-            raise NotImplementedError(
-                "BVH construction is not ported yet (ROADMAP A7)")
-        centers = np.asarray([o["center"] for o in self.objects],
+        """The scene, in the JAX package's row order.  ``with_bvh`` None
+        means ``settings.enable_bvh_tree``."""
+        sph = [o for o in self.objects if o["kind"] == "sphere"]
+        centers = np.asarray([o["center"] for o in sph],
                              np.float32).reshape(-1, 3)
-        radii = np.asarray([o["radius"] for o in self.objects], np.float32)
-        mats = np.asarray([o["material"] for o in self.objects], np.int32)
-        nids = np.asarray([o.get("neg_inv_density", 0.0)
-                           for o in self.objects], np.float32)
+        radii = np.asarray([o["radius"] for o in sph], np.float32)
+        mats = np.asarray([o["material"] for o in sph], np.int32)
+        nids = np.asarray([o.get("neg_inv_density", 0.0) for o in sph],
+                          np.float32)
         order = np.argsort(nids != 0.0, kind="stable")  # volumes last
         spheres = SphereArray(
             center=torch.as_tensor(centers[order]),
@@ -144,12 +213,31 @@ class SceneBuilder:
             material=torch.as_tensor(mats[order]),
             neg_inv_density=torch.as_tensor(nids[order]),
         )
+        meshes = [o["mesh"] for o in self.objects if o["kind"] == "mesh"]
+        triangles = TriangleArray.empty()
+        if meshes:
+            soa = [np.concatenate(a) for a in
+                   zip(*(m.triangle_soa() for m in meshes))]
+            mat = np.concatenate([np.full(m.num_triangles, m.material,
+                                          np.int32) for m in meshes])
+            triangles = TriangleArray(*map(torch.as_tensor, (*soa, mat)))
+        if with_bvh is None:
+            with_bvh = self.settings.enable_bvh_tree
+        cbvh = None
+        if with_bvh:
+            from ..ops.bvh import build_chunked_bvh
+            cbvh = build_chunked_bvh(spheres, triangles)
         return Scene(self.camera, self.background, spheres,
-                     build_table(self.materials), self.settings)
+                     build_table(self.materials), self.settings, triangles,
+                     cbvh)
 
     def to_json(self) -> dict:
         objs = []
         for o in self.objects:
+            if o["kind"] == "mesh":
+                objs.append({"type": "Mesh", "path": o["mesh"].path,
+                             "material": o["mesh"].material})
+                continue
             c = o["center"]
             sphere = {"type": "Sphere",
                       "center": {"x": c[0], "y": c[1], "z": c[2]},
@@ -183,9 +271,16 @@ class SceneBuilder:
             if o["type"] == "Volume":
                 nid = float(o["neg_inv_density"])
                 o = o["boundary"]
+                if o["type"] == "Mesh":
+                    raise NotImplementedError(
+                        "volumes bounded by a mesh are not ported yet "
+                        "(ROADMAP B4)")
             if o["type"] == "Mesh":
-                raise NotImplementedError(
-                    "Mesh objects are not ported yet (ROADMAP A5)")
+                # ``smooth`` is read by the schema and ignored: the
+                # reference shades flat (quirk Q6)
+                b.objects.append({"kind": "mesh", "mesh": Mesh.from_file(
+                    o["path"], int(o["material"]))})
+                continue
             if o["type"] != "Sphere":
                 raise ValueError(f"unknown object type {o['type']!r}")
             c = o["center"]

@@ -28,6 +28,7 @@ SOURCES = {
     "megakernel": _CSRC / "megakernel.cu",        # forward radiance
     "radiance_grad": _CSRC / "radiance_grad.cu",  # its backward
     "mse_loss": _CSRC / "mse_loss.cu",            # fused loss + gradient
+    "bvh_forward": _CSRC / "bvh_forward.cu",      # forward over the BVH
 }
 HEADER = _CSRC / "radiance.cuh"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -46,6 +47,10 @@ _SIGNATURES = {
                             _I32, _I32, _P, _P, _I32, _P, _P], _I32),
     "rtrt_mse_loss": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
                        _I32, _I32, _F32, _P, _P, _I32, _P, _P], _I32),
+    "rtrt_bvh_radiance": ([_P, _P, _P, _I32] + [_P] * 5 + [_I32]
+                          + [_P] * 5 + [_I32, _I32, _U32, _U32, _I32, _I32,
+                                        _I32, _I32, _I32, _I32, _P, _P],
+                          _I32),
     "rtrt_error_string": ([_I32], ctypes.c_char_p),
 }
 

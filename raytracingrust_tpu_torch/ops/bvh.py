@@ -1,0 +1,121 @@
+"""Chunk-leaf skip-link BVH builder, on the host in numpy
+(raytracingrust_tpu/ops/bvh.py: ``primitive_bounds``,
+``_build_chunked_topology``, ``build_chunked_bvh``).
+
+The build policy is the reference's (BvhNode::from_list,
+lib/core/bvh.rs:59-144): recursive median split on the axis of greatest
+centroid spread, stable sort by centroid, split at len/2.  Leaves hold up to
+``leaf_size`` primitives (a chunk).  Nodes are in DFS order with skip links,
+so a walk needs no stack: a hit goes to ``hit_link``, a miss to
+``miss_link``, and every link points forward; the walk ends at node K.
+The arrays equal the JAX package's, node for node and slot for slot.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ..utils import aabb
+
+
+def primitive_bounds(spheres, triangles):
+    """Global primitive boxes: spheres [0, N) then triangles [N, N + T).
+    A sphere's box is center -+ radius (lib/objects.rs:53-60); a triangle's
+    is its vertex box grown to at least 0.01 a side
+    (lib/core/mesh.rs:200-213)."""
+    c = np.asarray(spheres.center, np.float32).reshape(-1, 3)
+    r = np.asarray(spheres.radius, np.float32).reshape(-1, 1)
+    v0 = np.asarray(triangles.v0, np.float32).reshape(-1, 3)
+    e1 = np.asarray(triangles.e1, np.float32).reshape(-1, 3)
+    e2 = np.asarray(triangles.e2, np.float32).reshape(-1, 3)
+    v1, v2 = v0 + e1, v0 + e2
+    tmin, tmax = aabb.epsilon_expand(np.minimum(v0, np.minimum(v1, v2)),
+                                     np.maximum(v0, np.maximum(v1, v2)), 0.01)
+    return (np.concatenate([c - r, tmin], axis=0),
+            np.concatenate([c + r, tmax], axis=0))
+
+
+def build_chunked_topology(mins: np.ndarray, maxs: np.ndarray,
+                           leaf_size: int):
+    """Median-split build with leaves of at most ``leaf_size`` primitives.
+
+    Returns (nodes_f (K, 6) float32 [min xyz | max xyz],
+             nodes_i (K, 3) int32 [hit_link, miss_link, chunk (-1 = inner)],
+             perm (n_chunks * leaf_size,) int64 primitive ids, -1 = padding
+             after each chunk's primitives)."""
+    cent = aabb.centroid(mins, maxs)
+    nodes_f: list[np.ndarray] = []
+    hit: list[int] = []
+    miss: list[int] = []
+    chunk: list[int] = []
+    chunks: list[np.ndarray] = []
+
+    def split(ids):
+        c = cent[ids]
+        spread = c.max(axis=0) - c.min(axis=0)
+        sx, sy, sz = float(spread[0]), float(spread[1]), float(spread[2])
+        # the reference's tie-breaking (lib/core/bvh.rs:81-88)
+        if sx > sy and sx > sz:
+            axis = 0
+        elif sy > sx and sy > sz:
+            axis = 1
+        else:
+            axis = 2
+        ids = ids[np.argsort(c[:, axis], kind="stable")]
+        half = ids.shape[0] // 2
+        return ids[:half], ids[half:]
+
+    def emit(ids: np.ndarray) -> None:
+        me = len(hit)
+        nodes_f.append(np.concatenate([mins[ids].min(axis=0),
+                                       maxs[ids].max(axis=0)]))
+        if ids.shape[0] <= leaf_size:
+            chunks.append(ids)
+            hit.append(me + 1)  # a leaf goes on to its skip link either way
+            miss.append(me + 1)
+            chunk.append(len(chunks) - 1)
+            return
+        hit.append(me + 1)      # descend: the first child is next in DFS
+        miss.append(-1)
+        chunk.append(-1)
+        left, right = split(ids)
+        emit(left)
+        emit(right)
+        miss[me] = len(hit)     # skip: one past the whole subtree
+
+    emit(np.arange(mins.shape[0], dtype=np.int64))
+    perm = np.full((len(chunks), leaf_size), -1, np.int64)
+    for i, ids in enumerate(chunks):
+        perm[i, :ids.shape[0]] = ids
+    return (np.stack(nodes_f).astype(np.float32),
+            np.stack([hit, miss, chunk], axis=1).astype(np.int32),
+            perm.reshape(-1))
+
+
+def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
+    """-> ChunkedBVH: one tree over the solid spheres, one over the
+    triangles (each None when it has no primitives); None for an empty
+    scene.  Volume spheres sort last in the sphere arrays and get no tree
+    here: the port renders no volume yet (ROADMAP B4)."""
+    from ..models.scene import ChunkedBVH, ChunkTree
+
+    mins, maxs = primitive_bounds(spheres, triangles)
+    ns = len(spheres)
+    n_solid = ns - spheres.num_volumes
+    if mins.shape[0] == 0:
+        return None
+
+    def tree(lo, hi, ids):
+        if lo.shape[0] == 0:
+            return None
+        nf, ni, perm = build_chunked_topology(lo, hi, leaf_size)
+        pad = perm < 0
+        perm = ids[np.maximum(perm, 0)]
+        perm[pad] = -1
+        return ChunkTree(nf, ni, perm.astype(np.int32), leaf_size)
+
+    return ChunkedBVH(
+        spheres=tree(mins[:n_solid], maxs[:n_solid],
+                     np.arange(n_solid, dtype=np.int64)),
+        triangles=tree(mins[ns:], maxs[ns:],
+                       np.arange(mins.shape[0] - ns, dtype=np.int64)))

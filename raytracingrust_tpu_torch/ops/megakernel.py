@@ -15,9 +15,9 @@ lower-left (0..11), background colors a and b (12..17), 1/(width-1) and
 emission rgb.  Sphere material kinds ride beside it as an int32 (N,) tensor,
 a runtime input, so one kernel build serves every scene in the envelope.
 
-The envelope (:func:`unsupported`): 1 to 128 solid spheres; Lambertian,
-Metal, Dielectric and Emission materials; a uniform or gradient background;
-Full or Clay mode; any depth.
+The envelope (:func:`unsupported`): 1 to 128 solid spheres and no
+triangle; Lambertian, Metal, Dielectric and Emission materials; a uniform
+or gradient background; Full or Clay mode; any depth.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.  The
@@ -75,7 +75,11 @@ def unsupported(scene: Scene) -> str | None:
     n = len(scene.spheres)
     if not 0 < n <= MAX_SPHERES:
         return (f"{n} spheres: the brute kernel takes 1 to {MAX_SPHERES}; "
-                "larger scenes need the BVH path (ROADMAP A7)")
+                "larger scenes take the BVH kernel (ops/bvh_kernel.py)")
+    if len(scene.triangles):
+        return ("triangles in the brute kernel are not ported yet "
+                "(ROADMAP A5); a scene built with its BVH takes the BVH "
+                "kernel")
     if scene.spheres.num_volumes:
         return "constant-density volumes are not ported yet (ROADMAP A5)"
     if scene.materials.has_mix:
@@ -106,17 +110,24 @@ def select_engine(device: torch.device) -> str:
 
 # ------------------------------------------------------------- host prep
 
-def pack_fparams(scene: Scene, width: int, height: int) -> torch.Tensor:
-    """Scene constants -> (20 + 12 N,) float32 on the scene's device, in the
-    layout of ``pallas_megakernel._pack_fparams``.  Differentiable in every
-    scene leaf that requires grad."""
+def pack_head(scene: Scene, width: int, height: int) -> torch.Tensor:
+    """The (20,) float32 head of the packed constants: camera origin,
+    horizontal, vertical, lower-left, background colors a and b,
+    1/(width-1) and 1/(height-1)."""
     origin, horizontal, vertical, lower_left = scene.camera.ray_origin()
     bg = scene.background
-    head = torch.cat([
+    return torch.cat([
         origin, horizontal, vertical, lower_left, bg.color_a, bg.color_b,
         torch.tensor([1.0 / (width - 1), 1.0 / (height - 1)],
                      dtype=torch.float32, device=origin.device),
     ])
+
+
+def pack_fparams(scene: Scene, width: int, height: int) -> torch.Tensor:
+    """Scene constants -> (20 + 12 N,) float32 on the scene's device, in the
+    layout of ``pallas_megakernel._pack_fparams``.  Differentiable in every
+    scene leaf that requires grad."""
+    head = pack_head(scene, width, height)
     mats = scene.materials
     mid = scene.spheres.material.long()
     per_sphere = torch.cat([
@@ -144,23 +155,14 @@ def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
-def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
-                   clay, observe=None):
-    """One tile of :func:`radiance_plain`.  ``fp`` is the packed constants
-    tensor on the rays' device; every constant is read by indexing it, so
-    autograd reaches each packed entry."""
-    n = kinds.shape[0]
+def camera_ray(fp, key, ray_ids, px, py):
+    """The jittered camera ray of each ray id (stream 0) -> (origin,
+    direction), lists of three (R,) tensors.  ``fp`` holds the packed head
+    (camera, background, pixel scale) at its first 20 entries."""
     oxc, oyc, ozc = fp[_CAM:_CAM + 3].unbind()
     hx, hy, hz = fp[_CAM + 3:_CAM + 6].unbind()
     vx, vy, vz = fp[_CAM + 6:_CAM + 9].unbind()
     llx, lly, llz = fp[_CAM + 9:_CAM + 12].unbind()
-    bg_a = fp[_BG:_BG + 3].unbind()
-    bg_b = fp[_BG + 3:_BG + 6].unbind()
-    tab = fp[_SPHERES:_SPHERES + n * _SPHERE_STRIDE].view(n, _SPHERE_STRIDE)
-    inv_r_tab = 1.0 / tab[:, _RADIUS]
-    spheres = [tab[i, _CENTER:_RADIUS + 1].unbind() for i in range(n)]
-
-    # camera ray from the pixel jitter (stream 0)
     j = ray_uniforms(key, ray_ids, 0, 2)
     s = (px + j[:, 0]) * fp[_INV_W]
     t = (py + j[:, 1]) * fp[_INV_H]
@@ -168,17 +170,149 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
     dy = lly + s * hy - t * vy - oyc
     dz = llz + s * hz - t * vz - ozc
     zero = torch.zeros_like(dx)
-    one = torch.ones_like(dx)
-    ox, oy, oz = zero + oxc, zero + oyc, zero + ozc
+    return [zero + oxc, zero + oyc, zero + ozc], [dx, dy, dz]
+
+
+def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
+                mat, kind, u):
+    """The rest of a bounce once each ray's winner is known, shared by the
+    brute and the BVH intersect stages (``_shade`` of ``_radiance_math``):
+    the background on a miss, the front face, the lobe of the winner's kind
+    (a where-chain: each ray keeps the lobe of its own kind) and the
+    throughput/radiance update.
+
+    ``o``, ``d``, ``thr``, ``rad``: the path state, lists of three (R,)
+    tensors; ``alive`` the rays entering the bounce; ``a`` = d.d; ``hit``,
+    the hit point ``pt`` and the outward normal ``n`` of the winner;
+    ``mat`` its (albedo rgb, fuzz, ir, emission rgb) and ``kind`` its
+    material kind; ``u`` the bounce's [u1, u2, coin].  Rays that miss may
+    hold any winner.  -> (o, d, thr, rad, alive) entering the next bounce.
+    """
+    dx, dy, dz = d
+    nx, ny, nz = n
+    al, fuzz, ir, em = mat[0:3], mat[3], mat[4], mat[5:8]
+    u1, u2, u_coin = u
+    zero = torch.zeros_like(a)
+    bg_a = fp[_BG:_BG + 3].unbind()
+    bg_b = fp[_BG + 3:_BG + 6].unbind()
+
+    # background on a miss
+    missed = alive & ~hit
+    if bg_kind == B.UNIFORM:
+        rad = [rad[c] + torch.where(missed, thr[c] * bg_a[c], 0.0)
+               for c in range(3)]
+    else:
+        norm = 1.0 / torch.sqrt(_dot3(dx, dy, dz, dx, dy, dz))
+        tt = 0.5 * (dy * norm + 1.0)
+        rad = [rad[c] + torch.where(
+            missed, thr[c] * ((1.0 - tt) * bg_a[c] + tt * bg_b[c]), 0.0)
+            for c in range(3)]
+
+    front = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
+    sgn = torch.where(front, 1.0, -1.0)
+    nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
+
+    # unit-sphere-surface sample
+    zs = 1.0 - 2.0 * u1
+    rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
+    phi = _TWO_PI * u2
+    sx = rs * torch.cos(phi)
+    sy = rs * torch.sin(phi)
+    sz = zs
+
+    ldx, ldy, ldz = nx + sx, ny + sy, nz + sz
+    deg = ((ldx.abs() < 1e-8) & (ldy.abs() < 1e-8)
+           & (ldz.abs() < 1e-8))
+    ldx = torch.where(deg, nx, ldx)
+    ldy = torch.where(deg, ny, ldy)
+    ldz = torch.where(deg, nz, ldz)
+
+    if clay:
+        at = [zero + 0.8] * 3
+        nd = [ldx, ldy, ldz]
+        scatters = torch.ones_like(alive)
+    else:
+        is_lam = kind == M.LAMBERTIAN
+        is_met = kind == M.METAL
+        is_die = kind == M.DIELECTRIC
+        is_emi = kind == M.EMISSION
+        at = [torch.where(is_lam, al[c], zero) for c in range(3)]
+        nd = [torch.where(is_lam, ld, n_)
+              for ld, n_ in ((ldx, nx), (ldy, ny), (ldz, nz))]
+
+        dn = _dot3(dx, dy, dz, nx, ny, nz)
+        rfx = dx - 2.0 * dn * nx
+        rfy = dy - 2.0 * dn * ny
+        rfz = dz - 2.0 * dn * nz
+        inv_len = 1.0 / torch.sqrt(torch.clamp(
+            _dot3(rfx, rfy, rfz, rfx, rfy, rfz), min=1e-30))
+        md = [rfx * inv_len + fuzz * sx, rfy * inv_len + fuzz * sy,
+              rfz * inv_len + fuzz * sz]
+        m_ok = _dot3(*md, nx, ny, nz) > 0.0
+        at = [torch.where(is_met, torch.where(m_ok, al[c], 0.0), at[c])
+              for c in range(3)]
+        nd = [torch.where(is_met, md[c], nd[c]) for c in range(3)]
+        scatters = ~is_met | m_ok
+
+        ratio = torch.where(front, 1.0 / ir, ir)
+        inv_len = 1.0 / torch.sqrt(torch.clamp(a, min=1e-30))
+        udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
+        cos_t = torch.clamp(-_dot3(nx, ny, nz, udx, udy, udz), max=1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        r0 = (1.0 - ratio) / (1.0 + ratio)
+        r0 = r0 * r0
+        omc = 1.0 - cos_t
+        omc2 = omc * omc
+        schl = r0 + (1.0 - r0) * omc2 * omc2 * omc
+        refl = (ratio * sin_t > 1.0) | (schl > u_coin)
+        udn = _dot3(udx, udy, udz, nx, ny, nz)
+        rr = [udx - 2.0 * udn * nx, udy - 2.0 * udn * ny,
+              udz - 2.0 * udn * nz]
+        perp = [ratio * (udx + cos_t * nx), ratio * (udy + cos_t * ny),
+                ratio * (udz + cos_t * nz)]
+        par = -torch.sqrt(torch.clamp(
+            (1.0 - _dot3(*perp, *perp)).abs(), min=1e-12))
+        dd = [torch.where(refl, rr[c], perp[c] + par * n_)
+              for c, n_ in enumerate((nx, ny, nz))]
+        at = [torch.where(is_die, 1.0, at[c]) for c in range(3)]
+        nd = [torch.where(is_die, dd[c], nd[c]) for c in range(3)]
+
+        at = [torch.where(is_emi, em[c], at[c]) for c in range(3)]
+        scatters = scatters & ~is_emi
+
+    terminal = alive & hit & ~scatters
+    rad = [rad[c] + torch.where(terminal, thr[c] * at[c], 0.0)
+           for c in range(3)]
+    cont = alive & hit & scatters
+    thr = [torch.where(cont, thr[c] * at[c], thr[c]) for c in range(3)]
+    o = [torch.where(cont, pt[c], o[c]) for c in range(3)]
+    d = [torch.where(cont, nd[c], d[c]) for c in range(3)]
+    return o, d, thr, rad, cont
+
+
+def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
+                   clay, observe=None):
+    """One tile of :func:`radiance_plain`.  ``fp`` is the packed constants
+    tensor on the rays' device; every constant is read by indexing it, so
+    autograd reaches each packed entry."""
+    n = kinds.shape[0]
+    tab = fp[_SPHERES:_SPHERES + n * _SPHERE_STRIDE].view(n, _SPHERE_STRIDE)
+    inv_r_tab = 1.0 / tab[:, _RADIUS]
+    spheres = [tab[i, _CENTER:_RADIUS + 1].unbind() for i in range(n)]
+
+    o, d = camera_ray(fp, key, ray_ids, px, py)
+    one = torch.ones_like(d[0])
     thr = [one, one, one]
-    rad = [zero, zero, zero]
-    alive = torch.ones_like(dx, dtype=torch.bool)
-    inf = torch.full_like(dx, float("inf"))
+    rad = [torch.zeros_like(one)] * 3
+    alive = torch.ones_like(one, dtype=torch.bool)
+    inf = torch.full_like(one, float("inf"))
 
     for b in range(max_depth):
         if not bool(alive.any()):
             break  # dead rays never change: stopping early is exact
-        u1, u2, u_coin = ray_uniforms(key, ray_ids, 1 + b, 3).unbind(-1)
+        u = ray_uniforms(key, ray_ids, 1 + b, 3).unbind(-1)
+        ox, oy, oz = o
+        dx, dy, dz = d
         a = _dot3(dx, dy, dz, dx, dy, dz)
         inv_a = 1.0 / a
 
@@ -204,120 +338,16 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
         idx = best.clamp(min=0).long()
         row = tab[idx]
         kind = kinds[idx]
-        is_lam = kind == M.LAMBERTIAN
-        is_met = kind == M.METAL
-        is_die = kind == M.DIELECTRIC
-        is_emi = kind == M.EMISSION
-        al = row[:, _ALBEDO:_ALBEDO + 3].unbind(-1)
-        fuzz, ir = row[:, _FUZZ], row[:, _IR]
-        em = row[:, _EMISSION:_EMISSION + 3].unbind(-1)
         inv_r = inv_r_tab[idx]
 
         safe_t = torch.where(hit, t_best, 1.0)
-        ptx = ox + safe_t * dx
-        pty = oy + safe_t * dy
-        ptz = oz + safe_t * dz
-        nx = (ptx - row[:, _CENTER]) * inv_r
-        ny = (pty - row[:, _CENTER + 1]) * inv_r
-        nz = (ptz - row[:, _CENTER + 2]) * inv_r
-
-        # background on a miss
-        missed = alive & ~hit
+        pt = [ox + safe_t * dx, oy + safe_t * dy, oz + safe_t * dz]
+        n_ = [(pt[c] - row[:, _CENTER + c]) * inv_r for c in range(3)]
         if observe is not None:
             observe(alive, hit, kind)
-        if bg_kind == B.UNIFORM:
-            bg = bg_a
-            rad = [rad[c] + torch.where(missed, thr[c] * bg[c], 0.0)
-                   for c in range(3)]
-        else:
-            norm = 1.0 / torch.sqrt(_dot3(dx, dy, dz, dx, dy, dz))
-            tt = 0.5 * (dy * norm + 1.0)
-            rad = [rad[c] + torch.where(
-                missed, thr[c] * ((1.0 - tt) * bg_a[c] + tt * bg_b[c]), 0.0)
-                for c in range(3)]
-
-        front = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
-        sgn = torch.where(front, 1.0, -1.0)
-        nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
-
-        # unit-sphere-surface sample
-        zs = 1.0 - 2.0 * u1
-        rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
-        phi = _TWO_PI * u2
-        sx = rs * torch.cos(phi)
-        sy = rs * torch.sin(phi)
-        sz = zs
-
-        ldx, ldy, ldz = nx + sx, ny + sy, nz + sz
-        deg = ((ldx.abs() < 1e-8) & (ldy.abs() < 1e-8)
-               & (ldz.abs() < 1e-8))
-        ldx = torch.where(deg, nx, ldx)
-        ldy = torch.where(deg, ny, ldy)
-        ldz = torch.where(deg, nz, ldz)
-
-        if clay:
-            at = [zero + 0.8] * 3
-            nd = [ldx, ldy, ldz]
-            scatters = torch.ones_like(alive)
-        else:
-            # the lobe where-chain of _radiance_math: each lane keeps the
-            # lobe of its winner's kind
-            at = [torch.where(is_lam, al[c], zero) for c in range(3)]
-            nd = [torch.where(is_lam, ld, n_)
-                  for ld, n_ in ((ldx, nx), (ldy, ny), (ldz, nz))]
-
-            dn = _dot3(dx, dy, dz, nx, ny, nz)
-            rfx = dx - 2.0 * dn * nx
-            rfy = dy - 2.0 * dn * ny
-            rfz = dz - 2.0 * dn * nz
-            inv_len = 1.0 / torch.sqrt(torch.clamp(
-                _dot3(rfx, rfy, rfz, rfx, rfy, rfz), min=1e-30))
-            md = [rfx * inv_len + fuzz * sx, rfy * inv_len + fuzz * sy,
-                  rfz * inv_len + fuzz * sz]
-            m_ok = _dot3(*md, nx, ny, nz) > 0.0
-            at = [torch.where(is_met, torch.where(m_ok, al[c], 0.0), at[c])
-                  for c in range(3)]
-            nd = [torch.where(is_met, md[c], nd[c]) for c in range(3)]
-            scatters = ~is_met | m_ok
-
-            ratio = torch.where(front, 1.0 / ir, ir)
-            inv_len = 1.0 / torch.sqrt(torch.clamp(a, min=1e-30))
-            udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
-            cos_t = torch.clamp(-_dot3(nx, ny, nz, udx, udy, udz), max=1.0)
-            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-            r0 = (1.0 - ratio) / (1.0 + ratio)
-            r0 = r0 * r0
-            omc = 1.0 - cos_t
-            omc2 = omc * omc
-            schl = r0 + (1.0 - r0) * omc2 * omc2 * omc
-            refl = (ratio * sin_t > 1.0) | (schl > u_coin)
-            udn = _dot3(udx, udy, udz, nx, ny, nz)
-            rr = [udx - 2.0 * udn * nx, udy - 2.0 * udn * ny,
-                  udz - 2.0 * udn * nz]
-            perp = [ratio * (udx + cos_t * nx), ratio * (udy + cos_t * ny),
-                    ratio * (udz + cos_t * nz)]
-            par = -torch.sqrt(torch.clamp(
-                (1.0 - _dot3(*perp, *perp)).abs(), min=1e-12))
-            dd = [torch.where(refl, rr[c], perp[c] + par * n_)
-                  for c, n_ in enumerate((nx, ny, nz))]
-            at = [torch.where(is_die, 1.0, at[c]) for c in range(3)]
-            nd = [torch.where(is_die, dd[c], nd[c]) for c in range(3)]
-
-            at = [torch.where(is_emi, em[c], at[c]) for c in range(3)]
-            scatters = scatters & ~is_emi
-
-        terminal = alive & hit & ~scatters
-        rad = [rad[c] + torch.where(terminal, thr[c] * at[c], 0.0)
-               for c in range(3)]
-        cont = alive & hit & scatters
-        thr = [torch.where(cont, thr[c] * at[c], thr[c]) for c in range(3)]
-        ox = torch.where(cont, ptx, ox)
-        oy = torch.where(cont, pty, oy)
-        oz = torch.where(cont, ptz, oz)
-        dx = torch.where(cont, nd[0], dx)
-        dy = torch.where(cont, nd[1], dy)
-        dz = torch.where(cont, nd[2], dz)
-        alive = cont
+        o, d, thr, rad, alive = bounce_tail(
+            fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n_,
+            row[:, _ALBEDO:_EMISSION + 3].unbind(-1), kind, u)
     return torch.stack(rad, dim=-1)
 
 

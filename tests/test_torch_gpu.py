@@ -19,6 +19,8 @@ import numpy as np
 
 import raytracingrust_tpu_torch as T
 from raytracingrust_tpu_torch.diff import grad as TG
+from raytracingrust_tpu_torch.models.mesh import Mesh
+from raytracingrust_tpu_torch.ops import bvh_kernel as TB
 from raytracingrust_tpu_torch.ops import megakernel as TK
 from raytracingrust_tpu_torch.ops import mse_loss as TM
 from raytracingrust_tpu_torch.ops import radiance_grad as TR
@@ -26,6 +28,8 @@ from raytracingrust_tpu_torch.utils import rng as trng
 
 CORNELL = os.path.join(os.path.dirname(__file__), "..", "scenes",
                        "cornell_spheres.json")
+STRESS = os.path.join(os.path.dirname(__file__), "..", "scenes",
+                      "bvh_stress.json")
 
 
 @pytest.fixture
@@ -197,3 +201,79 @@ def test_fit_step_on_card_is_one_fused_launch(cuda_device):
         again = loss(params)
     assert TK.LAUNCHES == counts[0] + 1
     assert abs(again.item() - value.item()) <= 1e-5 * value.item()
+
+
+# ------------------------------------------------------ the BVH kernel (#5)
+
+def _sheet(n_side=16, depth=4, spp=2, mode="Full"):
+    """tests/test_pallas_bvh.py::mesh_builder's triangle sheet and two
+    spheres."""
+    b = T.SceneBuilder()
+    b.camera = T.Camera.create((0, 2.5, 4), (0, 0, 0), (0, 1, 0), 55.0, 1.0)
+    b.settings = T.RenderSettings(samples_per_pixel=spp, max_ray_depth=depth,
+                                  mode=mode)
+    ml = b.add_material(T.Lambertian((0.6, 0.5, 0.3)))
+    mm = b.add_material(T.Metal((0.9, 0.85, 0.8), 0.05))
+    me = b.add_material(T.Emission((2.5, 2.2, 1.8)))
+    xs = np.linspace(-2, 2, n_side + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    gy = 0.3 * np.sin(gx * 2.1) * np.cos(gz * 1.7)
+    verts = np.stack([gx, gy, gz], axis=-1).reshape(-1, 3).astype(np.float32)
+    a = (np.arange(n_side)[:, None] * (n_side + 1)
+         + np.arange(n_side)[None, :]).reshape(-1)
+    faces = np.stack([np.stack([a, a + 1, a + n_side + 1], 1),
+                      np.stack([a + 1, a + n_side + 2, a + n_side + 1], 1)],
+                     1).reshape(-1, 3)
+    b.add_mesh(Mesh.from_buffers(verts, verts, faces, ml))
+    b.add_sphere((0.8, 1.2, 0.0), 0.4, mm)
+    b.add_sphere((-1.2, 1.8, 0.5), 0.35, me)
+    return b.build(with_bvh=True)
+
+
+def _stress(mode="Full"):
+    """scenes/bvh_stress.json (1,189 spheres, gradient background) at
+    spp 2."""
+    b = T.SceneBuilder.from_file(STRESS)
+    b.settings = dataclasses.replace(b.settings, samples_per_pixel=2,
+                                     mode=mode)
+    return b.build()
+
+
+def _bvh_both(scene, w, h, seed, device):
+    """(kernel, plain) per-ray radiance of the same rays on the card."""
+    s = scene.settings
+    sc = TB.pack(scene, w, h, device)
+    opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
+                clay=s.mode == "Clay")
+    key = trng.base_key(seed)
+    spp = s.samples_per_pixel
+    ker = TB.radiance_bvh_cuda(sc, key, w * h * spp, spp, w, **opts)
+    torch.cuda.synchronize()
+    ids, px, py = TK.prep_rays(torch.arange(w * h, device=device), spp, w)
+    return ker, TB.radiance_bvh_plain(sc, key, ids, px, py, **opts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [
+    _stress, lambda: _stress("Clay"), _sheet, lambda: _sheet(mode="Clay")],
+    ids=["stress", "stress-clay", "sheet", "sheet-clay"])
+def test_bvh_kernel_matches_plain_on_card(cuda_device, make):
+    """Kernel #5's per-ray radiance bit for bit equal to its plain version
+    at depth 1 and at full depth (as chip_smoke.py phase 7)."""
+    scene = make()
+    d1 = dataclasses.replace(scene, settings=dataclasses.replace(
+        scene.settings, max_ray_depth=1))
+    for sc in (d1, scene):
+        ker, plain = _bvh_both(sc, 48, 40, 7, cuda_device)
+        assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_bvh_render_on_card_counts_launches(cuda_device):
+    scene = _sheet()
+    before, brute = TB.LAUNCHES, TK.LAUNCHES
+    img = T.render_linear(scene, 32, 24, seed=0, device=cuda_device)
+    assert (TB.LAUNCHES, TK.LAUNCHES) == (before + 1, brute)
+    assert img.shape == (24, 32, 3) and bool(torch.isfinite(img).all())
+    cpu = T.render_linear(scene, 32, 24, seed=0, device="cpu")
+    assert (img.cpu() - cpu).abs().mean().item() < 4e-2

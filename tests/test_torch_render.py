@@ -118,7 +118,12 @@ def test_port_never_imports_jax():
             "raytracingrust_tpu_torch.ops.radiance_grad, "
             "raytracingrust_tpu_torch.ops.mse_loss, "
             "raytracingrust_tpu_torch.diff.grad, "
-            "raytracingrust_tpu_torch.diff.inverse; "
+            "raytracingrust_tpu_torch.diff.inverse, "
+            "raytracingrust_tpu_torch.ops.bvh, "
+            "raytracingrust_tpu_torch.ops.bvh_kernel, "
+            "raytracingrust_tpu_torch.io.obj, "
+            "raytracingrust_tpu_torch.models.mesh, "
+            "raytracingrust_tpu_torch.utils.aabb; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'optax', 'raytracingrust_tpu')]; "
             "assert not bad, bad")

@@ -21,7 +21,8 @@ from raytracingrust_tpu_torch.models.convert import scene_from_arrays
 from raytracingrust_tpu_torch.models.scene import RenderSettings
 from raytracingrust_tpu_torch.models.scene import SceneBuilder as TBuilder
 from raytracingrust_tpu_torch.ops import megakernel as TK
-from raytracingrust_tpu_torch.render.render import render_linear
+from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                    select_engine)
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCENES = {name: os.path.join(ROOT, "scenes", f"{name}.json")
@@ -113,20 +114,24 @@ def test_envelope_refusals():
     zoo = TBuilder.from_file(SCENES["material_zoo"]).build()  # loads
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         render_linear(zoo, 8, 6, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        TBuilder.from_file(SCENES["benchmark"]).build(with_bvh=True)
+    # a small sphere scene built with its BVH still takes the brute kernel
+    bench = TBuilder.from_file(SCENES["benchmark"]).build(with_bvh=True)
+    assert bench.cbvh is not None and select_engine(bench) == "brute"
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         TB.Background.from_json({"type": "SkyMap", "path": "sky.exr"})
     mesh = {"camera": {}, "settings": {}, "background": {}, "objects": [
-        {"type": "Mesh", "path": "m.obj", "material": 0}], "materials": []}
+        {"type": "Volume", "neg_inv_density": -1.0, "boundary": {
+            "type": "Mesh", "path": "m.obj", "material": 0}}],
+        "materials": []}
     b = TBuilder.from_file(SCENES["benchmark"]).to_json()
     mesh.update(camera=b["camera"], settings=b["settings"],
                 background=b["background"])
-    with pytest.raises(NotImplementedError, match="ROADMAP A5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
         TBuilder.from_json(mesh)
-    # cornell_spheres sets enable_bvh_tree; the brute path ignores it
+    # cornell_spheres sets enable_bvh_tree; the brute path takes it
     cornell = TBuilder.from_file(SCENES["cornell_spheres"]).build()
     assert cornell.settings.enable_bvh_tree and TK.supports(cornell)
+    assert select_engine(cornell) == "brute"
 
 
 @pytest.mark.parametrize("kind", ["uniform", "gradient"])
