@@ -52,14 +52,32 @@ non-zero exit, and prints no result:
    grow, the brute kernel's must not; PNGs in build/smoke/), the kernel's
    and the plain version's times, the kernel's bound from the work the
    plain version's rays did, its registers, and the warm render wall and
-   primary Mrays/s.
+   primary Mrays/s;
+8. the BVH fit path (the record variant of #5, the winner-row fetch #6
+   and its transpose #7, the replay in between) on bvh_stress 1000x1000
+   spp 8 depth 4 and sheet64 512x512 spp 8 depth 6: the record variant's
+   radiance equals #5's and its codes the plain record walk's, bit for
+   bit on every ray and bounce; #6 equals its plain version bit for bit;
+   #7 lies within FETCH_RTOL of the magnitudes it adds from its plain
+   version summed in float64; the replay's forward within REPLAY_ATOL of
+   #5's radiance; the packed tensors' gradient through the kernels within
+   GRAD_RTOL/GRAD_ATOL of autograd through the plain route, finite; a
+   directional FD probe of ``make_loss`` on albedo, emission and
+   bg_color_a within 5%.  Then the times, plain versions' times, the
+   library's ``index_select``/``index_add_`` times and bounds; the CLI
+   ``fit`` of bvh_stress (albedo, emission; 6 steps) against a target the
+   CLI rendered, whose loss must fall, with one launch of each of the
+   three kernels a step; and the warm fit step of both shapes with a
+   ``torch.profiler`` breakdown into the record kernel, #6, the replay's
+   forward and backward, #7, Adam and host.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
 phase 4, the radiance gradient kernel's under ``render_linear``'s
 backward, the fused kernel's in the CLI fit, the BVH kernel's in the CLI
-renders of phase 7; the other paths' counts are in the phase lines), and
-its least possible time for one forward and one reverse sweep of the FP32
+renders of phase 7, the record variant's, #6's and #7's in the CLI fit of
+phase 8; the other paths' counts are in the phase lines), and its least
+possible time for one forward and one reverse sweep of the FP32
 operations the run's rays traced, or for the bytes it must move; the last
 line is
 ``{"ok": true, "device": {...}}``.  The run needs one CUDA device and
@@ -408,6 +426,388 @@ def bvh_phase(dev, card: str) -> dict:
             "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
             "bound_ms": main_shape["bound"][0],
             "bound_by": main_shape["bound"][1]}
+
+
+# phase 8: the fitted shapes, their parameters and the CLI fit's
+FIT_SHAPES = (("bvh_stress", 1000, 1000,
+               "albedo,emission,bg_color_a,bg_color_b,sphere_center,"
+               "sphere_radius,cam_lookfrom"),
+              ("sheet64", 512, 512, "albedo,emission,bg_color_a,"
+                                    "sphere_center"))
+CLI_FIT_PARAMS = "albedo,emission"
+# #7 vs its plain version in float64: of the sum of the magnitudes added
+FETCH_RTOL = 1e-5
+REPLAY_ATOL = 1e-4  # the replay's forward vs the kernel's radiance
+
+
+def _profile_step(prof, steps: int) -> dict:
+    """Device ms a step by part of a BVH fit step, from a torch.profiler
+    run of ``steps`` steps: the kernels by name, the replay's halves and
+    Adam by their ranges (user annotations span their kernels on the
+    device; #6 runs inside the replay's forward, #7 inside its
+    backward)."""
+    import torch
+
+    kernel = collections.Counter()
+    ranges = collections.Counter()
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
+        if getattr(evt, "is_user_annotation", False):
+            ranges[evt.key] += ms
+        else:
+            kernel[evt.key] += ms
+    part = collections.Counter()
+    for key, ms in kernel.items():
+        if "bvh_radiance_kernel" in key:
+            record = "<true>" in key or "ILb1E" in key
+            part["record #5" if record else "#5"] += ms
+        elif "fetch_kernel" in key:
+            part["#6"] += ms
+        elif "transpose_kernel" in key:
+            part["#7"] += ms
+        else:
+            part["other kernels"] += ms
+    fwd = ranges.get("bvh_replay_forward", 0.0)
+    bwd = ranges.get("bvh_replay_backward", 0.0)
+    adam = sum(v for k, v in ranges.items() if "Adam" in k)
+    part["replay forward"] = fwd - part["#6"]
+    part["replay backward"] = bwd - part["#7"]
+    part["Adam"] = adam
+    part["busy"] = sum(kernel.values())
+    return part
+
+
+def bvh_fit_phase(dev, card: str) -> list:
+    """Phase 8; -> the report entries of the record variant of #5, #6 and
+    #7."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from raytracingrust_tpu_torch import cli
+    from raytracingrust_tpu_torch.diff import grad as G
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import fetch as F
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.render.render import render_linear
+    from raytracingrust_tpu_torch.utils import rng
+
+    paths = {label: path for label, path, *_ in bvh_scenes()}
+    key = rng.base_key(11)
+    gen = np.random.default_rng(0)
+    out = {}
+    for label, w, h, names in FIT_SHAPES:
+        scene = SceneBuilder.from_file(paths[label]).build()
+        s = scene.settings
+        spp, depth = s.samples_per_pixel, s.max_ray_depth
+        n_pix, n_rays = w * h, w * h * spp
+        opts = dict(max_depth=depth, bg_kind=scene.background.kind,
+                    clay=False)
+        with torch.no_grad():
+            sc = BK.pack(scene, w, h, dev)
+        ids, px, py = K.prep_rays(torch.arange(n_pix, device=dev), spp, w)
+
+        # the record variant against #5 and the plain record walk
+        ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, w, **opts)
+        rec, codes = BK.radiance_bvh_cuda(sc, key, n_rays, spp, w,
+                                          record=True, **opts)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        _, plain_codes = BK.radiance_bvh_plain(sc, key, ids, px, py,
+                                               record=True, **opts)
+        end.record()
+        torch.cuda.synchronize()
+        rec_plain_ms = start.elapsed_time(end)
+        if not torch.equal(rec.view(torch.int32), ker.view(torch.int32)):
+            raise AssertionError(f"{label}: the record variant's radiance "
+                                 f"differs from #5's")
+        if not torch.equal(codes, plain_codes):
+            bad = (codes != plain_codes).any(dim=0)
+            raise AssertionError(f"{label}: record codes differ from the "
+                                 f"plain walk's on {int(bad.sum())} of "
+                                 f"{n_rays} rays")
+        hits = int((codes >= 0).sum())
+
+        # #6 and #7 against their plain versions
+        sph, tri = sc.spheres, sc.triangles
+        args = (codes, sc.kinds, sc.tri_base, sph and sph.mat,
+                tri and tri.mat, sc.mats, sph and sph.geo, tri and tri.geo)
+        rows, kind = F.fetch_rows_cuda(*args)
+        p_rows, p_kind = F.fetch_rows_plain(*args)
+        if not (torch.equal(rows.view(torch.int32), p_rows.view(torch.int32))
+                and torch.equal(kind, p_kind)):
+            raise AssertionError(f"{label}: #6 differs from its plain "
+                                 f"version")
+        del p_rows, p_kind
+        g_rows = torch.randn(tuple(rows.shape), device=dev,
+                             generator=torch.Generator(dev).manual_seed(0))
+        sizes = (sc.kinds.shape[0], sph.geo.shape[0] if sph else 0,
+                 tri.geo.shape[0] if tri else 0)
+        targs = (codes, g_rows, sc.tri_base, sph and sph.mat,
+                 tri and tri.mat, *sizes)
+        # #7 against its plain version summed in float64: float32 sums of
+        # ~1e5 terms of both signs (the ground sphere, 4 materials) differ
+        # from the exact sum, in any order, by more than 1e-5 of the
+        # result, so the bound is 1e-5 of the magnitudes an entry adds
+        g64 = g_rows.double()
+        exact = F.fetch_rows_transpose_plain(codes, g64, *targs[2:])
+        scale = F.fetch_rows_transpose_plain(codes, g64.abs(), *targs[2:])
+        t_err = p_err = 0.0
+        for got, plain, want, mag in zip(
+                F.fetch_rows_transpose_cuda(*targs),
+                F.fetch_rows_transpose_plain(*targs), exact, scale):
+            if want is None:
+                continue
+            err = (got.double() - want).abs()
+            if bool((err > FETCH_RTOL * mag).any()):
+                raise AssertionError(f"{label}: #7 differs from the exact "
+                                     f"sums by up to {err.max().item():.3e}")
+            t_err = max(t_err, err.max().item())
+            p_err = max(p_err, (plain.double() - want).abs().max().item())
+        del g64, exact, scale
+
+        # the replay's forward against the kernel's radiance
+        with torch.no_grad():
+            rep = BK.replay(sc, codes, key, n_pix, spp, w, **opts)
+        rep_err = (rep - ker).abs().max().item()
+        if not rep_err <= REPLAY_ATOL:
+            raise AssertionError(f"{label}: the replay's forward is "
+                                 f"{rep_err:.3e} from #5's radiance")
+        del rep
+
+        # the gradient through the kernels against the plain route
+        cts = torch.tensor(gen.standard_normal((n_rays, 3),
+                                               dtype=np.float32), device=dev)
+        want = BK.radiance_grad_plain(sc, key, cts, n_pix, spp, w, **opts)
+        torch.cuda.reset_peak_memory_stats()
+        rows_in = [None if v is None else v.detach().requires_grad_(True)
+                   for v in BK._rows(sc)]
+        rad = BK.radiance(sc.with_rows(*rows_in), key, n_pix, spp, w, **opts)
+        live = [v for v in rows_in if v is not None]
+        got = torch.autograd.grad(rad, live, cts)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        g_err = 0.0
+        for part, a, b in zip(("head", "materials", "geometry", "geometry"),
+                              got, [v for v in want if v is not None]):
+            err = (a - b).abs()
+            if not bool(torch.isfinite(a).all()) or bool(
+                    (err > GRAD_RTOL * b.abs() + GRAD_ATOL * b.abs().max())
+                    .any()):
+                raise AssertionError(f"{label}: the {part} gradient differs "
+                                     f"from the plain route by up to "
+                                     f"{err.max().item():.3e}")
+            g_err = max(g_err, err.max().item())
+        del rad, got, want
+
+        # FD probe of the loss along a numpy-seeded direction
+        sc_dev = scene.to(dev)
+        probe = ["albedo", "emission", "bg_color_a"]
+        params = {k: v.clone().requires_grad_(True) for k, v in
+                  G.extract_params(sc_dev, probe).items()}
+        v = {k: torch.tensor(gen.standard_normal(tuple(p.shape)),
+                             dtype=torch.float32, device=dev)
+             for k, p in params.items()}
+        with torch.no_grad():
+            target = render_linear(sc_dev, w, h, seed=12, device=dev) * 0.9
+        loss = G.make_loss(sc_dev, target, w, h, device=dev)
+        loss(params, key).backward()
+        ad = sum((params[k].grad * v[k]).sum().item() for k in params)
+        eps = 1e-3
+        with torch.no_grad():
+            fd = (loss({k: p + eps * v[k] for k, p in params.items()}, key)
+                  - loss({k: p - eps * v[k] for k, p in params.items()}, key)
+                  ).item() / (2 * eps)
+        if not abs(ad - fd) <= 0.05 * max(abs(fd), 1e-6):
+            raise AssertionError(f"{label}: FD probe AD {ad:.6e} vs FD "
+                                 f"{fd:.6e}")
+
+        # times: kernels, plain versions, the library's gather/scatter
+        n = codes.numel()
+        ms_rec = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
+            sc, key, n_rays, spp, w, record=True, **opts), 5)
+        ms_6 = _cuda_time_ms(lambda: F.fetch_rows_cuda(*args), 10)
+        ms_7 = _cuda_time_ms(lambda: F.fetch_rows_transpose_cuda(*targs), 10)
+        plain_6 = _cuda_time_ms(lambda: F.fetch_rows_plain(*args), 2)
+        plain_7 = _cuda_time_ms(lambda: F.fetch_rows_transpose_plain(*targs),
+                                2)
+        # the first tree's rows (its slots count from 0 in the codes)
+        tree = sph if sph is not None else tri
+        flat = codes.reshape(-1)
+        limit = sc.tri_base if sph is not None else BK.REC_SLOT + 1
+        own = (flat >= 0) & ((flat & BK.REC_SLOT) < limit)
+        slot = torch.where(own, flat & BK.REC_SLOT, 0).long()
+        mid = tree.mat[slot].long()
+        hit_idx = own.nonzero().squeeze(1)
+        g_geo = g_rows.reshape(g_rows.shape[0], -1)[:tree.geo.shape[1],
+                                                    hit_idx].T.contiguous()
+        g_mat = g_rows.reshape(g_rows.shape[0], -1)[-8:,
+                                                    hit_idx].T.contiguous()
+        s_hit, m_hit = slot[hit_idx], mid[hit_idx]
+        lib_6 = _cuda_time_ms(lambda: (tree.geo.index_select(0, slot),
+                                       sc.mats.index_select(0, mid)), 10)
+        lib_7 = _cuda_time_ms(lambda: (
+            torch.zeros_like(tree.geo).index_add_(0, s_hit, g_geo),
+            torch.zeros_like(sc.mats).index_add_(0, m_hit, g_mat)), 10)
+
+        # bounds: #5's operations (phase 7's tally) plus the record's
+        # decisions; bytes in and out once
+        tally = collections.Counter()
+        with torch.no_grad():
+            BK.radiance_bvh_plain(sc, key, ids, px, py, tally=tally, **opts)
+        n_hits = [tally[f"hits_{k}"] for k in range(4)]
+        ops = (n_rays * OPS_RAY + tally["bounces"] * OPS_BVH_BOUNCE
+               + tally["nodes"] * OPS_NODE
+               + tally["sphere_tests"] * OPS_SPHERE_TEST
+               + tally["triangle_tests"] * OPS_TRI_TEST
+               + sum(n_hits) * OPS_HIT
+               + sum(c * OPS_LOBE[k] for k, c in enumerate(n_hits))
+               + tally["misses"] * OPS_MISS[scene.background.kind]
+               + sum(n_hits) * ((OPS_LOBE[1] if sc.rec_mask
+                                 & BK.REC_METAL_OK else 0)
+                                + (OPS_LOBE[2] if sc.rec_mask
+                                   & BK.REC_REFLECT else 0)))
+        scene_bytes = sum(t.numel() * t.element_size() for t in (
+            sc.head, sc.mats, sc.kinds, *(sc.spheres or ()),
+            *(sc.triangles or ())) if isinstance(t, torch.Tensor))
+        table_bytes = sum(t.numel() * t.element_size() for t in (
+            sc.mats, sc.kinds, *args[3:5], *args[6:8]) if t is not None)
+        g = rows.shape[0] - 8
+        n_geo_hit = 0
+        if sph is not None:
+            n_geo_hit += 4 * int((codes >= 0).logical_and(
+                (codes & BK.REC_SLOT) < sc.tri_base).sum())
+        if tri is not None:
+            n_geo_hit += 12 * int((codes >= 0).logical_and(
+                (codes & BK.REC_SLOT) >= sc.tri_base).sum())
+        bounds = {
+            "record": _bound(ops, scene_bytes + 12 * n_rays + 4 * n),
+            "fetch": _bound(0, table_bytes + 4 * n + 4 * (g + 9) * n),
+            "transpose": _bound(2 * (n_geo_hit + 8 * hits), 4 * n
+                                + 4 * (n_geo_hit + 8 * hits) + 4 * hits
+                                + table_bytes),
+        }
+        out[label] = dict(ms=(ms_rec, ms_6, ms_7),
+                          plain=(rec_plain_ms, plain_6, plain_7),
+                          lib=(None, lib_6, lib_7), bounds=bounds,
+                          err=(0.0, 0.0, t_err))
+        print(f"phase 8 {label} {w}x{h} spp {spp} depth {depth}: record "
+              f"radiance == #5 bit for bit, codes == plain codes on all "
+              f"{n_rays} rays x {depth} bounces ({hits} hits); #6 == plain "
+              f"bit for bit ({rows.shape[0]} fields); #7 max abs diff "
+              f"from the float64 sums {t_err:.3e} (float32 index_add_ "
+              f"{p_err:.3e}; allowed {FETCH_RTOL:g} of the magnitudes "
+              f"added); replay forward vs #5 max abs diff {rep_err:.3e} "
+              f"(allowed {REPLAY_ATOL:g}); gradient vs plain route max abs "
+              f"diff {g_err:.3e} (allowed {GRAD_RTOL:g} rel + {GRAD_ATOL:g} "
+              f"of max), finite; peak memory of the backward "
+              f"{peak_gb:.2f} GB; FD probe ({', '.join(probe)}; eps {eps:g},"
+              f" rtol 5%): AD {ad:.6e}, FD {fd:.6e}")
+        print(f"phase 8 {label} times: record #5 {ms_rec:.4f} ms (plain "
+              f"{rec_plain_ms:.1f} ms, bound {bounds['record'][0]:.5f} ms "
+              f"{bounds['record'][1]}); #6 {ms_6:.4f} ms (plain "
+              f"{plain_6:.3f}, index_select {lib_6:.4f}, bound "
+              f"{bounds['fetch'][0]:.5f} {bounds['fetch'][1]}); #7 "
+              f"{ms_7:.4f} ms (plain {plain_7:.3f}, index_add_ {lib_7:.4f},"
+              f" bound {bounds['transpose'][0]:.5f} "
+              f"{bounds['transpose'][1]})")
+        del rows, g_rows, codes, plain_codes, kind
+
+    # the main path: CLI fit of bvh_stress against a CLI-rendered target
+    with open(STRESS) as f:
+        d = json.load(f)
+    for m in d["materials"]:
+        if "albedo" in m:
+            m["albedo"] = {c: 0.7 * v for c, v in m["albedo"].items()}
+    dim = os.path.join(OUT_DIR, "bvh_stress_dim.json")
+    with open(dim, "w") as f:
+        json.dump(d, f)
+    target_png = os.path.join(OUT_DIR, "bvh_fit_target.png")
+    if cli.main(["render", dim, "-o", target_png, "--seed", "1"]) != 0:
+        raise AssertionError("cli render of the fit target failed")
+    steps = 6
+    BK.LAUNCHES = BK.RECORD_LAUNCHES = 0
+    F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = K.LAUNCHES = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fit", STRESS, target_png, "--params", CLI_FIT_PARAMS,
+                       "--steps", str(steps), "--seed", "0", "-o",
+                       os.path.join(OUT_DIR, "bvh_fit_result.png")])
+    text = buf.getvalue()
+    counts = (BK.RECORD_LAUNCHES, F.FETCH_LAUNCHES, F.TRANSPOSE_LAUNCHES,
+              BK.LAUNCHES, K.LAUNCHES)
+    if rc != 0 or counts != (steps, steps, steps, 1, 0):
+        raise AssertionError(f"cli fit returned {rc}, launches (record, #6, "
+                             f"#7, #5, #1) {counts}, expected ({steps}, "
+                             f"{steps}, {steps}, 1, 0)\n{text}")
+    first = float(text.split("step 0: loss")[1].split()[0])
+    final = float(text.split("final loss")[1].split()[0])
+    if not (np.isfinite(first) and np.isfinite(final) and final < first):
+        raise AssertionError(f"cli fit loss did not fall: {first} -> "
+                             f"{final}\n{text}")
+    print(f"phase 8 cli fit {STRESS} 1000x1000 spp 8 depth 4, {steps} "
+          f"steps of {CLI_FIT_PARAMS}: loss {first:.6f} -> {final:.6f}; "
+          f"launches record {counts[0]}, #6 {counts[1]}, #7 {counts[2]}, "
+          f"#5 {counts[3]} (the fitted render)")
+
+    # the warm fit step of each shape, and where its time goes
+    for label, w, h, names in FIT_SHAPES:
+        scene = SceneBuilder.from_file(paths[label]).build()
+        spp = scene.settings.samples_per_pixel
+        target = (read_png(target_png)[..., :3].astype(np.float32) / 255.0
+                  ) ** 2 if label == "bvh_stress" else np.full(
+            (h, w, 3), 0.25, np.float32)
+        ticks = []
+
+        def tick(i, value, params):
+            ticks.append(time.perf_counter())  # after float(loss): synced
+
+        t0 = time.perf_counter()
+        _, params, history = fit(scene, target, names.split(","), w, h,
+                                 steps=6, device=dev, callback=tick)
+        step_s = sorted(b - a for a, b in zip(ticks[1:], ticks[2:]))
+        warm = step_s[len(step_s) // 2]
+        if not all(np.isfinite(history)) or not all(
+                bool(torch.isfinite(p).all()) for p in params.values()):
+            raise AssertionError(f"{label} fit: not finite, history "
+                                 f"{history}")
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            fit(scene, target, names.split(","), w, h, steps=3, device=dev)
+        part = _profile_step(prof, 3)
+        host = warm * 1e3 - part["busy"]
+        print(f"phase 8 {label} fit step ({names}): first step "
+              f"{(ticks[0] - t0) * 1e3:.1f} ms, warm step {warm * 1e3:.3f} "
+              f"ms (median of {len(step_s)}), {w * h * spp / warm / 1e6:.1f} "
+              f"primary Mrays/s fwd+bwd; loss {history[0]:.6f} -> "
+              f"{history[-1]:.6f}; per step under torch.profiler: "
+              + ", ".join(f"{k} {part[k]:.3f} ms" for k in (
+                  "record #5", "#6", "replay forward", "replay backward",
+                  "#7", "Adam", "other kernels", "busy"))
+              + f", host (warm step - busy) {host:.3f} ms; {card}")
+
+    main_shape = out["bvh_stress"]
+    names = (("bvh_record", "bvh_forward.cu", "3001", "record"),
+             ("fetch_rows", "fetch_rows.cu", "3179", "fetch"),
+             ("fetch_rows_transpose", "fetch_rows.cu", "3179", "transpose"))
+    return [{
+        "name": name,
+        "route": "cuda",
+        "source": "raytracingrust_tpu_torch/csrc/" + src,
+        "replaces": "raytracingrust_tpu/ops/pallas_megakernel.py:" + line,
+        "launches": counts[i],  # the CLI fit above
+        "max_abs_err": main_shape["err"][i],
+        "ms": main_shape["ms"][i],
+        "plain_ms": main_shape["plain"][i],
+        "bound_ms": main_shape["bounds"][b][0],
+        "bound_by": main_shape["bounds"][b][1],
+        "library_ms": main_shape["lib"][i],
+    } for i, (name, src, line, b) in enumerate(names)]
 
 
 def main() -> int:
@@ -904,6 +1304,9 @@ def main() -> int:
     # ---- 7. the BVH path (kernel #5)
     bvh = bvh_phase(dev, card)
 
+    # ---- 8. the BVH fit path (record mode of #5, #6, #7)
+    bvh_fit = bvh_fit_phase(dev, card)
+
     replaces = "raytracingrust_tpu/ops/pallas_megakernel.py:"
     report = {"kernels": [{
         "name": "brute_forward_megakernel",
@@ -948,7 +1351,7 @@ def main() -> int:
         "replaces": replaces + "3001",
         **bvh,  # the CLI renders of phase 7; times at bvh_stress 1000x1000
         "library_ms": None,
-    }]}
+    }, *bvh_fit]}  # the CLI fit of phase 8; times at bvh_stress 1000x1000
     print(f"card: {card}; kernel build {build_s:.3f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

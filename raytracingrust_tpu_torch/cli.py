@@ -99,9 +99,28 @@ def cmd_fit(args) -> int:
     return 0
 
 
+def _engines(scene) -> tuple[str, str]:
+    """(render engine, fit engine) the scene would take, or the reason it
+    is refused."""
+    from .ops.mse_loss import supports_fused_mse
+    from .render.render import select_engine
+
+    try:
+        engine = select_engine(scene)
+    except NotImplementedError as e:
+        return (f"unsupported: {e}",) * 2
+    if engine == "bvh":
+        return ("bvh: kernel #5",
+                "bvh: record mode of #5, then the replay over #6 and #7")
+    if supports_fused_mse(scene):
+        return "brute: kernel #1", "fused: kernel #4"
+    return "brute: kernel #1", "brute: #1 forward, #3 backward"
+
+
 def cmd_info(args) -> int:
     builder = _load(args)
     scene = builder.build()
+    render_engine, fit_engine = _engines(scene)
     trees = {}  # the chunk-leaf BVH's size, where it was built
     for kind in ("spheres", "triangles"):
         tree = getattr(scene.cbvh, kind, None)
@@ -114,6 +133,8 @@ def cmd_info(args) -> int:
         "triangles": len(scene.triangles),
         "materials": len(builder.materials),
         **trees,
+        "render_engine": render_engine,
+        "fit_engine": fit_engine,
         "settings": builder.settings.to_json(),
     }, indent=2))
     return 0

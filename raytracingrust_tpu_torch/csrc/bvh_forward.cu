@@ -12,6 +12,17 @@
 // tree starting from the sphere pass's nearest hit, then radiance.cuh's
 // lobes.  Output: per-ray RGB, (n_rays, 3) float32.
 //
+// Record mode (template flag kRecord; _make_bvh_kernel(record=True)) also
+// writes each bounce's winner code, (max_depth, n_rays) int32, for the
+// replay gradient (diff/replay.py): the winner's slot in bits 0-26 (sphere
+// slots first, triangle slots after the sphere tree's n_chunks * leaf), the
+// front face at bit 27, and at bits 28 and 29 the metal lobe's
+// above-the-surface test and the dielectric's reflect choice, evaluated for
+// every hit whatever its kind when the scene holds that kind (`rec_mask`),
+// as the JAX record does; -1 on a miss and for every bounce after the path
+// ended.  Bounce-major, so a warp's stores coalesce.  The walk and the
+// arithmetic of the radiance are the same in both modes.
+//
 // Design: one thread a ray, its whole state in registers.  The TPU kernel
 // moves one node cursor for a block of 2,048 rays and intersects a leaf's
 // 128 primitives as matrices; here each ray walks the tree on its own (the
@@ -69,6 +80,36 @@ struct Tree {
 struct Ray {
   float ox, oy, oz, dx, dy, dz, idx, idy, idz, a;
 };
+
+// record-mode code layout (pallas_megakernel.py's record bits)
+constexpr int kRecSlot = (1 << 27) - 1;
+constexpr int kRecFront = 1 << 27;
+constexpr int kRecMetalOk = 1 << 28;
+constexpr int kRecReflect = 1 << 29;
+
+// The decision bits of a hit's record: the front face, and the decisions of
+// the lobes `mask` names, from the winner's material row whatever its kind.
+__device__ __forceinline__ int decision_bits(const float* mat, bool front,
+                                             float a, float dx, float dy,
+                                             float dz, float nx, float ny,
+                                             float nz, float u1, float u2,
+                                             float u_coin, int mask) {
+  int bits = front ? kRecFront : 0;
+  if (mask & kRecMetalOk) {
+    float sx, sy, sz, mdx, mdy, mdz;
+    sphere_sample(u1, u2, sx, sy, sz);
+    if (metal_lobe(mat[3], dx, dy, dz, nx, ny, nz, sx, sy, sz, mdx, mdy,
+                   mdz))
+      bits |= kRecMetalOk;
+  }
+  if (mask & kRecReflect) {
+    float ratio, udx, udy, udz, cos_t;
+    if (dielectric_reflects(mat[4], front, a, dx, dy, dz, nx, ny, nz, u_coin,
+                            ratio, udx, udy, udz, cos_t))
+      bits |= kRecReflect;
+  }
+  return bits;
+}
 
 // Candidate distance of sphere slot s (_sphere_chunk_hit): the near root if
 // in [T_MIN, tb], else the far root; radius 0 never hits.
@@ -165,13 +206,15 @@ __device__ __forceinline__ void walk(const Tree& tree, int leaf,
   }
 }
 
+template <bool kRecord>
 __global__ void __launch_bounds__(kThreads)
 bvh_radiance_kernel(const float* __restrict__ head,
                     const float* __restrict__ mats,
                     const int* __restrict__ kinds, Tree sph, Tree tri,
                     int leaf, uint32_t k0, uint32_t k1, int n_rays, int spp,
                     int width, int max_depth, int bg_kind, int clay,
-                    float* __restrict__ out) {
+                    float* __restrict__ out, int* __restrict__ rec,
+                    int rec_mask, int tri_base) {
   __shared__ float f[kHead];
   for (int i = threadIdx.x; i < kHead; i += blockDim.x) f[i] = head[i];
   __syncthreads();
@@ -185,6 +228,7 @@ bvh_radiance_kernel(const float* __restrict__ head,
              (float)(pixel / width), r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
+  int ended = max_depth;  // record mode: the bounces after the path's end
 
   for (int b = 0; b < max_depth; ++b) {
     // bounce stream 1 + b: columns [u1, u2, coin]
@@ -208,6 +252,10 @@ bvh_radiance_kernel(const float* __restrict__ head,
       rad_r = rad_r + thr_r * bg_r;
       rad_g = rad_g + thr_g * bg_g;
       rad_b = rad_b + thr_b * bg_b;
+      if (kRecord) {
+        rec[(size_t)b * n_rays + ray] = -1;
+        ended = b + 1;
+      }
       break;
     }
 
@@ -246,11 +294,18 @@ bvh_radiance_kernel(const float* __restrict__ head,
     scatter(mat, __ldg(kinds + mid), clay, front, r.a, r.dx, r.dy, r.dz, nx,
             ny, nz, u1, u2, u_coin, at_r, at_g, at_b, ndx, ndy, ndz,
             scatters, code);
+    if (kRecord) {
+      const int slot = w_tri >= 0 ? tri_base + w_tri : w_sph;
+      rec[(size_t)b * n_rays + ray] =
+          slot | decision_bits(mat, front, r.a, r.dx, r.dy, r.dz, nx, ny,
+                               nz, u1, u2, u_coin, rec_mask);
+    }
 
     if (!scatters) {  // absorbed or emitted: the path ends
       rad_r = rad_r + thr_r * at_r;
       rad_g = rad_g + thr_g * at_g;
       rad_b = rad_b + thr_b * at_b;
+      if (kRecord) ended = b + 1;
       break;
     }
     thr_r = thr_r * at_r;
@@ -263,6 +318,8 @@ bvh_radiance_kernel(const float* __restrict__ head,
     r.dy = ndy;
     r.dz = ndz;
   }
+  if (kRecord)
+    for (int b = ended; b < max_depth; ++b) rec[(size_t)b * n_rays + ray] = -1;
   float* o = out + 3 * (size_t)ray;
   o[0] = rad_r;
   o[1] = rad_g;
@@ -271,8 +328,10 @@ bvh_radiance_kernel(const float* __restrict__ head,
 
 }  // namespace
 
-// Plain C entry, bound with ctypes (ops/bvh_kernel.py).  Launches on
-// `stream` and returns cudaGetLastError() of the launch.
+// Plain C entry, bound with ctypes (ops/bvh_kernel.py).  With `rec` not
+// null it launches the record variant, which writes the codes there, the
+// decision bits `rec_mask` names and triangle slots offset by `tri_base`.
+// Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int rtrt_bvh_radiance(
     const float* head, const float* mats, const int* kinds, int n_mats,
     const float* s_nodes_f, const int* s_nodes_i, const int* s_len,
@@ -280,16 +339,23 @@ extern "C" int rtrt_bvh_radiance(
     const float* t_nodes_f, const int* t_nodes_i, const int* t_len,
     const float* t_geo, const int* t_mat, int t_nodes, int leaf, uint32_t k0,
     uint32_t k1, int n_rays, int spp, int width, int max_depth, int bg_kind,
-    int clay, float* out, void* stream) {
+    int clay, float* out, int* rec, int rec_mask, int tri_base,
+    void* stream) {
   if (n_mats < 1 || s_nodes < 0 || t_nodes < 0 || s_nodes + t_nodes < 1 ||
       leaf < 1 || n_rays < 0 || spp < 1 || width < 1)
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const Tree sph{s_nodes_f, s_nodes_i, s_len, s_geo, s_mat, s_nodes};
   const Tree tri{t_nodes_f, t_nodes_i, t_len, t_geo, t_mat, t_nodes};
-  bvh_radiance_kernel<<<blocks_for(n_rays), kThreads, 0,
-                        (cudaStream_t)stream>>>(
-      head, mats, kinds, sph, tri, leaf, k0, k1, n_rays, spp, width,
-      max_depth, bg_kind, clay, out);
+  if (rec)
+    bvh_radiance_kernel<true><<<blocks_for(n_rays), kThreads, 0,
+                                (cudaStream_t)stream>>>(
+        head, mats, kinds, sph, tri, leaf, k0, k1, n_rays, spp, width,
+        max_depth, bg_kind, clay, out, rec, rec_mask, tri_base);
+  else
+    bvh_radiance_kernel<false><<<blocks_for(n_rays), kThreads, 0,
+                                 (cudaStream_t)stream>>>(
+        head, mats, kinds, sph, tri, leaf, k0, k1, n_rays, spp, width,
+        max_depth, bg_kind, clay, out, nullptr, 0, 0);
   return (int)cudaGetLastError();
 }

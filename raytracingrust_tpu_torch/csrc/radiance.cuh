@@ -8,7 +8,8 @@
 //   mse_loss.cu       mse_kernel        MSE of the clamped pixel means, and
 //                                       its gradient, in one launch
 //   bvh_forward.cu    bvh_kernel        forward over the chunk-leaf BVH,
-//                                       per-ray RGB
+//                                       per-ray RGB (and each bounce's
+//                                       winner code in record mode)
 //
 // The forward chain is raytracingrust_tpu/ops/pallas_megakernel.py's
 // _radiance_math for the envelope of ops/megakernel.py.  The adjoint is the
@@ -167,6 +168,59 @@ __device__ __forceinline__ void background(const float* f, int bg_kind,
   }
 }
 
+// The unit-sphere-surface sample of the bounce's (u1, u2).
+__device__ __forceinline__ void sphere_sample(float u1, float u2, float& sx,
+                                              float& sy, float& sz) {
+  const float zs = 1.0f - 2.0f * u1;
+  const float rs = sqrtf(fmaxf(0.0f, 1.0f - zs * zs));
+  const float phi = kTwoPi * u2;
+  sx = rs * cosf(phi);
+  sy = rs * sinf(phi);
+  sz = zs;
+}
+
+// The metal lobe: d reflected about the front-facing normal n, normalized,
+// plus fuzz times the sphere sample s -> nd; true when nd leaves above the
+// surface (the path goes on).
+__device__ __forceinline__ bool metal_lobe(float fuzz, float dx, float dy,
+                                           float dz, float nx, float ny,
+                                           float nz, float sx, float sy,
+                                           float sz, float& ndx, float& ndy,
+                                           float& ndz) {
+  const float dn = dot3(dx, dy, dz, nx, ny, nz);
+  const float rfx = dx - 2.0f * dn * nx;
+  const float rfy = dy - 2.0f * dn * ny;
+  const float rfz = dz - 2.0f * dn * nz;
+  const float inv_len =
+      1.0f / sqrtf(fmaxf(dot3(rfx, rfy, rfz, rfx, rfy, rfz), 1e-30f));
+  ndx = rfx * inv_len + fuzz * sx;
+  ndy = rfy * inv_len + fuzz * sy;
+  ndz = rfz * inv_len + fuzz * sz;
+  return dot3(ndx, ndy, ndz, nx, ny, nz) > 0.0f;
+}
+
+// The dielectric's choice: true when it reflects (total internal reflection,
+// or Schlick's reflectance above the coin).  Also gives the refraction
+// ratio, the unit direction ud and cos_t, which its directions use.
+__device__ __forceinline__ bool dielectric_reflects(
+    float ir, bool front, float a, float dx, float dy, float dz, float nx,
+    float ny, float nz, float u_coin, float& ratio, float& udx, float& udy,
+    float& udz, float& cos_t) {
+  ratio = front ? 1.0f / ir : ir;
+  const float inv_len = 1.0f / sqrtf(fmaxf(a, 1e-30f));
+  udx = dx * inv_len;
+  udy = dy * inv_len;
+  udz = dz * inv_len;
+  cos_t = fminf(-dot3(nx, ny, nz, udx, udy, udz), 1.0f);
+  const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
+  float r0 = (1.0f - ratio) / (1.0f + ratio);
+  r0 = r0 * r0;
+  const float omc = 1.0f - cos_t;
+  const float omc2 = omc * omc;
+  const float schl = r0 + (1.0f - r0) * omc2 * omc2 * omc;
+  return ratio * sin_t > 1.0f || schl > u_coin;
+}
+
 // The lobe of a hit, shared by every intersect stage: the winner's material
 // `mat` (albedo rgb, fuzz, ir, emission rgb) and `kind`, the ray d with
 // a = d.d, the front-facing normal n and the bounce's uniforms -> the
@@ -180,13 +234,8 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
                                         float& at_g, float& at_b, float& ndx,
                                         float& ndy, float& ndz,
                                         bool& scatters, int& code) {
-  // unit-sphere-surface sample
-  const float zs = 1.0f - 2.0f * u1;
-  const float rs = sqrtf(fmaxf(0.0f, 1.0f - zs * zs));
-  const float phi = kTwoPi * u2;
-  const float sx = rs * cosf(phi);
-  const float sy = rs * sinf(phi);
-  const float sz = zs;
+  float sx, sy, sz;
+  sphere_sample(u1, u2, sx, sy, sz);
   float ldx = nx + sx, ldy = ny + sy, ldz = nz + sz;
   if (fabsf(ldx) < 1e-8f && fabsf(ldy) < 1e-8f && fabsf(ldz) < 1e-8f) {
     ldx = nx;
@@ -212,17 +261,8 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
     ndy = ldy;
     ndz = ldz;
   } else if (kind == kMetal) {
-    const float fuzz = mat[3];
-    const float dn = dot3(dx, dy, dz, nx, ny, nz);
-    const float rfx = dx - 2.0f * dn * nx;
-    const float rfy = dy - 2.0f * dn * ny;
-    const float rfz = dz - 2.0f * dn * nz;
-    const float inv_len =
-        1.0f / sqrtf(fmaxf(dot3(rfx, rfy, rfz, rfx, rfy, rfz), 1e-30f));
-    ndx = rfx * inv_len + fuzz * sx;
-    ndy = rfy * inv_len + fuzz * sy;
-    ndz = rfz * inv_len + fuzz * sz;
-    scatters = dot3(ndx, ndy, ndz, nx, ny, nz) > 0.0f;
+    scatters = metal_lobe(mat[3], dx, dy, dz, nx, ny, nz, sx, sy, sz, ndx,
+                          ndy, ndz);
     if (scatters) {
       at_r = mat[0];
       at_g = mat[1];
@@ -230,18 +270,9 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
       code |= kMetalOk;
     }
   } else if (kind == kDielectric) {
-    const float ir = mat[4];
-    const float ratio = front ? 1.0f / ir : ir;
-    const float inv_len = 1.0f / sqrtf(fmaxf(a, 1e-30f));
-    const float udx = dx * inv_len, udy = dy * inv_len, udz = dz * inv_len;
-    const float cos_t = fminf(-dot3(nx, ny, nz, udx, udy, udz), 1.0f);
-    const float sin_t = sqrtf(fmaxf(0.0f, 1.0f - cos_t * cos_t));
-    float r0 = (1.0f - ratio) / (1.0f + ratio);
-    r0 = r0 * r0;
-    const float omc = 1.0f - cos_t;
-    const float omc2 = omc * omc;
-    const float schl = r0 + (1.0f - r0) * omc2 * omc2 * omc;
-    if (ratio * sin_t > 1.0f || schl > u_coin) {  // reflect
+    float ratio, udx, udy, udz, cos_t;
+    if (dielectric_reflects(mat[4], front, a, dx, dy, dz, nx, ny, nz, u_coin,
+                            ratio, udx, udy, udz, cos_t)) {  // reflect
       const float udn = dot3(udx, udy, udz, nx, ny, nz);
       ndx = udx - 2.0f * udn * nx;
       ndy = udy - 2.0f * udn * ny;
@@ -503,10 +534,8 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
       atr = sp[4];
       atg = sp[5];
       atb = sp[6];
-      const float zs = 1.0f - 2.0f * u1;
-      const float rs = sqrtf(fmaxf(0.0f, 1.0f - zs * zs));
-      const float phi = kTwoPi * u2;
-      const float sx = rs * cosf(phi), sy = rs * sinf(phi), sz = zs;
+      float sx, sy, sz;
+      sphere_sample(u1, u2, sx, sy, sz);
       const float dn = dot3(dx, dy, dz, nx, ny, nz);
       const float rfx = dx - 2.0f * dn * nx;
       const float rfy = dy - 2.0f * dn * ny;

@@ -3,7 +3,8 @@
 
 The render is differentiable in the scene's tensor leaves on both devices
 (autograd through the plain version on the CPU; on the card the forward
-megakernel with the gradient kernel as its backward).  Gradients are the
+megakernel with the gradient kernel as its backward; on the BVH path the
+record walk with the replay over its recorded hits as its backward).  Gradients are the
 reparameterized path gradients of the fixed-seed renderer with every
 discrete event (winner, root, face, lobe choice) held fixed: they match
 finite differences away from visibility and branch discontinuities;
@@ -18,10 +19,9 @@ from typing import Iterable
 import torch
 
 from ..models.scene import MODE_CLAY, Scene
-from ..ops.bvh_kernel import NO_GRAD
 from ..ops.megakernel import pack_fparams, sphere_kinds
 from ..ops.mse_loss import mse_loss, supports_fused_mse
-from ..render.render import render_linear, resolve_device, select_engine
+from ..render.render import render_linear, resolve_device
 from ..utils import rng
 
 # Trainable leaf names -> (sub-object, field) paths
@@ -74,14 +74,12 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
     When the scene passes :func:`..ops.mse_loss.supports_fused_mse` and the
     target is (H, W, 3), the loss is the fused render -> MSE -> gradient
     path: on the card one kernel launch gives the loss and its gradient.
-    Otherwise it is ``render_linear`` plus the mean in PyTorch.  ``device``
-    as in ``render_linear`` (None means cuda).  A scene that takes the BVH
-    kernel, which is forward only, raises NotImplementedError."""
+    Otherwise, and for every scene that takes the BVH kernel, it is
+    ``render_linear`` plus the mean in PyTorch.  ``device`` as in
+    ``render_linear`` (None means cuda)."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded fits are not ported yet (ROADMAP A9)")
-    if select_engine(scene) == "bvh":
-        raise NotImplementedError(NO_GRAD)
     dev = resolve_device(device)
     scene = scene.to(dev)
     target = torch.as_tensor(target, dtype=torch.float32, device=dev)

@@ -29,6 +29,7 @@ SOURCES = {
     "radiance_grad": _CSRC / "radiance_grad.cu",  # its backward
     "mse_loss": _CSRC / "mse_loss.cu",            # fused loss + gradient
     "bvh_forward": _CSRC / "bvh_forward.cu",      # forward over the BVH
+    "fetch_rows": _CSRC / "fetch_rows.cu",        # winner rows, transpose
 }
 HEADER = _CSRC / "radiance.cuh"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
@@ -36,8 +37,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I32, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32,
-                        ctypes.c_float)
+_P, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int,
+                              ctypes.c_int64, ctypes.c_uint32,
+                              ctypes.c_float)
 # C entry -> (argument types, result type)
 _SIGNATURES = {
     "rtrt_radiance": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
@@ -49,8 +51,13 @@ _SIGNATURES = {
                        _I32, _I32, _F32, _P, _P, _I32, _P, _P], _I32),
     "rtrt_bvh_radiance": ([_P, _P, _P, _I32] + [_P] * 5 + [_I32]
                           + [_P] * 5 + [_I32, _I32, _U32, _U32, _I32, _I32,
-                                        _I32, _I32, _I32, _I32, _P, _P],
+                                        _I32, _I32, _I32, _I32, _P, _P,
+                                        _I32, _I32, _P],
                           _I32),
+    "rtrt_fetch_rows": ([_P, _I64] + [_P] * 4 + [_I32, _P, _P, _I32, _P,
+                                                  _P, _P], _I32),
+    "rtrt_fetch_rows_transpose": ([_P, _I64, _P, _P, _I32, _P, _I32, _I32,
+                                   _P, _P, _P, _P], _I32),
     "rtrt_error_string": ([_I32], ctypes.c_char_p),
 }
 

@@ -1,13 +1,26 @@
-"""BVH forward kernel (#5) for scenes beyond the brute kernel: its wrapper,
-its plain PyTorch version, the scene packing and the capability gate.
+"""BVH kernel (#5) for scenes beyond the brute kernel: its wrapper, its
+plain PyTorch version, the scene packing, the capability gate and the
+autograd Function of its record-and-replay gradient.
 
-Replaces the forward of raytracingrust_tpu/ops/pallas_megakernel.py's
-packet-traversal kernel (``_make_bvh_kernel`` with ``record=False``, over
-``_radiance_math``'s BVH branch, ``_traverse_tree``, ``_sphere_chunk_hit``,
-``_tri_chunk_hit``/``_row_mt`` and ``_merge_leaf_rows``).  Per ray and
-bounce: a stackless walk of the solid-sphere chunk tree, then of the
-triangle chunk tree starting from the sphere pass's nearest hit, then the
-bounce tail the brute kernel shares (ops/megakernel.bounce_tail).
+Replaces raytracingrust_tpu/ops/pallas_megakernel.py's packet-traversal
+kernel (``_make_bvh_kernel``, over ``_radiance_math``'s BVH branch,
+``_traverse_tree``, ``_sphere_chunk_hit``, ``_tri_chunk_hit``/``_row_mt``
+and ``_merge_leaf_rows``) and its ``_bvh_cvjp``.  Per ray and bounce: a
+stackless walk of the solid-sphere chunk tree, then of the triangle chunk
+tree starting from the sphere pass's nearest hit, then the bounce tail the
+brute kernel shares (ops/megakernel.bounce_tail).
+
+Record mode (``record=True``) also returns each bounce's winner code,
+(max_depth, R) int32 in the JAX record layout: the winner's slot in bits
+0-26 (sphere slots first, triangle slots after the sphere tree's
+``n_chunks * leaf``), the front face at bit 27, the metal lobe's
+above-the-surface test at bit 28 and the dielectric's reflect choice at bit
+29 (those two for every hit, whatever its kind, when the scene holds a
+metal or a dielectric, and never in Clay mode); -1 on a miss and for every
+bounce after the path ended.  Under autograd :class:`BvhRadiance` runs the
+record walk forward and, backward, the differentiable replay over those
+codes (diff/replay.py) on winner rows fetched by ops/fetch.FetchRows: the
+detached-hit gradient of the JAX package.
 
 The walk is per ray, not per packet: a ray tests a leaf only when its own
 slab test hits the leaf's box.  The TPU kernel moves one cursor for 2,048
@@ -16,16 +29,18 @@ except where a ray's box test and its primitive test disagree at rounding.
 
 The envelope (:func:`unsupported_bvh`): solid spheres and surface
 triangles with Lambertian, Metal, Dielectric or Emission materials; a
-uniform or gradient background; Full or Clay mode; any depth; forward only.
+uniform or gradient background; Full or Clay mode; any depth.
 
 Layout (:func:`pack`): the 20-float head of ``megakernel.pack_fparams``;
 the material table as (M, 8) float32 [albedo rgb, fuzz, ir, emission rgb]
 with (M,) int32 kinds; per tree the nodes as (K, 6) float32 and (K, 3)
 int32, each chunk's primitive count, and the primitives in permuted slot
 order with their material ids: spheres as (S, 4) [center, radius],
-triangles as (S, 12) [v0, e1, e2, flat normal].  On a CPU tensor the
-wrapper runs the plain version; on a CUDA tensor it launches the kernel or
-raises.  ``LAUNCHES`` counts kernel launches.
+triangles as (S, 12) [v0, e1, e2, flat normal].  Under autograd the
+packing keeps the graph from the scene's leaves to the head, the material
+table and each tree's rows.  On a CPU tensor the wrapper runs the plain
+version; on a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
+counts launches of the kernel, ``RECORD_LAUNCHES`` of its record variant.
 """
 
 from __future__ import annotations
@@ -49,9 +64,14 @@ TRI_DET_EPS = 1e-8
 # rays per step of the plain version: a leaf test holds (rays, leaf) floats
 TILE_RAYS = 1 << 18
 
+# the record code: winner slot, then the bounce's decisions
+REC_SLOT = (1 << 27) - 1
+REC_FRONT = 1 << 27
+REC_METAL_OK = 1 << 28
+REC_REFLECT = 1 << 29
+
 LAUNCHES = 0
-NO_GRAD = ("gradients through the BVH kernel (its record mode and the "
-           "replay gradient) are not ported yet (ROADMAP B5)")
+RECORD_LAUNCHES = 0
 
 
 # ------------------------------------------------------------- the envelope
@@ -100,10 +120,27 @@ class BvhScene(NamedTuple):
     kinds: torch.Tensor    # (M,) int32
     spheres: Optional[Tree]
     triangles: Optional[Tree]
+    # the decision bits a record holds: REC_METAL_OK and REC_REFLECT when
+    # a primitive has a metal or a dielectric material
+    rec_mask: int = 0
 
     @property
     def device(self) -> torch.device:
         return self.head.device
+
+    @property
+    def tri_base(self) -> int:
+        """The code of triangle slot 0: the sphere tree's slot count."""
+        return self.spheres.geo.shape[0] if self.spheres else 0
+
+    def with_rows(self, head, mats, sph_geo, tri_geo) -> "BvhScene":
+        """The same scene over other head, table and primitive rows."""
+        return self._replace(
+            head=head, mats=mats,
+            spheres=None if self.spheres is None
+            else self.spheres._replace(geo=sph_geo),
+            triangles=None if self.triangles is None
+            else self.triangles._replace(geo=tri_geo))
 
 
 def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
@@ -124,21 +161,26 @@ def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
 
 def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
     """The scene's constants for the kernel and its plain version, on
-    ``device``.  Gathering each winner's shading constants from the
-    material table gives the floats the TPU kernel's chunk matrices
-    carry."""
+    ``device``, differentiable in the scene's leaves (the graph of
+    ``jax.vjp`` of the JAX packing).  Gathering each winner's shading
+    constants from the material table gives the floats the TPU kernel's
+    chunk matrices carry."""
     mats = scene.materials
     table = torch.cat([mats.albedo, mats.fuzz[:, None], mats.ir[:, None],
                        mats.emission], dim=1).to(torch.float32)
     sph, tri, cb = scene.spheres, scene.triangles, scene.cbvh
+    used = mats.kind[torch.cat([sph.material, tri.material]).long()]
+    rec_mask = ((REC_METAL_OK if bool((used == M.METAL).any()) else 0)
+                | (REC_REFLECT if bool((used == M.DIELECTRIC).any()) else 0))
     return BvhScene(
-        K.pack_head(scene, width, height).detach().contiguous().to(device),
-        table.detach().contiguous().to(device),
+        K.pack_head(scene, width, height).contiguous().to(device),
+        table.contiguous().to(device),
         mats.kind.to(torch.int32).contiguous().to(device),
-        _tree(cb.spheres, torch.cat([sph.center, sph.radius[:, None]], 1)
-              .detach(), sph.material, device),
+        _tree(cb.spheres, torch.cat([sph.center, sph.radius[:, None]], 1),
+              sph.material, device),
         _tree(cb.triangles, torch.cat([tri.v0, tri.e1, tri.e2, tri.normal],
-                                      1).detach(), tri.material, device))
+                                      1), tri.material, device),
+        rec_mask)
 
 
 # ------------------------------------------------------------- plain version
@@ -247,14 +289,17 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
 
 
 def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
-              tally):
-    """One tile of :func:`radiance_bvh_plain`."""
+              tally, rec):
+    """One tile of :func:`radiance_bvh_plain`; ``rec``, when not None, is
+    the tile's (max_depth, R) int32 record, filled with -1, to write the
+    codes into."""
     o, d = K.camera_ray(sc.head, key, ray_ids, px, py)
     one = torch.ones_like(d[0])
     thr = [one, one, one]
     rad = [torch.zeros_like(one)] * 3
     alive = torch.ones_like(one, dtype=torch.bool)
     sph, tri = sc.spheres, sc.triangles
+    rec_mask = 0 if clay else sc.rec_mask
     for b in range(max_depth):
         if not bool(alive.any()):
             break  # dead rays never change: stopping early is exact
@@ -295,28 +340,44 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
             tally["misses"] += int((alive & ~hit).sum())
             for k in range(4):
                 tally[f"hits_{k}"] += int((alive & hit & (kind == k)).sum())
+        decided = None if rec is None else {}
+        entering = alive
         o, d, thr, rad, alive = K.bounce_tail(
             sc.head, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
-            sc.mats[mid].unbind(-1), kind, u)
+            sc.mats[mid].unbind(-1), kind, u, decisions=decided)
+        if rec is not None:
+            code = torch.where(is_tri, w_tri + sc.tri_base, w_sph)
+            code = code | torch.where(decided["front"], REC_FRONT, 0)
+            for bit, name in ((REC_METAL_OK, "metal_ok"),
+                              (REC_REFLECT, "reflect")):
+                if rec_mask & bit:
+                    code = code | torch.where(decided[name], bit, 0)
+            rec[b] = torch.where(entering & hit, code, -1)
     return torch.stack(rad, dim=-1)
 
 
 def radiance_bvh_plain(sc: BvhScene, key: tuple[int, int],
                        ray_ids: torch.Tensor, px: torch.Tensor,
                        py: torch.Tensor, *, max_depth: int, bg_kind: int,
-                       clay: bool, tally=None) -> torch.Tensor:
+                       clay: bool, tally=None, record: bool = False):
     """Per-ray radiance (R, 3) float32 of the rays ``prep_rays`` gives, in
     tensor ops on ``sc``'s device: what the CUDA kernel computes, operation
     for operation (per-ray walks, true division in the sphere root and
-    normal, ``1 / sqrt`` where the JAX kernel has rsqrt).  Forward only.
+    normal, ``1 / sqrt`` where the JAX kernel has rsqrt).  With ``record``,
+    -> (radiance, codes (max_depth, R) int32), the radiance unchanged.
     ``tally``, for measurement only, is a ``collections.Counter`` that
     receives the work the rays did: node visits, sphere and triangle tests,
     rays entering a bounce, misses, hits by kind."""
-    return torch.cat([
+    n = ray_ids.shape[0]
+    codes = (torch.full((max_depth, n), -1, dtype=torch.int32,
+                        device=px.device) if record else None)
+    rad = torch.cat([
         _bvh_tile(sc, key, ray_ids[i:i + TILE_RAYS], px[i:i + TILE_RAYS],
-                  py[i:i + TILE_RAYS], max_depth, bg_kind, clay, tally)
-        for i in range(0, ray_ids.shape[0], TILE_RAYS)
-    ]) if ray_ids.shape[0] else torch.zeros((0, 3), device=px.device)
+                  py[i:i + TILE_RAYS], max_depth, bg_kind, clay, tally,
+                  None if codes is None else codes[:, i:i + TILE_RAYS])
+        for i in range(0, n, TILE_RAYS)
+    ]) if n else torch.zeros((0, 3), device=px.device)
+    return (rad, codes) if record else rad
 
 
 # ------------------------------------------------------------- the kernel
@@ -342,11 +403,12 @@ def _tree_args(t: Optional[Tree], cols: int):
 
 def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
                       spp: int, width: int, *, max_depth: int, bg_kind: int,
-                      clay: bool) -> torch.Tensor:
+                      clay: bool, record: bool = False):
     """Per-ray radiance (n_rays, 3) from the CUDA kernel for rays
     0 .. n_rays - 1, where ray id = pixel * spp + sample and pixels run
-    row-major over ``width``."""
-    global LAUNCHES
+    row-major over ``width``.  With ``record``, the record variant:
+    -> (radiance, codes (max_depth, n_rays) int32)."""
+    global LAUNCHES, RECORD_LAUNCHES
     from . import _build
 
     dev = sc.device
@@ -367,8 +429,10 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
         raise ValueError("the two trees have different leaf sizes")
     args = _tree_args(sc.spheres, 4) + _tree_args(sc.triangles, 12)
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=dev)
+    codes = (torch.empty((max_depth, n_rays), dtype=torch.int32, device=dev)
+             if record else None)
     if n_rays == 0:
-        return out
+        return (out, codes) if record else out
     lib = _build.load("bvh_forward")
     with torch.cuda.device(dev):
         err = lib.rtrt_bvh_radiance(
@@ -378,12 +442,124 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
             key[1],
             n_rays, spp, width, max_depth, int(bg_kind), int(bool(clay)),
             ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(codes.data_ptr() if record else 0),
+            0 if clay else sc.rec_mask, sc.tri_base,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_bvh_radiance launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")
+    if record:
+        RECORD_LAUNCHES += 1
+        return out, codes
     LAUNCHES += 1
     return out
+
+
+# ------------------------------------------------------------- autograd
+
+def _rows(sc: BvhScene) -> tuple:
+    """The differentiable tensors: head, material table, the two trees'
+    primitive rows (None for an absent tree)."""
+    return (sc.head, sc.mats,
+            *(None if t is None else t.geo for t in (sc.spheres,
+                                                     sc.triangles)))
+
+
+def requires_grad(sc: BvhScene) -> bool:
+    """Whether autograd is on and a packed tensor needs a gradient."""
+    return torch.is_grad_enabled() and any(
+        v is not None and v.requires_grad for v in _rows(sc))
+
+
+def _record(sc: BvhScene, key, n_pixels: int, spp: int, width: int, **opts):
+    """(radiance, codes) of pixels 0 .. n_pixels - 1: the record variant on
+    a CUDA device, the plain record walk on the CPU."""
+    if K.select_engine(sc.device) == "cuda":
+        return radiance_bvh_cuda(sc, key, n_pixels * spp, spp, width,
+                                 record=True, **opts)
+    ray_ids, px, py = K.prep_rays(torch.arange(n_pixels), spp, width)
+    return radiance_bvh_plain(sc, key, ray_ids, px, py, record=True, **opts)
+
+
+def replay(sc: BvhScene, codes: torch.Tensor, key, n_pixels: int, spp: int,
+           width: int, *, max_depth: int, bg_kind: int, clay: bool,
+           plain: bool = False) -> torch.Tensor:
+    """Per-ray radiance (n_pixels * spp, 3) replayed over recorded codes,
+    differentiable in ``sc``'s head, material table and primitive rows: the
+    winners' rows through ops/fetch.FetchRows (#6 forward, #7 backward on
+    the card), then diff/replay.py's shading chain.  ``plain`` fetches by
+    the fetch's plain version under autograd instead, on any device: the
+    route the kernels are held to."""
+    from ..diff.replay import replay_rows_radiance
+    from .fetch import FetchRows, fetch_rows_plain
+
+    sph, tri = sc.spheres, sc.triangles
+    rows, kind = (fetch_rows_plain if plain else FetchRows.apply)(
+        codes, sc.kinds, sc.tri_base,
+        None if sph is None else sph.mat, None if tri is None else tri.mat,
+        *_rows(sc)[1:])
+    ray_ids, px, py = K.prep_rays(
+        torch.arange(n_pixels, device=codes.device), spp, width)
+    return replay_rows_radiance(
+        sc.head, rows, kind, codes, key, ray_ids, px, py,
+        tri_base=sc.tri_base, has_spheres=sph is not None,
+        has_triangles=tri is not None, max_depth=max_depth, bg_kind=bg_kind,
+        clay=clay)
+
+
+def _replay_grad(sc: BvhScene, codes, cts, *args, **kwargs) -> tuple:
+    """The gradient of sum(cts * :func:`replay`) in ``sc``'s differentiable
+    tensors, None for an absent tree.  The two ranges name the replay's
+    halves in a torch.profiler trace."""
+    rows = [None if v is None else v.detach().requires_grad_(True)
+            for v in _rows(sc)]
+    live = [v for v in rows if v is not None]
+    with torch.enable_grad():
+        with torch.profiler.record_function("bvh_replay_forward"):
+            rad = replay(sc.with_rows(*rows), codes, *args, **kwargs)
+        with torch.profiler.record_function("bvh_replay_backward"):
+            got = iter(torch.autograd.grad(rad, live, cts,
+                                           allow_unused=True))
+    return tuple(None if v is None else next(got) for v in rows)
+
+
+def radiance_grad_plain(sc: BvhScene, key, cts: torch.Tensor, n_pixels: int,
+                        spp: int, width: int, **opts) -> tuple:
+    """The gradient of sum(cts * radiance) by the plain route on ``sc``'s
+    device: the plain record walk, then autograd through the plain fetch
+    and the replay.  -> (d head, d material table, d sphere rows, d triangle
+    rows), None for an absent tree."""
+    ray_ids, px, py = K.prep_rays(
+        torch.arange(n_pixels, device=cts.device), spp, width)
+    with torch.no_grad():
+        _, codes = radiance_bvh_plain(sc, key, ray_ids, px, py, record=True,
+                                      **opts)
+    return _replay_grad(sc, codes, cts, key, n_pixels, spp, width,
+                        plain=True, **opts)
+
+
+class BvhRadiance(torch.autograd.Function):
+    """Per-ray radiance over the BVH, differentiable in the packed head,
+    material table and primitive rows (the port of ``_bvh_cvjp``): forward,
+    the record walk (#5's record variant on the card); backward, autograd
+    through :func:`replay` over its codes, whose gradient holds every
+    winner, root, face and lobe choice fixed."""
+
+    @staticmethod
+    def forward(ctx, sc, key, n_pixels, spp, width, opts, head, mats,
+                sph_geo, tri_geo):
+        sc = sc.with_rows(head, mats, sph_geo, tri_geo)
+        rad, codes = _record(sc, key, n_pixels, spp, width, **opts)
+        ctx.save_for_backward(codes, head, mats, sph_geo, tri_geo)
+        ctx.args = (sc, key, n_pixels, spp, width, opts)
+        return rad
+
+    @staticmethod
+    def backward(ctx, grad):
+        codes, *rows = ctx.saved_tensors
+        sc, key, n_pixels, spp, width, opts = ctx.args
+        return (None,) * 6 + _replay_grad(sc.with_rows(*rows), codes, grad,
+                                          key, n_pixels, spp, width, **opts)
 
 
 # ------------------------------------------------------------- per pixel
@@ -392,9 +568,13 @@ def radiance(sc: BvhScene, key: tuple[int, int], n_pixels: int, spp: int,
              width: int, *, max_depth: int, bg_kind: int,
              clay: bool) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3) of pixels 0 .. n_pixels - 1:
-    the kernel for a scene on a CUDA device, the plain version on the
-    CPU."""
+    the kernel for a scene on a CUDA device, the plain version on the CPU.
+    When a packed tensor requires grad, :class:`BvhRadiance` (the record
+    walk, then the replay as its backward) on either device."""
     opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay)
+    if requires_grad(sc):
+        return BvhRadiance.apply(sc, key, n_pixels, spp, width, opts,
+                                 *_rows(sc))
     if K.select_engine(sc.device) == "cuda":
         return radiance_bvh_cuda(sc, key, n_pixels * spp, spp, width, **opts)
     ray_ids, px, py = K.prep_rays(torch.arange(n_pixels), spp, width)

@@ -174,7 +174,7 @@ def camera_ray(fp, key, ray_ids, px, py):
 
 
 def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
-                mat, kind, u):
+                mat, kind, u, forced=None, decisions=None):
     """The rest of a bounce once each ray's winner is known, shared by the
     brute and the BVH intersect stages (``_shade`` of ``_radiance_math``):
     the background on a miss, the front face, the lobe of the winner's kind
@@ -187,6 +187,14 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     ``mat`` its (albedo rgb, fuzz, ir, emission rgb) and ``kind`` its
     material kind; ``u`` the bounce's [u1, u2, coin].  Rays that miss may
     hold any winner.  -> (o, d, thr, rad, alive) entering the next bounce.
+
+    The bounce's discrete decisions are the front face and, outside Clay
+    mode, whether the metal lobe leaves above the surface and whether the
+    dielectric reflects, each evaluated for every ray whatever its winner's
+    kind.  ``forced``, a dict of bool tensors under the names "front",
+    "metal_ok" and "reflect", replaces those comparisons (the replay over
+    recorded hits, diff/replay.py); ``decisions``, a dict, receives their
+    results under the same names (the BVH path's record walk).
     """
     dx, dy, dz = d
     nx, ny, nz = n
@@ -208,7 +216,8 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
             missed, thr[c] * ((1.0 - tt) * bg_a[c] + tt * bg_b[c]), 0.0)
             for c in range(3)]
 
-    front = _dot3(dx, dy, dz, nx, ny, nz) < 0.0
+    front = (_dot3(dx, dy, dz, nx, ny, nz) < 0.0 if forced is None
+             else forced["front"])
     sgn = torch.where(front, 1.0, -1.0)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
 
@@ -248,7 +257,8 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
             _dot3(rfx, rfy, rfz, rfx, rfy, rfz), min=1e-30))
         md = [rfx * inv_len + fuzz * sx, rfy * inv_len + fuzz * sy,
               rfz * inv_len + fuzz * sz]
-        m_ok = _dot3(*md, nx, ny, nz) > 0.0
+        m_ok = (_dot3(*md, nx, ny, nz) > 0.0 if forced is None
+                else forced["metal_ok"])
         at = [torch.where(is_met, torch.where(m_ok, al[c], 0.0), at[c])
               for c in range(3)]
         nd = [torch.where(is_met, md[c], nd[c]) for c in range(3)]
@@ -258,13 +268,16 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
         inv_len = 1.0 / torch.sqrt(torch.clamp(a, min=1e-30))
         udx, udy, udz = dx * inv_len, dy * inv_len, dz * inv_len
         cos_t = torch.clamp(-_dot3(nx, ny, nz, udx, udy, udz), max=1.0)
-        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
-        r0 = (1.0 - ratio) / (1.0 + ratio)
-        r0 = r0 * r0
-        omc = 1.0 - cos_t
-        omc2 = omc * omc
-        schl = r0 + (1.0 - r0) * omc2 * omc2 * omc
-        refl = (ratio * sin_t > 1.0) | (schl > u_coin)
+        if forced is None:
+            sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+            r0 = (1.0 - ratio) / (1.0 + ratio)
+            r0 = r0 * r0
+            omc = 1.0 - cos_t
+            omc2 = omc * omc
+            schl = r0 + (1.0 - r0) * omc2 * omc2 * omc
+            refl = (ratio * sin_t > 1.0) | (schl > u_coin)
+        else:
+            refl = forced["reflect"]
         udn = _dot3(udx, udy, udz, nx, ny, nz)
         rr = [udx - 2.0 * udn * nx, udy - 2.0 * udn * ny,
               udz - 2.0 * udn * nz]
@@ -279,6 +292,10 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
 
         at = [torch.where(is_emi, em[c], at[c]) for c in range(3)]
         scatters = scatters & ~is_emi
+        if decisions is not None:
+            decisions.update(metal_ok=m_ok, reflect=refl)
+    if decisions is not None:
+        decisions["front"] = front
 
     terminal = alive & hit & ~scatters
     rad = [rad[c] + torch.where(terminal, thr[c] * at[c], 0.0)

@@ -49,29 +49,17 @@ def select_engine(scene: Scene) -> str:
     raise NotImplementedError(brute if small else bvh)
 
 
-def requires_grad(scene: Scene) -> bool:
-    """Whether autograd is on and a tensor leaf of the scene needs a
-    gradient."""
-    parts = (scene.camera, scene.background, scene.spheres, scene.materials,
-             scene.triangles)
-    return torch.is_grad_enabled() and any(
-        v.requires_grad for p in parts for v in vars(p).values()
-        if isinstance(v, torch.Tensor))
-
-
 def pixel_radiance(scene: Scene, width: int, height: int,
                    key: tuple[int, int], device: torch.device) -> torch.Tensor:
     """(width * height, 3) mean radiance per pixel: each sample clamped to
     [0, clamp_indirect], then averaged over the pixel's samples.
-    Differentiable in the scene's leaves on the brute path; the BVH path is
-    forward only and refuses a scene with a leaf that requires grad."""
+    Differentiable in the scene's leaves on both paths: the brute path's
+    gradient kernel, or the BVH path's record walk and replay."""
     s = scene.settings
     spp = s.samples_per_pixel
     opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
                 clay=s.mode == MODE_CLAY)
     if select_engine(scene) == "bvh":
-        if requires_grad(scene):
-            raise NotImplementedError(BK.NO_GRAD)
         rad = BK.radiance(BK.pack(scene, width, height, device), key,
                           width * height, spp, width, **opts)
     else:
@@ -86,7 +74,7 @@ def pixel_radiance(scene: Scene, width: int, height: int,
 def render_linear(scene: Scene, width: int, height: int, *, seed: int = 0,
                   key=None, device=None) -> torch.Tensor:
     """(H, W, 3) float32 mean radiance (clamped, before gamma) on ``device``,
-    differentiable in the scene's leaves on the brute path.  ``key``, two
+    differentiable in the scene's leaves.  ``key``, two
     cipher words as :func:`..utils.rng.base_key` gives them, overrides
     ``seed``.  A scene outside the port's envelope raises
     NotImplementedError naming the ROADMAP item that ports it."""

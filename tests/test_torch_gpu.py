@@ -277,3 +277,129 @@ def test_bvh_render_on_card_counts_launches(cuda_device):
     assert img.shape == (24, 32, 3) and bool(torch.isfinite(img).all())
     cpu = T.render_linear(scene, 32, 24, seed=0, device="cpu")
     assert (img.cpu() - cpu).abs().mean().item() < 4e-2
+
+
+# ------------------- the BVH fit path: record mode of #5, #6 and #7
+
+
+def _record_inputs(scene, w, h, seed, device):
+    s = scene.settings
+    sc = TB.pack(scene, w, h, device)
+    opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
+                clay=s.mode == "Clay")
+    return sc, trng.base_key(seed), s.samples_per_pixel, opts
+
+
+def _fetch_args(sc, codes):
+    sph, tri = sc.spheres, sc.triangles
+    return (codes, sc.kinds, sc.tri_base, sph and sph.mat, tri and tri.mat,
+            sc.mats, sph and sph.geo, tri and tri.geo)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [
+    _stress, lambda: _stress("Clay"), _sheet, lambda: _sheet(mode="Clay")],
+    ids=["stress", "stress-clay", "sheet", "sheet-clay"])
+def test_bvh_record_kernel_matches_on_card(cuda_device, make):
+    """The record variant's radiance equals #5's bit for bit, and its codes
+    equal the plain record walk's on every ray and bounce."""
+    scene = make()
+    w, h = 48, 40
+    sc, key, spp, opts = _record_inputs(scene, w, h, 7, cuda_device)
+    n = w * h * spp
+    plain_rec = TB.RECORD_LAUNCHES
+    ker = TB.radiance_bvh_cuda(sc, key, n, spp, w, **opts)
+    rec, codes = TB.radiance_bvh_cuda(sc, key, n, spp, w, record=True, **opts)
+    assert TB.RECORD_LAUNCHES == plain_rec + 1
+    torch.cuda.synchronize()
+    assert torch.equal(rec.view(torch.int32), ker.view(torch.int32))
+    ids, px, py = TK.prep_rays(torch.arange(w * h, device=cuda_device), spp,
+                               w)
+    _, want = TB.radiance_bvh_plain(sc, key, ids, px, py, record=True, **opts)
+    assert torch.equal(codes, want)
+    assert bool((codes >= 0).any())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_stress, _sheet], ids=["stress", "sheet"])
+def test_fetch_pair_matches_plain_on_card(cuda_device, make):
+    """#6 equals its plain version bit for bit; #7 agrees with index_add_
+    within rtol 1e-5 of each entry plus 1e-6 of the largest (float32
+    atomics in another order)."""
+    from raytracingrust_tpu_torch.ops import fetch as TF
+
+    scene = make()
+    w, h = 48, 40
+    sc, key, spp, opts = _record_inputs(scene, w, h, 7, cuda_device)
+    _, codes = TB.radiance_bvh_cuda(sc, key, w * h * spp, spp, w,
+                                    record=True, **opts)
+    args = _fetch_args(sc, codes)
+    rows, kind = TF.fetch_rows_cuda(*args)
+    want_rows, want_kind = TF.fetch_rows_plain(*args)
+    assert torch.equal(rows.view(torch.int32), want_rows.view(torch.int32))
+    assert torch.equal(kind, want_kind)
+    g = torch.tensor(np.random.default_rng(0).standard_normal(
+        tuple(rows.shape)), dtype=torch.float32, device=cuda_device)
+    sph, tri = sc.spheres, sc.triangles
+    targs = (codes, g, sc.tri_base, sph and sph.mat, tri and tri.mat,
+             sc.kinds.shape[0], sph.geo.shape[0] if sph else 0,
+             tri.geo.shape[0] if tri else 0)
+    for got, want in zip(TF.fetch_rows_transpose_cuda(*targs),
+                         TF.fetch_rows_transpose_plain(*targs)):
+        if want is None:
+            assert got is None
+            continue
+        tol = 1e-5 * want.abs() + 1e-6 * want.abs().max()
+        assert bool(((got - want).abs() <= tol).all())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_stress, _sheet], ids=["stress", "sheet"])
+def test_bvh_gradients_match_plain_route_on_card(cuda_device, make):
+    """The packed tensors' gradient through the record kernel, #6 and #7
+    agrees with autograd through the plain route (plain record walk, plain
+    fetch) within rtol 2e-3 of each entry plus 2e-5 of the largest, at
+    64x48; the kernels launch once each."""
+    scene = make()
+    w, h = 64, 48
+    sc, key, spp, opts = _record_inputs(scene, w, h, 5, cuda_device)
+    n_pix = w * h
+    cts = torch.tensor(np.random.default_rng(1).standard_normal(
+        (n_pix * spp, 3)), dtype=torch.float32, device=cuda_device)
+    want = TB.radiance_grad_plain(sc, key, cts, n_pix, spp, w, **opts)
+    from raytracingrust_tpu_torch.ops import fetch as TF
+
+    counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TF.TRANSPOSE_LAUNCHES)
+    rows = [None if v is None else v.detach().requires_grad_(True)
+            for v in TB._rows(sc)]
+    sc_g = sc.with_rows(*rows)
+    rad = TB.radiance(sc_g, key, n_pix, spp, w, **opts)
+    live = [v for v in rows if v is not None]
+    got = torch.autograd.grad(rad, live, cts)
+    assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES,
+            TF.TRANSPOSE_LAUNCHES) == tuple(c + 1 for c in counts)
+    for a, b in zip(got, [v for v in want if v is not None]):
+        assert bool(torch.isfinite(a).all())
+        tol = 2e-3 * b.abs() + 2e-5 * b.abs().max()
+        assert bool(((a - b).abs() <= tol).all())
+    assert got[1].abs().sum() > 0  # the material table
+
+
+@pytest.mark.gpu
+def test_bvh_fit_on_card(cuda_device):
+    """make_loss and fit take a BVH scene on the card: the loss falls over
+    three Adam steps and every step launches the record kernel, #6 and
+    #7 once."""
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.ops import fetch as TF
+
+    scene = _sheet()
+    target = T.render_linear(TG.apply_params(scene, {
+        "albedo": scene.materials.albedo * 0.6}), 32, 24, seed=1,
+        device=cuda_device)
+    counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TF.TRANSPOSE_LAUNCHES)
+    _, _, history = fit(scene, target, ["albedo", "emission"], 32, 24,
+                        steps=3, device=cuda_device)
+    assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES,
+            TF.TRANSPOSE_LAUNCHES) == tuple(c + 3 for c in counts)
+    assert all(np.isfinite(history)) and history[-1] < history[0]

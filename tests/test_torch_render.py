@@ -121,6 +121,8 @@ def test_port_never_imports_jax():
             "raytracingrust_tpu_torch.diff.inverse, "
             "raytracingrust_tpu_torch.ops.bvh, "
             "raytracingrust_tpu_torch.ops.bvh_kernel, "
+            "raytracingrust_tpu_torch.ops.fetch, "
+            "raytracingrust_tpu_torch.diff.replay, "
             "raytracingrust_tpu_torch.io.obj, "
             "raytracingrust_tpu_torch.models.mesh, "
             "raytracingrust_tpu_torch.utils.aabb; "
