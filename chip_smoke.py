@@ -69,14 +69,35 @@ non-zero exit, and prints no result:
    CLI rendered, whose loss must fall, with one launch of each of the
    three kernels a step; and the warm fit step of both shapes with a
    ``torch.profiler`` breakdown into the record kernel, #6, the replay's
-   forward and backward, #7, Adam and host.
+   forward and backward, #7, Adam and host;
+9. the HDRI importance-sampling path (the record variant of #5, #6, the
+   occlusion kernel #8, the replay's MIS estimator; #7 under a fit) on a
+   procedural 1024x2048 sky written with the port's EXR writer, over
+   "sky_bvh_stress" (scenes/bvh_stress.json under the sky) at 1000x1000
+   spp 8 depth 4 and "sky_sheet64" (phase 7's sheet under the sky) at
+   512x512 spp 8 depth 6, both with importance sampling on: #8 equals its
+   plain version bit for bit on every shadow ray of every bounce of the
+   plain route's replay; the env radiance through the kernels equals the
+   plain route (plain walk, fetch and occlusion test) bit for bit; the
+   gradient in the packed tensors and the sky's texels through the
+   kernels within GRAD_RTOL/GRAD_ATOL of the plain route at 64x48, finite;
+   a directional FD probe of ``make_loss`` on albedo within 5%.  Then #8's
+   time over a render's launches, its plain version's and its bound from
+   the plain version's tally of the any-hit walk; the CLI ``render
+   --env-is`` of both scenes (launches counted; PNGs in build/smoke/) with
+   the warm render wall and a ``torch.profiler`` breakdown; the CLI ``fit
+   --env-is`` of sky_bvh_stress at 512x512 (albedo, emission; 6 steps),
+   whose loss must fall, with one launch of the record kernel, #6 and #7 a
+   step and one of #8 a bounce that has a Lambertian hit; and the warm fit
+   step at 1000x1000 with its breakdown and peak memory.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
 phase 4, the radiance gradient kernel's under ``render_linear``'s
 backward, the fused kernel's in the CLI fit, the BVH kernel's in the CLI
 renders of phase 7, the record variant's, #6's and #7's in the CLI fit of
-phase 8; the other paths' counts are in the phase lines), and its least
+phase 8, #8's in the CLI renders of phase 9; the other paths' counts are in
+the phase lines), and its least
 possible time for one forward and one reverse sweep of the FP32
 operations the run's rays traced, or for the bytes it must move; the last
 line is
@@ -810,6 +831,431 @@ def bvh_fit_phase(dev, card: str) -> list:
     } for i, (name, src, line, b) in enumerate(names)]
 
 
+# phase 9: the HDRI importance-sampling path
+SKY = os.path.join(OUT_DIR, "sky2k.exr")
+# csrc/occlusion.cu, counted from its source: per shadow ray a = d.d and
+# the three reciprocals; node visits and leaf tests as #5's
+OPS_OCC_RAY = 8
+BYTES_OCC_RAY = 25  # origin and direction in, one byte out
+ENV_CLI_FIT_SIZE = 512  # the CLI fit's frame
+ENV_FIT_SIZE = 1000  # the timed fit step's frame
+
+
+def procedural_sky(path: str, h: int = 1024, w: int = 2048,
+                   seed: int = 0) -> None:
+    """A 2K equirect HDRI, the size of a studio HDRI, written with the
+    port's EXR writer: a smooth sky from a bright horizon to a blue zenith
+    over a dim ground, seeded noise of 3%, and a sun of 3x4 texels at
+    radiance 4,000, far above the scenes' clamp of 10.  Row 0 faces the
+    zenith (the lookup's y flip)."""
+    import numpy as np
+
+    from raytracingrust_tpu_torch.io.exr import write_exr
+
+    r = np.arange(h, dtype=np.float32)
+    up = -np.cos((h - r - 0.5) / h * np.pi)  # the rows' elevation sines
+    horizon = np.asarray([1.2, 1.14, 1.08], np.float32)
+    zenith = np.asarray([0.2, 0.36, 0.72], np.float32)
+    ground = np.asarray([0.15, 0.125, 0.1], np.float32)
+    e = np.clip(up, 0.0, 1.0)[:, None]
+    row = np.where(up[:, None] > 0, horizon * (1 - e) + zenith * e, ground)
+    img = row[:, None, :] * np.random.default_rng(seed).uniform(
+        0.97, 1.03, (h, w, 3)).astype(np.float32)
+    sun = int(h - 1 - np.arccos(-np.sin(np.radians(40.0))) / np.pi * h)
+    img[sun:sun + 3, int(0.3 * w):int(0.3 * w) + 4] = 4000.0
+    write_exr(path, img.astype(np.float32))
+
+
+def env_scenes() -> list:
+    """Phase 9's shapes: (label, scene JSON, width, height, CLI flags), the
+    JSONs written beside the sky: scenes/bvh_stress.json and phase 7's
+    sheet64, each under the sky with importance sampling on."""
+    procedural_sky(SKY)
+    out = []
+    for label, path, w, h, flags in bvh_scenes():
+        if label == "grid8k":
+            continue
+        with open(path) as f:
+            d = json.load(f)
+        d["background"] = {"type": "SkyMap", "path": SKY}
+        d["settings"]["env_importance_sampling"] = True
+        sky_path = os.path.join(OUT_DIR, f"sky_{label}.json")
+        with open(sky_path, "w") as f:
+            json.dump(d, f)
+        out.append((f"sky_{label}", sky_path, w, h, flags))
+    return out
+
+
+def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
+    """(plain route's per-ray radiance, the shadow rays of each bounce of
+    its replay): the plain record walk, fetch and occlusion test."""
+    import torch
+
+    from raytracingrust_tpu_torch.models import backgrounds as B
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.ops import occlusion as OC
+
+    rays = []
+
+    def occlude(o, d):
+        rays.append((o, d))
+        return OC.occluded_plain(sc, o, d)
+
+    ids, px, py = K.prep_rays(torch.arange(n_pix, device=sc.device), spp, w)
+    with torch.no_grad():
+        _, codes = BK.radiance_bvh_plain(sc, key, ids, px, py,
+                                         max_depth=depth, bg_kind=B.UNIFORM,
+                                         clay=False, record=True)
+        rad = BK.replay(sc, codes, key, n_pix, spp, w, max_depth=depth,
+                        bg_kind=B.SKYMAP, clay=False, plain=True, sky=sky,
+                        occlude=occlude)
+    return rad, rays
+
+
+def _env_profiled(run, steps: int) -> dict:
+    """Device ms a call by part of the env path: ``run(step)``, which
+    calls ``step()`` after each of its calls, under torch.profiler, one
+    call of warm-up and then ``steps`` recorded.  The kernels by name; the
+    rest of the device time is the replay's elementwise kernels (forward
+    and, in a fit, backward), the clamp and the mean, and Adam's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        run(prof.step)
+    part = collections.Counter()
+    for evt in prof.key_averages():
+        if (evt.device_type != torch.autograd.DeviceType.CUDA
+                or getattr(evt, "is_user_annotation", False)):
+            continue
+        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
+        key = evt.key
+        if "bvh_radiance_kernel" in key:
+            record = "<true>" in key or "ILb1E" in key
+            part["record #5" if record else "#5"] += ms
+        elif "fetch_kernel" in key:
+            part["#6"] += ms
+        elif "transpose_kernel" in key:
+            part["#7"] += ms
+        elif "occlusion_kernel" in key:
+            part["#8"] += ms
+        else:
+            part["replay and rest"] += ms
+        part["busy"] += ms
+    return part
+
+
+def env_phase(dev, card: str) -> dict:
+    """Phase 9; -> kernel #8's entry of the kernel report."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch import cli
+    from raytracingrust_tpu_torch.diff import grad as G
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+    from raytracingrust_tpu_torch.ops import _build
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import fetch as F
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.ops import occlusion as OC
+    from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                        select_engine)
+    from raytracingrust_tpu_torch.utils import rng
+
+    log = _build.library_path(name="occlusion").with_suffix(".log")
+    regs = " | ".join(ln.strip() for ln in log.read_text().splitlines()
+                      if "registers" in ln or "spill" in ln)
+    t0 = time.perf_counter()
+    shapes = env_scenes()
+    write_s = time.perf_counter() - t0
+    key = rng.base_key(11)
+    gen = np.random.default_rng(9)
+    out = {}
+    for label, path, w, h, _ in shapes:
+        t0 = time.perf_counter()
+        scene = SceneBuilder.from_file(path).build()
+        load_s = time.perf_counter() - t0
+        if select_engine(scene) != "env":
+            raise AssertionError(f"{label}: not sent to the env path")
+        s = scene.settings
+        spp, depth = s.samples_per_pixel, s.max_ray_depth
+        n_pix, n_rays = w * h, w * h * spp
+        with torch.no_grad():
+            sc = BK.pack(scene, w, h, dev)
+        sky = scene.to(dev).background
+
+        # #8 against its plain version on every shadow ray of the plain
+        # route's replay; the env radiance through the kernels against it
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        plain, rays = _shadow_rays(sc, sky, key, n_pix, spp, w, depth)
+        end.record()
+        torch.cuda.synchronize()
+        route_plain_ms = start.elapsed_time(end)
+        tally = collections.Counter()
+        n_shadow = n_blocked = 0
+        ms_launch, plain_ms = [], 0.0
+        for o, d in rays:
+            got = OC.occluded_cuda(sc, o, d)
+            want = OC.occluded_plain(sc, o, d, tally=tally)
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"{label}: #8 differs from its plain version on "
+                    f"{int((got != want).sum())} of {got.numel()} shadow "
+                    f"rays")
+            n_shadow += got.numel()
+            n_blocked += int(got.sum())
+            ms_launch.append(_cuda_time_ms(
+                lambda: OC.occluded_cuda(sc, o, d), 5))
+            plain_ms += _cuda_time_ms(lambda: OC.occluded_plain(sc, o, d),
+                                      1)
+        if not rays or not 0 < n_blocked < n_shadow:
+            raise AssertionError(f"{label}: {n_shadow} shadow rays, "
+                                 f"{n_blocked} blocked")
+        ms = sum(ms_launch)
+        ops = (n_shadow * OPS_OCC_RAY + tally["nodes"] * OPS_NODE
+               + tally["sphere_tests"] * OPS_SPHERE_TEST
+               + tally["triangle_tests"] * OPS_TRI_TEST)
+        tree_bytes = sum(t.numel() * t.element_size() for tree in (
+            sc.spheres, sc.triangles) if tree is not None
+            for t in (tree.nodes_f, tree.nodes_i, tree.chunk_len, tree.geo))
+        bound = _bound(ops, BYTES_OCC_RAY * n_shadow + tree_bytes)
+        with torch.no_grad():
+            ker = BK.env_radiance(sc, sky, key, n_pix, spp, w,
+                                  max_depth=depth)
+        err = (ker - plain).abs().max().item()
+        if not torch.equal(ker.view(torch.int32), plain.view(torch.int32)):
+            raise AssertionError(f"{label}: the env radiance through the "
+                                 f"kernels differs from the plain route, "
+                                 f"max abs diff {err:.3e}")
+        if not bool(torch.isfinite(ker).all()):
+            raise AssertionError(f"{label}: env radiance not finite")
+        per_launch = [o.shape[1] for o, _ in rays]
+        del plain, rays, ker
+
+        # the gradient through the kernels against the plain route, and an
+        # FD probe of make_loss on albedo, at 64x48
+        gw, gh = 64, 48
+        with torch.no_grad():
+            gsc = BK.pack(scene, gw, gh, dev)
+        cts = torch.tensor(gen.standard_normal((gw * gh * spp, 3),
+                                               dtype=np.float32), device=dev)
+        names = [n for n, t in zip(("head", "materials", "sphere rows",
+                                    "triangle rows"), BK._rows(gsc))
+                 if t is not None] + ["sky"]
+        grads = []
+        for route in (False, True):
+            rows = [None if v is None else v.detach().requires_grad_(True)
+                    for v in BK._rows(gsc)]
+            img = sky.image.detach().requires_grad_(True)
+            live = [v for v in rows if v is not None] + [img]
+            rad = BK.env_radiance(gsc.with_rows(*rows),
+                                  dataclasses.replace(sky, image=img), key,
+                                  gw * gh, spp, gw, max_depth=depth,
+                                  plain=route)
+            grads.append(torch.autograd.grad(rad, live, cts))
+        g_err = 0.0
+        for part, a, b in zip(names, *grads):
+            e = (a - b).abs()
+            if not bool(torch.isfinite(a).all()) or bool(
+                    (e > GRAD_RTOL * b.abs() + GRAD_ATOL * b.abs().max())
+                    .any()):
+                raise AssertionError(f"{label}: the {part} gradient differs "
+                                     f"from the plain route by up to "
+                                     f"{e.max().item():.3e}")
+            g_err = max(g_err, e.max().item())
+        if grads[0][1].abs().sum() == 0 or grads[0][-1].abs().sum() == 0:
+            raise AssertionError(f"{label}: no material or sky gradient")
+        sc_dev = scene.to(dev)
+        params = {"albedo": sc_dev.materials.albedo.clone()
+                  .requires_grad_(True)}
+        v = torch.tensor(gen.standard_normal(tuple(params["albedo"].shape)),
+                         dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            target = render_linear(sc_dev, gw, gh, seed=12,
+                                   device=dev) * 0.9
+        loss = G.make_loss(sc_dev, target, gw, gh, device=dev)
+        loss(params, key).backward()
+        ad = (params["albedo"].grad * v).sum().item()
+        eps = 1e-3
+        with torch.no_grad():
+            a0 = params["albedo"].detach()
+            fd = (loss({"albedo": a0 + eps * v}, key)
+                  - loss({"albedo": a0 - eps * v}, key)).item() / (2 * eps)
+        if not abs(ad - fd) <= 0.05 * max(abs(fd), 1e-6):
+            raise AssertionError(f"{label}: FD probe AD {ad:.6e} vs FD "
+                                 f"{fd:.6e}")
+        out[label] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
+        print(f"phase 9 {label} {w}x{h} spp {spp} depth {depth} "
+              f"({len(scene.spheres)} spheres, {len(scene.triangles)} "
+              f"triangles; sky {tuple(sky.image.shape)}, loaded in "
+              f"{load_s:.2f} s): #8 == plain bit for bit on all {n_shadow} "
+              f"shadow rays ({n_blocked} blocked) of the plain route's "
+              f"replay; env radiance through record #5, #6 and #8 == the "
+              f"plain route bit for bit (max abs diff {err:.1e}) on all "
+              f"{n_rays} rays; gradient at {gw}x{gh} vs the plain route max "
+              f"abs diff {g_err:.3e} (allowed {GRAD_RTOL:g} rel + "
+              f"{GRAD_ATOL:g} of max), finite; FD probe (albedo, eps "
+              f"{eps:g}, rtol 5%): AD {ad:.6e}, FD {fd:.6e}")
+        print(f"phase 9 {label} #8: {ms:.4f} ms a render over its "
+              f"{len(per_launch)} launches ("
+              + ", ".join(f"{t:.4f}" for t in ms_launch) + " ms; "
+              f"{per_launch} shadow rays); "
+              f"plain {plain_ms:.2f} ms; bound {bound[0]:.5f} ms "
+              f"({bound[1]}; per shadow ray {tally['nodes'] / n_shadow:.2f} "
+              f"node visits, {tally['sphere_tests'] / n_shadow:.1f} sphere "
+              f"and {tally['triangle_tests'] / n_shadow:.1f} triangle "
+              f"tests); the plain route's render {route_plain_ms:.1f} ms; "
+              f"{card}; ptxas: {regs}")
+
+    # the main path: CLI renders of both scenes, then the CLI fit
+    BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
+    F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = 0
+    for label, path, *_, flags in shapes:
+        rc = cli.main(["render", path, "--env-is", *flags, "-o",
+                       os.path.join(OUT_DIR, label + ".png"), "--seed", "0"])
+        if rc != 0:
+            raise AssertionError(f"cli render {path} returned {rc}")
+    counts = (BK.RECORD_LAUNCHES, F.FETCH_LAUNCHES, OC.LAUNCHES,
+              BK.LAUNCHES, K.LAUNCHES, F.TRANSPOSE_LAUNCHES)
+    depths = [SceneBuilder.from_file(p).settings.max_ray_depth
+              for _, p, *_ in shapes]
+    if (counts[:2] != (len(shapes),) * 2 or not 0 < counts[2] <= sum(depths)
+            or counts[3:] != (0, 0, 0)):
+        raise AssertionError(f"the CLI renders launched (record #5, #6, #8, "
+                             f"#5, #1, #7) {counts}")
+    render_launches = counts[2]
+    for label, path, w, h, _ in shapes:
+        png = read_png(os.path.join(OUT_DIR, label + ".png"))
+        if png.shape != (h, w, 4) or png[..., :3].min() == png[..., :3].max():
+            raise AssertionError(f"{label}: PNG {png.shape} is flat or "
+                                 f"misshapen")
+        scene = SceneBuilder.from_file(path).build()
+        spp = scene.settings.samples_per_pixel
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            img = render_linear(scene, w, h, seed=0, device=dev)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        if not bool(torch.isfinite(img).all()) or img.std().item() == 0.0:
+            raise AssertionError(f"{label}: image not finite or flat")
+        best = min(times)
+        def renders(step, scene=scene, w=w, h=h):
+            for _ in range(3):
+                render_linear(scene, w, h, seed=0, device=dev)
+                torch.cuda.synchronize()
+                step()
+
+        part = _env_profiled(renders, 2)
+        print(f"phase 9 {label} {w}x{h} spp {spp}: warm render {best:.4f} s,"
+              f" {w * h * spp / best / 1e6:.1f} primary Mrays/s, image mean "
+              f"{img.mean().item():.5f}; per render under torch.profiler: "
+              + ", ".join(f"{k} {part[k]:.3f} ms" for k in (
+                  "record #5", "#6", "#8", "replay and rest", "busy"))
+              + f", host (warm render - busy) {best * 1e3 - part['busy']:.3f}"
+              f" ms")
+    print(f"phase 9 CLI renders: launches record #5 {counts[0]}, #6 "
+          f"{counts[1]}, #8 {counts[2]} (of {sum(depths)} bounces), #5 "
+          f"{counts[3]}, #1 {counts[4]}")
+
+    stress, label = shapes[0][1], shapes[0][0]
+    with open(stress) as f:
+        d = json.load(f)
+    for m in d["materials"]:
+        if "albedo" in m:
+            m["albedo"] = {c: 0.7 * x for c, x in m["albedo"].items()}
+    dim = os.path.join(OUT_DIR, "sky_bvh_stress_dim.json")
+    with open(dim, "w") as f:
+        json.dump(d, f)
+    target_png = os.path.join(OUT_DIR, "env_fit_target.png")
+    size = str(ENV_CLI_FIT_SIZE)
+    if cli.main(["render", dim, "--env-is", "--width", size, "--height",
+                 size, "-o", target_png, "--seed", "1"]) != 0:
+        raise AssertionError("cli render of the fit target failed")
+    steps, depth = 6, depths[0]
+    BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
+    F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = 0
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fit", stress, target_png, "--env-is", "--params",
+                       CLI_FIT_PARAMS, "--steps", str(steps), "--seed", "0"])
+    text = buf.getvalue()
+    fit_counts = (BK.RECORD_LAUNCHES, F.FETCH_LAUNCHES, F.TRANSPOSE_LAUNCHES,
+                  OC.LAUNCHES, BK.LAUNCHES, K.LAUNCHES)
+    if (rc != 0 or fit_counts[:3] != (steps,) * 3
+            or not steps <= fit_counts[3] <= steps * depth
+            or fit_counts[4:] != (0, 0)):
+        raise AssertionError(f"cli fit returned {rc}, launches (record, #6, "
+                             f"#7, #8, #5, #1) {fit_counts}\n{text}")
+    first = float(text.split("step 0: loss")[1].split()[0])
+    final = float(text.split("final loss")[1].split()[0])
+    if not (np.isfinite(first) and np.isfinite(final) and final < first):
+        raise AssertionError(f"cli fit loss did not fall: {first} -> "
+                             f"{final}\n{text}")
+    print(f"phase 9 cli fit {stress} --env-is {size}x{size} depth {depth}, "
+          f"{steps} steps of {CLI_FIT_PARAMS}: loss {first:.6f} -> "
+          f"{final:.6f}; launches record {fit_counts[0]}, #6 "
+          f"{fit_counts[1]}, #7 {fit_counts[2]}, #8 {fit_counts[3]} (of "
+          f"{steps * depth} bounces)")
+
+    # the warm fit step at sky_bvh_stress 1000x1000, and where its time goes
+    w = h = ENV_FIT_SIZE
+    scene = SceneBuilder.from_file(stress).build()
+    spp = scene.settings.samples_per_pixel
+    with torch.no_grad():
+        target = render_linear(SceneBuilder.from_file(dim).build(), w, h,
+                               seed=1, device=dev)
+    ticks = []
+
+    def tick(i, value, params):
+        ticks.append(time.perf_counter())  # after float(loss): synced
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, params, history = fit(scene, target, CLI_FIT_PARAMS.split(","), w, h,
+                             steps=4, device=dev, callback=tick)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = sorted(b - a for a, b in zip(ticks[1:], ticks[2:]))
+    warm = step_s[len(step_s) // 2]
+    if not all(np.isfinite(history)) or not all(
+            bool(torch.isfinite(p).all()) for p in params.values()):
+        raise AssertionError(f"{label} fit: not finite, history {history}")
+    part = _env_profiled(lambda step: fit(
+        scene, target, CLI_FIT_PARAMS.split(","), w, h, steps=3,
+        device=dev, callback=lambda *_: step()), 2)
+    print(f"phase 9 {label} {w}x{h} fit step ({CLI_FIT_PARAMS}): first step "
+          f"{(ticks[0] - t0) * 1e3:.1f} ms, warm step {warm * 1e3:.3f} ms "
+          f"(median of {len(step_s)}), {w * h * spp / warm / 1e6:.1f} "
+          f"primary Mrays/s fwd+bwd; peak memory {peak_gb:.2f} GB; per step "
+          f"under torch.profiler: "
+          + ", ".join(f"{k} {part[k]:.3f} ms" for k in (
+              "record #5", "#6", "#8", "#7", "replay and rest", "busy"))
+          + f", host (warm step - busy) {warm * 1e3 - part['busy']:.3f} ms;"
+          f" writing the sky and scenes {write_s:.2f} s; {card}")
+
+    main_shape = out[shapes[0][0]]
+    return {
+        "name": "occlusion",
+        "route": "cuda",
+        "source": "raytracingrust_tpu_torch/csrc/occlusion.cu",
+        "replaces": "raytracingrust_tpu/ops/pallas_megakernel.py:3591",
+        "launches": render_launches,  # the CLI renders above
+        "max_abs_err": 0.0,  # bit for bit on every shadow ray
+        "ms": main_shape["ms"],  # a render's launches at sky_bvh_stress
+        "plain_ms": main_shape["plain_ms"],
+        "bound_ms": main_shape["bound"][0],
+        "bound_by": main_shape["bound"][1],
+        "library_ms": None,  # no PyTorch call computes a BVH any-hit
+    }
+
+
 def main() -> int:
     import torch
 
@@ -1307,6 +1753,9 @@ def main() -> int:
     # ---- 8. the BVH fit path (record mode of #5, #6, #7)
     bvh_fit = bvh_fit_phase(dev, card)
 
+    # ---- 9. the HDRI importance-sampling path (record #5, #6, #7, #8)
+    env = env_phase(dev, card)
+
     replaces = "raytracingrust_tpu/ops/pallas_megakernel.py:"
     report = {"kernels": [{
         "name": "brute_forward_megakernel",
@@ -1351,7 +1800,8 @@ def main() -> int:
         "replaces": replaces + "3001",
         **bvh,  # the CLI renders of phase 7; times at bvh_stress 1000x1000
         "library_ms": None,
-    }, *bvh_fit]}  # the CLI fit of phase 8; times at bvh_stress 1000x1000
+    }, *bvh_fit,  # the CLI fit of phase 8; times at bvh_stress 1000x1000
+        env]}  # the CLI renders of phase 9; times at sky_bvh_stress
     print(f"card: {card}; kernel build {build_s:.3f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {

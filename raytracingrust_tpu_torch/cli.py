@@ -2,6 +2,7 @@
 
     rtrt-torch render scenes/benchmark.json -o out.png --width 512 --height 512
     rtrt-torch render scene.json --spp 64 --depth 8 --mode Clay --device cpu
+    rtrt-torch render sky_scene.json --env-is   # SkyMap background
     rtrt-torch fit scene.json target.png --params albedo,emission --steps 50
     rtrt-torch info scene.json
 
@@ -25,6 +26,9 @@ def _add_scene_args(p: argparse.ArgumentParser) -> None:
     p.add_argument("--depth", type=int, help="override max_ray_depth")
     p.add_argument("--clamp", type=float, help="override clamp_indirect")
     p.add_argument("--mode", choices=_MODES)
+    p.add_argument("--env-is", action="store_true",
+                   help="importance-sample the HDRI environment (one-sample "
+                        "MIS; only meaningful with a SkyMap background)")
 
 
 def _add_device_arg(p: argparse.ArgumentParser) -> None:
@@ -46,6 +50,8 @@ def _load(args):
         overrides["clamp_indirect"] = args.clamp
     if args.mode is not None:
         overrides["mode"] = args.mode
+    if args.env_is:
+        overrides["env_importance_sampling"] = True
     builder.settings = dataclasses.replace(builder.settings, **overrides)
     return builder
 
@@ -109,6 +115,10 @@ def _engines(scene) -> tuple[str, str]:
         engine = select_engine(scene)
     except NotImplementedError as e:
         return (f"unsupported: {e}",) * 2
+    if engine == "env":
+        return ("env: record mode of #5, then the replay over #6 with #8's "
+                "shadow rays",
+                "env: the same, with #7 under the replay's backward")
     if engine == "bvh":
         return ("bvh: kernel #5",
                 "bvh: record mode of #5, then the replay over #6 and #7")

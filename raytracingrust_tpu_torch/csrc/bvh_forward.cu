@@ -30,12 +30,12 @@
 // the leaf's box, and tests only the chunk's real primitives (padding can
 // never win).  Nodes and primitives are read from device memory through the
 // read-only path; neighbouring rays walk mostly the same nodes, so a warp's
-// loads are mostly one broadcast.  The arithmetic is ops/bvh_kernel.py's
-// plain version's, operation for operation: the sphere root and normal by
-// true division (not the brute kernel's reciprocal), the direct
-// cross-product Moller-Trumbore, and slab min/max that propagate NaN as
-// torch.minimum does (an axis-parallel ray's 0 * inf reads as a miss;
-// fminf/fmaxf would drop the NaN and read a hit).
+// loads are mostly one broadcast.  The walk is bvh_walk.cuh's, shared with
+// the occlusion kernel (#8); the arithmetic is ops/bvh_kernel.py's plain
+// version's, operation for operation: the sphere root and normal by true
+// division (not the brute kernel's reciprocal), the direct cross-product
+// Moller-Trumbore, and slab min/max that propagate NaN as torch.minimum
+// does.
 //
 // What bounds it on this card: FP32 work per node visit and primitive test,
 // and divergence between the rays of a warp once bounces scatter them; the
@@ -47,39 +47,11 @@
 
 #include <cuda_runtime.h>
 
-#include "radiance.cuh"
+#include "bvh_walk.cuh"
 
 namespace {
 
 using namespace rtrt;
-
-constexpr float kTriDetEps = 1e-8f;  // pallas_megakernel.TRI_DET_EPS
-
-// min and max that return NaN when either argument is NaN
-__device__ __forceinline__ float min_nan(float a, float b) {
-  return a != a ? a : (a < b ? a : b);
-}
-
-__device__ __forceinline__ float max_nan(float a, float b) {
-  return a != a ? a : (a > b ? a : b);
-}
-
-// One chunk tree in device memory (ops/bvh_kernel.pack): nodes (K, 6)
-// float [min | max] and (K, 3) int [hit link, miss link, chunk or -1], each
-// chunk's primitive count, and the primitives in slot order with their
-// material ids.  n_nodes == 0: no tree.
-struct Tree {
-  const float* nodes_f;
-  const int* nodes_i;
-  const int* chunk_len;
-  const float* geo;  // spheres: 4 floats a slot; triangles: 12
-  const int* mat;
-  int n_nodes;
-};
-
-struct Ray {
-  float ox, oy, oz, dx, dy, dz, idx, idy, idz, a;
-};
 
 // record-mode code layout (pallas_megakernel.py's record bits)
 constexpr int kRecSlot = (1 << 27) - 1;
@@ -109,101 +81,6 @@ __device__ __forceinline__ int decision_bits(const float* mat, bool front,
       bits |= kRecReflect;
   }
   return bits;
-}
-
-// Candidate distance of sphere slot s (_sphere_chunk_hit): the near root if
-// in [T_MIN, tb], else the far root; radius 0 never hits.
-__device__ __forceinline__ float sphere_t(const float* geo, int s,
-                                          const Ray& r, float tb) {
-  const float4 g = __ldg(reinterpret_cast<const float4*>(geo) + s);
-  const float ocx = r.ox - g.x, ocy = r.oy - g.y, ocz = r.oz - g.z;
-  const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
-  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - g.w * g.w;
-  const float disc = hb * hb - r.a * cq;
-  const bool ok = disc >= 0.0f && g.w > 0.0f;
-  const float sq = sqrtf(fmaxf(disc, 0.0f));
-  const float t1 = (-hb - sq) / r.a;
-  const float t2 = (-hb + sq) / r.a;
-  if (ok && t1 >= kTMin && t1 <= tb) return t1;
-  if (ok && t2 >= kTMin && t2 <= tb) return t2;
-  return INFINITY;
-}
-
-// Candidate distance of triangle slot s (_row_mt): t in (T_MIN, tb].
-__device__ __forceinline__ float triangle_t(const float* geo, int s,
-                                            const Ray& r, float tb) {
-  const float4* g = reinterpret_cast<const float4*>(geo) + 3 * s;
-  const float4 g0 = __ldg(g), g1 = __ldg(g + 1), g2 = __ldg(g + 2);
-  const float v0x = g0.x, v0y = g0.y, v0z = g0.z;
-  const float e1x = g0.w, e1y = g1.x, e1z = g1.y;
-  const float e2x = g1.z, e2y = g1.w, e2z = g2.x;
-  const float hx = r.dy * e2z - r.dz * e2y;  // h = d x e2
-  const float hy = r.dz * e2x - r.dx * e2z;
-  const float hz = r.dx * e2y - r.dy * e2x;
-  const float det = e1x * hx + e1y * hy + e1z * hz;
-  const bool ok = fabsf(det) > kTriDetEps;
-  const float f = 1.0f / (ok ? det : 1.0f);
-  const float sx = r.ox - v0x, sy = r.oy - v0y, sz = r.oz - v0z;
-  const float u = f * (sx * hx + sy * hy + sz * hz);
-  const float qx = sy * e1z - sz * e1y;  // q = s x e1
-  const float qy = sz * e1x - sx * e1z;
-  const float qz = sx * e1y - sy * e1x;
-  const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  const float tt = f * (e2x * qx + e2y * qy + e2z * qz);
-  if (ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-      tt > kTMin && tt <= tb)
-    return tt;
-  return INFINITY;
-}
-
-// The ray's stackless walk of one tree (_traverse_tree for one ray).  A
-// leaf's winner is its nearest candidate, the lowest slot among equals; it
-// replaces (t_best, win) only when strictly nearer (_merge_leaf_rows).
-template <bool kSphere>
-__device__ __forceinline__ void walk(const Tree& tree, int leaf,
-                                     const Ray& r, float& t_best, int& win) {
-  int node = 0;
-  while (node < tree.n_nodes) {
-    const float* box = tree.nodes_f + 6 * node;
-    const float t0x = (__ldg(box + 0) - r.ox) * r.idx;
-    const float t0y = (__ldg(box + 1) - r.oy) * r.idy;
-    const float t0z = (__ldg(box + 2) - r.oz) * r.idz;
-    const float t1x = (__ldg(box + 3) - r.ox) * r.idx;
-    const float t1y = (__ldg(box + 4) - r.oy) * r.idy;
-    const float t1z = (__ldg(box + 5) - r.oz) * r.idz;
-    const float entry =
-        max_nan(max_nan(min_nan(t0x, t1x), min_nan(t0y, t1y)),
-                max_nan(min_nan(t0z, t1z), kTMin));
-    const float exit_ =
-        min_nan(min_nan(max_nan(t0x, t1x), max_nan(t0y, t1y)),
-                min_nan(max_nan(t0z, t1z), t_best));
-    const int* links = tree.nodes_i + 3 * node;
-    if (!(exit_ > entry)) {
-      node = __ldg(links + 1);
-      continue;
-    }
-    const int chunk = __ldg(links + 2);
-    if (chunk >= 0) {
-      const int base = chunk * leaf;
-      const int n = __ldg(tree.chunk_len + chunk);
-      const float tb = t_best;  // the whole leaf tests against its entry t
-      float c_best = INFINITY;
-      int c_win = -1;
-      for (int j = 0; j < n; ++j) {
-        const float ti = kSphere ? sphere_t(tree.geo, base + j, r, tb)
-                                 : triangle_t(tree.geo, base + j, r, tb);
-        if (ti < c_best) {
-          c_best = ti;
-          c_win = base + j;
-        }
-      }
-      if (c_best < tb) {
-        t_best = c_best;
-        win = c_win;
-      }
-    }
-    node = __ldg(links + 0);
-  }
 }
 
 template <bool kRecord>

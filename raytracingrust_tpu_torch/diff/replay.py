@@ -11,6 +11,16 @@ division, the direct Moller-Trumbore form, the flat normal of the row) and
 shades through ops/megakernel.bounce_tail with the record's front-face,
 metal and dielectric decisions in place of its comparisons.  Elementwise
 PyTorch only; autograd differentiates it.
+
+With a sky map (``sky``) it assembles the one-sample MIS estimator of the
+HDRI importance-sampling path instead (the JAX ``replay_radiance(env=...)``,
+op for op render/integrator.py's env blocks): a miss adds the sky's
+radiance times the balance weight against the sky sampler's pdf when the
+last scatter was diffuse; after a Lambertian hit it also draws one sky
+direction from the NEE stream, asks ``occlude`` (kernel #8) whether the
+shadow ray is blocked, and adds the weighted sky radiance if not.  The
+record walk's path is the estimator's path: next-event estimation adds
+terms and changes no bounce.
 """
 
 from __future__ import annotations
@@ -20,9 +30,12 @@ import torch
 from ..ops import megakernel as K
 from ..ops.bvh_kernel import (REC_FRONT, REC_METAL_OK, REC_REFLECT, REC_SLOT,
                               TRI_DET_EPS)
+from ..models import materials as M
+from ..models.backgrounds import sample_skymap_direction
 from ..ops.fetch import MAT_FIELDS
+from ..utils import vec
 from ..utils.rng import ray_uniforms
-from ..utils.types import T_MIN
+from ..utils.types import PI, T_MIN
 
 _dot3 = K._dot3
 
@@ -35,7 +48,7 @@ def _cross(a, b):
 def replay_rows_radiance(head, rows, kind, codes, key, ray_ids, px, py, *,
                          tri_base: int, has_spheres: bool,
                          has_triangles: bool, max_depth: int, bg_kind: int,
-                         clay: bool) -> torch.Tensor:
+                         clay: bool, sky=None, occlude=None) -> torch.Tensor:
     """Per-ray radiance (R, 3) over recorded hits, differentiable in the
     packed ``head`` and the fetched ``rows``.
 
@@ -44,13 +57,21 @@ def replay_rows_radiance(head, rows, kind, codes, key, ray_ids, px, py, *,
     codes of the rays ``ray_ids``/``px``/``py``; ``tri_base`` is the code of
     triangle slot 0.  A miss row is all zeros: its normal and index of
     refraction are replaced by finite stand-ins, so no discarded lane puts a
-    NaN into a gradient."""
+    NaN into a gradient.
+
+    ``sky``, a SKYMAP Background on the rays' device, switches on the MIS
+    estimator (Full mode, ``bg_kind`` SKYMAP); it is differentiable in the
+    sky's texels.  ``occlude(points (3, R'), directions (3, R'))`` -> (R',)
+    bool answers the shadow rays of one bounce, those of its Lambertian hits
+    that go on.  The sampled directions, their pdfs, the
+    shadow rays and the MIS pdfs are detached, as in the JAX package."""
     g_fields = rows.shape[0] - MAT_FIELDS
     o, d = K.camera_ray(head, key, ray_ids, px, py)
     one = torch.ones_like(d[0])
     thr = [one, one, one]
     rad = [torch.zeros_like(one)] * 3
     alive = torch.ones_like(one, dtype=torch.bool)
+    mis_pdf = torch.zeros_like(one)  # 0: no MIS for primary rays
     for b in range(max_depth):
         raw = codes[b]
         hit = alive & (raw >= 0)
@@ -99,7 +120,54 @@ def replay_rows_radiance(head, rows, kind, codes, key, ray_ids, px, py, *,
                   "metal_ok": (raw & REC_METAL_OK) != 0,
                   "reflect": (raw & REC_REFLECT) != 0}
         u = ray_uniforms(key, ray_ids, 1 + b, 3).unbind(-1)
+        if sky is not None:
+            rad = _env_miss(sky, d, thr, rad, alive & ~hit, mis_pdf)
+            thr_in = thr
         o, d, thr, rad, alive = K.bounce_tail(
             head, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n, mat,
             kind[b], u, forced=forced)
+        if sky is not None:
+            sgn = torch.where(forced["front"], 1.0, -1.0)
+            rad, mis_pdf = _env_nee(
+                sky, occlude, key, ray_ids, b, max_depth, thr_in, rad,
+                alive & (kind[b] == M.LAMBERTIAN), pt, [v * sgn for v in n],
+                mat[0:3], d)
     return torch.stack(rad, dim=-1)
+
+
+def _env_miss(sky, d, thr, rad, missed, mis_pdf):
+    """``rad`` plus, on a miss, the sky's radiance times the balance weight
+    of the BSDF-sampled direction (1 after a primary or specular bounce)."""
+    dv = torch.stack(d, dim=-1)
+    p_env = sky.pdf(vec.normalize(dv.detach()))
+    w_b = torch.where(mis_pdf > 0.0, mis_pdf / (mis_pdf + p_env), 1.0)
+    bg = sky.sample(dv) * w_b[:, None]
+    return [rad[c] + torch.where(missed, thr[c] * bg[:, c], 0.0)
+            for c in range(3)]
+
+
+def _env_nee(sky, occlude, key, ray_ids, b, max_depth, thr, rad, diffuse,
+             pt, n, albedo, new_dir):
+    """Next-event estimation toward the sky at bounce ``b``: -> (rad plus
+    the NEE terms of the ``diffuse`` rays, the MIS pdf of each ray's next
+    direction).  ``thr`` is the throughput entering the bounce, ``n`` the
+    front-facing normal, ``new_dir`` the scattered direction."""
+    un = ray_uniforms(key, ray_ids, 1 + max_depth + b, 2)  # the NEE stream
+    d_l, p_l = sample_skymap_direction(sky, un[:, 0], un[:, 1])
+    nv = torch.stack(n, dim=-1)
+    cos_l = torch.clamp(vec.dot(nv, d_l), min=0.0)
+    blocked = torch.ones_like(diffuse)
+    at = diffuse.nonzero().squeeze(1)
+    if at.numel():
+        p = torch.stack(pt).detach()
+        blocked[at] = occlude(p[:, at].contiguous(),
+                              d_l.T[:, at].contiguous())
+    w_l = p_l / (p_l + cos_l / PI)
+    light = sky.sample(d_l)
+    scale = cos_l / PI / torch.clamp(p_l, min=1e-12) * w_l
+    take = diffuse & ~blocked & (cos_l > 0.0)
+    rad = [rad[c] + torch.where(take, thr[c] * albedo[c] * light[:, c]
+                                * scale, 0.0) for c in range(3)]
+    nd = torch.stack(new_dir, dim=-1).detach()
+    cos_n = torch.clamp(vec.dot(nv.detach(), vec.normalize(nd)), min=0.0)
+    return rad, torch.where(diffuse, cos_n / PI, 0.0)

@@ -5,7 +5,8 @@ of a JAX ``Scene`` with ``np.asarray`` under the names below and hand them
 over, so both packages compute on identical float32 numbers.
 
 Keys: ``camera.{lookfrom, lookat, vertical, vertical_fov, aspect_ratio}``,
-``background.{color_a, color_b}``,
+``background.{color_a, color_b}`` and, for a sky map,
+``background.{image, cdf_rows, cdf_cols}``,
 ``spheres.{center, radius, material, neg_inv_density}`` and
 ``materials.{kind, albedo, fuzz, ir, emission, mix_first, mix_second,
 mix_factor}``.
@@ -31,8 +32,10 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], settings: RenderSettings,
     camera = Camera(t("camera.lookfrom", f32), t("camera.lookat", f32),
                     t("camera.vertical", f32), t("camera.vertical_fov", f32),
                     t("camera.aspect_ratio", f32))
+    sky = [t(f"background.{k}", f32) if f"background.{k}" in arrays
+           else None for k in ("image", "cdf_rows", "cdf_cols")]
     background = Background(background_kind, t("background.color_a", f32),
-                            t("background.color_b", f32))
+                            t("background.color_b", f32), *sky)
     spheres = SphereArray(t("spheres.center", f32), t("spheres.radius", f32),
                           t("spheres.material", i32),
                           t("spheres.neg_inv_density", f32))

@@ -1,10 +1,10 @@
 """Build and bind the CUDA kernels of ``csrc/``.
 
-Each kernel source (``csrc/*.cu``, all including ``csrc/radiance.cuh``) is
-compiled by ``nvcc`` into a shared library of its own with a plain C
-interface, which ``ctypes`` loads.  A build runs at first use, into
-``build/kernels/`` beside the package, and is keyed by a hash of the
-source, the header and the flags, so an edited source rebuilds and an
+Each kernel source (``csrc/*.cu``, all including ``csrc/radiance.cuh``,
+the two BVH walks also ``csrc/bvh_walk.cuh``) is compiled by ``nvcc`` into
+a shared library of its own with a plain C interface, which ``ctypes``
+loads.  A build runs at first use, into ``build/kernels/`` beside the
+package, and is keyed by a hash of the source, the headers and the flags, so an edited source rebuilds and an
 unchanged one loads the library already built.  The first :func:`load` that
 finds its library missing builds every missing one, one ``nvcc`` per
 source, all started together.  The compiler's register report
@@ -30,8 +30,9 @@ SOURCES = {
     "mse_loss": _CSRC / "mse_loss.cu",            # fused loss + gradient
     "bvh_forward": _CSRC / "bvh_forward.cu",      # forward over the BVH
     "fetch_rows": _CSRC / "fetch_rows.cu",        # winner rows, transpose
+    "occlusion": _CSRC / "occlusion.cu",          # shadow rays, any hit
 }
-HEADER = _CSRC / "radiance.cuh"
+HEADERS = (_CSRC / "radiance.cuh", _CSRC / "bvh_walk.cuh")
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -58,6 +59,8 @@ _SIGNATURES = {
                                                   _P, _P], _I32),
     "rtrt_fetch_rows_transpose": ([_P, _I64, _P, _P, _I32, _P, _I32, _I32,
                                    _P, _P, _P, _P], _I32),
+    "rtrt_occlusion": ([_P] * 5 + [_I32] + [_P] * 5 + [_I32, _I32, _P, _P,
+                                                      _I32, _P, _P], _I32),
     "rtrt_error_string": ([_I32], ctypes.c_char_p),
 }
 
@@ -74,8 +77,8 @@ def _nvcc() -> str:
 
 def library_path(flags: tuple[str, ...] = NVCC_FLAGS,
                  name: str = "megakernel") -> Path:
-    digest = hashlib.sha256(SOURCES[name].read_bytes() + HEADER.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()
+    digest = hashlib.sha256(b"".join(p.read_bytes() for p in (
+        SOURCES[name], *HEADERS)) + " ".join(flags).encode()).hexdigest()
     return BUILD_DIR / f"{name}_{digest[:16]}.so"
 
 

@@ -76,9 +76,18 @@ RECORD_LAUNCHES = 0
 
 # ------------------------------------------------------------- the envelope
 
+def env_is_active(scene: Scene) -> bool:
+    """Whether the scene uses the one-sample MIS environment sampler: the
+    flag, a sky map and Full mode (the JAX ``_env_is_active``)."""
+    return (scene.settings.env_importance_sampling
+            and scene.background.kind == B.SKYMAP
+            and scene.settings.mode == MODE_FULL)
+
+
 def unsupported_bvh(scene: Scene) -> str | None:
     """Why the BVH kernel cannot take the scene, or None (the JAX
-    ``supports_bvh``, for what the port renders so far)."""
+    ``supports_bvh``, for what the port renders so far).  A sky map passes
+    only with importance sampling, whose path is :func:`env_radiance`."""
     if scene.cbvh is None:
         return ("the scene was built without its BVH: build it with "
                 "with_bvh=True (or enable_bvh_tree)")
@@ -93,9 +102,10 @@ def unsupported_bvh(scene: Scene) -> str | None:
     if bool((scene.materials.kind[mids.long()] == M.ISOTROPIC).any()):
         return ("isotropic materials on the BVH path are not ported yet "
                 "(ROADMAP B4)")
-    if scene.background.kind not in (B.UNIFORM, B.GRADIENT):
-        return "SkyMap backgrounds on the BVH path are not ported yet " \
-               "(ROADMAP B4)"
+    if (scene.background.kind not in (B.UNIFORM, B.GRADIENT)
+            and not env_is_active(scene)):
+        return ("SkyMap backgrounds without env importance sampling on the "
+                "BVH path are not ported yet (ROADMAP B4)")
     if scene.settings.mode not in (MODE_FULL, MODE_CLAY):
         return (f"{scene.settings.mode} mode on the BVH path is not ported "
                 "yet (ROADMAP B4)")
@@ -123,6 +133,8 @@ class BvhScene(NamedTuple):
     # the decision bits a record holds: REC_METAL_OK and REC_REFLECT when
     # a primitive has a metal or a dielectric material
     rec_mask: int = 0
+    # the scene's volume spheres, which no tree here holds (ROADMAP B4)
+    volumes: int = 0
 
     @property
     def device(self) -> torch.device:
@@ -180,7 +192,7 @@ def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
               sph.material, device),
         _tree(cb.triangles, torch.cat([tri.v0, tri.e1, tri.e2, tri.normal],
                                       1), tri.material, device),
-        rec_mask)
+        rec_mask, sph.num_volumes)
 
 
 # ------------------------------------------------------------- plain version
@@ -237,7 +249,7 @@ def _triangle_leaf(geo, o, d, a, t_best):
 
 
 def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
-          name):
+          name, any_hit=False):
     """Each alive ray's stackless walk of one tree, vectorized: the rays
     whose cursor is at node k take its slab test (``_traverse_tree``'s:
     NaN-propagating min/max, so an axis-parallel NaN reads as a miss), test
@@ -246,7 +258,9 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
     ray's walk.  A leaf's winner is its nearest candidate, the lowest slot
     among equals; it replaces the ray's winner only when strictly nearer
     (``_merge_leaf_rows``).  ``t_best`` and ``win`` (the winning slot)
-    change in place."""
+    change in place.  ``any_hit``: a ray leaves the walk at the first leaf
+    that has a candidate nearer than its ``t_best``, and the tally counts
+    its tests up to the first such slot (the occlusion kernel's walk)."""
     k_nodes = tree.links.shape[0]
     cursor = torch.where(alive, 0, k_nodes)
     nf = tree.nodes_f
@@ -269,23 +283,30 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
         hit_l, miss_l, chunk = (int(v) for v in tree.links[k])
         if tally is not None:
             tally["nodes"] += at.numel()
-        if chunk >= 0:
-            rays = at[box]
-            n = int(tree.chunk_len[chunk])
-            if rays.numel() and n:
-                base = chunk * tree.leaf_size
-                ti = leaf(tree.geo[base:base + n], [v[rays] for v in o],
-                          [v[rays] for v in d], a[rays], t_best[rays])
-                t_min = ti.min(dim=1).values
-                lane = torch.arange(n, device=ti.device)
-                first = torch.where(ti == t_min[:, None], lane, n).min(
-                    dim=1).values
-                better = t_min < t_best[rays]
-                t_best[rays] = torch.where(better, t_min, t_best[rays])
-                win[rays] = torch.where(better, base + first, win[rays])
-                if tally is not None:
-                    tally[name] += rays.numel() * n
         cursor[at] = torch.where(box, hit_l, miss_l)
+        if chunk < 0:
+            continue
+        rays = at[box]
+        n = int(tree.chunk_len[chunk])
+        if rays.numel() == 0 or n == 0:
+            continue
+        base = chunk * tree.leaf_size
+        tb = t_best[rays]
+        ti = leaf(tree.geo[base:base + n], [v[rays] for v in o],
+                  [v[rays] for v in d], a[rays], tb)
+        t_min = ti.min(dim=1).values
+        lane = torch.arange(n, device=ti.device)
+        first = torch.where(ti == t_min[:, None], lane, n).min(dim=1).values
+        better = t_min < tb
+        t_best[rays] = torch.where(better, t_min, tb)
+        win[rays] = torch.where(better, base + first, win[rays])
+        if any_hit:  # tests up to the first slot nearer than t_best
+            cursor[rays[better]] = k_nodes
+            if tally is not None:
+                tally[name] += int(torch.where(ti < tb[:, None], lane + 1, n)
+                                   .min(dim=1).values.sum())
+        elif tally is not None:
+            tally[name] += rays.numel() * n
 
 
 def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
@@ -483,13 +504,14 @@ def _record(sc: BvhScene, key, n_pixels: int, spp: int, width: int, **opts):
 
 def replay(sc: BvhScene, codes: torch.Tensor, key, n_pixels: int, spp: int,
            width: int, *, max_depth: int, bg_kind: int, clay: bool,
-           plain: bool = False) -> torch.Tensor:
+           plain: bool = False, sky=None, occlude=None) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3) replayed over recorded codes,
     differentiable in ``sc``'s head, material table and primitive rows: the
     winners' rows through ops/fetch.FetchRows (#6 forward, #7 backward on
-    the card), then diff/replay.py's shading chain.  ``plain`` fetches by
-    the fetch's plain version under autograd instead, on any device: the
-    route the kernels are held to."""
+    the card), then diff/replay.py's shading chain (with ``sky`` and
+    ``occlude``, its MIS estimator).  ``plain`` fetches by the fetch's plain
+    version under autograd instead, on any device: the route the kernels
+    are held to."""
     from ..diff.replay import replay_rows_radiance
     from .fetch import FetchRows, fetch_rows_plain
 
@@ -504,7 +526,7 @@ def replay(sc: BvhScene, codes: torch.Tensor, key, n_pixels: int, spp: int,
         sc.head, rows, kind, codes, key, ray_ids, px, py,
         tri_base=sc.tri_base, has_spheres=sph is not None,
         has_triangles=tri is not None, max_depth=max_depth, bg_kind=bg_kind,
-        clay=clay)
+        clay=clay, sky=sky, occlude=occlude)
 
 
 def _replay_grad(sc: BvhScene, codes, cts, *args, **kwargs) -> tuple:
@@ -579,3 +601,33 @@ def radiance(sc: BvhScene, key: tuple[int, int], n_pixels: int, spp: int,
         return radiance_bvh_cuda(sc, key, n_pixels * spp, spp, width, **opts)
     ray_ids, px, py = K.prep_rays(torch.arange(n_pixels), spp, width)
     return radiance_bvh_plain(sc, key, ray_ids, px, py, **opts)
+
+
+def env_radiance(sc: BvhScene, sky: B.Background, key: tuple[int, int],
+                 n_pixels: int, spp: int, width: int, *, max_depth: int,
+                 plain: bool = False) -> torch.Tensor:
+    """Per-ray radiance (n_pixels * spp, 3) of the HDRI importance-sampling
+    path (the JAX ``_bvh_env_radiance``): the record walk (#5's record
+    variant on the card) under a black uniform background, since the codes
+    do not depend on it; then :func:`replay` with the sky and the shadow
+    rays of kernel #8 (ops/occlusion.py), once a bounce.  The replay is the
+    result, differentiable in ``sc``'s head, material table and primitive
+    rows (#6, #7 under autograd) and in ``sky``'s texels; the walk and the
+    shadow rays are discrete.  ``plain``: the plain walk, fetch and
+    occlusion test on ``sc``'s device, the route the kernels are held
+    to."""
+    from .occlusion import occluded, occluded_plain
+
+    opts = dict(max_depth=max_depth, bg_kind=B.UNIFORM, clay=False)
+    with torch.no_grad():
+        if plain:
+            ray_ids, px, py = K.prep_rays(
+                torch.arange(n_pixels, device=sc.device), spp, width)
+            _, codes = radiance_bvh_plain(sc, key, ray_ids, px, py,
+                                          record=True, **opts)
+        else:
+            _, codes = _record(sc, key, n_pixels, spp, width, **opts)
+    test = occluded_plain if plain else occluded
+    return replay(sc, codes, key, n_pixels, spp, width, max_depth=max_depth,
+                  bg_kind=B.SKYMAP, clay=False, plain=plain, sky=sky,
+                  occlude=lambda o, d: test(sc, o, d))

@@ -204,12 +204,13 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     bg_a = fp[_BG:_BG + 3].unbind()
     bg_b = fp[_BG + 3:_BG + 6].unbind()
 
-    # background on a miss
+    # background on a miss (a sky map's is added by the caller, the env
+    # replay of diff/replay.py)
     missed = alive & ~hit
     if bg_kind == B.UNIFORM:
         rad = [rad[c] + torch.where(missed, thr[c] * bg_a[c], 0.0)
                for c in range(3)]
-    else:
+    elif bg_kind == B.GRADIENT:
         norm = 1.0 / torch.sqrt(_dot3(dx, dy, dz, dx, dy, dz))
         tt = 0.5 * (dy * norm + 1.0)
         rad = [rad[c] + torch.where(

@@ -14,6 +14,7 @@ import torch
 from ..models.scene import MODE_CLAY, Scene
 from ..ops import bvh_kernel as BK
 from ..ops import megakernel as K
+from ..ops.bvh_kernel import env_is_active
 from ..ops.radiance_grad import radiance
 from ..utils import color as color_mod
 from ..utils import rng
@@ -31,13 +32,29 @@ def resolve_device(device=None) -> torch.device:
 
 
 def select_engine(scene: Scene) -> str:
-    """"brute" (kernel #1) for 1 to 128 spheres and no triangle, at any
-    depth; else "bvh" (kernel #5) for a scene its gate admits; else
-    NotImplementedError naming the ROADMAP item that ports the scene.
+    """"env" (the record walk of #5, the replay and kernel #8) for a scene
+    that uses HDRI importance sampling and the BVH gate admits, at any
+    primitive count; else "brute" (kernel #1) for 1 to 128 spheres and no
+    triangle, at any depth; else "bvh" (kernel #5) for a scene its gate
+    admits; else NotImplementedError naming the ROADMAP item that ports
+    the scene.
 
     The JAX package's ``select_engine`` also sends sphere chains deeper
     than its unroll limit to its BVH kernel; here they stay on #1, which
-    runs any depth (ROADMAP A10)."""
+    runs any depth.  It renders importance-sampled scenes of up to 256
+    primitives with its XLA integrator, which the port lacks; here they
+    take the env path too, and without their BVH they raise (ROADMAP A6,
+    A10)."""
+    if env_is_active(scene):
+        if scene.cbvh is None:
+            raise NotImplementedError(
+                "HDRI importance sampling without the scene's BVH needs the "
+                "XLA integrator, not ported yet (ROADMAP A6): build the "
+                "scene with with_bvh=True (or enable_bvh_tree)")
+        why = BK.unsupported_bvh(scene)
+        if why is not None:
+            raise NotImplementedError(why)
+        return "env"
     brute = K.unsupported(scene)
     if brute is None:
         return "brute"
@@ -53,13 +70,20 @@ def pixel_radiance(scene: Scene, width: int, height: int,
                    key: tuple[int, int], device: torch.device) -> torch.Tensor:
     """(width * height, 3) mean radiance per pixel: each sample clamped to
     [0, clamp_indirect], then averaged over the pixel's samples.
-    Differentiable in the scene's leaves on both paths: the brute path's
-    gradient kernel, or the BVH path's record walk and replay."""
+    Differentiable in the scene's leaves on every path: the brute path's
+    gradient kernel, the BVH path's record walk and replay, or the env
+    path's replay (in the sky's texels too)."""
     s = scene.settings
     spp = s.samples_per_pixel
     opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
                 clay=s.mode == MODE_CLAY)
-    if select_engine(scene) == "bvh":
+    engine = select_engine(scene)
+    if engine == "env":
+        rad = BK.env_radiance(BK.pack(scene, width, height, device),
+                              scene.to(device).background, key,
+                              width * height, spp, width,
+                              max_depth=s.max_ray_depth)
+    elif engine == "bvh":
         rad = BK.radiance(BK.pack(scene, width, height, device), key,
                           width * height, spp, width, **opts)
     else:

@@ -403,3 +403,130 @@ def test_bvh_fit_on_card(cuda_device):
     assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES,
             TF.TRANSPOSE_LAUNCHES) == tuple(c + 3 for c in counts)
     assert all(np.isfinite(history)) and history[-1] < history[0]
+
+
+# ---------------- the HDRI importance-sampling path: #8 and the env replay
+
+
+def _env(scene, h=32, w=64):
+    """The scene under a seeded sky (a gradient, noise and a small sun far
+    above the clamp), with HDRI importance sampling on."""
+    img = np.random.default_rng(0).uniform(0.8, 1.2, (h, w, 3)).astype(
+        np.float32)
+    img *= np.linspace(1.0, 0.1, h, dtype=np.float32)[:, None, None]
+    img[4:6, 10:13] = 500.0  # rows near 0 face the zenith
+    return dataclasses.replace(
+        scene, background=T.Background.skymap_from_array(img),
+        settings=dataclasses.replace(scene.settings,
+                                     env_importance_sampling=True))
+
+
+def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
+    """The shadow rays of every bounce of the plain route's replay."""
+    from raytracingrust_tpu_torch.ops import occlusion as TO
+
+    rays = []
+
+    def occlude(o, d):
+        rays.append((o, d))
+        return TO.occluded_plain(sc, o, d)
+
+    ids, px, py = TK.prep_rays(torch.arange(n_pix, device=sc.device), spp, w)
+    _, codes = TB.radiance_bvh_plain(sc, key, ids, px, py, max_depth=depth,
+                                     bg_kind=T.Background.uniform(0).kind,
+                                     clay=False, record=True)
+    TB.replay(sc, codes, key, n_pix, spp, w, max_depth=depth,
+              bg_kind=sky.kind, clay=False, plain=True, sky=sky,
+              occlude=occlude)
+    return rays
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_stress, _sheet], ids=["stress", "sheet"])
+def test_occlusion_kernel_matches_plain_on_card(cuda_device, make):
+    """#8 equals its plain version on every shadow ray of every bounce of
+    an env render at 64x48, and refuses CPU tensors."""
+    from raytracingrust_tpu_torch.ops import occlusion as TO
+
+    scene = _env(make())
+    w, h = 64, 48
+    sc, key, spp, _ = _record_inputs(scene, w, h, 5, cuda_device)
+    sky = scene.to(cuda_device).background
+    rays = _shadow_rays(sc, sky, key, w * h, spp, w,
+                        scene.settings.max_ray_depth)
+    assert rays
+    before, blocked, total = TO.LAUNCHES, 0, 0
+    for o, d in rays:
+        got = TO.occluded_cuda(sc, o, d)
+        assert torch.equal(got, TO.occluded_plain(sc, o, d))
+        blocked, total = blocked + int(got.sum()), total + got.numel()
+    assert TO.LAUNCHES == before + len(rays)
+    assert 0 < blocked < total  # both outcomes
+    cpu = TB.pack(scene, w, h, "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        TO.occluded_cuda(cpu, rays[0][0].cpu(), rays[0][1].cpu())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [_stress, _sheet], ids=["stress", "sheet"])
+def test_env_radiance_matches_plain_route_on_card(cuda_device, make):
+    """The env radiance through the record kernel, #6 and #8 equals the
+    all-plain route bit for bit; the gradient in the packed tensors and the
+    sky's texels through the kernels (#7 as the fetch's backward) agrees
+    with autograd through the plain route within rtol 2e-3 of each entry
+    plus 2e-5 of the largest."""
+    from raytracingrust_tpu_torch.ops import fetch as TF
+    from raytracingrust_tpu_torch.ops import occlusion as TO
+
+    scene = _env(make())
+    w, h = 64, 48
+    sc, key, spp, _ = _record_inputs(scene, w, h, 5, cuda_device)
+    depth = scene.settings.max_ray_depth
+    sky = scene.to(cuda_device).background
+    args = (key, w * h, spp, w)
+    counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TO.LAUNCHES)
+    with torch.no_grad():
+        ker = TB.env_radiance(sc, sky, *args, max_depth=depth)
+        plain = TB.env_radiance(sc, sky, *args, max_depth=depth, plain=True)
+    assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES) == (counts[0] + 1,
+                                                       counts[1] + 1)
+    assert TO.LAUNCHES > counts[2]
+    assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+    assert bool(torch.isfinite(ker).all()) and ker.abs().sum() > 0
+
+    cts = torch.tensor(np.random.default_rng(1).standard_normal(
+        (w * h * spp, 3)), dtype=torch.float32, device=cuda_device)
+    grads = []
+    for route in (False, True):
+        rows = [None if v is None else v.detach().requires_grad_(True)
+                for v in TB._rows(sc)]
+        img = sky.image.detach().requires_grad_(True)
+        live = [v for v in rows if v is not None] + [img]
+        rad = TB.env_radiance(sc.with_rows(*rows),
+                              dataclasses.replace(sky, image=img), *args,
+                              max_depth=depth, plain=route)
+        grads.append(torch.autograd.grad(rad, live, cts))
+    for a, b in zip(*grads):
+        assert bool(torch.isfinite(a).all())
+        tol = 2e-3 * b.abs() + 2e-5 * b.abs().max()
+        assert bool(((a - b).abs() <= tol).all())
+    assert grads[0][1].abs().sum() > 0 and grads[0][-1].abs().sum() > 0
+
+
+@pytest.mark.gpu
+def test_env_render_and_fit_on_card(cuda_device):
+    """render_linear and fit take an env scene on the card through the
+    record kernel, #6, #7 and #8; the loss falls over three steps."""
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.ops import occlusion as TO
+
+    scene = _env(_sheet())
+    target = T.render_linear(TG.apply_params(scene, {
+        "albedo": scene.materials.albedo * 0.6}), 32, 24, seed=1,
+        device=cuda_device)
+    assert bool(torch.isfinite(target).all())
+    before = TO.LAUNCHES
+    _, _, history = fit(scene, target, ["albedo", "emission"], 32, 24,
+                        steps=3, device=cuda_device)
+    assert TO.LAUNCHES > before
+    assert all(np.isfinite(history)) and history[-1] < history[0]

@@ -91,7 +91,7 @@ def test_cli_render_writes_png(tmp_path, capsys):
 
 def test_cli_rejects_unserved_flags():
     for flag in ("--engine", "--sharded", "--progressive", "--bvh",
-                 "--env-is", "--profile", "--checkpoint"):
+                 "--profile", "--checkpoint"):
         with pytest.raises(SystemExit):
             cli.main(["render", BENCH, flag])
 
@@ -124,6 +124,8 @@ def test_port_never_imports_jax():
             "raytracingrust_tpu_torch.ops.fetch, "
             "raytracingrust_tpu_torch.diff.replay, "
             "raytracingrust_tpu_torch.io.obj, "
+            "raytracingrust_tpu_torch.io.exr, "
+            "raytracingrust_tpu_torch.ops.occlusion, "
             "raytracingrust_tpu_torch.models.mesh, "
             "raytracingrust_tpu_torch.utils.aabb; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

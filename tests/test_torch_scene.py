@@ -16,6 +16,7 @@ import raytracingrust_tpu as J
 from raytracingrust_tpu.models.scene import SceneBuilder as JBuilder
 from raytracingrust_tpu.ops import pallas_megakernel as PK
 from raytracingrust_tpu.render.render import render_linear as j_render_linear
+from raytracingrust_tpu_torch.io.exr import write_exr
 from raytracingrust_tpu_torch.models import backgrounds as TB
 from raytracingrust_tpu_torch.models.convert import scene_from_arrays
 from raytracingrust_tpu_torch.models.scene import RenderSettings
@@ -110,15 +111,21 @@ def test_scene_from_arrays_equals_loader():
     assert via.background.kind == loaded.background.kind
 
 
-def test_envelope_refusals():
+def test_envelope_refusals(tmp_path):
     zoo = TBuilder.from_file(SCENES["material_zoo"]).build()  # loads
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         render_linear(zoo, 8, 6, device="cpu")
     # a small sphere scene built with its BVH still takes the brute kernel
     bench = TBuilder.from_file(SCENES["benchmark"]).build(with_bvh=True)
     assert bench.cbvh is not None and select_engine(bench) == "brute"
+    # a SkyMap loads; without importance sampling the brute kernel's
+    # naive lookup is still to port
+    sky = str(tmp_path / "sky.exr")
+    write_exr(sky, np.full((4, 8, 3), 0.5, np.float32))
+    bench.background = TB.Background.from_json({"type": "SkyMap",
+                                                 "path": sky})
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        TB.Background.from_json({"type": "SkyMap", "path": "sky.exr"})
+        render_linear(bench, 8, 6, device="cpu")
     mesh = {"camera": {}, "settings": {}, "background": {}, "objects": [
         {"type": "Volume", "neg_inv_density": -1.0, "boundary": {
             "type": "Mesh", "path": "m.obj", "material": 0}}],
