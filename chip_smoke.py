@@ -67,9 +67,9 @@ non-zero exit, and prints no result:
    library's ``index_select``/``index_add_`` times and bounds; the CLI
    ``fit`` of bvh_stress (albedo, emission; 6 steps) against a target the
    CLI rendered, whose loss must fall, with one launch of each of the
-   three kernels a step; and the warm fit step of both shapes with a
-   ``torch.profiler`` breakdown into the record kernel, #6, the replay's
-   forward and backward, #7, Adam and host;
+   three kernels a step; and the warm fit step of both shapes with its
+   peak memory and a ``torch.profiler`` breakdown into the record kernel,
+   #6, the replay's forward and backward, #7, Adam and host;
 9. the HDRI importance-sampling path (the record variant of #5, #6, the
    occlusion kernel #8, the replay's MIS estimator; #7 under a fit) on a
    procedural 1024x2048 sky written with the port's EXR writer, over
@@ -89,15 +89,37 @@ non-zero exit, and prints no result:
    --env-is`` of sky_bvh_stress at 512x512 (albedo, emission; 6 steps),
    whose loss must fall, with one launch of the record kernel, #6 and #7 a
    step and one of #8 a bounce that has a Lambertian hit; and the warm fit
-   step at 1000x1000 with its breakdown and peak memory.
+   step at 1000x1000 with its breakdown and peak memory;
+10. volumes, isotropic materials and mixes on the BVH path, on
+   scenes/material_zoo.json (47 spheres, a fog sphere of an isotropic
+   material, a mix) and "sky_zoo" (the zoo under phase 9's sky, env-IS on,
+   spp 16), each kernel held to its plain version at the main path's own
+   shapes: at the zoo's 1200x800 spp 32 depth 8, #5's radiance bit for bit
+   equal at depth 1 and 8 on every ray (the volume tree's free flight, the
+   mix rounds and the isotropic lobe); at the fit shape 600x400 spp 16
+   depth 8, phase 8's list (#6 in raw mode), with an FD probe on albedo
+   and emission; at sky_zoo 600x400 spp 16, phase 9's list, the gradient
+   at that shape too, some shadow rays blocked by the fog alone.  Then the
+   depth-13 fit of scenes/cornell_spheres.json at 256x256 spp 8: the
+   record variant's radiance and codes equal the plain record walk's on
+   every ray and bounce, and two fit steps run through record #5, #6 and
+   #7, never #3 or #4, and the loss falls; the CLI ``render`` of the zoo
+   at 1200x800, ``fit`` at 600x400 (albedo, emission; 6 steps; the loss
+   must fall) and ``render --env-is`` of sky_zoo, each with its launches
+   counted; and the warm render and fit step (the zoo's: albedo, emission,
+   sphere centers and radii, these held within ZOO_FIT_GEO of their start;
+   sky_zoo's: albedo, emission; each loss must fall) with a ``torch.profiler``
+   breakdown and the peak memory.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
 phase 4, the radiance gradient kernel's under ``render_linear``'s
 backward, the fused kernel's in the CLI fit, the BVH kernel's in the CLI
 renders of phase 7, the record variant's, #6's and #7's in the CLI fit of
-phase 8, #8's in the CLI renders of phase 9; the other paths' counts are in
-the phase lines), and its least
+phase 8, #8's in the CLI renders of phase 9, and phase 10's entries of #5,
+its record variant, #6, #7 and #8 on the zoo and sky_zoo from its CLI
+render, fit and env render; the other paths' counts are in the phase
+lines), and its least
 possible time for one forward and one reverse sweep of the FP32
 operations the run's rays traced, or for the bytes it must move; the last
 line is
@@ -170,6 +192,15 @@ OPS_BVH_BOUNCE = 12
 OPS_NODE = 25
 OPS_SPHERE_TEST = 30
 OPS_TRI_TEST = 55
+# csrc/bvh_walk.cuh volume_t, counted from its source: the quadratic and
+# the window per volume candidate; a window a ray crosses adds the draw's
+# float part, logf (~20) and the free flight; with mixes each hit resolves
+# in 4 rounds (the coins' conversions and compares); the isotropic lobe is
+# cbrt01 (logf and expf, ~20 each) and the scaled sample
+OPS_VOL_TEST = 30
+OPS_VOL_DRAW = 29
+OPS_MIX_HIT = 8
+OPS_ISO = 45
 
 
 def _cuda_time_ms(fn, reps: int) -> float:
@@ -325,23 +356,634 @@ def bvh_scenes() -> list:
             ("sheet64", sheet, 512, 512, size)]
 
 
-def bvh_phase(dev, card: str) -> dict:
-    """Phase 7; -> kernel #5's entries of the kernel report."""
+def _ptxas(name: str) -> str:
+    """The compiler's register and spill report of one kernel source."""
+    from raytracingrust_tpu_torch.ops import _build
+
+    log = _build.library_path(name=name).with_suffix(".log")
+    return " | ".join(ln.strip() for ln in (
+        log.read_text().splitlines() if log.exists() else [])
+        if "registers" in ln or "spill" in ln)
+
+
+def _reset_launches() -> None:
+    """Sets every kernel's launch count to 0."""
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import fetch as F
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.ops import mse_loss as MS
+    from raytracingrust_tpu_torch.ops import occlusion as OC
+    from raytracingrust_tpu_torch.ops import radiance_grad as RG
+
+    BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
+    F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = RG.LAUNCHES = MS.LAUNCHES = 0
+
+
+def _launches() -> dict:
+    """Every kernel's launches since :func:`_reset_launches`."""
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import fetch as F
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.ops import mse_loss as MS
+    from raytracingrust_tpu_torch.ops import occlusion as OC
+    from raytracingrust_tpu_torch.ops import radiance_grad as RG
+
+    return dict(fwd=BK.LAUNCHES, record=BK.RECORD_LAUNCHES,
+                fetch=F.FETCH_LAUNCHES, transpose=F.TRANSPOSE_LAUNCHES,
+                occlusion=OC.LAUNCHES, brute=K.LAUNCHES, grad=RG.LAUNCHES,
+                fused=MS.LAUNCHES)
+
+
+def _entry(name: str, source: str, at: str, launches: int, err: float,
+           ms: float, plain_ms: float, bound: tuple, lib=None) -> dict:
+    """One kernel's entry of the kernel report."""
+    return {"name": name, "route": "cuda",
+            "source": "raytracingrust_tpu_torch/csrc/" + source,
+            "replaces": "raytracingrust_tpu/ops/pallas_megakernel.py:" + at,
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0],
+            "bound_by": bound[1], "library_ms": lib}
+
+
+def _load(path: str, spp=None, depth=None):
+    """The scene of a JSON, at another spp or depth if given."""
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+
+    b = SceneBuilder.from_file(path)
+    b.settings = dataclasses.replace(
+        b.settings, samples_per_pixel=spp or b.settings.samples_per_pixel,
+        max_ray_depth=depth or b.settings.max_ray_depth)
+    return b.build()
+
+
+def _write_scene(src: str, name: str, dim: bool = False, sky: bool = False,
+                 **settings) -> str:
+    """Writes the scene JSON ``src`` to OUT_DIR/``name``, with every albedo
+    at 0.7 of its value (``dim``: a fit's target), under the procedural
+    sky SKY with importance sampling on (``sky``), and ``settings`` over
+    its own; -> its path."""
+    with open(src) as f:
+        d = json.load(f)
+    if dim:
+        for m in d["materials"]:
+            if "albedo" in m:
+                m["albedo"] = {c: 0.7 * v for c, v in m["albedo"].items()}
+    if sky:
+        d["background"] = {"type": "SkyMap", "path": SKY}
+        settings = {"env_importance_sampling": True, **settings}
+    d["settings"].update(settings)
+    path = os.path.join(OUT_DIR, name)
+    with open(path, "w") as f:
+        json.dump(d, f)
+    return path
+
+
+def _bit_equal(what: str, a, b) -> float:
+    """Raises unless the float tensors ``a`` and ``b`` (R, 3) are equal
+    bit for bit, with the count of rays that differ; -> their max abs
+    difference (0.0)."""
     import torch
 
-    from raytracingrust_tpu_torch import cli
-    from raytracingrust_tpu_torch.io.png import read_png
-    from raytracingrust_tpu_torch.models.scene import SceneBuilder
-    from raytracingrust_tpu_torch.ops import _build
+    if not torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        bad = (a.view(torch.int32) != b.view(torch.int32)).any(dim=1)
+        raise AssertionError(
+            f"{what} differs on {int(bad.sum())} of {bad.numel()} rays, max "
+            f"abs diff {(a - b).abs().max().item():.3e}")
+    return 0.0
+
+
+def _grad_check(label, got, want) -> float:
+    """Max abs diff of gradients within GRAD_RTOL/GRAD_ATOL of the plain
+    route's, finite; raises otherwise."""
+    import torch
+
+    err = 0.0
+    for a, b in zip(got, want):
+        e = (a - b).abs()
+        if not bool(torch.isfinite(a).all()) or bool(
+                (e > GRAD_RTOL * b.abs() + GRAD_ATOL * b.abs().max()).any()):
+            raise AssertionError(f"{label}: a gradient differs from the "
+                                 f"plain route by up to {e.max().item():.3e}")
+        err = max(err, e.max().item())
+    return err
+
+
+def _scene_bytes(sc, trees=("spheres", "volumes", "triangles")) -> int:
+    """Bytes of a packed scene's tensors: head, tables, the trees'."""
+    import torch
+
+    return sum(t.numel() * t.element_size() for t in (
+        sc.head, sc.mats, sc.kinds, *(sc.mixes or ()),
+        *(v for name in trees if getattr(sc, name) is not None
+          for v in getattr(sc, name))) if isinstance(t, torch.Tensor))
+
+
+def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
+             record: bool = False) -> int:
+    """FP32 operations of #5, or with ``record`` of its record variant,
+    over the rays a plain run tallied."""
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+
+    hits = [tally[f"hits_{k}"] for k in range(5)]
+    lobe = {**OPS_LOBE, 4: OPS_ISO}
+    ops = (n_rays * OPS_RAY
+           + tally["bounces"] * (OPS_BVH_BOUNCE + (1 if sc.iso else 0))
+           + tally["nodes"] * OPS_NODE
+           + tally["sphere_tests"] * OPS_SPHERE_TEST
+           + tally["volume_tests"] * OPS_VOL_TEST
+           + tally["volume_draws"] * OPS_VOL_DRAW
+           + tally["triangle_tests"] * OPS_TRI_TEST
+           + sum(hits) * (OPS_HIT + (OPS_MIX_HIT if sc.mixes is not None
+                                     else 0))
+           + sum(n * lobe[k] for k, n in enumerate(hits))
+           + tally["misses"] * OPS_MISS[bg_kind])
+    if record:  # the record's decisions: the metal and dielectric tests
+        ops += sum(hits) * (
+            (OPS_LOBE[1] if sc.rec_mask & BK.REC_METAL_OK else 0)
+            + (OPS_LOBE[2] if sc.rec_mask & BK.REC_REFLECT else 0))
+    return ops
+
+
+def _forward_check(label, sc, key, n_pix: int, spp: int, width: int,
+                   opts: dict) -> dict:
+    """#5 against its plain version on the same rays: per-ray radiance bit
+    for bit equal at depth 1 and at full depth on every ray.  Then #5's
+    time, the plain version's (the full-depth run), the work a second
+    plain run's rays did, and #5's bound from it."""
+    import torch
+
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
     from raytracingrust_tpu_torch.ops import megakernel as K
-    from raytracingrust_tpu_torch.render.render import (render_linear,
-                                                        select_engine)
+
+    n_rays = n_pix * spp
+    ids, px, py = K.prep_rays(torch.arange(n_pix, device=sc.device), spp,
+                              width)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for d in (1, opts["max_depth"]):
+        at = {**opts, "max_depth": d}
+        ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, width, **at)
+        start.record()
+        with torch.no_grad():
+            plain = BK.radiance_bvh_plain(sc, key, ids, px, py, **at)
+        end.record()
+        torch.cuda.synchronize()
+        err = _bit_equal(f"{label}: #5's radiance at depth {d}", ker, plain)
+    plain_ms = start.elapsed_time(end)
+    del ker, plain
+    tally = collections.Counter()
+    with torch.no_grad():
+        BK.radiance_bvh_plain(sc, key, ids, px, py, tally=tally, **opts)
+    ops = _bvh_ops(sc, tally, n_rays, opts["bg_kind"])
+    ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
+        sc, key, n_rays, spp, width, **opts), 5)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, tally=tally, ops=ops,
+                bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays))
+
+
+def _per_ray(tally, n_rays: int) -> str:
+    """A plain run's work per ray, for the phase lines."""
+    return (f"{tally['bounces'] / n_rays:.3f} bounces, "
+            f"{tally['nodes'] / n_rays:.2f} node visits, "
+            f"{tally['sphere_tests'] / n_rays:.1f} sphere, "
+            f"{tally['volume_tests'] / n_rays:.3f} volume and "
+            f"{tally['triangle_tests'] / n_rays:.1f} triangle tests, "
+            f"{tally['volume_draws'] / n_rays:.3f} free flights")
+
+
+def _record_check(label, sc, key, n_pix: int, spp: int, width: int,
+                  opts: dict, tally: bool = True) -> tuple:
+    """#5 and its record variant against the plain record walk on the same
+    rays: both radiances equal the plain one bit for bit, and the codes
+    the plain codes, on every ray and bounce.  -> (#5's radiance, the
+    codes, the max abs difference (0.0), the plain walk's ms, and with
+    ``tally`` the work a second plain run's rays did)."""
+    import torch
+
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import megakernel as K
+
+    n_rays = n_pix * spp
+    ids, px, py = K.prep_rays(torch.arange(n_pix, device=sc.device), spp,
+                              width)
+    ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, width, **opts)
+    rec, codes = BK.radiance_bvh_cuda(sc, key, n_rays, spp, width,
+                                      record=True, **opts)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    with torch.no_grad():
+        plain, plain_codes = BK.radiance_bvh_plain(sc, key, ids, px, py,
+                                                   record=True, **opts)
+    end.record()
+    torch.cuda.synchronize()
+    err = max(_bit_equal(f"{label}: #5's radiance", ker, plain),
+              _bit_equal(f"{label}: the record variant's radiance", rec,
+                         plain))
+    if not torch.equal(codes, plain_codes):
+        bad = (codes != plain_codes).any(dim=0)
+        raise AssertionError(f"{label}: record codes differ from the plain "
+                             f"walk's on {int(bad.sum())} of {n_rays} rays")
+    del rec, plain, plain_codes
+    count = None
+    if tally:
+        count = collections.Counter()
+        with torch.no_grad():
+            BK.radiance_bvh_plain(sc, key, ids, px, py, tally=count, **opts)
+    return ker, codes, err, start.elapsed_time(end), count
+
+
+def _fetch_check(label, sc, codes, seed: int) -> dict:
+    """#6 against its plain version, bit for bit, and #7 against its plain
+    version summed in float64, within FETCH_RTOL of the magnitudes each
+    entry adds, on the winners of ``codes``.  Then their times, their
+    plain versions', the library's gather and scatter over the first
+    table's winners (``index_select``, ``index_add_``) and their bounds:
+    the tables, the codes and the rows they move, once."""
+    import torch
+
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import fetch as F
+
+    args = (codes, *BK.fetch_inputs(sc))
+    kinds, tri_base, sph_mat, tri_mat, mats, sph_geo, tri_geo, raw = args[1:]
+    rows, kind = F.fetch_rows_cuda(*args)
+    p_rows, p_kind = F.fetch_rows_plain(*args)
+    if not (torch.equal(rows.view(torch.int32), p_rows.view(torch.int32))
+            and torch.equal(kind, p_kind)):
+        raise AssertionError(f"{label}: #6 differs from its plain version "
+                             f"in {int((rows != p_rows).sum())} of "
+                             f"{rows.numel()} fields and "
+                             f"{int((kind != p_kind).sum())} kinds")
+    del p_rows, p_kind, kind
+    dev = codes.device
+    g_rows = torch.randn(tuple(rows.shape), device=dev,
+                         generator=torch.Generator(dev).manual_seed(seed))
+    sizes = (kinds.shape[0], 0 if sph_geo is None else sph_geo.shape[0],
+             0 if tri_geo is None else tri_geo.shape[0])
+    targs = (codes, g_rows, tri_base, sph_mat, tri_mat, *sizes, raw)
+    # float32 sums of ~1e5 terms of both signs (the ground sphere, a few
+    # materials) differ from the exact sum, in any order, by more than
+    # 1e-5 of the result, so the bound is 1e-5 of the magnitudes added
+    g64 = g_rows.double()
+    exact = F.fetch_rows_transpose_plain(codes, g64, *targs[2:])
+    scale = F.fetch_rows_transpose_plain(codes, g64.abs(), *targs[2:])
+    err7 = p_err = 0.0
+    for got, plain, want, mag in zip(
+            F.fetch_rows_transpose_cuda(*targs),
+            F.fetch_rows_transpose_plain(*targs), exact, scale):
+        if want is None:
+            continue
+        e = (got.double() - want).abs()
+        if bool((e > FETCH_RTOL * mag).any()):
+            raise AssertionError(f"{label}: #7 differs from the exact sums "
+                                 f"by up to {e.max().item():.3e}")
+        err7 = max(err7, e.max().item())
+        p_err = max(p_err, (plain.double() - want).abs().max().item())
+    del g64, exact, scale
+
+    ms = (_cuda_time_ms(lambda: F.fetch_rows_cuda(*args), 10),
+          _cuda_time_ms(lambda: F.fetch_rows_transpose_cuda(*targs), 10))
+    plain_ms = (_cuda_time_ms(lambda: F.fetch_rows_plain(*args), 2),
+                _cuda_time_ms(lambda: F.fetch_rows_transpose_plain(*targs),
+                              2))
+    # the library: the first table's rows (its slots count from 0 in the
+    # codes) and, unless raw, the material rows, gathered and scattered
+    geo, mat = (sph_geo, sph_mat) if sph_geo is not None else (tri_geo,
+                                                               tri_mat)
+    flat = codes.reshape(-1)
+    limit = tri_base if sph_geo is not None else BK.REC_SLOT + 1
+    own = (flat >= 0) & ((flat & BK.REC_SLOT) < limit)
+    slot = torch.where(own, flat & BK.REC_SLOT, 0).long()
+    hit_idx = own.nonzero().squeeze(1)
+    s_hit = slot[hit_idx]
+    g_all = g_rows.reshape(g_rows.shape[0], -1)
+    g_geo = g_all[:geo.shape[1], hit_idx].T.contiguous()
+    if raw:  # the raw material id instead of the material rows
+        lib = (_cuda_time_ms(lambda: (geo.index_select(0, slot),
+                                      mat.index_select(0, slot)), 10),
+               _cuda_time_ms(lambda: torch.zeros_like(geo).index_add_(
+                   0, s_hit, g_geo), 10))
+    else:
+        mid = mat[slot].long()
+        m_hit = mid[hit_idx]
+        g_mat = g_all[-8:, hit_idx].T.contiguous()
+        lib = (_cuda_time_ms(lambda: (geo.index_select(0, slot),
+                                      mats.index_select(0, mid)), 10),
+               _cuda_time_ms(lambda: (
+                   torch.zeros_like(geo).index_add_(0, s_hit, g_geo),
+                   torch.zeros_like(mats).index_add_(0, m_hit, g_mat)), 10))
+
+    n = codes.numel()
+    valid = flat >= 0
+    hits = int(valid.sum())
+    n_tri = int((valid & ((flat & BK.REC_SLOT) >= tri_base)).sum())
+    moved = 4 * (hits - n_tri) + 12 * n_tri + (0 if raw else 8 * hits)
+    table_bytes = sum(t.numel() * t.element_size() for t in (
+        sph_mat, tri_mat, sph_geo, tri_geo,
+        *(() if raw else (mats, kinds))) if t is not None)
+    bounds = (
+        # codes in; the rows and the kind out a code
+        _bound(0, table_bytes + 4 * n + 4 * (rows.shape[0] + 1) * n),
+        # codes and the winners' cotangents in, one add each
+        _bound(2 * moved, 4 * n + 4 * moved + 4 * hits + table_bytes))
+    return dict(err=(0.0, err7), plain_err=p_err, fields=rows.shape[0],
+                ms=ms, plain=plain_ms, lib=lib, bounds=bounds)
+
+
+def _bvh_grad_check(label, sc, key, n_pix: int, spp: int, width: int,
+                    opts: dict, gen) -> tuple:
+    """The packed tensors' gradient for numpy-seeded cotangents through
+    the kernels (record #5, #6, the replay, #7) against autograd through
+    the plain route, within GRAD_RTOL/GRAD_ATOL, finite, nonzero in the
+    volumes' rows where there are volumes.  -> (max abs diff, the
+    kernels' route's peak memory in GB)."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+
+    cts = torch.tensor(gen.standard_normal((n_pix * spp, 3),
+                                           dtype=np.float32),
+                       device=sc.device)
+    want = BK.radiance_grad_plain(sc, key, cts, n_pix, spp, width, **opts)
+    torch.cuda.reset_peak_memory_stats()
+    rows = [None if v is None else v.detach().requires_grad_(True)
+            for v in BK._rows(sc)]
+    rad = BK.radiance(sc.with_rows(*rows), key, n_pix, spp, width, **opts)
+    got = torch.autograd.grad(rad, [v for v in rows if v is not None], cts)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    err = _grad_check(label, got, [v for v in want if v is not None])
+    if sc.volumes is not None and got[-1].abs().sum() == 0:
+        raise AssertionError(f"{label}: no gradient in the volumes' rows")
+    return err, peak_gb
+
+
+def _fd_probe(label, scene, dev, width: int, height: int, key, probe,
+              gen) -> tuple:
+    """A directional finite-difference probe of ``make_loss`` along a
+    numpy-seeded direction in the ``probe`` parameters, against a target
+    at 0.9 of the scene's own render: AD within 5% of the central
+    difference.  -> (AD, FD)."""
+    import torch
+
+    from raytracingrust_tpu_torch.diff import grad as G
+    from raytracingrust_tpu_torch.render.render import render_linear
+
+    sc_dev = scene.to(dev)
+    params = {k: v.clone().requires_grad_(True) for k, v in
+              G.extract_params(sc_dev, probe).items()}
+    v = {k: torch.tensor(gen.standard_normal(tuple(p.shape)),
+                         dtype=torch.float32, device=dev)
+         for k, p in params.items()}
+    with torch.no_grad():
+        target = render_linear(sc_dev, width, height, seed=12,
+                               device=dev) * 0.9
+    loss = G.make_loss(sc_dev, target, width, height, device=dev)
+    loss(params, key).backward()
+    ad = sum((params[k].grad * v[k]).sum().item() for k in params)
+    with torch.no_grad():
+        fd = (loss({k: p + FD_EPS * v[k] for k, p in params.items()}, key)
+              - loss({k: p - FD_EPS * v[k] for k, p in params.items()}, key)
+              ).item() / (2 * FD_EPS)
+    if not abs(ad - fd) <= 0.05 * max(abs(fd), 1e-6):
+        raise AssertionError(f"{label}: FD probe AD {ad:.6e} vs FD {fd:.6e}")
+    return ad, fd
+
+
+def _fit_path(label, scene, sc, key, width: int, height: int, opts: dict,
+              gen, probe) -> dict:
+    """The BVH fit path's kernels at ``sc``'s frame against their plain
+    versions on the same inputs (:func:`_record_check`,
+    :func:`_fetch_check`), the replay's forward within REPLAY_ATOL of
+    #5's radiance, the gradient (:func:`_bvh_grad_check`) and the FD
+    probe (:func:`_fd_probe`); then the record variant's time and bound
+    from the plain walk's tally.  -> the numbers, the codes among
+    them."""
+    import torch
+
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+
+    spp = scene.settings.samples_per_pixel
+    n_pix, n_rays = width * height, width * height * spp
+    ker, codes, err, plain_ms, tally = _record_check(
+        label, sc, key, n_pix, spp, width, opts)
+    fetch = _fetch_check(label, sc, codes, 0)
+    with torch.no_grad():
+        rep = BK.replay(sc, codes, key, n_pix, spp, width, **opts)
+    rep_err = (rep - ker).abs().max().item()
+    if not rep_err <= REPLAY_ATOL:
+        raise AssertionError(f"{label}: the replay's forward is "
+                             f"{rep_err:.3e} from #5's radiance")
+    del rep, ker
+    g_err, peak_gb = _bvh_grad_check(label, sc, key, n_pix, spp, width,
+                                     opts, gen)
+    ad, fd = _fd_probe(label, scene, sc.device, width, height, key, probe,
+                       gen)
+    ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
+        sc, key, n_rays, spp, width, record=True, **opts), 5)
+    ops = _bvh_ops(sc, tally, n_rays, opts["bg_kind"], record=True)
+    return dict(codes=codes, hits=int((codes >= 0).sum()), err=err,
+                fetch=fetch, rep_err=rep_err, g_err=g_err, peak_gb=peak_gb,
+                ad=ad, fd=fd, ms=ms, plain_ms=plain_ms, tally=tally,
+                bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays
+                             + 4 * codes.numel()))
+
+
+def _print_fit_path(phase: str, label: str, size: str, r: dict, probe,
+                    extra: str = "") -> None:
+    """The phase lines of :func:`_fit_path`'s numbers."""
+    f, n_codes = r["fetch"], r["codes"].numel()
+    b6, b7 = f["bounds"]
+    print(f"{phase} {label} {size}: record radiance == #5 == plain bit for "
+          f"bit, codes == plain codes on all {r['codes'].shape[1]} rays x "
+          f"{r['codes'].shape[0]} bounces ({r['hits']} hits{extra}); #6 == "
+          f"plain bit for bit ({f['fields']} fields); #7 max abs diff from "
+          f"the float64 sums {f['err'][1]:.3e} (float32 index_add_ "
+          f"{f['plain_err']:.3e}; allowed {FETCH_RTOL:g} of the magnitudes "
+          f"added); replay forward vs #5 max abs diff {r['rep_err']:.3e} "
+          f"(allowed {REPLAY_ATOL:g}); gradient vs plain route max abs diff "
+          f"{r['g_err']:.3e} (allowed {GRAD_RTOL:g} rel + {GRAD_ATOL:g} of "
+          f"max), finite; peak memory of the backward {r['peak_gb']:.2f} "
+          f"GB; FD probe ({', '.join(probe)}; eps {FD_EPS:g}, rtol 5%): AD "
+          f"{r['ad']:.6e}, FD {r['fd']:.6e}")
+    print(f"{phase} {label} times: record #5 {r['ms']:.4f} ms (plain "
+          f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.5f} ms "
+          f"{r['bound'][1]}); #6 {f['ms'][0]:.4f} ms (plain "
+          f"{f['plain'][0]:.3f}, index_select {f['lib'][0]:.4f}, bound "
+          f"{b6[0]:.5f} {b6[1]}); #7 {f['ms'][1]:.4f} ms (plain "
+          f"{f['plain'][1]:.3f}, index_add_ {f['lib'][1]:.4f}, bound "
+          f"{b7[0]:.5f} {b7[1]}); {r['hits']} hits of {n_codes} codes")
+
+
+def _fit_entries(r: dict, launches: dict, suffix: str = "") -> list:
+    """The report entries of the record variant of #5, #6 and #7."""
+    f = r["fetch"]
+    return [
+        _entry("bvh_record" + suffix, "bvh_forward.cu", "3001",
+               launches["record"], r["err"], r["ms"], r["plain_ms"],
+               r["bound"]),
+        _entry("fetch_rows" + suffix, "fetch_rows.cu", "3179",
+               launches["fetch"], f["err"][0], f["ms"][0], f["plain"][0],
+               f["bounds"][0], f["lib"][0]),
+        _entry("fetch_rows_transpose" + suffix, "fetch_rows.cu", "3179",
+               launches["transpose"], f["err"][1], f["ms"][1], f["plain"][1],
+               f["bounds"][1], f["lib"][1]),
+    ]
+
+
+def _check_png(path: str, width: int, height: int, label: str) -> None:
+    """Raises unless the PNG at ``path`` has the frame's shape and is not
+    flat."""
+    from raytracingrust_tpu_torch.io.png import read_png
+
+    png = read_png(path)
+    if (png.shape != (height, width, 4)
+            or png[..., :3].min() == png[..., :3].max()):
+        raise AssertionError(f"{label}: PNG {png.shape} is flat or "
+                             f"misshapen")
+
+
+def _warm_render(scene, width: int, height: int, dev, label: str) -> tuple:
+    """(best wall of three renders in s, the image's mean); the image must
+    be finite and not flat."""
+    import torch
+
+    from raytracingrust_tpu_torch.render.render import render_linear
+
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        img = render_linear(scene, width, height, seed=0, device=dev)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    if not bool(torch.isfinite(img).all()) or img.std().item() == 0.0:
+        raise AssertionError(f"{label}: image not finite or flat")
+    return min(times), img.mean().item()
+
+
+def _profile(run, steps: int) -> dict:
+    """Device ms a call by part: ``run(step)``, which calls ``step()``
+    after each of its calls (a render, a fit step), under torch.profiler,
+    one call of warm-up and then ``steps`` recorded.  The kernels by name;
+    "replay and rest" is the other kernels' time (the replay's elementwise
+    kernels, the clamp, the mean, Adam's); the replay's halves and Adam by
+    their ranges where a fit step names them (user annotations span their
+    kernels on the device; #6 runs inside the replay's forward, #7 inside
+    its backward)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=steps,
+                                   repeat=1)) as prof:
+        run(prof.step)
+    part = collections.Counter()
+    ranges = collections.Counter()
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
+        key = evt.key
+        if getattr(evt, "is_user_annotation", False):
+            ranges[key] += ms
+            continue
+        if "bvh_radiance_kernel" in key:
+            record = "<true" in key or "ILb1E" in key
+            part["record #5" if record else "#5"] += ms
+        elif "fetch_kernel" in key:
+            part["#6"] += ms
+        elif "transpose_kernel" in key:
+            part["#7"] += ms
+        elif "occlusion_kernel" in key:
+            part["#8"] += ms
+        else:
+            part["replay and rest"] += ms
+        part["busy"] += ms
+    if "bvh_replay_forward" in ranges:
+        part["replay forward"] = ranges["bvh_replay_forward"] - part["#6"]
+        part["replay backward"] = ranges["bvh_replay_backward"] - part["#7"]
+        part["Adam"] = sum(v for k, v in ranges.items() if "Adam" in k)
+    return part
+
+
+def _parts(part: dict, keys) -> str:
+    """A :func:`_profile` breakdown's ``keys``, for the phase lines."""
+    return ", ".join(f"{k} {part[k]:.3f} ms" for k in keys)
+
+
+def _warm_fit(scene, target, names, width: int, height: int, dev,
+              **fit_kw) -> dict:
+    """Five steps of ``fit``: the first step's and the median warm step's
+    ms, the peak memory, the loss history (finite, as the parameters);
+    then three more under :func:`_profile`."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.diff.inverse import fit
+
+    ticks = []
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    _, params, history = fit(scene, target, names, width, height, steps=5,
+                             device=dev, callback=lambda *_: ticks.append(
+                                 time.perf_counter()), **fit_kw)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_s = sorted(b - a for a, b in zip(ticks[1:], ticks[2:]))
+    if not all(np.isfinite(history)) or not all(
+            bool(torch.isfinite(p).all()) for p in params.values()):
+        raise AssertionError(f"a warm fit is not finite: {history}")
+    part = _profile(lambda step: fit(
+        scene, target, names, width, height, steps=3, device=dev,
+        callback=lambda *_: step(), **fit_kw), 2)
+    return dict(first_ms=(ticks[0] - t0) * 1e3,
+                warm_ms=step_s[len(step_s) // 2] * 1e3, n=len(step_s),
+                peak_gb=peak_gb, history=history, part=part)
+
+
+def _cli_fit(path: str, target_png: str, flags=()) -> tuple:
+    """The CLI ``fit`` of ``path`` against ``target_png``, CLI_FIT_STEPS
+    steps of CLI_FIT_PARAMS from seed 0, whose loss must be finite and
+    fall.  -> (the launches, the first and the final loss, its output)."""
+    import numpy as np
+
+    from raytracingrust_tpu_torch import cli
+
+    _reset_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fit", path, target_png, *flags, "--params",
+                       CLI_FIT_PARAMS, "--steps", str(CLI_FIT_STEPS),
+                       "--seed", "0"])
+    text = buf.getvalue()
+    launches = _launches()
+    if rc != 0:
+        raise AssertionError(f"cli fit {path} returned {rc}\n{text}")
+    first = float(text.split("step 0: loss")[1].split()[0])
+    final = float(text.split("final loss")[1].split()[0])
+    if not (np.isfinite(first) and np.isfinite(final) and final < first):
+        raise AssertionError(f"cli fit {path}: loss {first} -> {final}"
+                             f"\n{text}")
+    return launches, first, final, text
+
+
+def _cli_render(path: str, png: str, flags=(), seed: int = 0) -> None:
+    """The CLI ``render`` of ``path`` to ``png``; raises if it fails."""
+    from raytracingrust_tpu_torch import cli
+
+    if cli.main(["render", path, *flags, "-o", png, "--seed",
+                 str(seed)]) != 0:
+        raise AssertionError(f"cli render {path} failed")
+
+
+def bvh_phase(dev, card: str) -> dict:
+    """Phase 7; -> kernel #5's entry of the kernel report."""
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.render.render import select_engine
     from raytracingrust_tpu_torch.utils import rng
 
-    log = _build.library_path(name="bvh_forward").with_suffix(".log")
-    regs = " | ".join(ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln)
+    regs = _ptxas("bvh_forward")
     shapes = bvh_scenes()
     key = rng.base_key(11)
     out = {}
@@ -353,100 +995,39 @@ def bvh_phase(dev, card: str) -> dict:
         spp, depth = s.samples_per_pixel, s.max_ray_depth
         sc = BK.pack(scene, w, h, dev)
         n_rays = w * h * spp
-        ids, px, py = K.prep_rays(torch.arange(w * h, device=dev), spp, w)
-        opts = dict(bg_kind=scene.background.kind, clay=False)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        for d in (1, depth):
-            ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, w, max_depth=d,
-                                       **opts)
-            start.record()
-            plain = BK.radiance_bvh_plain(sc, key, ids, px, py, max_depth=d,
-                                          **opts)
-            end.record()
-            torch.cuda.synchronize()
-            if not torch.equal(ker.view(torch.int32),
-                               plain.view(torch.int32)):
-                bad = (ker.view(torch.int32)
-                       != plain.view(torch.int32)).any(dim=1)
-                raise AssertionError(
-                    f"{label}: kernel #5 != plain in {int(bad.sum())} of "
-                    f"{bad.numel()} rays (depth {d}), max abs diff "
-                    f"{(ker - plain).abs().max().item():.3e}")
-        err = (ker - plain).abs().max().item()
-        plain_ms = start.elapsed_time(end)  # the full-depth run above
-        tally = collections.Counter()
-        with torch.no_grad():
-            BK.radiance_bvh_plain(sc, key, ids, px, py, max_depth=depth,
-                                  tally=tally, **opts)
-        hits = [tally[f"hits_{k}"] for k in range(4)]
-        ops = (
-            n_rays * OPS_RAY + tally["bounces"] * OPS_BVH_BOUNCE
-            + tally["nodes"] * OPS_NODE
-            + tally["sphere_tests"] * OPS_SPHERE_TEST
-            + tally["triangle_tests"] * OPS_TRI_TEST
-            + sum(hits) * OPS_HIT
-            + sum(n * OPS_LOBE[k] for k, n in enumerate(hits))
-            + tally["misses"] * OPS_MISS[scene.background.kind])
-        scene_bytes = sum(t.numel() * t.element_size() for t in (
-            sc.head, sc.mats, sc.kinds, *(sc.spheres or ()),
-            *(sc.triangles or ())) if isinstance(t, torch.Tensor))
-        bound = _bound(ops, scene_bytes + 12 * n_rays)
-        ker_ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
-            sc, key, n_rays, spp, w, max_depth=depth, **opts), 5)
-        out[label] = dict(ms=ker_ms, plain_ms=plain_ms, bound=bound,
-                          err=err)
+        opts = dict(max_depth=depth, bg_kind=scene.background.kind,
+                    clay=False)
+        out[label] = r = _forward_check(label, sc, key, w * h, spp, w, opts)
         print(f"phase 7 {label} {w}x{h} spp {spp} depth {depth} "
               f"({len(scene.spheres)} spheres, {len(scene.triangles)} "
               f"triangles): per-ray radiance bit for bit equal at depth 1 "
               f"and depth {depth} on all {n_rays} rays; per ray "
-              f"{tally['bounces'] / n_rays:.3f} bounces, "
-              f"{tally['nodes'] / n_rays:.2f} node visits, "
-              f"{tally['sphere_tests'] / n_rays:.1f} sphere and "
-              f"{tally['triangle_tests'] / n_rays:.1f} triangle tests; "
-              f"kernel {ker_ms:.4f} ms, plain {plain_ms:.2f} ms, "
-              f"bound {bound[0]:.5f} ms ({bound[1]}; {ops:.4g} FP32 "
-              f"operations)")
+              f"{_per_ray(r['tally'], n_rays)}; kernel {r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.2f} ms, bound {r['bound'][0]:.5f} ms "
+              f"({r['bound'][1]}; {r['ops']:.4g} FP32 operations)")
 
     # the main path, through the CLI entry
-    BK.LAUNCHES = K.LAUNCHES = 0
+    _reset_launches()
     for label, path, *_, flags in shapes:
-        rc = cli.main(["render", path, *flags, "-o",
-                       os.path.join(OUT_DIR, label + ".png"), "--seed", "0"])
-        if rc != 0:
-            raise AssertionError(f"cli render {path} returned {rc}")
-    launches, brute = BK.LAUNCHES, K.LAUNCHES
-    if launches < len(shapes) or brute != 0:
-        raise AssertionError(f"the CLI renders launched kernel #5 {launches}"
-                             f" times and #1 {brute} times, expected "
-                             f"{len(shapes)} and 0")
+        _cli_render(path, os.path.join(OUT_DIR, label + ".png"), flags)
+    launches = _launches()
+    if launches["fwd"] < len(shapes) or launches["brute"] != 0:
+        raise AssertionError(f"the CLI renders launched {launches}, expected "
+                             f"{len(shapes)} of #5 and none of #1")
     for label, path, w, h, _ in shapes:
-        png = read_png(os.path.join(OUT_DIR, label + ".png"))
-        if png.shape != (h, w, 4) or png[..., :3].min() == png[..., :3].max():
-            raise AssertionError(f"{label}: PNG {png.shape} is flat or "
-                                 f"misshapen")
+        _check_png(os.path.join(OUT_DIR, label + ".png"), w, h, label)
         scene = SceneBuilder.from_file(path).build()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            img = render_linear(scene, w, h, seed=0, device=dev)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        if not bool(torch.isfinite(img).all()) or img.std().item() == 0.0:
-            raise AssertionError(f"{label}: image not finite or flat")
-        best = min(times)
+        best, mean = _warm_render(scene, w, h, dev, label)
         spp = scene.settings.samples_per_pixel
         print(f"phase 7 {label} {w}x{h} spp {spp}: warm render {best:.4f} s,"
               f" {w * h * spp / best / 1e6:.1f} primary Mrays/s (kernel #5), "
-              f"image mean {img.mean().item():.5f}")
-    print(f"phase 7 CLI renders: {launches} launches of kernel #5, {brute} "
-          f"of #1; {card}; ptxas: {regs}")
-    main_shape = out["bvh_stress"]
-    return {"launches": launches,
-            "max_abs_err": max(o["err"] for o in out.values()),
-            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-            "bound_ms": main_shape["bound"][0],
-            "bound_by": main_shape["bound"][1]}
+              f"image mean {mean:.5f}")
+    print(f"phase 7 CLI renders: {launches['fwd']} launches of kernel #5, "
+          f"{launches['brute']} of #1; {card}; ptxas: {regs}")
+    main = out["bvh_stress"]
+    return _entry("bvh_forward", "bvh_forward.cu", "3001", launches["fwd"],
+                  max(o["err"] for o in out.values()), main["ms"],
+                  main["plain_ms"], main["bound"])
 
 
 # phase 8: the fitted shapes, their parameters and the CLI fit's
@@ -456,48 +1037,11 @@ FIT_SHAPES = (("bvh_stress", 1000, 1000,
               ("sheet64", 512, 512, "albedo,emission,bg_color_a,"
                                     "sphere_center"))
 CLI_FIT_PARAMS = "albedo,emission"
+CLI_FIT_STEPS = 6
 # #7 vs its plain version in float64: of the sum of the magnitudes added
 FETCH_RTOL = 1e-5
 REPLAY_ATOL = 1e-4  # the replay's forward vs the kernel's radiance
-
-
-def _profile_step(prof, steps: int) -> dict:
-    """Device ms a step by part of a BVH fit step, from a torch.profiler
-    run of ``steps`` steps: the kernels by name, the replay's halves and
-    Adam by their ranges (user annotations span their kernels on the
-    device; #6 runs inside the replay's forward, #7 inside its
-    backward)."""
-    import torch
-
-    kernel = collections.Counter()
-    ranges = collections.Counter()
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
-        if getattr(evt, "is_user_annotation", False):
-            ranges[evt.key] += ms
-        else:
-            kernel[evt.key] += ms
-    part = collections.Counter()
-    for key, ms in kernel.items():
-        if "bvh_radiance_kernel" in key:
-            record = "<true>" in key or "ILb1E" in key
-            part["record #5" if record else "#5"] += ms
-        elif "fetch_kernel" in key:
-            part["#6"] += ms
-        elif "transpose_kernel" in key:
-            part["#7"] += ms
-        else:
-            part["other kernels"] += ms
-    fwd = ranges.get("bvh_replay_forward", 0.0)
-    bwd = ranges.get("bvh_replay_backward", 0.0)
-    adam = sum(v for k, v in ranges.items() if "Adam" in k)
-    part["replay forward"] = fwd - part["#6"]
-    part["replay backward"] = bwd - part["#7"]
-    part["Adam"] = adam
-    part["busy"] = sum(kernel.values())
-    return part
+FD_EPS = 1e-3
 
 
 def bvh_fit_phase(dev, card: str) -> list:
@@ -505,276 +1049,49 @@ def bvh_fit_phase(dev, card: str) -> list:
     #7."""
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from raytracingrust_tpu_torch import cli
-    from raytracingrust_tpu_torch.diff import grad as G
-    from raytracingrust_tpu_torch.diff.inverse import fit
     from raytracingrust_tpu_torch.io.png import read_png
     from raytracingrust_tpu_torch.models.scene import SceneBuilder
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
-    from raytracingrust_tpu_torch.ops import fetch as F
-    from raytracingrust_tpu_torch.ops import megakernel as K
-    from raytracingrust_tpu_torch.render.render import render_linear
     from raytracingrust_tpu_torch.utils import rng
 
     paths = {label: path for label, path, *_ in bvh_scenes()}
     key = rng.base_key(11)
     gen = np.random.default_rng(0)
+    probe = ["albedo", "emission", "bg_color_a"]
     out = {}
     for label, w, h, names in FIT_SHAPES:
         scene = SceneBuilder.from_file(paths[label]).build()
         s = scene.settings
-        spp, depth = s.samples_per_pixel, s.max_ray_depth
-        n_pix, n_rays = w * h, w * h * spp
-        opts = dict(max_depth=depth, bg_kind=scene.background.kind,
-                    clay=False)
+        opts = dict(max_depth=s.max_ray_depth,
+                    bg_kind=scene.background.kind, clay=False)
         with torch.no_grad():
             sc = BK.pack(scene, w, h, dev)
-        ids, px, py = K.prep_rays(torch.arange(n_pix, device=dev), spp, w)
-
-        # the record variant against #5 and the plain record walk
-        ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, w, **opts)
-        rec, codes = BK.radiance_bvh_cuda(sc, key, n_rays, spp, w,
-                                          record=True, **opts)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        _, plain_codes = BK.radiance_bvh_plain(sc, key, ids, px, py,
-                                               record=True, **opts)
-        end.record()
-        torch.cuda.synchronize()
-        rec_plain_ms = start.elapsed_time(end)
-        if not torch.equal(rec.view(torch.int32), ker.view(torch.int32)):
-            raise AssertionError(f"{label}: the record variant's radiance "
-                                 f"differs from #5's")
-        if not torch.equal(codes, plain_codes):
-            bad = (codes != plain_codes).any(dim=0)
-            raise AssertionError(f"{label}: record codes differ from the "
-                                 f"plain walk's on {int(bad.sum())} of "
-                                 f"{n_rays} rays")
-        hits = int((codes >= 0).sum())
-
-        # #6 and #7 against their plain versions
-        sph, tri = sc.spheres, sc.triangles
-        args = (codes, sc.kinds, sc.tri_base, sph and sph.mat,
-                tri and tri.mat, sc.mats, sph and sph.geo, tri and tri.geo)
-        rows, kind = F.fetch_rows_cuda(*args)
-        p_rows, p_kind = F.fetch_rows_plain(*args)
-        if not (torch.equal(rows.view(torch.int32), p_rows.view(torch.int32))
-                and torch.equal(kind, p_kind)):
-            raise AssertionError(f"{label}: #6 differs from its plain "
-                                 f"version")
-        del p_rows, p_kind
-        g_rows = torch.randn(tuple(rows.shape), device=dev,
-                             generator=torch.Generator(dev).manual_seed(0))
-        sizes = (sc.kinds.shape[0], sph.geo.shape[0] if sph else 0,
-                 tri.geo.shape[0] if tri else 0)
-        targs = (codes, g_rows, sc.tri_base, sph and sph.mat,
-                 tri and tri.mat, *sizes)
-        # #7 against its plain version summed in float64: float32 sums of
-        # ~1e5 terms of both signs (the ground sphere, 4 materials) differ
-        # from the exact sum, in any order, by more than 1e-5 of the
-        # result, so the bound is 1e-5 of the magnitudes an entry adds
-        g64 = g_rows.double()
-        exact = F.fetch_rows_transpose_plain(codes, g64, *targs[2:])
-        scale = F.fetch_rows_transpose_plain(codes, g64.abs(), *targs[2:])
-        t_err = p_err = 0.0
-        for got, plain, want, mag in zip(
-                F.fetch_rows_transpose_cuda(*targs),
-                F.fetch_rows_transpose_plain(*targs), exact, scale):
-            if want is None:
-                continue
-            err = (got.double() - want).abs()
-            if bool((err > FETCH_RTOL * mag).any()):
-                raise AssertionError(f"{label}: #7 differs from the exact "
-                                     f"sums by up to {err.max().item():.3e}")
-            t_err = max(t_err, err.max().item())
-            p_err = max(p_err, (plain.double() - want).abs().max().item())
-        del g64, exact, scale
-
-        # the replay's forward against the kernel's radiance
-        with torch.no_grad():
-            rep = BK.replay(sc, codes, key, n_pix, spp, w, **opts)
-        rep_err = (rep - ker).abs().max().item()
-        if not rep_err <= REPLAY_ATOL:
-            raise AssertionError(f"{label}: the replay's forward is "
-                                 f"{rep_err:.3e} from #5's radiance")
-        del rep
-
-        # the gradient through the kernels against the plain route
-        cts = torch.tensor(gen.standard_normal((n_rays, 3),
-                                               dtype=np.float32), device=dev)
-        want = BK.radiance_grad_plain(sc, key, cts, n_pix, spp, w, **opts)
-        torch.cuda.reset_peak_memory_stats()
-        rows_in = [None if v is None else v.detach().requires_grad_(True)
-                   for v in BK._rows(sc)]
-        rad = BK.radiance(sc.with_rows(*rows_in), key, n_pix, spp, w, **opts)
-        live = [v for v in rows_in if v is not None]
-        got = torch.autograd.grad(rad, live, cts)
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        g_err = 0.0
-        for part, a, b in zip(("head", "materials", "geometry", "geometry"),
-                              got, [v for v in want if v is not None]):
-            err = (a - b).abs()
-            if not bool(torch.isfinite(a).all()) or bool(
-                    (err > GRAD_RTOL * b.abs() + GRAD_ATOL * b.abs().max())
-                    .any()):
-                raise AssertionError(f"{label}: the {part} gradient differs "
-                                     f"from the plain route by up to "
-                                     f"{err.max().item():.3e}")
-            g_err = max(g_err, err.max().item())
-        del rad, got, want
-
-        # FD probe of the loss along a numpy-seeded direction
-        sc_dev = scene.to(dev)
-        probe = ["albedo", "emission", "bg_color_a"]
-        params = {k: v.clone().requires_grad_(True) for k, v in
-                  G.extract_params(sc_dev, probe).items()}
-        v = {k: torch.tensor(gen.standard_normal(tuple(p.shape)),
-                             dtype=torch.float32, device=dev)
-             for k, p in params.items()}
-        with torch.no_grad():
-            target = render_linear(sc_dev, w, h, seed=12, device=dev) * 0.9
-        loss = G.make_loss(sc_dev, target, w, h, device=dev)
-        loss(params, key).backward()
-        ad = sum((params[k].grad * v[k]).sum().item() for k in params)
-        eps = 1e-3
-        with torch.no_grad():
-            fd = (loss({k: p + eps * v[k] for k, p in params.items()}, key)
-                  - loss({k: p - eps * v[k] for k, p in params.items()}, key)
-                  ).item() / (2 * eps)
-        if not abs(ad - fd) <= 0.05 * max(abs(fd), 1e-6):
-            raise AssertionError(f"{label}: FD probe AD {ad:.6e} vs FD "
-                                 f"{fd:.6e}")
-
-        # times: kernels, plain versions, the library's gather/scatter
-        n = codes.numel()
-        ms_rec = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
-            sc, key, n_rays, spp, w, record=True, **opts), 5)
-        ms_6 = _cuda_time_ms(lambda: F.fetch_rows_cuda(*args), 10)
-        ms_7 = _cuda_time_ms(lambda: F.fetch_rows_transpose_cuda(*targs), 10)
-        plain_6 = _cuda_time_ms(lambda: F.fetch_rows_plain(*args), 2)
-        plain_7 = _cuda_time_ms(lambda: F.fetch_rows_transpose_plain(*targs),
-                                2)
-        # the first tree's rows (its slots count from 0 in the codes)
-        tree = sph if sph is not None else tri
-        flat = codes.reshape(-1)
-        limit = sc.tri_base if sph is not None else BK.REC_SLOT + 1
-        own = (flat >= 0) & ((flat & BK.REC_SLOT) < limit)
-        slot = torch.where(own, flat & BK.REC_SLOT, 0).long()
-        mid = tree.mat[slot].long()
-        hit_idx = own.nonzero().squeeze(1)
-        g_geo = g_rows.reshape(g_rows.shape[0], -1)[:tree.geo.shape[1],
-                                                    hit_idx].T.contiguous()
-        g_mat = g_rows.reshape(g_rows.shape[0], -1)[-8:,
-                                                    hit_idx].T.contiguous()
-        s_hit, m_hit = slot[hit_idx], mid[hit_idx]
-        lib_6 = _cuda_time_ms(lambda: (tree.geo.index_select(0, slot),
-                                       sc.mats.index_select(0, mid)), 10)
-        lib_7 = _cuda_time_ms(lambda: (
-            torch.zeros_like(tree.geo).index_add_(0, s_hit, g_geo),
-            torch.zeros_like(sc.mats).index_add_(0, m_hit, g_mat)), 10)
-
-        # bounds: #5's operations (phase 7's tally) plus the record's
-        # decisions; bytes in and out once
-        tally = collections.Counter()
-        with torch.no_grad():
-            BK.radiance_bvh_plain(sc, key, ids, px, py, tally=tally, **opts)
-        n_hits = [tally[f"hits_{k}"] for k in range(4)]
-        ops = (n_rays * OPS_RAY + tally["bounces"] * OPS_BVH_BOUNCE
-               + tally["nodes"] * OPS_NODE
-               + tally["sphere_tests"] * OPS_SPHERE_TEST
-               + tally["triangle_tests"] * OPS_TRI_TEST
-               + sum(n_hits) * OPS_HIT
-               + sum(c * OPS_LOBE[k] for k, c in enumerate(n_hits))
-               + tally["misses"] * OPS_MISS[scene.background.kind]
-               + sum(n_hits) * ((OPS_LOBE[1] if sc.rec_mask
-                                 & BK.REC_METAL_OK else 0)
-                                + (OPS_LOBE[2] if sc.rec_mask
-                                   & BK.REC_REFLECT else 0)))
-        scene_bytes = sum(t.numel() * t.element_size() for t in (
-            sc.head, sc.mats, sc.kinds, *(sc.spheres or ()),
-            *(sc.triangles or ())) if isinstance(t, torch.Tensor))
-        table_bytes = sum(t.numel() * t.element_size() for t in (
-            sc.mats, sc.kinds, *args[3:5], *args[6:8]) if t is not None)
-        g = rows.shape[0] - 8
-        n_geo_hit = 0
-        if sph is not None:
-            n_geo_hit += 4 * int((codes >= 0).logical_and(
-                (codes & BK.REC_SLOT) < sc.tri_base).sum())
-        if tri is not None:
-            n_geo_hit += 12 * int((codes >= 0).logical_and(
-                (codes & BK.REC_SLOT) >= sc.tri_base).sum())
-        bounds = {
-            "record": _bound(ops, scene_bytes + 12 * n_rays + 4 * n),
-            "fetch": _bound(0, table_bytes + 4 * n + 4 * (g + 9) * n),
-            "transpose": _bound(2 * (n_geo_hit + 8 * hits), 4 * n
-                                + 4 * (n_geo_hit + 8 * hits) + 4 * hits
-                                + table_bytes),
-        }
-        out[label] = dict(ms=(ms_rec, ms_6, ms_7),
-                          plain=(rec_plain_ms, plain_6, plain_7),
-                          lib=(None, lib_6, lib_7), bounds=bounds,
-                          err=(0.0, 0.0, t_err))
-        print(f"phase 8 {label} {w}x{h} spp {spp} depth {depth}: record "
-              f"radiance == #5 bit for bit, codes == plain codes on all "
-              f"{n_rays} rays x {depth} bounces ({hits} hits); #6 == plain "
-              f"bit for bit ({rows.shape[0]} fields); #7 max abs diff "
-              f"from the float64 sums {t_err:.3e} (float32 index_add_ "
-              f"{p_err:.3e}; allowed {FETCH_RTOL:g} of the magnitudes "
-              f"added); replay forward vs #5 max abs diff {rep_err:.3e} "
-              f"(allowed {REPLAY_ATOL:g}); gradient vs plain route max abs "
-              f"diff {g_err:.3e} (allowed {GRAD_RTOL:g} rel + {GRAD_ATOL:g} "
-              f"of max), finite; peak memory of the backward "
-              f"{peak_gb:.2f} GB; FD probe ({', '.join(probe)}; eps {eps:g},"
-              f" rtol 5%): AD {ad:.6e}, FD {fd:.6e}")
-        print(f"phase 8 {label} times: record #5 {ms_rec:.4f} ms (plain "
-              f"{rec_plain_ms:.1f} ms, bound {bounds['record'][0]:.5f} ms "
-              f"{bounds['record'][1]}); #6 {ms_6:.4f} ms (plain "
-              f"{plain_6:.3f}, index_select {lib_6:.4f}, bound "
-              f"{bounds['fetch'][0]:.5f} {bounds['fetch'][1]}); #7 "
-              f"{ms_7:.4f} ms (plain {plain_7:.3f}, index_add_ {lib_7:.4f},"
-              f" bound {bounds['transpose'][0]:.5f} "
-              f"{bounds['transpose'][1]})")
-        del rows, g_rows, codes, plain_codes, kind
+        out[label] = r = _fit_path(label, scene, sc, key, w, h, opts, gen,
+                                   probe)
+        _print_fit_path("phase 8", label, f"{w}x{h} spp "
+                        f"{s.samples_per_pixel} depth {s.max_ray_depth}", r,
+                        probe)
+        del r["codes"], sc
 
     # the main path: CLI fit of bvh_stress against a CLI-rendered target
-    with open(STRESS) as f:
-        d = json.load(f)
-    for m in d["materials"]:
-        if "albedo" in m:
-            m["albedo"] = {c: 0.7 * v for c, v in m["albedo"].items()}
-    dim = os.path.join(OUT_DIR, "bvh_stress_dim.json")
-    with open(dim, "w") as f:
-        json.dump(d, f)
+    dim = _write_scene(STRESS, "bvh_stress_dim.json", dim=True)
     target_png = os.path.join(OUT_DIR, "bvh_fit_target.png")
-    if cli.main(["render", dim, "-o", target_png, "--seed", "1"]) != 0:
-        raise AssertionError("cli render of the fit target failed")
-    steps = 6
-    BK.LAUNCHES = BK.RECORD_LAUNCHES = 0
-    F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = K.LAUNCHES = 0
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["fit", STRESS, target_png, "--params", CLI_FIT_PARAMS,
-                       "--steps", str(steps), "--seed", "0", "-o",
-                       os.path.join(OUT_DIR, "bvh_fit_result.png")])
-    text = buf.getvalue()
-    counts = (BK.RECORD_LAUNCHES, F.FETCH_LAUNCHES, F.TRANSPOSE_LAUNCHES,
-              BK.LAUNCHES, K.LAUNCHES)
-    if rc != 0 or counts != (steps, steps, steps, 1, 0):
-        raise AssertionError(f"cli fit returned {rc}, launches (record, #6, "
-                             f"#7, #5, #1) {counts}, expected ({steps}, "
-                             f"{steps}, {steps}, 1, 0)\n{text}")
-    first = float(text.split("step 0: loss")[1].split()[0])
-    final = float(text.split("final loss")[1].split()[0])
-    if not (np.isfinite(first) and np.isfinite(final) and final < first):
-        raise AssertionError(f"cli fit loss did not fall: {first} -> "
-                             f"{final}\n{text}")
+    _cli_render(dim, target_png, seed=1)
+    steps = CLI_FIT_STEPS
+    counts, first, final, text = _cli_fit(
+        STRESS, target_png, ["-o", os.path.join(OUT_DIR,
+                                                "bvh_fit_result.png")])
+    got = tuple(counts[k] for k in ("record", "fetch", "transpose", "fwd",
+                                    "brute"))
+    if got != (steps, steps, steps, 1, 0):
+        raise AssertionError(f"cli fit launches (record, #6, #7, #5, #1) "
+                             f"{got}, expected ({steps}, {steps}, {steps}, "
+                             f"1, 0)\n{text}")
     print(f"phase 8 cli fit {STRESS} 1000x1000 spp 8 depth 4, {steps} "
           f"steps of {CLI_FIT_PARAMS}: loss {first:.6f} -> {final:.6f}; "
-          f"launches record {counts[0]}, #6 {counts[1]}, #7 {counts[2]}, "
-          f"#5 {counts[3]} (the fitted render)")
+          f"launches record {got[0]}, #6 {got[1]}, #7 {got[2]}, #5 {got[3]} "
+          f"(the fitted render)")
 
     # the warm fit step of each shape, and where its time goes
     for label, w, h, names in FIT_SHAPES:
@@ -783,52 +1100,19 @@ def bvh_fit_phase(dev, card: str) -> list:
         target = (read_png(target_png)[..., :3].astype(np.float32) / 255.0
                   ) ** 2 if label == "bvh_stress" else np.full(
             (h, w, 3), 0.25, np.float32)
-        ticks = []
-
-        def tick(i, value, params):
-            ticks.append(time.perf_counter())  # after float(loss): synced
-
-        t0 = time.perf_counter()
-        _, params, history = fit(scene, target, names.split(","), w, h,
-                                 steps=6, device=dev, callback=tick)
-        step_s = sorted(b - a for a, b in zip(ticks[1:], ticks[2:]))
-        warm = step_s[len(step_s) // 2]
-        if not all(np.isfinite(history)) or not all(
-                bool(torch.isfinite(p).all()) for p in params.values()):
-            raise AssertionError(f"{label} fit: not finite, history "
-                                 f"{history}")
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            fit(scene, target, names.split(","), w, h, steps=3, device=dev)
-        part = _profile_step(prof, 3)
-        host = warm * 1e3 - part["busy"]
+        r = _warm_fit(scene, target, names.split(","), w, h, dev)
         print(f"phase 8 {label} fit step ({names}): first step "
-              f"{(ticks[0] - t0) * 1e3:.1f} ms, warm step {warm * 1e3:.3f} "
-              f"ms (median of {len(step_s)}), {w * h * spp / warm / 1e6:.1f} "
-              f"primary Mrays/s fwd+bwd; loss {history[0]:.6f} -> "
-              f"{history[-1]:.6f}; per step under torch.profiler: "
-              + ", ".join(f"{k} {part[k]:.3f} ms" for k in (
+              f"{r['first_ms']:.1f} ms, warm step {r['warm_ms']:.3f} ms "
+              f"(median of {r['n']}), "
+              f"{w * h * spp / r['warm_ms'] / 1e3:.1f} primary Mrays/s "
+              f"fwd+bwd, peak memory {r['peak_gb']:.2f} GB; loss "
+              f"{r['history'][0]:.6f} -> {r['history'][-1]:.6f}; per step "
+              f"under torch.profiler: " + _parts(r["part"], (
                   "record #5", "#6", "replay forward", "replay backward",
-                  "#7", "Adam", "other kernels", "busy"))
-              + f", host (warm step - busy) {host:.3f} ms; {card}")
-
-    main_shape = out["bvh_stress"]
-    names = (("bvh_record", "bvh_forward.cu", "3001", "record"),
-             ("fetch_rows", "fetch_rows.cu", "3179", "fetch"),
-             ("fetch_rows_transpose", "fetch_rows.cu", "3179", "transpose"))
-    return [{
-        "name": name,
-        "route": "cuda",
-        "source": "raytracingrust_tpu_torch/csrc/" + src,
-        "replaces": "raytracingrust_tpu/ops/pallas_megakernel.py:" + line,
-        "launches": counts[i],  # the CLI fit above
-        "max_abs_err": main_shape["err"][i],
-        "ms": main_shape["ms"][i],
-        "plain_ms": main_shape["plain"][i],
-        "bound_ms": main_shape["bounds"][b][0],
-        "bound_by": main_shape["bounds"][b][1],
-        "library_ms": main_shape["lib"][i],
-    } for i, (name, src, line, b) in enumerate(names)]
+                  "#7", "Adam", "replay and rest", "busy"))
+              + f", host (warm step - busy) "
+              f"{r['warm_ms'] - r['part']['busy']:.3f} ms; {card}")
+    return _fit_entries(out["bvh_stress"], counts)
 
 
 # phase 9: the HDRI importance-sampling path
@@ -837,6 +1121,7 @@ SKY = os.path.join(OUT_DIR, "sky2k.exr")
 # the three reciprocals; node visits and leaf tests as #5's
 OPS_OCC_RAY = 8
 BYTES_OCC_RAY = 25  # origin and direction in, one byte out
+BYTES_OCC_VOL_RAY = 29  # with volumes #8 also reads each ray's id
 ENV_CLI_FIT_SIZE = 512  # the CLI fit's frame
 ENV_FIT_SIZE = 1000  # the timed fit step's frame
 
@@ -871,19 +1156,10 @@ def env_scenes() -> list:
     JSONs written beside the sky: scenes/bvh_stress.json and phase 7's
     sheet64, each under the sky with importance sampling on."""
     procedural_sky(SKY)
-    out = []
-    for label, path, w, h, flags in bvh_scenes():
-        if label == "grid8k":
-            continue
-        with open(path) as f:
-            d = json.load(f)
-        d["background"] = {"type": "SkyMap", "path": SKY}
-        d["settings"]["env_importance_sampling"] = True
-        sky_path = os.path.join(OUT_DIR, f"sky_{label}.json")
-        with open(sky_path, "w") as f:
-            json.dump(d, f)
-        out.append((f"sky_{label}", sky_path, w, h, flags))
-    return out
+    return [(f"sky_{label}", _write_scene(path, f"sky_{label}.json",
+                                          sky=True), w, h, flags)
+            for label, path, w, h, flags in bvh_scenes()
+            if label != "grid8k"]
 
 
 def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
@@ -898,9 +1174,9 @@ def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
 
     rays = []
 
-    def occlude(o, d):
-        rays.append((o, d))
-        return OC.occluded_plain(sc, o, d)
+    def occlude(o, d, ids, stream):
+        rays.append((o, d, ids, stream))
+        return OC.occluded_plain(sc, o, d, ids, key, stream)
 
     ids, px, py = K.prep_rays(torch.arange(n_pix, device=sc.device), spp, w)
     with torch.no_grad():
@@ -913,39 +1189,129 @@ def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
     return rad, rays
 
 
-def _env_profiled(run, steps: int) -> dict:
-    """Device ms a call by part of the env path: ``run(step)``, which
-    calls ``step()`` after each of its calls, under torch.profiler, one
-    call of warm-up and then ``steps`` recorded.  The kernels by name; the
-    rest of the device time is the replay's elementwise kernels (forward
-    and, in a fit, backward), the clamp and the mean, and Adam's."""
+def _env_route_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
+                     depth: int) -> dict:
+    """The env path at ``sc``'s frame: #8 against its plain version on
+    every shadow ray of every bounce of the plain route's replay, some
+    blocked and some not (with volumes, counting those the solid trees
+    leave open); #8's time a render over its launches, its plain
+    version's and its bound from the plain version's tally; the env
+    radiance through the kernels against the plain route, bit for bit,
+    finite."""
     import torch
-    from torch.profiler import ProfilerActivity, profile, schedule
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
-                 schedule=schedule(wait=0, warmup=1, active=steps,
-                                   repeat=1)) as prof:
-        run(prof.step)
-    part = collections.Counter()
-    for evt in prof.key_averages():
-        if (evt.device_type != torch.autograd.DeviceType.CUDA
-                or getattr(evt, "is_user_annotation", False)):
-            continue
-        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
-        key = evt.key
-        if "bvh_radiance_kernel" in key:
-            record = "<true>" in key or "ILb1E" in key
-            part["record #5" if record else "#5"] += ms
-        elif "fetch_kernel" in key:
-            part["#6"] += ms
-        elif "transpose_kernel" in key:
-            part["#7"] += ms
-        elif "occlusion_kernel" in key:
-            part["#8"] += ms
-        else:
-            part["replay and rest"] += ms
-        part["busy"] += ms
-    return part
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import occlusion as OC
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    plain, rays = _shadow_rays(sc, sky, key, n_pix, spp, width, depth)
+    end.record()
+    torch.cuda.synchronize()
+    route_ms = start.elapsed_time(end)
+    solid = sc._replace(volumes=None)
+    tally = collections.Counter()
+    n_shadow = n_blocked = n_fog = 0
+    ms, plain_ms, per_launch = [], 0.0, []
+    for o, d, ids, stream in rays:
+        got = OC.occluded_cuda(sc, o, d, ids, key, stream)
+        want = OC.occluded_plain(sc, o, d, ids, key, stream, tally=tally)
+        if not torch.equal(got, want):
+            raise AssertionError(
+                f"{label}: #8 differs from its plain version on "
+                f"{int((got != want).sum())} of {got.numel()} shadow rays")
+        n_shadow += got.numel()
+        n_blocked += int(got.sum())
+        if sc.volumes is not None:
+            n_fog += int((got & ~OC.occluded_plain(solid, o, d)).sum())
+        per_launch.append(got.numel())
+        ms.append(_cuda_time_ms(
+            lambda: OC.occluded_cuda(sc, o, d, ids, key, stream), 5))
+        plain_ms += _cuda_time_ms(lambda: OC.occluded_plain(
+            sc, o, d, ids, key, stream), 1)
+    if not rays or not 0 < n_blocked < n_shadow:
+        raise AssertionError(f"{label}: {n_shadow} shadow rays, {n_blocked} "
+                             f"blocked")
+    vol = sc.volumes is not None
+    ops = (n_shadow * (OPS_OCC_RAY + (1 if vol else 0))
+           + tally["nodes"] * OPS_NODE
+           + tally["sphere_tests"] * OPS_SPHERE_TEST
+           + tally["volume_tests"] * OPS_VOL_TEST
+           + tally["volume_draws"] * OPS_VOL_DRAW
+           + tally["triangle_tests"] * OPS_TRI_TEST)
+    tree_bytes = sum(t.numel() * t.element_size() for tree in (
+        sc.spheres, sc.volumes, sc.triangles) if tree is not None
+        for t in (tree.nodes_f, tree.nodes_i, tree.chunk_len, tree.geo,
+                  tree.nid, tree.ordinal) if t is not None)
+    bound = _bound(ops, (BYTES_OCC_VOL_RAY if vol else BYTES_OCC_RAY)
+                   * n_shadow + tree_bytes)
+    with torch.no_grad():
+        ker = BK.env_radiance(sc, sky, key, n_pix, spp, width,
+                              max_depth=depth)
+    err = _bit_equal(f"{label}: the env radiance through the kernels", ker,
+                     plain)
+    if not bool(torch.isfinite(ker).all()):
+        raise AssertionError(f"{label}: env radiance not finite")
+    return dict(ms=sum(ms), ms_launch=ms, per_launch=per_launch,
+                plain_ms=plain_ms, bound=bound, n_shadow=n_shadow,
+                n_blocked=n_blocked, n_fog=n_fog, tally=tally, err=err,
+                route_ms=route_ms, n_rays=n_pix * spp)
+
+
+def _print_env_route(phase: str, label: str, size: str, r: dict,
+                     card: str) -> None:
+    """The phase lines of :func:`_env_route_check`'s numbers."""
+    t, n = r["tally"], r["n_shadow"]
+    fog = (f", {r['n_fog']} of them by the volumes alone, their free "
+           f"flight drawn from the NEE stream" if r["n_fog"] else "")
+    print(f"{phase} {label} {size}: #8 == plain bit for bit on all {n} "
+          f"shadow rays "
+          f"({r['n_blocked']} blocked{fog}) of the plain route's replay; "
+          f"env radiance through record #5, #6 and #8 == the plain route "
+          f"bit for bit (max abs diff {r['err']:.1e}) on all {r['n_rays']} "
+          f"rays")
+    print(f"{phase} {label} #8: {r['ms']:.4f} ms a render over its "
+          f"{len(r['ms_launch'])} launches ("
+          + ", ".join(f"{x:.4f}" for x in r["ms_launch"]) + " ms; "
+          f"{r['per_launch']} shadow rays); plain {r['plain_ms']:.2f} ms; "
+          f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}; per shadow ray "
+          f"{t['nodes'] / n:.2f} node visits, {t['sphere_tests'] / n:.1f} "
+          f"sphere, {t['volume_tests'] / n:.3f} volume and "
+          f"{t['triangle_tests'] / n:.1f} triangle tests); the plain "
+          f"route's render {r['route_ms']:.1f} ms; {card}")
+
+
+def _env_grad_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
+                    depth: int, gen) -> float:
+    """The gradient in the packed tensors and the sky's texels through the
+    kernels against the plain route for numpy-seeded cotangents, within
+    GRAD_RTOL/GRAD_ATOL, finite, nonzero in the materials and the sky;
+    -> the max abs diff."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+
+    cts = torch.tensor(gen.standard_normal((n_pix * spp, 3),
+                                           dtype=np.float32),
+                       device=sc.device)
+    grads = []
+    for plain in (False, True):
+        rows = [None if v is None else v.detach().requires_grad_(True)
+                for v in BK._rows(sc)]
+        img = sky.image.detach().requires_grad_(True)
+        live = [v for v in rows if v is not None] + [img]
+        rad = BK.env_radiance(sc.with_rows(*rows),
+                              dataclasses.replace(sky, image=img), key,
+                              n_pix, spp, width, max_depth=depth,
+                              plain=plain)
+        grads.append(torch.autograd.grad(rad, live, cts))
+        del rad
+    err = _grad_check(label, *grads)
+    if grads[0][1].abs().sum() == 0 or grads[0][-1].abs().sum() == 0:
+        raise AssertionError(f"{label}: no material or sky gradient")
+    return err
 
 
 def env_phase(dev, card: str) -> dict:
@@ -953,23 +1319,13 @@ def env_phase(dev, card: str) -> dict:
     import numpy as np
     import torch
 
-    from raytracingrust_tpu_torch import cli
-    from raytracingrust_tpu_torch.diff import grad as G
-    from raytracingrust_tpu_torch.diff.inverse import fit
-    from raytracingrust_tpu_torch.io.png import read_png
     from raytracingrust_tpu_torch.models.scene import SceneBuilder
-    from raytracingrust_tpu_torch.ops import _build
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
-    from raytracingrust_tpu_torch.ops import fetch as F
-    from raytracingrust_tpu_torch.ops import megakernel as K
-    from raytracingrust_tpu_torch.ops import occlusion as OC
     from raytracingrust_tpu_torch.render.render import (render_linear,
                                                         select_engine)
     from raytracingrust_tpu_torch.utils import rng
 
-    log = _build.library_path(name="occlusion").with_suffix(".log")
-    regs = " | ".join(ln.strip() for ln in log.read_text().splitlines()
-                      if "registers" in ln or "spill" in ln)
+    regs = _ptxas("occlusion")
     t0 = time.perf_counter()
     shapes = env_scenes()
     write_s = time.perf_counter() - t0
@@ -984,226 +1340,86 @@ def env_phase(dev, card: str) -> dict:
             raise AssertionError(f"{label}: not sent to the env path")
         s = scene.settings
         spp, depth = s.samples_per_pixel, s.max_ray_depth
-        n_pix, n_rays = w * h, w * h * spp
         with torch.no_grad():
             sc = BK.pack(scene, w, h, dev)
         sky = scene.to(dev).background
-
-        # #8 against its plain version on every shadow ray of the plain
-        # route's replay; the env radiance through the kernels against it
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        plain, rays = _shadow_rays(sc, sky, key, n_pix, spp, w, depth)
-        end.record()
-        torch.cuda.synchronize()
-        route_plain_ms = start.elapsed_time(end)
-        tally = collections.Counter()
-        n_shadow = n_blocked = 0
-        ms_launch, plain_ms = [], 0.0
-        for o, d in rays:
-            got = OC.occluded_cuda(sc, o, d)
-            want = OC.occluded_plain(sc, o, d, tally=tally)
-            if not torch.equal(got, want):
-                raise AssertionError(
-                    f"{label}: #8 differs from its plain version on "
-                    f"{int((got != want).sum())} of {got.numel()} shadow "
-                    f"rays")
-            n_shadow += got.numel()
-            n_blocked += int(got.sum())
-            ms_launch.append(_cuda_time_ms(
-                lambda: OC.occluded_cuda(sc, o, d), 5))
-            plain_ms += _cuda_time_ms(lambda: OC.occluded_plain(sc, o, d),
-                                      1)
-        if not rays or not 0 < n_blocked < n_shadow:
-            raise AssertionError(f"{label}: {n_shadow} shadow rays, "
-                                 f"{n_blocked} blocked")
-        ms = sum(ms_launch)
-        ops = (n_shadow * OPS_OCC_RAY + tally["nodes"] * OPS_NODE
-               + tally["sphere_tests"] * OPS_SPHERE_TEST
-               + tally["triangle_tests"] * OPS_TRI_TEST)
-        tree_bytes = sum(t.numel() * t.element_size() for tree in (
-            sc.spheres, sc.triangles) if tree is not None
-            for t in (tree.nodes_f, tree.nodes_i, tree.chunk_len, tree.geo))
-        bound = _bound(ops, BYTES_OCC_RAY * n_shadow + tree_bytes)
-        with torch.no_grad():
-            ker = BK.env_radiance(sc, sky, key, n_pix, spp, w,
-                                  max_depth=depth)
-        err = (ker - plain).abs().max().item()
-        if not torch.equal(ker.view(torch.int32), plain.view(torch.int32)):
-            raise AssertionError(f"{label}: the env radiance through the "
-                                 f"kernels differs from the plain route, "
-                                 f"max abs diff {err:.3e}")
-        if not bool(torch.isfinite(ker).all()):
-            raise AssertionError(f"{label}: env radiance not finite")
-        per_launch = [o.shape[1] for o, _ in rays]
-        del plain, rays, ker
+        out[label] = r = _env_route_check(label, sc, sky, key, w * h, spp, w,
+                                          depth)
 
         # the gradient through the kernels against the plain route, and an
         # FD probe of make_loss on albedo, at 64x48
         gw, gh = 64, 48
         with torch.no_grad():
             gsc = BK.pack(scene, gw, gh, dev)
-        cts = torch.tensor(gen.standard_normal((gw * gh * spp, 3),
-                                               dtype=np.float32), device=dev)
-        names = [n for n, t in zip(("head", "materials", "sphere rows",
-                                    "triangle rows"), BK._rows(gsc))
-                 if t is not None] + ["sky"]
-        grads = []
-        for route in (False, True):
-            rows = [None if v is None else v.detach().requires_grad_(True)
-                    for v in BK._rows(gsc)]
-            img = sky.image.detach().requires_grad_(True)
-            live = [v for v in rows if v is not None] + [img]
-            rad = BK.env_radiance(gsc.with_rows(*rows),
-                                  dataclasses.replace(sky, image=img), key,
-                                  gw * gh, spp, gw, max_depth=depth,
-                                  plain=route)
-            grads.append(torch.autograd.grad(rad, live, cts))
-        g_err = 0.0
-        for part, a, b in zip(names, *grads):
-            e = (a - b).abs()
-            if not bool(torch.isfinite(a).all()) or bool(
-                    (e > GRAD_RTOL * b.abs() + GRAD_ATOL * b.abs().max())
-                    .any()):
-                raise AssertionError(f"{label}: the {part} gradient differs "
-                                     f"from the plain route by up to "
-                                     f"{e.max().item():.3e}")
-            g_err = max(g_err, e.max().item())
-        if grads[0][1].abs().sum() == 0 or grads[0][-1].abs().sum() == 0:
-            raise AssertionError(f"{label}: no material or sky gradient")
-        sc_dev = scene.to(dev)
-        params = {"albedo": sc_dev.materials.albedo.clone()
-                  .requires_grad_(True)}
-        v = torch.tensor(gen.standard_normal(tuple(params["albedo"].shape)),
-                         dtype=torch.float32, device=dev)
-        with torch.no_grad():
-            target = render_linear(sc_dev, gw, gh, seed=12,
-                                   device=dev) * 0.9
-        loss = G.make_loss(sc_dev, target, gw, gh, device=dev)
-        loss(params, key).backward()
-        ad = (params["albedo"].grad * v).sum().item()
-        eps = 1e-3
-        with torch.no_grad():
-            a0 = params["albedo"].detach()
-            fd = (loss({"albedo": a0 + eps * v}, key)
-                  - loss({"albedo": a0 - eps * v}, key)).item() / (2 * eps)
-        if not abs(ad - fd) <= 0.05 * max(abs(fd), 1e-6):
-            raise AssertionError(f"{label}: FD probe AD {ad:.6e} vs FD "
-                                 f"{fd:.6e}")
-        out[label] = dict(ms=ms, plain_ms=plain_ms, bound=bound)
-        print(f"phase 9 {label} {w}x{h} spp {spp} depth {depth} "
-              f"({len(scene.spheres)} spheres, {len(scene.triangles)} "
-              f"triangles; sky {tuple(sky.image.shape)}, loaded in "
-              f"{load_s:.2f} s): #8 == plain bit for bit on all {n_shadow} "
-              f"shadow rays ({n_blocked} blocked) of the plain route's "
-              f"replay; env radiance through record #5, #6 and #8 == the "
-              f"plain route bit for bit (max abs diff {err:.1e}) on all "
-              f"{n_rays} rays; gradient at {gw}x{gh} vs the plain route max "
-              f"abs diff {g_err:.3e} (allowed {GRAD_RTOL:g} rel + "
+        g_err = _env_grad_check(label, gsc, sky, key, gw * gh, spp, gw,
+                                depth, gen)
+        ad, fd = _fd_probe(label, scene, dev, gw, gh, key, ["albedo"], gen)
+        _print_env_route("phase 9", label, f"{w}x{h} spp {spp} depth "
+                         f"{depth} ({len(scene.spheres)} spheres, "
+                         f"{len(scene.triangles)} triangles; sky "
+                         f"{tuple(sky.image.shape)}, loaded in {load_s:.2f} "
+                         f"s)", r, card)
+        print(f"phase 9 {label} gradient at {gw}x{gh} vs the plain route "
+              f"max abs diff {g_err:.3e} (allowed {GRAD_RTOL:g} rel + "
               f"{GRAD_ATOL:g} of max), finite; FD probe (albedo, eps "
-              f"{eps:g}, rtol 5%): AD {ad:.6e}, FD {fd:.6e}")
-        print(f"phase 9 {label} #8: {ms:.4f} ms a render over its "
-              f"{len(per_launch)} launches ("
-              + ", ".join(f"{t:.4f}" for t in ms_launch) + " ms; "
-              f"{per_launch} shadow rays); "
-              f"plain {plain_ms:.2f} ms; bound {bound[0]:.5f} ms "
-              f"({bound[1]}; per shadow ray {tally['nodes'] / n_shadow:.2f} "
-              f"node visits, {tally['sphere_tests'] / n_shadow:.1f} sphere "
-              f"and {tally['triangle_tests'] / n_shadow:.1f} triangle "
-              f"tests); the plain route's render {route_plain_ms:.1f} ms; "
-              f"{card}; ptxas: {regs}")
+              f"{FD_EPS:g}, rtol 5%): AD {ad:.6e}, FD {fd:.6e}; ptxas: "
+              f"{regs}")
 
     # the main path: CLI renders of both scenes, then the CLI fit
-    BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
-    F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = 0
+    _reset_launches()
     for label, path, *_, flags in shapes:
-        rc = cli.main(["render", path, "--env-is", *flags, "-o",
-                       os.path.join(OUT_DIR, label + ".png"), "--seed", "0"])
-        if rc != 0:
-            raise AssertionError(f"cli render {path} returned {rc}")
-    counts = (BK.RECORD_LAUNCHES, F.FETCH_LAUNCHES, OC.LAUNCHES,
-              BK.LAUNCHES, K.LAUNCHES, F.TRANSPOSE_LAUNCHES)
+        _cli_render(path, os.path.join(OUT_DIR, label + ".png"),
+                    ["--env-is", *flags])
+    counts = _launches()
     depths = [SceneBuilder.from_file(p).settings.max_ray_depth
               for _, p, *_ in shapes]
-    if (counts[:2] != (len(shapes),) * 2 or not 0 < counts[2] <= sum(depths)
-            or counts[3:] != (0, 0, 0)):
-        raise AssertionError(f"the CLI renders launched (record #5, #6, #8, "
-                             f"#5, #1, #7) {counts}")
-    render_launches = counts[2]
+    if ((counts["record"], counts["fetch"]) != (len(shapes),) * 2
+            or not 0 < counts["occlusion"] <= sum(depths)
+            or counts["fwd"] or counts["brute"] or counts["transpose"]):
+        raise AssertionError(f"the CLI renders launched {counts}")
     for label, path, w, h, _ in shapes:
-        png = read_png(os.path.join(OUT_DIR, label + ".png"))
-        if png.shape != (h, w, 4) or png[..., :3].min() == png[..., :3].max():
-            raise AssertionError(f"{label}: PNG {png.shape} is flat or "
-                                 f"misshapen")
+        _check_png(os.path.join(OUT_DIR, label + ".png"), w, h, label)
         scene = SceneBuilder.from_file(path).build()
         spp = scene.settings.samples_per_pixel
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            img = render_linear(scene, w, h, seed=0, device=dev)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        if not bool(torch.isfinite(img).all()) or img.std().item() == 0.0:
-            raise AssertionError(f"{label}: image not finite or flat")
-        best = min(times)
+        best, mean = _warm_render(scene, w, h, dev, label)
+
         def renders(step, scene=scene, w=w, h=h):
             for _ in range(3):
                 render_linear(scene, w, h, seed=0, device=dev)
                 torch.cuda.synchronize()
                 step()
 
-        part = _env_profiled(renders, 2)
+        part = _profile(renders, 2)
         print(f"phase 9 {label} {w}x{h} spp {spp}: warm render {best:.4f} s,"
               f" {w * h * spp / best / 1e6:.1f} primary Mrays/s, image mean "
-              f"{img.mean().item():.5f}; per render under torch.profiler: "
-              + ", ".join(f"{k} {part[k]:.3f} ms" for k in (
-                  "record #5", "#6", "#8", "replay and rest", "busy"))
+              f"{mean:.5f}; per render under torch.profiler: "
+              + _parts(part, ("record #5", "#6", "#8", "replay and rest",
+                              "busy"))
               + f", host (warm render - busy) {best * 1e3 - part['busy']:.3f}"
               f" ms")
-    print(f"phase 9 CLI renders: launches record #5 {counts[0]}, #6 "
-          f"{counts[1]}, #8 {counts[2]} (of {sum(depths)} bounces), #5 "
-          f"{counts[3]}, #1 {counts[4]}")
+    print(f"phase 9 CLI renders: launches record #5 {counts['record']}, #6 "
+          f"{counts['fetch']}, #8 {counts['occlusion']} (of {sum(depths)} "
+          f"bounces), #5 {counts['fwd']}, #1 {counts['brute']}")
 
     stress, label = shapes[0][1], shapes[0][0]
-    with open(stress) as f:
-        d = json.load(f)
-    for m in d["materials"]:
-        if "albedo" in m:
-            m["albedo"] = {c: 0.7 * x for c, x in m["albedo"].items()}
-    dim = os.path.join(OUT_DIR, "sky_bvh_stress_dim.json")
-    with open(dim, "w") as f:
-        json.dump(d, f)
+    dim = _write_scene(stress, "sky_bvh_stress_dim.json", dim=True)
     target_png = os.path.join(OUT_DIR, "env_fit_target.png")
     size = str(ENV_CLI_FIT_SIZE)
-    if cli.main(["render", dim, "--env-is", "--width", size, "--height",
-                 size, "-o", target_png, "--seed", "1"]) != 0:
-        raise AssertionError("cli render of the fit target failed")
-    steps, depth = 6, depths[0]
-    BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
-    F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = 0
-    buf = io.StringIO()
-    with contextlib.redirect_stdout(buf):
-        rc = cli.main(["fit", stress, target_png, "--env-is", "--params",
-                       CLI_FIT_PARAMS, "--steps", str(steps), "--seed", "0"])
-    text = buf.getvalue()
-    fit_counts = (BK.RECORD_LAUNCHES, F.FETCH_LAUNCHES, F.TRANSPOSE_LAUNCHES,
-                  OC.LAUNCHES, BK.LAUNCHES, K.LAUNCHES)
-    if (rc != 0 or fit_counts[:3] != (steps,) * 3
-            or not steps <= fit_counts[3] <= steps * depth
-            or fit_counts[4:] != (0, 0)):
-        raise AssertionError(f"cli fit returned {rc}, launches (record, #6, "
-                             f"#7, #8, #5, #1) {fit_counts}\n{text}")
-    first = float(text.split("step 0: loss")[1].split()[0])
-    final = float(text.split("final loss")[1].split()[0])
-    if not (np.isfinite(first) and np.isfinite(final) and final < first):
-        raise AssertionError(f"cli fit loss did not fall: {first} -> "
-                             f"{final}\n{text}")
+    _cli_render(dim, target_png, ["--env-is", "--width", size, "--height",
+                                  size], seed=1)
+    steps, depth = CLI_FIT_STEPS, depths[0]
+    fit_counts, first, final, text = _cli_fit(stress, target_png,
+                                              ["--env-is"])
+    if ((fit_counts["record"], fit_counts["fetch"], fit_counts["transpose"])
+            != (steps,) * 3
+            or not steps <= fit_counts["occlusion"] <= steps * depth
+            or fit_counts["fwd"] or fit_counts["brute"]):
+        raise AssertionError(f"cli fit launches {fit_counts}\n{text}")
     print(f"phase 9 cli fit {stress} --env-is {size}x{size} depth {depth}, "
           f"{steps} steps of {CLI_FIT_PARAMS}: loss {first:.6f} -> "
-          f"{final:.6f}; launches record {fit_counts[0]}, #6 "
-          f"{fit_counts[1]}, #7 {fit_counts[2]}, #8 {fit_counts[3]} (of "
-          f"{steps * depth} bounces)")
+          f"{final:.6f}; launches record {fit_counts['record']}, #6 "
+          f"{fit_counts['fetch']}, #7 {fit_counts['transpose']}, #8 "
+          f"{fit_counts['occlusion']} (of {steps * depth} bounces)")
 
     # the warm fit step at sky_bvh_stress 1000x1000, and where its time goes
     w = h = ENV_FIT_SIZE
@@ -1212,48 +1428,264 @@ def env_phase(dev, card: str) -> dict:
     with torch.no_grad():
         target = render_linear(SceneBuilder.from_file(dim).build(), w, h,
                                seed=1, device=dev)
-    ticks = []
-
-    def tick(i, value, params):
-        ticks.append(time.perf_counter())  # after float(loss): synced
-
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.perf_counter()
-    _, params, history = fit(scene, target, CLI_FIT_PARAMS.split(","), w, h,
-                             steps=4, device=dev, callback=tick)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    step_s = sorted(b - a for a, b in zip(ticks[1:], ticks[2:]))
-    warm = step_s[len(step_s) // 2]
-    if not all(np.isfinite(history)) or not all(
-            bool(torch.isfinite(p).all()) for p in params.values()):
-        raise AssertionError(f"{label} fit: not finite, history {history}")
-    part = _env_profiled(lambda step: fit(
-        scene, target, CLI_FIT_PARAMS.split(","), w, h, steps=3,
-        device=dev, callback=lambda *_: step()), 2)
+    r = _warm_fit(scene, target, CLI_FIT_PARAMS.split(","), w, h, dev)
     print(f"phase 9 {label} {w}x{h} fit step ({CLI_FIT_PARAMS}): first step "
-          f"{(ticks[0] - t0) * 1e3:.1f} ms, warm step {warm * 1e3:.3f} ms "
-          f"(median of {len(step_s)}), {w * h * spp / warm / 1e6:.1f} "
-          f"primary Mrays/s fwd+bwd; peak memory {peak_gb:.2f} GB; per step "
-          f"under torch.profiler: "
-          + ", ".join(f"{k} {part[k]:.3f} ms" for k in (
+          f"{r['first_ms']:.1f} ms, warm step {r['warm_ms']:.3f} ms (median "
+          f"of {r['n']}), {w * h * spp / r['warm_ms'] / 1e3:.1f} primary "
+          f"Mrays/s fwd+bwd; peak memory {r['peak_gb']:.2f} GB; per step "
+          f"under torch.profiler: " + _parts(r["part"], (
               "record #5", "#6", "#8", "#7", "replay and rest", "busy"))
-          + f", host (warm step - busy) {warm * 1e3 - part['busy']:.3f} ms;"
-          f" writing the sky and scenes {write_s:.2f} s; {card}")
+          + f", host (warm step - busy) "
+          f"{r['warm_ms'] - r['part']['busy']:.3f} ms; writing the sky and "
+          f"scenes {write_s:.2f} s; {card}")
 
-    main_shape = out[shapes[0][0]]
-    return {
-        "name": "occlusion",
-        "route": "cuda",
-        "source": "raytracingrust_tpu_torch/csrc/occlusion.cu",
-        "replaces": "raytracingrust_tpu/ops/pallas_megakernel.py:3591",
-        "launches": render_launches,  # the CLI renders above
-        "max_abs_err": 0.0,  # bit for bit on every shadow ray
-        "ms": main_shape["ms"],  # a render's launches at sky_bvh_stress
-        "plain_ms": main_shape["plain_ms"],
-        "bound_ms": main_shape["bound"][0],
-        "bound_by": main_shape["bound"][1],
-        "library_ms": None,  # no PyTorch call computes a BVH any-hit
-    }
+    main = out[shapes[0][0]]  # a render's launches at sky_bvh_stress
+    # no PyTorch call computes a BVH any-hit: no library time
+    return _entry("occlusion", "occlusion.cu", "3591", counts["occlusion"],
+                  main["err"], main["ms"], main["plain_ms"], main["bound"])
+
+
+# phase 10: volumes, isotropic materials and mixes (the material zoo)
+ZOO = "scenes/material_zoo.json"
+ZOO_RENDER = (1200, 800)  # the scene's own spp 32 and depth 8, its aspect
+ZOO_FIT = (600, 400, 16)  # width, height, spp; depth 8
+ZOO_FIT_PARAMS = "albedo,emission,sphere_center,sphere_radius"
+# the warm zoo fit holds the sphere centers and radii within this of
+# their start (fit's constraints): the replay's gradient holds visibility
+# fixed, Adam moves every coordinate by about its learning rate a step
+# whatever the gradient's size, and the 40 spheres of radius 0.12, moved
+# so, change which paths hit them and the loss rises
+ZOO_FIT_GEO = 1e-3
+C1_SHAPE = (256, 256, 8)  # cornell at depth 13
+C1_DEPTH = 13
+
+
+def zoo_phase(dev, card: str) -> list:
+    """Phase 10; -> the report entries of #5, its record variant, #6, #7
+    and #8 on the zoo and sky_zoo."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.diff import grad as G
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.models import materials as M
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                        select_engine)
+    from raytracingrust_tpu_torch.utils import rng
+
+    if not os.path.exists(SKY):
+        procedural_sky(SKY)
+    zoo = ZOO
+    sky_zoo = _write_scene(ZOO, "sky_zoo.json", sky=True,
+                           samples_per_pixel=ZOO_FIT[2])
+    key = rng.base_key(11)
+    gen = np.random.default_rng(10)
+    depth = 8
+
+    # ---- #5 at the zoo's render shape
+    rw, rh = ZOO_RENDER
+    scene = _load(zoo)
+    if select_engine(scene) != "bvh":
+        raise AssertionError("the zoo is not sent to the BVH kernel")
+    r_spp = scene.settings.samples_per_pixel
+    r_rays = rw * rh * r_spp
+    opts = dict(max_depth=depth, bg_kind=scene.background.kind, clay=False)
+    with torch.no_grad():
+        sc = BK.pack(scene, rw, rh, dev)
+    fwd = _forward_check("zoo", sc, key, rw * rh, r_spp, rw, opts)
+    print(f"phase 10 zoo {rw}x{rh} spp {r_spp} depth {depth} "
+          f"({len(scene.spheres)} spheres, {scene.spheres.num_volumes} "
+          f"volume, mixes, isotropic): #5 radiance == plain bit for bit at "
+          f"depth 1 and depth {depth} on all {r_rays} rays; per ray "
+          f"{_per_ray(fwd['tally'], r_rays)}; hits by kind "
+          f"{[fwd['tally'][f'hits_{k}'] for k in range(5)]}; #5 "
+          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.1f} ms, bound "
+          f"{fwd['bound'][0]:.5f} ms ({fwd['bound'][1]}; {fwd['ops']:.4g} "
+          f"FP32 operations)")
+    del sc
+
+    # ---- the fit path at the fit shape
+    fw, fh, f_spp = ZOO_FIT
+    f_rays = fw * fh * f_spp
+    scene = _load(zoo, spp=f_spp)
+    with torch.no_grad():
+        sc = BK.pack(scene, fw, fh, dev)
+    probe = ["albedo", "emission"]
+    fp = _fit_path("zoo", scene, sc, key, fw, fh, opts, gen, probe)
+    codes = fp["codes"]
+    hit, slot = codes >= 0, codes & BK.REC_SLOT
+    fog_hits = int((hit & (slot >= sc.vol_base)).sum())
+    mix_slots = (sc.spheres.mat == int(
+        (scene.materials.kind == M.MIX).nonzero()[0])).nonzero().squeeze(1)
+    mix_hits = int((hit & torch.isin(slot, mix_slots)).sum())
+    if fog_hits == 0 or mix_hits == 0:
+        raise AssertionError(f"zoo: {fog_hits} fog hits, {mix_hits} mix "
+                             f"hits")
+    _print_fit_path("phase 10", "zoo", f"{fw}x{fh} spp {f_spp} depth "
+                    f"{depth} (the fit shape; #6 raw)", fp, probe,
+                    f", {fog_hits} in the fog, {mix_hits} on the mix")
+    del fp["codes"], codes, hit, slot, sc
+
+    # ---- the env path at the fit shape: #8 through the fog
+    sky_scene = _load(sky_zoo)
+    if select_engine(sky_scene) != "env":
+        raise AssertionError("sky_zoo is not sent to the env path")
+    with torch.no_grad():
+        ssc = BK.pack(sky_scene, fw, fh, dev)
+    sky = sky_scene.to(dev).background
+    env = _env_route_check("sky_zoo", ssc, sky, key, fw * fh, f_spp, fw,
+                           depth)
+    if env["n_fog"] == 0:
+        raise AssertionError("sky_zoo: no shadow ray blocked by the fog")
+    s_err = _env_grad_check("sky_zoo", ssc, sky, key, fw * fh, f_spp, fw,
+                            depth, gen)
+    _print_env_route("phase 10", "sky_zoo", f"{fw}x{fh} spp {f_spp} depth "
+                     f"{depth}", env, card)
+    print(f"phase 10 sky_zoo gradient (packed tensors and the sky's "
+          f"texels) vs the plain route max abs diff {s_err:.3e} (allowed "
+          f"{GRAD_RTOL:g} rel + {GRAD_ATOL:g} of max), finite")
+    del ssc
+
+    # ---- C1: the depth-13 cornell fit takes the record walk and replay
+    cw, ch, c_spp = C1_SHAPE
+    cornell = _load(CORNELL, spp=c_spp, depth=C1_DEPTH)
+    c_opts = dict(max_depth=C1_DEPTH, bg_kind=cornell.background.kind,
+                  clay=cornell.settings.mode == "Clay")
+    with torch.no_grad():
+        csc = BK.pack(cornell, cw, ch, dev)
+    _, c_codes, _, c_plain_ms, _ = _record_check(
+        "C1 cornell", csc, key, cw * ch, c_spp, cw, c_opts, tally=False)
+    deep = int((c_codes[12:] >= 0).sum())  # hits past the brute tape
+    del csc, c_codes
+    with torch.no_grad():
+        c_target = render_linear(G.apply_params(cornell, {
+            "albedo": cornell.materials.albedo * 0.7}), cw, ch, seed=1,
+            device=dev)
+    _reset_launches()
+    _, _, c_hist = fit(cornell, c_target, ["albedo", "emission"], cw, ch,
+                       steps=2, device=dev, resample_every=0)
+    c_counts = _launches()
+    if (c_counts["record"], c_counts["fetch"], c_counts["transpose"],
+            c_counts["grad"], c_counts["fused"]) != (2, 2, 2, 0, 0) or not (
+            np.isfinite(c_hist).all() and c_hist[-1] < c_hist[0]):
+        raise AssertionError(f"C1: cornell depth {C1_DEPTH} fit launches "
+                             f"{c_counts}, losses {c_hist}")
+    print(f"phase 10 C1: cornell {cw}x{ch} spp {c_spp} depth {C1_DEPTH}: "
+          f"record radiance == #5 == plain bit for bit, codes == plain "
+          f"codes on all {cw * ch * c_spp} rays x {C1_DEPTH} bounces "
+          f"({deep} hits past bounce 12; plain walk {c_plain_ms:.1f} ms); 2 "
+          f"fit steps of albedo, emission: loss {c_hist[0]:.6f} -> "
+          f"{c_hist[-1]:.6f}; launches record #5 {c_counts['record']}, #6 "
+          f"{c_counts['fetch']}, #7 {c_counts['transpose']}, #3 "
+          f"{c_counts['grad']}, #4 {c_counts['fused']}; no exception")
+
+    # ---- the main path, through the CLI entry
+    zoo_png = os.path.join(OUT_DIR, "material_zoo.png")
+    _reset_launches()
+    _cli_render(zoo, zoo_png, ["--width", str(rw), "--height", str(rh)])
+    render_counts = _launches()
+    if render_counts["fwd"] != 1 or render_counts["brute"] != 0:
+        raise AssertionError(f"cli render of the zoo launched {render_counts}")
+    _check_png(zoo_png, rw, rh, "zoo")
+    dim = _write_scene(zoo, "material_zoo_dim.json", dim=True)
+    target_png = os.path.join(OUT_DIR, "zoo_fit_target.png")
+    size = ["--width", str(fw), "--height", str(fh)]
+    _cli_render(dim, target_png, [*size, "--spp", str(f_spp)], seed=1)
+    steps = CLI_FIT_STEPS
+    fit_counts, first, final, text = _cli_fit(zoo, target_png,
+                                              ["--spp", str(f_spp)])
+    if (fit_counts["record"], fit_counts["fetch"], fit_counts["transpose"],
+            fit_counts["brute"]) != (steps, steps, steps, 0):
+        raise AssertionError(f"cli fit of the zoo launched {fit_counts}"
+                             f"\n{text}")
+    sky_png = os.path.join(OUT_DIR, "sky_zoo.png")
+    _reset_launches()
+    _cli_render(sky_zoo, sky_png, ["--env-is", *size])
+    env_counts = _launches()
+    if ((env_counts["record"], env_counts["fetch"]) != (1, 1)
+            or not 0 < env_counts["occlusion"] <= depth
+            or env_counts["fwd"] or env_counts["brute"]):
+        raise AssertionError(f"cli render of sky_zoo launched {env_counts}")
+    _check_png(sky_png, fw, fh, "sky_zoo")
+    print(f"phase 10 CLI: render {zoo} {rw}x{rh}: launches #5 "
+          f"{render_counts['fwd']}, #1 {render_counts['brute']}; fit "
+          f"{fw}x{fh} spp {f_spp}, {steps} steps of {CLI_FIT_PARAMS}: loss "
+          f"{first:.6f} -> {final:.6f}, launches record #5 "
+          f"{fit_counts['record']}, #6 {fit_counts['fetch']}, #7 "
+          f"{fit_counts['transpose']}; render --env-is sky_zoo {fw}x{fh}: "
+          f"launches record #5 {env_counts['record']}, #6 "
+          f"{env_counts['fetch']}, #8 {env_counts['occlusion']} (of {depth} "
+          f"bounces)")
+
+    # ---- warm renders and fit steps at the full shapes
+    best, mean = _warm_render(_load(zoo), rw, rh, dev, "zoo")
+    print(f"phase 10 zoo {rw}x{rh} spp {r_spp} depth {depth}: warm render "
+          f"{best:.4f} s, {r_rays / best / 1e6:.1f} primary Mrays/s (#5), "
+          f"image mean {mean:.5f}")
+    target = (read_png(target_png)[..., :3].astype(np.float32) / 255.0) ** 2
+    box = {k: ((v - ZOO_FIT_GEO).to(dev), (v + ZOO_FIT_GEO).to(dev))
+           for k, v in G.extract_params(
+               scene, ["sphere_center", "sphere_radius"]).items()}
+    r = _warm_fit(scene, target, ZOO_FIT_PARAMS.split(","), fw, fh, dev,
+                  constraints=box)
+    if not r["history"][-1] < r["history"][0]:
+        raise AssertionError(f"the warm zoo fit's loss did not fall: "
+                             f"{r['history']}")
+    print(f"phase 10 zoo {fw}x{fh} spp {f_spp} fit step ({ZOO_FIT_PARAMS}; "
+          f"centers and radii within {ZOO_FIT_GEO:g} of their start): warm "
+          f"step {r['warm_ms']:.3f} ms, "
+          f"{f_rays / r['warm_ms'] / 1e3:.2f} primary Mrays/s fwd+bwd, peak "
+          f"memory {r['peak_gb']:.2f} GB; loss {r['history'][0]:.6f} -> "
+          f"{r['history'][-1]:.6f}; per step under torch.profiler: "
+          + _parts(r["part"], ("record #5", "#6", "#7", "replay and rest",
+                               "busy"))
+          + f", host (warm step - busy) "
+          f"{r['warm_ms'] - r['part']['busy']:.3f} ms")
+    best, mean = _warm_render(sky_scene, fw, fh, dev, "sky_zoo")
+
+    def renders(step):
+        for _ in range(3):
+            render_linear(sky_scene, fw, fh, seed=0, device=dev)
+            torch.cuda.synchronize()
+            step()
+
+    part = _profile(renders, 2)
+    print(f"phase 10 sky_zoo {fw}x{fh} spp {f_spp} depth {depth}: warm render "
+          f"{best:.4f} s, {f_rays / best / 1e6:.2f} primary Mrays/s, image "
+          f"mean {mean:.5f}; per render under torch.profiler: "
+          + _parts(part, ("record #5", "#6", "#8", "replay and rest", "busy"))
+          + f", host (warm render - busy) {best * 1e3 - part['busy']:.3f} ms")
+    sky_dim = _write_scene(sky_zoo, "sky_zoo_dim.json", dim=True)
+    with torch.no_grad():
+        s_target = render_linear(_load(sky_dim), fw, fh, seed=1, device=dev)
+    r = _warm_fit(sky_scene, s_target, CLI_FIT_PARAMS.split(","), fw, fh, dev)
+    if not r["history"][-1] < r["history"][0]:
+        raise AssertionError(f"the warm sky_zoo fit's loss did not fall: "
+                             f"{r['history']}")
+    print(f"phase 10 sky_zoo {fw}x{fh} spp {f_spp} fit step "
+          f"({CLI_FIT_PARAMS}): warm step {r['warm_ms']:.3f} ms, "
+          f"{f_rays / r['warm_ms'] / 1e3:.2f} primary Mrays/s fwd+bwd, peak "
+          f"memory {r['peak_gb']:.2f} GB; loss {r['history'][0]:.6f} -> "
+          f"{r['history'][-1]:.6f}; per step under torch.profiler: "
+          + _parts(r["part"], ("record #5", "#6", "#8", "#7",
+                               "replay and rest", "busy"))
+          + f", host (warm step - busy) "
+          f"{r['warm_ms'] - r['part']['busy']:.3f} ms; {card}")
+
+    return [
+        # the CLI render of the zoo; times at 1200x800 spp 32
+        _entry("bvh_forward_zoo", "bvh_forward.cu", "3001",
+               render_counts["fwd"], fwd["err"], fwd["ms"], fwd["plain_ms"],
+               fwd["bound"]),
+        # the CLI fit of the zoo; times at 600x400 spp 16
+        *_fit_entries(fp, fit_counts, "_zoo"),
+        # the CLI render --env-is of sky_zoo; times at 600x400 spp 16
+        _entry("occlusion_sky_zoo", "occlusion.cu", "3591",
+               env_counts["occlusion"], env["err"], env["ms"],
+               env["plain_ms"], env["bound"]),
+    ]
 
 
 def main() -> int:
@@ -1272,6 +1704,7 @@ def main() -> int:
     from raytracingrust_tpu_torch.utils import rng
 
     dev = torch.device("cuda")
+    t_run = time.perf_counter()
 
     # ---- 1. card, build
     smi = subprocess.run(
@@ -1284,14 +1717,9 @@ def main() -> int:
     for name in _build.SOURCES:  # the first load builds all of them
         _build.load(name)
     build_s = time.perf_counter() - t0
-    regs = []
-    for name in _build.SOURCES:
-        log = _build.library_path(name=name).with_suffix(".log")
-        regs += [f"{name}: {ln.strip()}" for ln in (
-            log.read_text().splitlines() if log.exists() else [])
-            if "registers" in ln or "spill" in ln]
+    regs = " | ".join(f"{name}: {_ptxas(name)}" for name in _build.SOURCES)
     print(f"phase 1 build ({len(_build.SOURCES)} sources in parallel): "
-          f"{build_s:.3f} s; {' | '.join(regs)}")
+          f"{build_s:.3f} s; {regs}")
 
     # ---- 2. RNG bit for bit
     key = rng.base_key(SEED_WORDS_HIGH)
@@ -1756,53 +2184,25 @@ def main() -> int:
     # ---- 9. the HDRI importance-sampling path (record #5, #6, #7, #8)
     env = env_phase(dev, card)
 
-    replaces = "raytracingrust_tpu/ops/pallas_megakernel.py:"
-    report = {"kernels": [{
-        "name": "brute_forward_megakernel",
-        "route": "cuda",
-        "source": "raytracingrust_tpu_torch/csrc/megakernel.cu",
-        "replaces": replaces + "2089",
-        "launches": launches,  # the CLI renders of phase 4
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": fwd_bound[BENCH][0],
-        "bound_by": fwd_bound[BENCH][1],
-        "library_ms": None,
-    }, {
-        "name": "radiance_grad",
-        "route": "cuda",
-        "source": "raytracingrust_tpu_torch/csrc/radiance_grad.cu",
-        "replaces": replaces + "2133",
-        "launches": render_counts[1],  # render_linear under autograd
-        "max_abs_err": grad_err["grad"],
-        "ms": times["grad"][0],
-        "plain_ms": times["grad"][1],
-        "bound_ms": bounds["grad"][0],
-        "bound_by": bounds["grad"][1],
-        "library_ms": None,
-    }, {
-        "name": "fused_mse_loss",
-        "route": "cuda",
-        "source": "raytracingrust_tpu_torch/csrc/mse_loss.cu",
-        "replaces": replaces + "2411",
-        "launches": cli_counts[2],  # the CLI fit
-        "max_abs_err": grad_err["mse"],
-        "ms": times["mse"][0],
-        "plain_ms": times["mse"][1],
-        "bound_ms": bounds["mse"][0],
-        "bound_by": bounds["mse"][1],
-        "library_ms": None,
-    }, {
-        "name": "bvh_forward",
-        "route": "cuda",
-        "source": "raytracingrust_tpu_torch/csrc/bvh_forward.cu",
-        "replaces": replaces + "3001",
-        **bvh,  # the CLI renders of phase 7; times at bvh_stress 1000x1000
-        "library_ms": None,
-    }, *bvh_fit,  # the CLI fit of phase 8; times at bvh_stress 1000x1000
-        env]}  # the CLI renders of phase 9; times at sky_bvh_stress
-    print(f"card: {card}; kernel build {build_s:.3f} s")
+    # ---- 10. volumes, isotropic materials and mixes; the deep fit
+    zoo = zoo_phase(dev, card)
+
+    report = {"kernels": [
+        # the CLI renders of phase 4; times at benchmark 512x512
+        _entry("brute_forward_megakernel", "megakernel.cu", "2089", launches,
+               max_err, ms, plain_ms, fwd_bound[BENCH]),
+        # render_linear under autograd; times at benchmark 512x512
+        _entry("radiance_grad", "radiance_grad.cu", "2133", render_counts[1],
+               grad_err["grad"], *times["grad"], bounds["grad"]),
+        # the CLI fit of phase 6
+        _entry("fused_mse_loss", "mse_loss.cu", "2411", cli_counts[2],
+               grad_err["mse"], *times["mse"], bounds["mse"]),
+        bvh,  # the CLI renders of phase 7; times at bvh_stress 1000x1000
+        *bvh_fit,  # the CLI fit of phase 8; times at bvh_stress 1000x1000
+        env,  # the CLI renders of phase 9; times at sky_bvh_stress
+        *zoo]}  # phase 10's CLI runs; times at the zoo's full shapes
+    print(f"card: {card}; kernel build {build_s:.3f} s; the whole run "
+          f"{time.perf_counter() - t_run:.1f} s")
     print(json.dumps(report))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

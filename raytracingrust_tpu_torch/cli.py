@@ -107,24 +107,26 @@ def cmd_fit(args) -> int:
 
 def _engines(scene) -> tuple[str, str]:
     """(render engine, fit engine) the scene would take, or the reason it
-    is refused."""
+    is refused: ``select_engine`` without and with a gradient."""
     from .ops.mse_loss import supports_fused_mse
     from .render.render import select_engine
 
-    try:
-        engine = select_engine(scene)
-    except NotImplementedError as e:
-        return (f"unsupported: {e}",) * 2
-    if engine == "env":
-        return ("env: record mode of #5, then the replay over #6 with #8's "
-                "shadow rays",
-                "env: the same, with #7 under the replay's backward")
-    if engine == "bvh":
-        return ("bvh: kernel #5",
-                "bvh: record mode of #5, then the replay over #6 and #7")
-    if supports_fused_mse(scene):
-        return "brute: kernel #1", "fused: kernel #4"
-    return "brute: kernel #1", "brute: #1 forward, #3 backward"
+    names = {"env": ("env: record mode of #5, then the replay over #6 with "
+                     "#8's shadow rays",
+                     "env: the same, with #7 under the replay's backward"),
+             "bvh": ("bvh: kernel #5",
+                     "bvh: record mode of #5, then the replay over #6 and "
+                     "#7"),
+             "brute": ("brute: kernel #1",
+                       "fused: kernel #4" if supports_fused_mse(scene)
+                       else "brute: #1 forward, #3 backward")}
+    out = []
+    for i, grad in enumerate((False, True)):
+        try:
+            out.append(names[select_engine(scene, grad=grad)][i])
+        except NotImplementedError as e:
+            out.append(f"unsupported: {e}")
+    return out[0], out[1]
 
 
 def cmd_info(args) -> int:
@@ -132,7 +134,7 @@ def cmd_info(args) -> int:
     scene = builder.build()
     render_engine, fit_engine = _engines(scene)
     trees = {}  # the chunk-leaf BVH's size, where it was built
-    for kind in ("spheres", "triangles"):
+    for kind in ("spheres", "volumes", "triangles"):
         tree = getattr(scene.cbvh, kind, None)
         trees[f"bvh_{kind}_nodes"] = tree.n_nodes if tree else 0
         trees[f"bvh_{kind}_chunks"] = tree.n_chunks if tree else 0

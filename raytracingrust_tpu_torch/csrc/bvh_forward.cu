@@ -4,24 +4,36 @@
 // Replaces the forward of raytracingrust_tpu/ops/pallas_megakernel.py's
 // packet-traversal kernel: _make_bvh_kernel(record=False) over
 // _radiance_math's BVH branch, _traverse_tree, _sphere_chunk_hit,
-// _tri_chunk_hit/_row_mt and _merge_leaf_rows, for the envelope of
-// ops/bvh_kernel.py (solid spheres and surface triangles; Lambertian, Metal,
-// Dielectric and Emission; uniform or gradient background; Full or Clay
-// mode; any depth).  Per ray: the jittered camera ray, then per bounce a
-// stackless walk of the solid-sphere chunk tree, then of the triangle chunk
-// tree starting from the sphere pass's nearest hit, then radiance.cuh's
-// lobes.  Output: per-ray RGB, (n_rays, 3) float32.
+// _vol_chunk_hit, _tri_chunk_hit/_row_mt, _merge_leaf_rows and
+// _mixn_resolve, for the envelope of ops/bvh_kernel.py (solid spheres, up
+// to 8 sphere volumes and surface triangles; Lambertian, Metal,
+// Dielectric, Emission, Isotropic and mixes nested up to 4 levels; uniform
+// or gradient background; Full or Clay mode; any depth).  Per ray: the
+// jittered camera ray, then per bounce a stackless walk of the
+// solid-sphere chunk tree, then of the volume-sphere tree, then of the
+// triangle tree, each starting from the nearest hit of the walks before
+// it; the winner's mix resolved with the bounce's coins; then
+// radiance.cuh's lobes.  Output: per-ray RGB, (n_rays, 3) float32.
+//
+// A bounce's uniforms are the JAX columns of stream 1 + b: with mixes the
+// four coins first (off = 4), then u1, u2, the coin and u_r at off + 0..3,
+// and volume v's free-flight uniform at off + 4 + v, which a volume
+// candidate draws (its own Threefry pair) only when the ray's window of it
+// is valid.  A volume's hit has the dummy normal (1, 0, 0).  The template
+// flag kExt compiles the volume walk, the mix rounds and the isotropic
+// lobe; a scene without them launches the variant without them.
 //
 // Record mode (template flag kRecord; _make_bvh_kernel(record=True)) also
 // writes each bounce's winner code, (max_depth, n_rays) int32, for the
 // replay gradient (diff/replay.py): the winner's slot in bits 0-26 (sphere
-// slots first, triangle slots after the sphere tree's n_chunks * leaf), the
-// front face at bit 27, and at bits 28 and 29 the metal lobe's
-// above-the-surface test and the dielectric's reflect choice, evaluated for
-// every hit whatever its kind when the scene holds that kind (`rec_mask`),
-// as the JAX record does; -1 on a miss and for every bounce after the path
-// ended.  Bounce-major, so a warp's stores coalesce.  The walk and the
-// arithmetic of the radiance are the same in both modes.
+// slots first, volume slots from vol_base, triangle slots from tri_base),
+// the front face at bit 27, and at bits 28 and 29 the metal lobe's
+// above-the-surface test and the dielectric's reflect choice of the
+// resolved material, evaluated for every hit whatever its kind when the
+// scene holds that kind (`rec_mask`), as the JAX record does; -1 on a miss
+// and for every bounce after the path ended.  Bounce-major, so a warp's
+// stores coalesce.  The walk and the arithmetic of the radiance are the
+// same in both modes.
 //
 // Design: one thread a ray, its whole state in registers.  The TPU kernel
 // moves one node cursor for a block of 2,048 rays and intersects a leaf's
@@ -33,13 +45,14 @@
 // loads are mostly one broadcast.  The walk is bvh_walk.cuh's, shared with
 // the occlusion kernel (#8); the arithmetic is ops/bvh_kernel.py's plain
 // version's, operation for operation: the sphere root and normal by true
-// division (not the brute kernel's reciprocal), the direct cross-product
-// Moller-Trumbore, and slab min/max that propagate NaN as torch.minimum
-// does.
+// division (not the brute kernel's reciprocal), the free flight by logf
+// (torch.log's on the card), the direct cross-product Moller-Trumbore, and
+// slab min/max that propagate NaN as torch.minimum does.
 //
-// What bounds it on this card: FP32 work per node visit and primitive test,
-// and divergence between the rays of a warp once bounces scatter them; the
-// scene (nodes and primitives, a few hundred KB) stays in L2.
+// What bounds it on this card: FP32 work per node visit and primitive test
+// (a volume candidate whose window a ray crosses adds a Threefry draw and a
+// logf), and divergence between the rays of a warp once bounces scatter
+// them; the scene (nodes and primitives, a few hundred KB) stays in L2.
 //
 // Build (see ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -83,15 +96,39 @@ __device__ __forceinline__ int decision_bits(const float* mat, bool front,
   return bits;
 }
 
-template <bool kRecord>
+// The mix table of the scene's materials (null without mixes).
+struct MixTable {
+  const int* first;     // (M,) self for a non-mix row
+  const int* second;    // (M,)
+  const float* factor;  // (M,)
+};
+
+// The resolution rounds of a hit's material (ops/shade.resolve_mix): a mix
+// picks its first child when the level's coin is at least its factor.
+__device__ __forceinline__ int resolve_mix(const MixTable& mx,
+                                           const int* kinds, int mid,
+                                           const float (&coin)[4]) {
+#pragma unroll
+  for (int level = 0; level < 4; ++level) {
+    if (__ldg(kinds + mid) == kMix)
+      mid = coin[level] >= __ldg(mx.factor + mid) ? __ldg(mx.first + mid)
+                                                  : __ldg(mx.second + mid);
+  }
+  return mid;
+}
+
+// kExt: the scene has volumes, mixes or an isotropic material (a
+// compile-time flag, so scenes without them run the code they always ran).
+template <bool kRecord, bool kExt>
 __global__ void __launch_bounds__(kThreads)
 bvh_radiance_kernel(const float* __restrict__ head,
                     const float* __restrict__ mats,
-                    const int* __restrict__ kinds, Tree sph, Tree tri,
-                    int leaf, uint32_t k0, uint32_t k1, int n_rays, int spp,
-                    int width, int max_depth, int bg_kind, int clay,
+                    const int* __restrict__ kinds, Tree sph, Tree vol,
+                    Tree tri, int leaf, MixTable mx, uint32_t k0,
+                    uint32_t k1, int n_rays, int spp, int width,
+                    int max_depth, int bg_kind, int clay,
                     float* __restrict__ out, int* __restrict__ rec,
-                    int rec_mask, int tri_base) {
+                    int rec_mask, int vol_base, int tri_base) {
   __shared__ float f[kHead];
   for (int i = threadIdx.x; i < kHead; i += blockDim.x) f[i] = head[i];
   __syncthreads();
@@ -106,22 +143,29 @@ bvh_radiance_kernel(const float* __restrict__ head,
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
   int ended = max_depth;  // record mode: the bounces after the path's end
+  // the lobe's first uniform column: after the four mix coins, if any
+  const int off = kExt && mx.first ? 4 : 0;
 
   for (int b = 0; b < max_depth; ++b) {
-    // bounce stream 1 + b: columns [u1, u2, coin]
-    float u1, u2, u_coin, u_spare;
-    uniform_pair(k0, k1, (uint32_t)ray, 1u + (uint32_t)b, 0u, u1, u2);
-    uniform_pair(k0, k1, (uint32_t)ray, 1u + (uint32_t)b, 1u, u_coin,
-                 u_spare);
+    // bounce stream 1 + b: columns [u1, u2, coin, u_r] from `off`
+    float u1, u2, u_coin, u_r;
+    const uint32_t stream = 1u + (uint32_t)b;
+    uniform_pair(k0, k1, (uint32_t)ray, stream, (uint32_t)off >> 1, u1, u2);
+    uniform_pair(k0, k1, (uint32_t)ray, stream, ((uint32_t)off >> 1) + 1u,
+                 u_coin, u_r);
     r.a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
     r.idx = 1.0f / r.dx;
     r.idy = 1.0f / r.dy;
     r.idz = 1.0f / r.dz;
 
     float t_best = INFINITY;
-    int w_sph = -1, w_tri = -1;
-    walk<true>(sph, leaf, r, t_best, w_sph);
-    walk<false>(tri, leaf, r, t_best, w_tri);
+    int w_sph = -1, w_vol = -1, w_tri = -1;
+    walk<kSphereTree>(sph, leaf, r, t_best, w_sph);
+    if (kExt && vol.n_nodes)
+      walk<kVolumeTree>(vol, leaf, r, t_best, w_vol,
+                        Flight{k0, k1, (uint32_t)ray, stream, off + 4,
+                               sqrtf(r.a)});
+    walk<kTriangleTree>(tri, leaf, r, t_best, w_tri);
 
     if (!(t_best < INFINITY)) {  // miss: the background ends the path
       float bg_r, bg_g, bg_b;
@@ -147,6 +191,11 @@ bvh_radiance_kernel(const float* __restrict__ head,
       ny = __ldg(g + 10);
       nz = __ldg(g + 11);
       mid = __ldg(tri.mat + w_tri);
+    } else if (kExt && w_vol >= 0) {  // a volume: the dummy normal
+      nx = 1.0f;
+      ny = 0.0f;
+      nz = 0.0f;
+      mid = __ldg(vol.mat + w_vol);
     } else {  // (p - c) / r, by true division
       const float4 g = __ldg(reinterpret_cast<const float4*>(sph.geo) +
                              w_sph);
@@ -155,6 +204,12 @@ bvh_radiance_kernel(const float* __restrict__ head,
       ny = (pty - g.y) / g_rad;
       nz = (ptz - g.z) / g_rad;
       mid = __ldg(sph.mat + w_sph);
+    }
+    if (kExt && mx.first) {  // the mix coins: columns 0 .. 3
+      float coin[4];
+      uniform_pair(k0, k1, (uint32_t)ray, stream, 0u, coin[0], coin[1]);
+      uniform_pair(k0, k1, (uint32_t)ray, stream, 1u, coin[2], coin[3]);
+      mid = resolve_mix(mx, kinds, mid, coin);
     }
     const bool front = dot3(r.dx, r.dy, r.dz, nx, ny, nz) < 0.0f;
     const float sgn = front ? 1.0f : -1.0f;
@@ -168,11 +223,13 @@ bvh_radiance_kernel(const float* __restrict__ head,
     float at_r, at_g, at_b, ndx, ndy, ndz;
     bool scatters;
     int code = 0;
-    scatter(mat, __ldg(kinds + mid), clay, front, r.a, r.dx, r.dy, r.dz, nx,
-            ny, nz, u1, u2, u_coin, at_r, at_g, at_b, ndx, ndy, ndz,
-            scatters, code);
+    scatter<kExt>(mat, __ldg(kinds + mid), clay, front, r.a, r.dx, r.dy,
+                  r.dz, nx, ny, nz, u1, u2, u_coin, at_r, at_g, at_b, ndx,
+                  ndy, ndz, scatters, code, u_r);
     if (kRecord) {
-      const int slot = w_tri >= 0 ? tri_base + w_tri : w_sph;
+      const int slot = w_tri >= 0               ? tri_base + w_tri
+                       : (kExt && w_vol >= 0) ? vol_base + w_vol
+                                              : w_sph;
       rec[(size_t)b * n_rays + ray] =
           slot | decision_bits(mat, front, r.a, r.dx, r.dy, r.dz, nx, ny,
                                nz, u1, u2, u_coin, rec_mask);
@@ -203,36 +260,73 @@ bvh_radiance_kernel(const float* __restrict__ head,
   o[2] = rad_b;
 }
 
+template <bool kRecord, bool kExt>
+void launch(const float* head, const float* mats, const int* kinds,
+            const Tree& sph, const Tree& vol, const Tree& tri, int leaf,
+            const MixTable& mx, uint32_t k0, uint32_t k1, int n_rays,
+            int spp, int width, int max_depth, int bg_kind, int clay,
+            float* out, int* rec, int rec_mask, int vol_base, int tri_base,
+            cudaStream_t stream) {
+  bvh_radiance_kernel<kRecord, kExt><<<blocks_for(n_rays), kThreads, 0,
+                                       stream>>>(
+      head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1, n_rays, spp, width,
+      max_depth, bg_kind, clay, out, rec, rec_mask, vol_base, tri_base);
+}
+
 }  // namespace
 
 // Plain C entry, bound with ctypes (ops/bvh_kernel.py).  With `rec` not
 // null it launches the record variant, which writes the codes there, the
-// decision bits `rec_mask` names and triangle slots offset by `tri_base`.
-// Launches on `stream` and returns cudaGetLastError() of the launch.
+// decision bits `rec_mask` names, volume slots offset by `vol_base` and
+// triangle slots by `tri_base`.  The volume tree (v_*), the mix table
+// (null without mixes) and `iso` (an isotropic material is reachable)
+// select the kernel's extended variant; without them it is the variant
+// of solid spheres and triangles.  Launches on `stream` and returns
+// cudaGetLastError() of the launch.
 extern "C" int rtrt_bvh_radiance(
     const float* head, const float* mats, const int* kinds, int n_mats,
     const float* s_nodes_f, const int* s_nodes_i, const int* s_len,
     const float* s_geo, const int* s_mat, int s_nodes,
-    const float* t_nodes_f, const int* t_nodes_i, const int* t_len,
-    const float* t_geo, const int* t_mat, int t_nodes, int leaf, uint32_t k0,
-    uint32_t k1, int n_rays, int spp, int width, int max_depth, int bg_kind,
-    int clay, float* out, int* rec, int rec_mask, int tri_base,
-    void* stream) {
-  if (n_mats < 1 || s_nodes < 0 || t_nodes < 0 || s_nodes + t_nodes < 1 ||
-      leaf < 1 || n_rays < 0 || spp < 1 || width < 1)
+    const float* v_nodes_f, const int* v_nodes_i, const int* v_len,
+    const float* v_geo, const int* v_mat, const float* v_nid,
+    const int* v_ord, int v_nodes, const float* t_nodes_f,
+    const int* t_nodes_i, const int* t_len, const float* t_geo,
+    const int* t_mat, int t_nodes, int leaf, const int* mix_first,
+    const int* mix_second, const float* mix_factor, int n_vol, int iso,
+    uint32_t k0, uint32_t k1, int n_rays, int spp, int width, int max_depth,
+    int bg_kind, int clay, float* out, int* rec, int rec_mask, int vol_base,
+    int tri_base, void* stream) {
+  if (n_mats < 1 || s_nodes < 0 || v_nodes < 0 || t_nodes < 0 ||
+      s_nodes + v_nodes + t_nodes < 1 || leaf < 1 || n_rays < 0 ||
+      spp < 1 || width < 1 || n_vol < 0 || n_vol > 8 ||
+      (v_nodes > 0 && (!v_nid || !v_ord)) ||
+      (mix_first && (!mix_second || !mix_factor)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const Tree sph{s_nodes_f, s_nodes_i, s_len, s_geo, s_mat, s_nodes};
-  const Tree tri{t_nodes_f, t_nodes_i, t_len, t_geo, t_mat, t_nodes};
-  if (rec)
-    bvh_radiance_kernel<true><<<blocks_for(n_rays), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        head, mats, kinds, sph, tri, leaf, k0, k1, n_rays, spp, width,
-        max_depth, bg_kind, clay, out, rec, rec_mask, tri_base);
+  const Tree sph{s_nodes_f, s_nodes_i, s_len, s_geo, s_mat,
+                 nullptr,   nullptr,   s_nodes};
+  const Tree vol{v_nodes_f, v_nodes_i, v_len, v_geo, v_mat,
+                 v_nid,     v_ord,     v_nodes};
+  const Tree tri{t_nodes_f, t_nodes_i, t_len, t_geo, t_mat,
+                 nullptr,   nullptr,   t_nodes};
+  const MixTable mx{mix_first, mix_second, mix_factor};
+  const bool ext = v_nodes > 0 || mix_first || iso;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (rec && ext)
+    launch<true, true>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
+                       n_rays, spp, width, max_depth, bg_kind, clay, out, rec,
+                       rec_mask, vol_base, tri_base, st);
+  else if (rec)
+    launch<true, false>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
+                        n_rays, spp, width, max_depth, bg_kind, clay, out,
+                        rec, rec_mask, vol_base, tri_base, st);
+  else if (ext)
+    launch<false, true>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
+                        n_rays, spp, width, max_depth, bg_kind, clay, out,
+                        nullptr, 0, 0, 0, st);
   else
-    bvh_radiance_kernel<false><<<blocks_for(n_rays), kThreads, 0,
-                                 (cudaStream_t)stream>>>(
-        head, mats, kinds, sph, tri, leaf, k0, k1, n_rays, spp, width,
-        max_depth, bg_kind, clay, out, nullptr, 0, 0);
+    launch<false, false>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
+                         n_rays, spp, width, max_depth, bg_kind, clay, out,
+                         nullptr, 0, 0, 0, st);
   return (int)cudaGetLastError();
 }

@@ -2,11 +2,12 @@
 // bvh_forward.cu) and the shadow-ray occlusion kernel (#8, occlusion.cu).
 //
 // Replaces raytracingrust_tpu/ops/pallas_megakernel.py's _traverse_tree,
-// _sphere_chunk_hit, _tri_chunk_hit/_row_mt and _merge_leaf_rows for one
-// ray: a stackless walk over skip links, a NaN-propagating slab test, and
-// the leaf's primitives tested against the ray's nearest hit so far.  The
-// arithmetic is ops/bvh_kernel.py's plain version's, operation for
-// operation: the sphere root by true division, the direct cross-product
+// _sphere_chunk_hit, _vol_chunk_hit, _tri_chunk_hit/_row_mt and
+// _merge_leaf_rows for one ray: a stackless walk over skip links, a
+// NaN-propagating slab test, and the leaf's primitives tested against the
+// ray's nearest hit so far.  The arithmetic is ops/bvh_kernel.py's plain
+// version's, operation for operation: the sphere root by true division,
+// the volume's boundary window and free flight, the direct cross-product
 // Moller-Trumbore, and slab min/max that propagate NaN as torch.minimum
 // does (an axis-parallel ray's 0 * inf reads as a miss; fminf/fmaxf would
 // drop the NaN and read a hit).
@@ -31,13 +32,16 @@ __device__ __forceinline__ float max_nan(float a, float b) {
 // One chunk tree in device memory (ops/bvh_kernel.pack): nodes (K, 6)
 // float [min | max] and (K, 3) int [hit link, miss link, chunk or -1], each
 // chunk's primitive count, and the primitives in slot order with their
-// material ids.  n_nodes == 0: no tree.
+// material ids; a volume tree's slots also carry -1/density and the
+// volume's ordinal.  n_nodes == 0: no tree.
 struct Tree {
   const float* nodes_f;
   const int* nodes_i;
   const int* chunk_len;
-  const float* geo;  // spheres: 4 floats a slot; triangles: 12
+  const float* geo;  // spheres and volumes: 4 floats a slot; triangles: 12
   const int* mat;
+  const float* nid;  // volumes only
+  const int* ord;    // volumes only
   int n_nodes;
 };
 
@@ -45,6 +49,17 @@ struct Tree {
 struct Ray {
   float ox, oy, oz, dx, dy, dz, idx, idy, idz, a;
 };
+
+// What a volume candidate needs beyond the ray: its length sqrt(a), and
+// where its free-flight uniforms are: column col0 + ordinal of the ray's
+// stream (uniform_pair's cipher (col0 + ordinal) / 2, word of the parity).
+struct Flight {
+  uint32_t k0, k1, ray, stream;
+  int col0;
+  float ray_len;
+};
+
+enum TreeKind { kSphereTree, kVolumeTree, kTriangleTree };
 
 // Candidate distance of sphere slot s (_sphere_chunk_hit): the near root if
 // in [T_MIN, tb], else the far root; radius 0 never hits.
@@ -61,6 +76,38 @@ __device__ __forceinline__ float sphere_t(const float* geo, int s,
   const float t2 = (-hb + sq) / r.a;
   if (ok && t1 >= kTMin && t1 <= tb) return t1;
   if (ok && t2 >= kTMin && t2 <= tb) return t2;
+  return INFINITY;
+}
+
+// Candidate distance of volume slot s (_vol_chunk_hit): the boundary
+// window [h1, h2] from the quadratic (the far root only when at least
+// T_MIN past the near one; the entry clamped to T_MIN, then to 0), and the
+// free flight -1/density * log(u) from the entry, with the volume's own
+// uniform, drawn only when the window is valid; accepted when it ends
+// inside the window and nearer than tb.
+__device__ __forceinline__ float volume_t(const Tree& tree, int s,
+                                          const Ray& r, float tb,
+                                          const Flight& fl) {
+  const float4 g = __ldg(reinterpret_cast<const float4*>(tree.geo) + s);
+  const float ocx = r.ox - g.x, ocy = r.oy - g.y, ocz = r.oz - g.z;
+  const float hb = ocx * r.dx + ocy * r.dy + ocz * r.dz;
+  const float cq = ocx * ocx + ocy * ocy + ocz * ocz - g.w * g.w;
+  const float disc = hb * hb - r.a * cq;
+  const float sq = sqrtf(fmaxf(disc, 0.0f));
+  const float t1 = (-hb - sq) / r.a;
+  const float t2 = (-hb + sq) / r.a;
+  float h1 = max_nan(t1, kTMin);
+  const float h2 = t2 >= t1 + kTMin ? t2 : INFINITY;
+  if (!(disc >= 0.0f && g.w > 0.0f && h1 < h2)) return INFINITY;
+  h1 = max_nan(h1, 0.0f);
+  const float dist_inside = (h2 - h1) * fl.ray_len;
+  const int c = fl.col0 + __ldg(tree.ord + s);
+  float u0, u1;
+  uniform_pair(fl.k0, fl.k1, fl.ray, fl.stream, (uint32_t)c >> 1, u0, u1);
+  const float u = (c & 1) ? u1 : u0;
+  const float hit_dist = __ldg(tree.nid + s) * logf(fmaxf(u, 1e-37f));
+  const float ti = h1 + hit_dist / fl.ray_len;
+  if (hit_dist <= dist_inside && ti < tb) return ti;
   return INFINITY;
 }
 
@@ -95,10 +142,12 @@ __device__ __forceinline__ float triangle_t(const float* geo, int s,
 // leaf's winner is its nearest candidate, the lowest slot among equals; it
 // replaces (t_best, win) only when strictly nearer (_merge_leaf_rows).
 // kAnyHit: the walk ends at the first candidate nearer than t_best, the
-// lowest slot of the first leaf that has one (the shadow-ray test).
-template <bool kSphere, bool kAnyHit = false>
+// lowest slot of the first leaf that has one (the shadow-ray test).  `fl`
+// is read by a volume tree's walk only.
+template <int kKind, bool kAnyHit = false>
 __device__ __forceinline__ void walk(const Tree& tree, int leaf,
-                                     const Ray& r, float& t_best, int& win) {
+                                     const Ray& r, float& t_best, int& win,
+                                     const Flight& fl = Flight{}) {
   int node = 0;
   while (node < tree.n_nodes) {
     const float* box = tree.nodes_f + 6 * node;
@@ -127,8 +176,10 @@ __device__ __forceinline__ void walk(const Tree& tree, int leaf,
       float c_best = INFINITY;
       int c_win = -1;
       for (int j = 0; j < n; ++j) {
-        const float ti = kSphere ? sphere_t(tree.geo, base + j, r, tb)
-                                 : triangle_t(tree.geo, base + j, r, tb);
+        const float ti =
+            kKind == kSphereTree   ? sphere_t(tree.geo, base + j, r, tb)
+            : kKind == kVolumeTree ? volume_t(tree, base + j, r, tb, fl)
+                                   : triangle_t(tree.geo, base + j, r, tb);
         if (ti < c_best) {
           c_best = ti;
           c_win = base + j;

@@ -17,9 +17,17 @@
 // G = 4 or 12 geometry fields, then the 8 material fields; a miss gives
 // zeros and kind -1.
 //
+// The sphere-like table is the solid spheres' slots and then the volume
+// spheres' (ops/bvh_kernel.fetch_inputs), as the codes number them.  Raw
+// mode (a scene with mixes, whose winner's material depends on the
+// bounce's coins): #6 writes the G geometry fields only and the winner's
+// raw material id in place of its kind, and #7 scatters the geometry only;
+// the replay resolves the mix and indexes the material table itself.
+//
 // #6: one thread per code, the rows read as float4 through the read-only
 // path, each field stored coalesced.  Bound by bytes: 4 in and 4 (G + 9)
-// out per code; the tables (a few hundred KB) stay in L2.
+// out per code (4 (G + 1) in raw mode); the tables (a few hundred KB) stay
+// in L2.
 //
 // #7: the same thread mapping over a grid-stride loop of a few blocks per
 // SM, float32 atomics.  Two hot spots are designed out: a warp's lanes that
@@ -60,7 +68,8 @@ struct Tables {
 __global__ void __launch_bounds__(kThreads)
 fetch_kernel(const int* __restrict__ codes, long long n, Tables t,
              const float* __restrict__ mats, const int* __restrict__ kinds,
-             int geo_w, float* __restrict__ rows, int* __restrict__ kind) {
+             int geo_w, int raw, float* __restrict__ rows,
+             int* __restrict__ kind) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const int code = __ldg(codes + i);
@@ -92,23 +101,29 @@ fetch_kernel(const int* __restrict__ codes, long long n, Tables t,
       }
       mid = __ldg(t.tri_mat + s);
     }
-    const float4* m = reinterpret_cast<const float4*>(mats) + 2 * mid;
-    const float4 m0 = __ldg(m), m1 = __ldg(m + 1);
-    v[12] = m0.x;
-    v[13] = m0.y;
-    v[14] = m0.z;
-    v[15] = m0.w;
-    v[16] = m1.x;
-    v[17] = m1.y;
-    v[18] = m1.z;
-    v[19] = m1.w;
-    kd = __ldg(kinds + mid);
+    if (raw) {
+      kd = mid;
+    } else {
+      const float4* m = reinterpret_cast<const float4*>(mats) + 2 * mid;
+      const float4 m0 = __ldg(m), m1 = __ldg(m + 1);
+      v[12] = m0.x;
+      v[13] = m0.y;
+      v[14] = m0.z;
+      v[15] = m0.w;
+      v[16] = m1.x;
+      v[17] = m1.y;
+      v[18] = m1.z;
+      v[19] = m1.w;
+      kd = __ldg(kinds + mid);
+    }
   }
 #pragma unroll
   for (int k = 0; k < 12; ++k)
     if (k < geo_w) rows[k * n + i] = v[k];
+  if (!raw) {
 #pragma unroll
-  for (int k = 0; k < kMat; ++k) rows[(geo_w + k) * n + i] = v[12 + k];
+    for (int k = 0; k < kMat; ++k) rows[(geo_w + k) * n + i] = v[12 + k];
+  }
   kind[i] = kd;
 }
 
@@ -138,9 +153,9 @@ __device__ __forceinline__ void reduce_peers(unsigned peers, float (&v)[N]) {
 template <bool kSharedMats>
 __global__ void __launch_bounds__(kThreads)
 transpose_kernel(const int* __restrict__ codes, long long n, Tables t,
-                 const float* __restrict__ g, int geo_w, int n_mats,
-                 float* __restrict__ d_sph, float* __restrict__ d_tri,
-                 float* __restrict__ d_mats) {
+                 const float* __restrict__ g, int geo_w, int raw,
+                 int n_mats, float* __restrict__ d_sph,
+                 float* __restrict__ d_tri, float* __restrict__ d_mats) {
   extern __shared__ float s_mats[];  // n_mats * kMat when kSharedMats
   if (kSharedMats) {
     for (int j = threadIdx.x; j < n_mats * kMat; j += blockDim.x)
@@ -166,13 +181,15 @@ transpose_kernel(const int* __restrict__ codes, long long n, Tables t,
 #pragma unroll
     for (int k = 0; k < kMat; ++k) m[k] = 0.0f;
     if (code >= 0) {
-      mid = __ldg((tri ? t.tri_mat : t.sph_mat) + slot);
       const int w = tri ? 12 : 4;
 #pragma unroll
       for (int k = 0; k < 12; ++k)
         if (k < w) v[k] = __ldg(g + k * n + i);
+      if (!raw) {
+        mid = __ldg((tri ? t.tri_mat : t.sph_mat) + slot);
 #pragma unroll
-      for (int k = 0; k < kMat; ++k) m[k] = __ldg(g + (geo_w + k) * n + i);
+        for (int k = 0; k < kMat; ++k) m[k] = __ldg(g + (geo_w + k) * n + i);
+      }
     }
 
     // geometry: the lanes that won one slot, one atomic per field
@@ -185,6 +202,7 @@ transpose_kernel(const int* __restrict__ codes, long long n, Tables t,
       for (int k = 0; k < w; ++k) atomicAdd(dst + k, v[k]);
     }
 
+    if (raw) continue;  // uniform over the grid: every lane skips
     // materials: the lanes of one material id, into the block's table
     peers = __match_any_sync(0xffffffffu, mid);
     reduce_peers(peers, m);
@@ -210,25 +228,26 @@ extern "C" int rtrt_fetch_rows(const int* codes, long long n,
                                const float* sph_geo, const int* sph_mat,
                                const float* tri_geo, const int* tri_mat,
                                int tri_base, const float* mats,
-                               const int* kinds, int geo_w, float* rows,
-                               int* kind, void* stream) {
+                               const int* kinds, int geo_w, int raw,
+                               float* rows, int* kind, void* stream) {
   if (n <= 0 || (geo_w != 4 && geo_w != 12) || tri_base < 0)
     return (int)cudaErrorInvalidValue;
   const Tables t{sph_geo, sph_mat, tri_geo, tri_mat, tri_base};
   const long long blocks = (n + kThreads - 1) / kThreads;
   fetch_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      codes, n, t, mats, kinds, geo_w, rows, kind);
+      codes, n, t, mats, kinds, geo_w, raw, rows, kind);
   return (int)cudaGetLastError();
 }
 
 extern "C" int rtrt_fetch_rows_transpose(const int* codes, long long n,
                                          const int* sph_mat,
                                          const int* tri_mat, int tri_base,
-                                         const float* g, int geo_w,
+                                         const float* g, int geo_w, int raw,
                                          int n_mats, float* d_sph,
                                          float* d_tri, float* d_mats,
                                          void* stream) {
-  if (n <= 0 || (geo_w != 4 && geo_w != 12) || tri_base < 0 || n_mats < 1)
+  if (n <= 0 || (geo_w != 4 && geo_w != 12) || tri_base < 0 || n_mats < 1 ||
+      (!raw && !d_mats))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -239,12 +258,12 @@ extern "C" int rtrt_fetch_rows_transpose(const int* codes, long long n,
   const long long need = (n + kThreads - 1) / kThreads;
   const long long most = (long long)sms * kBlocksPerSm;
   const unsigned blocks = (unsigned)(need < most ? need : most);
-  if (n_mats <= kMaxSharedMats)
+  if (!raw && n_mats <= kMaxSharedMats)
     transpose_kernel<true><<<blocks, kThreads, n_mats * kMat * sizeof(float),
                              (cudaStream_t)stream>>>(
-        codes, n, t, g, geo_w, n_mats, d_sph, d_tri, d_mats);
+        codes, n, t, g, geo_w, raw, n_mats, d_sph, d_tri, d_mats);
   else
     transpose_kernel<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-        codes, n, t, g, geo_w, n_mats, d_sph, d_tri, d_mats);
+        codes, n, t, g, geo_w, raw, n_mats, d_sph, d_tri, d_mats);
   return (int)cudaGetLastError();
 }

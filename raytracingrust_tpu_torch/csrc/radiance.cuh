@@ -9,7 +9,9 @@
 //                                       its gradient, in one launch
 //   bvh_forward.cu    bvh_kernel        forward over the chunk-leaf BVH,
 //                                       per-ray RGB (and each bounce's
-//                                       winner code in record mode)
+//                                       winner code in record mode); it
+//                                       alone takes the isotropic lobe
+//                                       (scatter<true>)
 //
 // The forward chain is raytracingrust_tpu/ops/pallas_megakernel.py's
 // _radiance_math for the envelope of ops/megakernel.py.  The adjoint is the
@@ -54,7 +56,14 @@ constexpr float kTwoPi = 6.28318548202514648f;  // 2 * float32(pi)
 // (pallas_megakernel.UNROLL_MAX_DEPTH)
 constexpr int kMaxTape = 12;
 
-enum Kind { kLambertian = 0, kMetal = 1, kDielectric = 2, kEmission = 3 };
+enum Kind {
+  kLambertian = 0,
+  kMetal = 1,
+  kDielectric = 2,
+  kEmission = 3,
+  kIsotropic = 4,
+  kMix = 5
+};
 enum BgKind { kUniform = 0, kGradient = 1 };
 
 // ---------------------------------------------------------------- Threefry
@@ -179,6 +188,14 @@ __device__ __forceinline__ void sphere_sample(float u1, float u2, float& sx,
   sz = zs;
 }
 
+// The cube root of a uniform, exp(log(max(u, 1e-38)) * (1/3)): the JAX
+// package's cbrt01, which utils/rng.py computes with torch.log and
+// torch.exp (logf and expf on the card) so the isotropic directions agree
+// bit for bit.
+__device__ __forceinline__ float cbrt01(float u) {
+  return expf(logf(fmaxf(u, 1e-38f)) * (1.0f / 3.0f));
+}
+
 // The metal lobe: d reflected about the front-facing normal n, normalized,
 // plus fuzz times the sphere sample s -> nd; true when nd leaves above the
 // surface (the path goes on).
@@ -225,7 +242,10 @@ __device__ __forceinline__ bool dielectric_reflects(
 // `mat` (albedo rgb, fuzz, ir, emission rgb) and `kind`, the ray d with
 // a = d.d, the front-facing normal n and the bounce's uniforms -> the
 // throughput factor `at`, the new direction nd, whether the path goes on,
-// and the lobe's decisions added to `code`.
+// and the lobe's decisions added to `code`.  kIso: the isotropic lobe
+// (lib/volume.rs:75-88), a point of the unit ball, the sphere sample times
+// cbrt01(u_r); the brute kernels' envelope has none and leave it out.
+template <bool kIso = false>
 __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
                                         bool front, float a, float dx,
                                         float dy, float dz, float nx,
@@ -233,7 +253,8 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
                                         float u2, float u_coin, float& at_r,
                                         float& at_g, float& at_b, float& ndx,
                                         float& ndy, float& ndz,
-                                        bool& scatters, int& code) {
+                                        bool& scatters, int& code,
+                                        float u_r = 0.0f) {
   float sx, sy, sz;
   sphere_sample(u1, u2, sx, sy, sz);
   float ldx = nx + sx, ldy = ny + sy, ldz = nz + sz;
@@ -296,6 +317,14 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
     at_g = mat[6];
     at_b = mat[7];
     scatters = false;
+  } else if (kIso && kind == kIsotropic) {
+    const float crt = cbrt01(u_r);
+    at_r = mat[0];
+    at_g = mat[1];
+    at_b = mat[2];
+    ndx = sx * crt;
+    ndy = sy * crt;
+    ndz = sz * crt;
   }
 }
 

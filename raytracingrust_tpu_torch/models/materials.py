@@ -2,9 +2,9 @@
 (raytracingrust_tpu/models/materials.py).
 
 Kind ids and the row layout are those of the JAX package, so a table
-built here equals the JAX one array for array.  Mix rows are built (a scene
-that holds them loads), but the render path refuses them
-(ops/megakernel.py envelope).
+built here equals the JAX one array for array.  Mixes resolve to a leaf
+material per hit (ops/shade.resolve_mix) on the BVH path; the brute
+kernel's envelope refuses them (ops/megakernel.py).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ DIELECTRIC = 2
 EMISSION = 3
 ISOTROPIC = 4
 MIX = 5
+MAX_MIX_DEPTH = 4  # mix-of-mix nesting a hit resolves, one coin a level
 
 
 @dataclasses.dataclass
@@ -110,9 +111,10 @@ def build_table(materials: Sequence[AnyMaterial]) -> MaterialTable:
             row["mix_first"] = row["mix_second"] = slot
 
     def alloc(m: AnyMaterial) -> int:
+        slot = len(rows)  # a nested mix appends its children after it
         rows.append(blank())
-        emit(m, len(rows) - 1)
-        return len(rows) - 1
+        emit(m, slot)
+        return slot
 
     rows.extend(blank() for _ in materials)
     if not rows:  # one dummy row keeps the shapes nonzero

@@ -2,9 +2,9 @@
 the scene and its builder, with the reference JSON schema
 (raytracingrust_tpu/models/scene.py).
 
-A sphere-bounded ``Volume`` loads, as in the JAX package (volume rows sort
-last), and the render path refuses it; a ``Volume`` whose boundary is a
-mesh raises on load (ROADMAP B4).  ``build(with_bvh=None)`` builds the
+A sphere-bounded ``Volume`` loads as in the JAX package (volume rows sort
+last, and the BVH holds them in a tree of their own); a ``Volume`` whose
+boundary is a mesh raises on load (ROADMAP B4c).  ``build(with_bvh=None)`` builds the
 chunk-leaf BVH when ``settings.enable_bvh_tree`` asks for it; the render
 path sends a scene to the BVH kernel only when the brute kernel cannot take
 it (render/render.select_engine).
@@ -131,11 +131,14 @@ class ChunkTree:
 @dataclasses.dataclass(frozen=True)
 class ChunkedBVH:
     """The JAX package's ChunkedBVH for the kinds the port renders: a tree
-    over the solid spheres and one over the triangles, traversed in that
-    order (the triangle pass starts from the sphere pass's nearest hit)."""
+    over the solid spheres, one over the volume spheres and one over the
+    triangles, traversed in that order (each pass starts from the nearest
+    hit of the passes before it).  The volume tree's ``perm`` holds global
+    sphere rows, as the JAX ``vol_perm`` does."""
 
     spheres: Optional[ChunkTree]
     triangles: Optional[ChunkTree]
+    volumes: Optional[ChunkTree] = None
 
 
 def _tensors_to(obj, device):
@@ -191,6 +194,18 @@ class SceneBuilder:
                              "radius": float(radius),
                              "material": int(material)})
         return len(self.objects) - 1
+
+    def add_volume(self, boundary_index: int, density: float) -> int:
+        """Make a sphere added before the boundary of a constant-density
+        medium (``Volume::new``, lib/volume.rs:25-31): it stops being a
+        solid surface, and its material is the medium's phase material.
+        A mesh boundary is not ported yet (ROADMAP B4c)."""
+        rec = self.objects[boundary_index]
+        if rec["kind"] != "sphere":
+            raise NotImplementedError(
+                "volumes bounded by a mesh are not ported yet (ROADMAP B4c)")
+        rec["neg_inv_density"] = -1.0 / float(density)
+        return boundary_index
 
     def add_mesh(self, mesh: Mesh) -> int:
         self.objects.append({"kind": "mesh", "mesh": mesh})
@@ -274,7 +289,7 @@ class SceneBuilder:
                 if o["type"] == "Mesh":
                     raise NotImplementedError(
                         "volumes bounded by a mesh are not ported yet "
-                        "(ROADMAP B4)")
+                        "(ROADMAP B4c)")
             if o["type"] == "Mesh":
                 # ``smooth`` is read by the schema and ignored: the
                 # reference shades flat (quirk Q6)

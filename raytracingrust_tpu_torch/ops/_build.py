@@ -50,17 +50,21 @@ _SIGNATURES = {
                             _I32, _I32, _P, _P, _I32, _P, _P], _I32),
     "rtrt_mse_loss": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
                        _I32, _I32, _F32, _P, _P, _I32, _P, _P], _I32),
-    "rtrt_bvh_radiance": ([_P, _P, _P, _I32] + [_P] * 5 + [_I32]
-                          + [_P] * 5 + [_I32, _I32, _U32, _U32, _I32, _I32,
-                                        _I32, _I32, _I32, _I32, _P, _P,
-                                        _I32, _I32, _P],
+    "rtrt_bvh_radiance": ([_P, _P, _P, _I32]
+                          + [_P] * 5 + [_I32]    # the sphere tree
+                          + [_P] * 7 + [_I32]    # the volume tree
+                          + [_P] * 5 + [_I32]    # the triangle tree
+                          + [_I32, _P, _P, _P, _I32, _I32, _U32, _U32, _I32,
+                             _I32, _I32, _I32, _I32, _I32, _P, _P, _I32,
+                             _I32, _I32, _P],
                           _I32),
-    "rtrt_fetch_rows": ([_P, _I64] + [_P] * 4 + [_I32, _P, _P, _I32, _P,
-                                                  _P, _P], _I32),
+    "rtrt_fetch_rows": ([_P, _I64] + [_P] * 4 + [_I32, _P, _P, _I32, _I32,
+                                                  _P, _P, _P], _I32),
     "rtrt_fetch_rows_transpose": ([_P, _I64, _P, _P, _I32, _P, _I32, _I32,
-                                   _P, _P, _P, _P], _I32),
-    "rtrt_occlusion": ([_P] * 5 + [_I32] + [_P] * 5 + [_I32, _I32, _P, _P,
-                                                      _I32, _P, _P], _I32),
+                                   _I32, _P, _P, _P, _P], _I32),
+    "rtrt_occlusion": ([_P] * 5 + [_I32] + [_P] * 7 + [_I32] + [_P] * 5
+                       + [_I32, _I32, _I32, _P, _U32, _U32, _U32, _P, _P,
+                          _I32, _P, _P], _I32),
     "rtrt_error_string": ([_I32], ctypes.c_char_p),
 }
 

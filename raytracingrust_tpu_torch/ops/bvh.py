@@ -93,10 +93,10 @@ def build_chunked_topology(mins: np.ndarray, maxs: np.ndarray,
 
 
 def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
-    """-> ChunkedBVH: one tree over the solid spheres, one over the
-    triangles (each None when it has no primitives); None for an empty
-    scene.  Volume spheres sort last in the sphere arrays and get no tree
-    here: the port renders no volume yet (ROADMAP B4)."""
+    """-> ChunkedBVH: one tree over the solid spheres, one over the volume
+    spheres (which sort last in the sphere arrays; its slots hold global
+    sphere rows), one over the triangles (each None when it has no
+    primitives); None for an empty scene."""
     from ..models.scene import ChunkedBVH, ChunkTree
 
     mins, maxs = primitive_bounds(spheres, triangles)
@@ -118,4 +118,6 @@ def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
         spheres=tree(mins[:n_solid], maxs[:n_solid],
                      np.arange(n_solid, dtype=np.int64)),
         triangles=tree(mins[ns:], maxs[ns:],
-                       np.arange(mins.shape[0] - ns, dtype=np.int64)))
+                       np.arange(mins.shape[0] - ns, dtype=np.int64)),
+        volumes=tree(mins[n_solid:ns], maxs[n_solid:ns],
+                     np.arange(n_solid, ns, dtype=np.int64)))

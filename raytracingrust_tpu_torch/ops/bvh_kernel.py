@@ -4,22 +4,34 @@ autograd Function of its record-and-replay gradient.
 
 Replaces raytracingrust_tpu/ops/pallas_megakernel.py's packet-traversal
 kernel (``_make_bvh_kernel``, over ``_radiance_math``'s BVH branch,
-``_traverse_tree``, ``_sphere_chunk_hit``, ``_tri_chunk_hit``/``_row_mt``
-and ``_merge_leaf_rows``) and its ``_bvh_cvjp``.  Per ray and bounce: a
-stackless walk of the solid-sphere chunk tree, then of the triangle chunk
-tree starting from the sphere pass's nearest hit, then the bounce tail the
-brute kernel shares (ops/megakernel.bounce_tail).
+``_traverse_tree``, ``_sphere_chunk_hit``, ``_vol_chunk_hit``,
+``_tri_chunk_hit``/``_row_mt``, ``_merge_leaf_rows`` and
+``_mixn_resolve``) and its ``_bvh_cvjp``.  Per ray and bounce: a stackless
+walk of the solid-sphere chunk tree, then of the volume-sphere tree, then
+of the triangle tree, each starting from the nearest hit of the walks
+before it; the winner's mix resolved to a leaf material
+(ops/shade.resolve_mix); then the bounce tail the brute kernel shares
+(ops/megakernel.bounce_tail).  A volume sphere is a constant-density
+medium: its candidate is the boundary window's entry plus an exponential
+free flight drawn from the volume's own uniform column (lib/volume.rs:35-73),
+and its hit shades with a dummy normal (1, 0, 0).
+
+The bounce's uniform columns (stream 1 + b) are the JAX layout: with any
+mix in the table, the four mix coins first, ``off = MAX_MIX_DEPTH``; then
+u1, u2, the coin and u_r at ``off + 0 .. 3``; then volume v's free-flight
+uniform at ``off + 4 + v``, v its ordinal among the volume spheres.
 
 Record mode (``record=True``) also returns each bounce's winner code,
 (max_depth, R) int32 in the JAX record layout: the winner's slot in bits
-0-26 (sphere slots first, triangle slots after the sphere tree's
-``n_chunks * leaf``), the front face at bit 27, the metal lobe's
-above-the-surface test at bit 28 and the dielectric's reflect choice at bit
-29 (those two for every hit, whatever its kind, when the scene holds a
-metal or a dielectric, and never in Clay mode); -1 on a miss and for every
-bounce after the path ended.  Under autograd :class:`BvhRadiance` runs the
-record walk forward and, backward, the differentiable replay over those
-codes (diff/replay.py) on winner rows fetched by ops/fetch.FetchRows: the
+0-26 (solid-sphere slots first, volume slots from ``vol_base``, triangle
+slots from ``tri_base``, each base the slot count of the trees before it),
+the front face at bit 27, the metal lobe's above-the-surface test at bit 28
+and the dielectric's reflect choice at bit 29 (those two for every hit,
+whatever its kind, when a metal or a dielectric is reachable from a
+primitive, and never in Clay mode); -1 on a miss and for every bounce after
+the path ended.  Under autograd :class:`BvhRadiance` runs the record walk
+forward and, backward, the differentiable replay over those codes
+(diff/replay.py) on winner rows fetched by ops/fetch.FetchRows: the
 detached-hit gradient of the JAX package.
 
 The walk is per ray, not per packet: a ray tests a leaf only when its own
@@ -27,20 +39,25 @@ slab test hits the leaf's box.  The TPU kernel moves one cursor for 2,048
 rays and tests a leaf when any of them hits it; the nearest hit is the same
 except where a ray's box test and its primitive test disagree at rounding.
 
-The envelope (:func:`unsupported_bvh`): solid spheres and surface
-triangles with Lambertian, Metal, Dielectric or Emission materials; a
-uniform or gradient background; Full or Clay mode; any depth.
+The envelope (:func:`unsupported_bvh`), what the JAX ``supports_bvh``
+admits but mesh-bounded volumes: solid spheres, up to ``MAX_BVH_VOLUMES``
+sphere volumes and surface triangles; Lambertian, Metal, Dielectric,
+Emission and Isotropic materials and mixes of them nested up to
+``MAX_MIX_DEPTH``; a uniform or gradient background, or a sky map with
+importance sampling; Full or Clay mode; any depth.
 
 Layout (:func:`pack`): the 20-float head of ``megakernel.pack_fparams``;
 the material table as (M, 8) float32 [albedo rgb, fuzz, ir, emission rgb]
-with (M,) int32 kinds; per tree the nodes as (K, 6) float32 and (K, 3)
-int32, each chunk's primitive count, and the primitives in permuted slot
-order with their material ids: spheres as (S, 4) [center, radius],
-triangles as (S, 12) [v0, e1, e2, flat normal].  Under autograd the
-packing keeps the graph from the scene's leaves to the head, the material
-table and each tree's rows.  On a CPU tensor the wrapper runs the plain
-version; on a CUDA tensor it launches the kernel or raises.  ``LAUNCHES``
-counts launches of the kernel, ``RECORD_LAUNCHES`` of its record variant.
+with (M,) int32 kinds and, with mixes, the mix table; per tree the nodes
+as (K, 6) float32 and (K, 3) int32, each chunk's primitive count, and the
+primitives in permuted slot order with their raw material ids: spheres and
+volumes as (S, 4) [center, radius], volumes also with their -1/density and
+ordinal, triangles as (S, 12) [v0, e1, e2, flat normal].  Under autograd
+the packing keeps the graph from the scene's leaves to the head, the
+material table and each tree's rows.  On a CPU tensor the wrapper runs the
+plain version; on a CUDA tensor it launches the kernel or raises.
+``LAUNCHES`` counts launches of the kernel, ``RECORD_LAUNCHES`` of its
+record variant.
 """
 
 from __future__ import annotations
@@ -57,10 +74,14 @@ from ..models.scene import MODE_CLAY, MODE_FULL, ChunkTree, Scene
 from ..utils.rng import ray_uniforms
 from ..utils.types import T_MIN
 from . import megakernel as K
+from .shade import mix_depth, reachable_kinds, resolve_mix
 
 # pallas_megakernel.TRI_DET_EPS: a triangle whose determinant is at most
 # this is parallel to the ray
 TRI_DET_EPS = 1e-8
+# pallas_megakernel.MAX_BVH_VOLUMES: each volume draws a uniform column of
+# its own a bounce
+MAX_BVH_VOLUMES = 8
 # rays per step of the plain version: a leaf test holds (rays, leaf) floats
 TILE_RAYS = 1 << 18
 
@@ -86,29 +107,30 @@ def env_is_active(scene: Scene) -> bool:
 
 def unsupported_bvh(scene: Scene) -> str | None:
     """Why the BVH kernel cannot take the scene, or None (the JAX
-    ``supports_bvh``, for what the port renders so far).  A sky map passes
-    only with importance sampling, whose path is :func:`env_radiance`."""
+    ``supports_bvh``, mesh-bounded volumes aside: those raise on load).  A
+    sky map passes only with importance sampling, whose path is
+    :func:`env_radiance`."""
     if scene.cbvh is None:
         return ("the scene was built without its BVH: build it with "
                 "with_bvh=True (or enable_bvh_tree)")
     if scene.num_primitives == 0:
         return "the scene has no primitive"
-    if scene.spheres.num_volumes:
-        return ("constant-density volumes on the BVH path are not ported "
-                "yet (ROADMAP B4)")
-    if scene.materials.has_mix:
-        return "mix materials on the BVH path are not ported yet (ROADMAP B4)"
-    mids = torch.cat([scene.spheres.material, scene.triangles.material])
-    if bool((scene.materials.kind[mids.long()] == M.ISOTROPIC).any()):
-        return ("isotropic materials on the BVH path are not ported yet "
-                "(ROADMAP B4)")
+    if scene.spheres.num_volumes > MAX_BVH_VOLUMES:
+        return (f"{scene.spheres.num_volumes} volumes: the BVH kernel takes "
+                f"at most {MAX_BVH_VOLUMES}, each drawing a uniform of its "
+                "own a bounce (as the JAX package)")
+    if scene.materials.has_mix and (mix_depth(scene.materials)
+                                    > M.MAX_MIX_DEPTH):
+        return (f"mixes nested deeper than {M.MAX_MIX_DEPTH} levels (or a "
+                "cycle): a hit resolves one level a coin, as the JAX "
+                "package")
     if (scene.background.kind not in (B.UNIFORM, B.GRADIENT)
             and not env_is_active(scene)):
         return ("SkyMap backgrounds without env importance sampling on the "
-                "BVH path are not ported yet (ROADMAP B4)")
+                "BVH path are not ported yet (ROADMAP B4d)")
     if scene.settings.mode not in (MODE_FULL, MODE_CLAY):
         return (f"{scene.settings.mode} mode on the BVH path is not ported "
-                "yet (ROADMAP B4)")
+                "yet (ROADMAP B4e)")
     return None
 
 
@@ -119,9 +141,22 @@ class Tree(NamedTuple):
     nodes_i: torch.Tensor  # (K, 3) int32 [hit_link, miss_link, chunk]
     chunk_len: torch.Tensor  # (n_chunks,) int32
     geo: torch.Tensor      # (n_chunks * leaf, 4 or 12) float32
-    mat: torch.Tensor      # (n_chunks * leaf,) int32 material id
+    mat: torch.Tensor      # (n_chunks * leaf,) int32 raw material id
     links: np.ndarray      # nodes_i on the host: the plain version's walk
     leaf_size: int
+    # volume trees: each slot's -1/density and its volume's ordinal (its
+    # sphere row minus the solid spheres), which picks its uniform column
+    nid: Optional[torch.Tensor] = None      # (n_chunks * leaf,) float32
+    ordinal: Optional[torch.Tensor] = None  # (n_chunks * leaf,) int32
+
+
+class Mixes(NamedTuple):
+    """The material table's mix columns, for the resolution rounds
+    (ops/shade.resolve_mix reads them by these names)."""
+    kind: torch.Tensor        # (M,) int32
+    mix_first: torch.Tensor   # (M,) int32, self for a non-mix row
+    mix_second: torch.Tensor  # (M,) int32
+    mix_factor: torch.Tensor  # (M,) float32
 
 
 class BvhScene(NamedTuple):
@@ -131,44 +166,70 @@ class BvhScene(NamedTuple):
     spheres: Optional[Tree]
     triangles: Optional[Tree]
     # the decision bits a record holds: REC_METAL_OK and REC_REFLECT when
-    # a primitive has a metal or a dielectric material
+    # a metal or a dielectric is reachable from a primitive
     rec_mask: int = 0
-    # the scene's volume spheres, which no tree here holds (ROADMAP B4)
-    volumes: int = 0
+    volumes: Optional[Tree] = None
+    n_vol: int = 0         # volume spheres: their uniform columns
+    mixes: Optional[Mixes] = None  # with any mix in the table
+    iso: bool = False      # an isotropic material is reachable: column u_r
 
     @property
     def device(self) -> torch.device:
         return self.head.device
 
     @property
-    def tri_base(self) -> int:
-        """The code of triangle slot 0: the sphere tree's slot count."""
+    def vol_base(self) -> int:
+        """The code of volume slot 0: the sphere tree's slot count."""
         return self.spheres.geo.shape[0] if self.spheres else 0
 
-    def with_rows(self, head, mats, sph_geo, tri_geo) -> "BvhScene":
+    @property
+    def tri_base(self) -> int:
+        """The code of triangle slot 0: the slot count of the sphere and
+        volume trees."""
+        return self.vol_base + (self.volumes.geo.shape[0] if self.volumes
+                                else 0)
+
+    def shade_cols(self) -> tuple[int, int]:
+        """(off, n): the first lobe column of a bounce's uniforms and how
+        many columns a bounce draws."""
+        off = M.MAX_MIX_DEPTH if self.mixes is not None else 0
+        if self.n_vol or self.iso:
+            return off, off + 4 + self.n_vol
+        return off, off + 3
+
+    def with_rows(self, head, mats, sph_geo, tri_geo,
+                  vol_geo=None) -> "BvhScene":
         """The same scene over other head, table and primitive rows."""
+        def swap(tree, geo):
+            return None if tree is None else tree._replace(geo=geo)
+
         return self._replace(
-            head=head, mats=mats,
-            spheres=None if self.spheres is None
-            else self.spheres._replace(geo=sph_geo),
-            triangles=None if self.triangles is None
-            else self.triangles._replace(geo=tri_geo))
+            head=head, mats=mats, spheres=swap(self.spheres, sph_geo),
+            triangles=swap(self.triangles, tri_geo),
+            volumes=swap(self.volumes, vol_geo))
 
 
 def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
-          device) -> Optional[Tree]:
+          device, nid=None, n_solid=0) -> Optional[Tree]:
     if t is None:
         return None
     perm = torch.as_tensor(t.perm, device=rows.device).long()
     pad = perm < 0
     idx = perm.clamp(min=0)
     geo = torch.where(pad[:, None], 0.0, rows[idx])
+    extra = {}
+    if nid is not None:  # a volume tree's slots hold global sphere rows
+        extra = dict(
+            nid=torch.where(pad, 0.0, nid[idx].detach()).to(
+                torch.float32).contiguous().to(device),
+            ordinal=torch.where(pad, 0, idx - n_solid).to(
+                torch.int32).to(device))
     return Tree(torch.as_tensor(t.nodes_f).to(device),
                 torch.as_tensor(t.nodes_i).to(device),
                 torch.as_tensor(t.chunk_len).to(device),
                 geo.to(torch.float32).contiguous().to(device),
                 torch.where(pad, 0, mat[idx]).to(torch.int32).to(device),
-                t.nodes_i, t.leaf_size)
+                t.nodes_i, t.leaf_size, **extra)
 
 
 def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
@@ -181,18 +242,28 @@ def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
     table = torch.cat([mats.albedo, mats.fuzz[:, None], mats.ir[:, None],
                        mats.emission], dim=1).to(torch.float32)
     sph, tri, cb = scene.spheres, scene.triangles, scene.cbvh
-    used = mats.kind[torch.cat([sph.material, tri.material]).long()]
-    rec_mask = ((REC_METAL_OK if bool((used == M.METAL).any()) else 0)
-                | (REC_REFLECT if bool((used == M.DIELECTRIC).any()) else 0))
+    used = reachable_kinds(mats, torch.cat([sph.material, tri.material]))
+    rec_mask = ((REC_METAL_OK if M.METAL in used else 0)
+                | (REC_REFLECT if M.DIELECTRIC in used else 0))
+    mixes = None
+    if mats.has_mix:
+        mixes = Mixes(*(v.detach().contiguous().to(device) for v in (
+            mats.kind.to(torch.int32), mats.mix_first.to(torch.int32),
+            mats.mix_second.to(torch.int32),
+            mats.mix_factor.to(torch.float32))))
+    n_vol = sph.num_volumes
+    centers = torch.cat([sph.center, sph.radius[:, None]], 1)
     return BvhScene(
         K.pack_head(scene, width, height).contiguous().to(device),
         table.contiguous().to(device),
         mats.kind.to(torch.int32).contiguous().to(device),
-        _tree(cb.spheres, torch.cat([sph.center, sph.radius[:, None]], 1),
-              sph.material, device),
+        _tree(cb.spheres, centers, sph.material, device),
         _tree(cb.triangles, torch.cat([tri.v0, tri.e1, tri.e2, tri.normal],
                                       1), tri.material, device),
-        rec_mask, sph.num_volumes)
+        rec_mask,
+        _tree(cb.volumes, centers, sph.material, device,
+              nid=sph.neg_inv_density, n_solid=len(sph) - n_vol),
+        n_vol, mixes, M.ISOTROPIC in used)
 
 
 # ------------------------------------------------------------- plain version
@@ -201,33 +272,68 @@ def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
 
-def _sphere_leaf(geo, o, d, a, t_best):
-    """Candidate distances (R, L) of one leaf's spheres (``_sphere_chunk_hit``
-    op for op: the direct (o - c) quadratic with true division; the near
-    root if in [T_MIN, t_best], else the far root; radius 0 never hits)."""
+def _quadratic(geo, o, d, a):
+    """The direct (o - c) quadratic of (R, L) rays and spheres: (disc >= 0,
+    near root, far root, radius row), with true division."""
     cx, cy, cz, r = (v[None, :] for v in geo.unbind(-1))
     ox, oy, oz = (v[:, None] for v in o)
     dx, dy, dz = (v[:, None] for v in d)
-    a, tb = a[:, None], t_best[:, None]
+    a = a[:, None]
     ocx, ocy, ocz = ox - cx, oy - cy, oz - cz
     hb = ocx * dx + ocy * dy + ocz * dz
     cq = ocx * ocx + ocy * ocy + ocz * ocz - r * r
     disc = hb * hb - a * cq
-    ok = (disc >= 0.0) & (r > 0.0)
     sq = torch.sqrt(torch.clamp(disc, min=0.0))
-    t1 = (-hb - sq) / a
-    t2 = (-hb + sq) / a
+    return disc >= 0.0, (-hb - sq) / a, (-hb + sq) / a, r
+
+
+def _sphere_leaf(tree, s, o, d, a, t_best):
+    """Candidate distances (R, L) of the spheres of slots ``s``
+    (``_sphere_chunk_hit`` op for op: the near root if in [T_MIN, t_best],
+    else the far root; radius 0 never hits)."""
+    ok, t1, t2, r = _quadratic(tree.geo[s], o, d, a)
+    ok = ok & (r > 0.0)
+    tb = t_best[:, None]
     t1ok = (t1 >= T_MIN) & (t1 <= tb)
     t2ok = (t2 >= T_MIN) & (t2 <= tb)
     return torch.where(ok & t1ok, t1,
                        torch.where(ok & t2ok, t2, float("inf")))
 
 
-def _triangle_leaf(geo, o, d, a, t_best):
-    """Candidate distances (R, L) of one leaf's triangles (``_row_mt``, the
-    direct cross-product Moller-Trumbore, with t in (T_MIN, t_best])."""
+def _volume_window(tree, s, o, d, a):
+    """(valid, h1, h2) of (R, L) rays and the volume spheres of slots
+    ``s``: the boundary window from the quadratic, the far root only when
+    at least T_MIN past the near one, the entry clamped to T_MIN, then to
+    0."""
+    ok, t1, t2, r = _quadratic(tree.geo[s], o, d, a)
+    h1 = torch.clamp(t1, min=T_MIN)
+    h2 = torch.where(t2 >= t1 + T_MIN, t2, float("inf"))
+    valid = ok & (r > 0.0) & (h1 < h2)
+    return valid, torch.clamp(h1, min=0.0), h2
+
+
+def _volume_leaf(tree, s, o, d, a, t_best, ray_len, u_vol):
+    """Candidate distances (R, L) of the volume spheres of slots ``s``
+    (``_vol_chunk_hit`` op for op): the boundary window [h1, h2], then the
+    free flight ``-1/density * log(u)`` along the ray from its entry, with
+    the volume's own uniform (column ``ordinal`` of ``u_vol``), accepted
+    when it ends inside the window and nearer than t_best."""
+    valid, h1, h2 = _volume_window(tree, s, o, d, a)
+    u = u_vol[:, tree.ordinal[s].long()]
+    ray_len = ray_len[:, None]
+    dist_inside = (h2 - h1) * ray_len
+    hit_dist = tree.nid[s][None, :] * torch.log(torch.clamp(u, min=1e-37))
+    ti = h1 + hit_dist / ray_len
+    return torch.where(valid & (hit_dist <= dist_inside)
+                       & (ti < t_best[:, None]), ti, float("inf"))
+
+
+def _triangle_leaf(tree, s, o, d, a, t_best):
+    """Candidate distances (R, L) of the triangles of slots ``s``
+    (``_row_mt``, the direct cross-product Moller-Trumbore, with t in
+    (T_MIN, t_best])."""
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        v[None, :] for v in geo[:, :9].unbind(-1))
+        v[None, :] for v in tree.geo[s, :9].unbind(-1))
     ox, oy, oz = (v[:, None] for v in o)
     dx, dy, dz = (v[:, None] for v in d)
     hx = dy * e2z - dz * e2y  # h = d x e2
@@ -249,7 +355,7 @@ def _triangle_leaf(geo, o, d, a, t_best):
 
 
 def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
-          name, any_hit=False):
+          name, any_hit=False, extra=()):
     """Each alive ray's stackless walk of one tree, vectorized: the rays
     whose cursor is at node k take its slab test (``_traverse_tree``'s:
     NaN-propagating min/max, so an axis-parallel NaN reads as a miss), test
@@ -258,9 +364,11 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
     ray's walk.  A leaf's winner is its nearest candidate, the lowest slot
     among equals; it replaces the ray's winner only when strictly nearer
     (``_merge_leaf_rows``).  ``t_best`` and ``win`` (the winning slot)
-    change in place.  ``any_hit``: a ray leaves the walk at the first leaf
-    that has a candidate nearer than its ``t_best``, and the tally counts
-    its tests up to the first such slot (the occlusion kernel's walk)."""
+    change in place.  ``extra``: per-ray tensors the leaf takes after
+    ``t_best`` (a volume leaf's ray lengths and uniforms).  ``any_hit``: a
+    ray leaves the walk at the first leaf that has a candidate nearer than
+    its ``t_best``, and the tally counts its tests up to the first such
+    slot (the occlusion kernel's walk)."""
     k_nodes = tree.links.shape[0]
     cursor = torch.where(alive, 0, k_nodes)
     nf = tree.nodes_f
@@ -292,21 +400,89 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
             continue
         base = chunk * tree.leaf_size
         tb = t_best[rays]
-        ti = leaf(tree.geo[base:base + n], [v[rays] for v in o],
-                  [v[rays] for v in d], a[rays], tb)
+        ti = leaf(tree, slice(base, base + n), [v[rays] for v in o],
+                  [v[rays] for v in d], a[rays], tb,
+                  *(e[rays] for e in extra))
         t_min = ti.min(dim=1).values
         lane = torch.arange(n, device=ti.device)
         first = torch.where(ti == t_min[:, None], lane, n).min(dim=1).values
         better = t_min < tb
         t_best[rays] = torch.where(better, t_min, tb)
         win[rays] = torch.where(better, base + first, win[rays])
-        if any_hit:  # tests up to the first slot nearer than t_best
+        if tally is not None:  # any-hit: tests up to its first candidate
+            tested = torch.full_like(t_min, n, dtype=torch.long)
+            if any_hit:
+                tested = torch.where(ti < tb[:, None], lane + 1, n).min(
+                    dim=1).values
+            tally[name] += int(tested.sum())
+            if tree.nid is not None:  # the windows a ray crosses: draws
+                window = _volume_window(tree, slice(base, base + n),
+                                        [v[rays] for v in o],
+                                        [v[rays] for v in d], a[rays])[0]
+                tally["volume_draws"] += int(
+                    (window & (lane[None, :] < tested[:, None])).sum())
+        if any_hit:
             cursor[rays[better]] = k_nodes
-            if tally is not None:
-                tally[name] += int(torch.where(ti < tb[:, None], lane + 1, n)
-                                   .min(dim=1).values.sum())
-        elif tally is not None:
-            tally[name] += rays.numel() * n
+
+
+def _walk_all(sc: BvhScene, o, d, a, alive, u_vol, tally, any_hit=False):
+    """Every tree's walk in the JAX order (spheres, volumes, triangles),
+    each from the nearest hit of the walks before it; -> (t_best, winning
+    slot of each tree, -1 where it has none).  ``any_hit``: the occlusion
+    test's walk, where a ray occluded by one tree walks no other."""
+    inv_d = [1.0 / v for v in d]
+    t_best = torch.full_like(a, float("inf"))
+    wins = []
+    for tree, leaf, name, extra in (
+            (sc.spheres, _sphere_leaf, "sphere_tests", ()),
+            (sc.volumes, _volume_leaf, "volume_tests",
+             () if sc.volumes is None else (torch.sqrt(a), u_vol)),
+            (sc.triangles, _triangle_leaf, "triangle_tests", ())):
+        win = torch.full(a.shape, -1, dtype=torch.long, device=a.device)
+        if tree is not None:
+            live = alive & ~(t_best < float("inf")) if any_hit else alive
+            _walk(tree, leaf, o, d, inv_d, a, live, t_best, win, tally,
+                  name, any_hit=any_hit, extra=extra)
+        wins.append(win)
+    return t_best, wins
+
+
+def _winner(sc: BvhScene, pt, wins):
+    """(outward normal, raw material id) of each ray's winner: a sphere's
+    (p - c) / r by true division, a volume's dummy (1, 0, 0), a
+    triangle's flat normal.  A ray that missed holds any value."""
+    w_sph, w_vol, w_tri = wins
+    n = [torch.zeros_like(pt[0])] * 3
+    mid = torch.zeros_like(w_sph)
+    if sc.spheres is not None:
+        g = sc.spheres.geo[w_sph.clamp(min=0)]
+        r = g[:, 3]
+        g_rad = torch.where(r > 0.0, r, 1.0)
+        n = [(pt[c] - g[:, c]) / g_rad for c in range(3)]
+        mid = sc.spheres.mat[w_sph.clamp(min=0)].long()
+    if sc.volumes is not None:
+        is_vol = w_vol >= 0
+        n = [torch.where(is_vol, float(c == 0), n[c]) for c in range(3)]
+        mid = torch.where(is_vol, sc.volumes.mat[w_vol.clamp(min=0)].long(),
+                          mid)
+    if sc.triangles is not None:
+        is_tri = w_tri >= 0
+        g = sc.triangles.geo[w_tri.clamp(min=0)]
+        n = [torch.where(is_tri, g[:, 9 + c], n[c]) for c in range(3)]
+        mid = torch.where(is_tri, sc.triangles.mat[w_tri.clamp(min=0)].long(),
+                          mid)
+    return n, mid
+
+
+def bounce_uniforms(sc: BvhScene, key, ray_ids, b):
+    """(mix coins or None, the lobe's uniforms [u1, u2, coin] and u_r with
+    an isotropic material, the volumes' (R, n_vol) free-flight uniforms)
+    of bounce ``b``, in the JAX column layout."""
+    off, n = sc.shade_cols()
+    u = ray_uniforms(key, ray_ids, 1 + b, n)
+    coins = u[:, :off].unbind(-1) if off else None
+    lobe = u[:, off:off + (4 if sc.iso else 3)].unbind(-1)
+    return coins, lobe, u[:, off + 4:]
 
 
 def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
@@ -319,47 +495,25 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
     thr = [one, one, one]
     rad = [torch.zeros_like(one)] * 3
     alive = torch.ones_like(one, dtype=torch.bool)
-    sph, tri = sc.spheres, sc.triangles
     rec_mask = 0 if clay else sc.rec_mask
     for b in range(max_depth):
         if not bool(alive.any()):
             break  # dead rays never change: stopping early is exact
-        u = ray_uniforms(key, ray_ids, 1 + b, 3).unbind(-1)
+        coins, u, u_vol = bounce_uniforms(sc, key, ray_ids, b)
         dx, dy, dz = d
         a = _dot3(dx, dy, dz, dx, dy, dz)
-        inv_d = [1.0 / dx, 1.0 / dy, 1.0 / dz]
-        t_best = torch.full_like(a, float("inf"))
-        w_sph = torch.full_like(ray_ids, -1, dtype=torch.long)
-        w_tri = w_sph.clone()
-        if sph is not None:
-            _walk(sph, _sphere_leaf, o, d, inv_d, a, alive, t_best, w_sph,
-                  tally, "sphere_tests")
-        if tri is not None:
-            _walk(tri, _triangle_leaf, o, d, inv_d, a, alive, t_best, w_tri,
-                  tally, "triangle_tests")
+        t_best, wins = _walk_all(sc, o, d, a, alive, u_vol, tally)
         hit = t_best < float("inf")
-        is_tri = w_tri >= 0
         safe_t = torch.where(hit, t_best, 1.0)
         pt = [o[c] + safe_t * d[c] for c in range(3)]
-        if sph is not None:
-            g = sph.geo[w_sph.clamp(min=0)]
-            r = g[:, 3]
-            g_rad = torch.where(r > 0.0, r, 1.0)
-            n = [(pt[c] - g[:, c]) / g_rad for c in range(3)]
-            mid = sph.mat[w_sph.clamp(min=0)]
-        else:
-            n = [torch.zeros_like(a)] * 3
-            mid = torch.zeros_like(ray_ids)
-        if tri is not None:
-            g = tri.geo[w_tri.clamp(min=0)]
-            n = [torch.where(is_tri, g[:, 9 + c], n[c]) for c in range(3)]
-            mid = torch.where(is_tri, tri.mat[w_tri.clamp(min=0)], mid)
-        mid = mid.long()
+        n, mid = _winner(sc, pt, wins)
+        if coins is not None:
+            mid = resolve_mix(sc.mixes, mid, coins)
         kind = sc.kinds[mid]
         if tally is not None:
             tally["bounces"] += int(alive.sum())
             tally["misses"] += int((alive & ~hit).sum())
-            for k in range(4):
+            for k in range(5):
                 tally[f"hits_{k}"] += int((alive & hit & (kind == k)).sum())
         decided = None if rec is None else {}
         entering = alive
@@ -367,7 +521,10 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
             sc.head, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
             sc.mats[mid].unbind(-1), kind, u, decisions=decided)
         if rec is not None:
-            code = torch.where(is_tri, w_tri + sc.tri_base, w_sph)
+            w_sph, w_vol, w_tri = wins
+            code = torch.where(w_tri >= 0, w_tri + sc.tri_base,
+                               torch.where(w_vol >= 0, w_vol + sc.vol_base,
+                                           w_sph))
             code = code | torch.where(decided["front"], REC_FRONT, 0)
             for bit, name in ((REC_METAL_OK, "metal_ok"),
                               (REC_REFLECT, "reflect")):
@@ -387,8 +544,9 @@ def radiance_bvh_plain(sc: BvhScene, key: tuple[int, int],
     normal, ``1 / sqrt`` where the JAX kernel has rsqrt).  With ``record``,
     -> (radiance, codes (max_depth, R) int32), the radiance unchanged.
     ``tally``, for measurement only, is a ``collections.Counter`` that
-    receives the work the rays did: node visits, sphere and triangle tests,
-    rays entering a bounce, misses, hits by kind."""
+    receives the work the rays did: node visits, sphere, volume and
+    triangle tests, rays entering a bounce, misses, hits by resolved
+    kind."""
     n = ray_ids.shape[0]
     codes = (torch.full((max_depth, n), -1, dtype=torch.int32,
                         device=px.device) if record else None)
@@ -403,11 +561,13 @@ def radiance_bvh_plain(sc: BvhScene, key: tuple[int, int],
 
 # ------------------------------------------------------------- the kernel
 
-def _tree_args(t: Optional[Tree], cols: int):
-    """(nodes_f, nodes_i, chunk_len, geo, mat pointers, node count) of one
-    tree, after checking it; null pointers and 0 for an absent tree."""
+def _tree_args(t: Optional[Tree], cols: int, volume: bool = False):
+    """(nodes_f, nodes_i, chunk_len, geo, mat pointers, for a volume tree
+    also -1/density and ordinal, node count) of one tree, after checking
+    it; null pointers and 0 for an absent tree."""
+    n_ptr = 7 if volume else 5
     if t is None:
-        return [ctypes.c_void_p(0)] * 5 + [0]
+        return [ctypes.c_void_p(0)] * n_ptr + [0]
     dev = t.nodes_f.device
     k, n_chunks = t.nodes_f.shape[0], t.chunk_len.shape[0]
     K._check(t.nodes_f, "nodes_f", torch.float32, (k, 6), dev)
@@ -418,8 +578,36 @@ def _tree_args(t: Optional[Tree], cols: int):
     K._check(t.mat, "mat", torch.int32, (slots,), dev)
     if t.geo.data_ptr() % 16:
         raise ValueError("geo must be 16-byte aligned (float4 loads)")
-    return [ctypes.c_void_p(v.data_ptr()) for v in
-            (t.nodes_f, t.nodes_i, t.chunk_len, t.geo, t.mat)] + [k]
+    ptrs = [t.nodes_f, t.nodes_i, t.chunk_len, t.geo, t.mat]
+    if volume:
+        K._check(t.nid, "nid", torch.float32, (slots,), dev)
+        K._check(t.ordinal, "ordinal", torch.int32, (slots,), dev)
+        ptrs += [t.nid, t.ordinal]
+    return [ctypes.c_void_p(v.data_ptr()) for v in ptrs] + [k]
+
+
+def _mix_args(sc: BvhScene):
+    """The mix table's (first, second, factor) pointers, null without
+    mixes, after checking it."""
+    if sc.mixes is None:
+        return [ctypes.c_void_p(0)] * 3
+    m = sc.kinds.shape[0]
+    for name, v, dtype in (("mix_first", sc.mixes.mix_first, torch.int32),
+                           ("mix_second", sc.mixes.mix_second, torch.int32),
+                           ("mix_factor", sc.mixes.mix_factor,
+                            torch.float32)):
+        K._check(v, name, dtype, (m,), sc.device)
+    return [ctypes.c_void_p(v.data_ptr()) for v in sc.mixes[1:]]
+
+
+def _leaf_size(sc: BvhScene) -> int:
+    trees = [t for t in (sc.spheres, sc.volumes, sc.triangles)
+             if t is not None]
+    if not trees:
+        raise ValueError("the scene has no tree")
+    if len({t.leaf_size for t in trees}) > 1:
+        raise ValueError("the trees have different leaf sizes")
+    return trees[0].leaf_size
 
 
 def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
@@ -435,20 +623,20 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
     dev = sc.device
     if dev.type != "cuda":
         raise ValueError(f"radiance_bvh_cuda needs CUDA tensors, got {dev}")
-    if sc.spheres is None and sc.triangles is None:
-        raise ValueError("radiance_bvh_cuda: the scene has no tree")
     if not 0 <= n_rays < 2 ** 31 or spp < 1 or width < 1 or max_depth < 0:
         raise ValueError(f"bad launch: n_rays={n_rays} spp={spp} "
                          f"width={width} max_depth={max_depth}")
+    if not 0 <= sc.n_vol <= MAX_BVH_VOLUMES:
+        raise ValueError(f"{sc.n_vol} volumes; the kernel takes at most "
+                         f"{MAX_BVH_VOLUMES}")
     m = sc.kinds.shape[0]
     K._check(sc.head, "head", torch.float32, (K._SPHERES,), dev)
     K._check(sc.mats, "mats", torch.float32, (m, 8), dev)
     K._check(sc.kinds, "kinds", torch.int32, (m,), dev)
     K._check_key(key)
-    leaf = (sc.spheres or sc.triangles).leaf_size
-    if sc.spheres and sc.triangles and sc.triangles.leaf_size != leaf:
-        raise ValueError("the two trees have different leaf sizes")
-    args = _tree_args(sc.spheres, 4) + _tree_args(sc.triangles, 12)
+    leaf = _leaf_size(sc)
+    args = (_tree_args(sc.spheres, 4) + _tree_args(sc.volumes, 4, True)
+            + _tree_args(sc.triangles, 12))
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=dev)
     codes = (torch.empty((max_depth, n_rays), dtype=torch.int32, device=dev)
              if record else None)
@@ -459,12 +647,12 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
         err = lib.rtrt_bvh_radiance(
             ctypes.c_void_p(sc.head.data_ptr()),
             ctypes.c_void_p(sc.mats.data_ptr()),
-            ctypes.c_void_p(sc.kinds.data_ptr()), m, *args, leaf, key[0],
-            key[1],
+            ctypes.c_void_p(sc.kinds.data_ptr()), m, *args, leaf,
+            *_mix_args(sc), sc.n_vol, int(sc.iso), key[0], key[1],
             n_rays, spp, width, max_depth, int(bg_kind), int(bool(clay)),
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(codes.data_ptr() if record else 0),
-            0 if clay else sc.rec_mask, sc.tri_base,
+            0 if clay else sc.rec_mask, sc.vol_base, sc.tri_base,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_bvh_radiance launch failed: CUDA error "
@@ -479,11 +667,12 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
 # ------------------------------------------------------------- autograd
 
 def _rows(sc: BvhScene) -> tuple:
-    """The differentiable tensors: head, material table, the two trees'
-    primitive rows (None for an absent tree)."""
+    """The differentiable tensors: head, material table, the primitive rows
+    of the sphere, triangle and volume trees (None for an absent tree)."""
     return (sc.head, sc.mats,
             *(None if t is None else t.geo for t in (sc.spheres,
-                                                     sc.triangles)))
+                                                     sc.triangles,
+                                                     sc.volumes)))
 
 
 def requires_grad(sc: BvhScene) -> bool:
@@ -502,6 +691,27 @@ def _record(sc: BvhScene, key, n_pixels: int, spp: int, width: int, **opts):
     return radiance_bvh_plain(sc, key, ray_ids, px, py, record=True, **opts)
 
 
+def fetch_inputs(sc: BvhScene) -> tuple:
+    """The fetch pair's arguments after the codes: kinds, tri_base, the
+    sphere-like slots' and the triangle slots' material ids, the material
+    table, the sphere-like and the triangle rows, raw.  The sphere and
+    volume trees are one table of sphere-like rows to the fetch, slots
+    ``sph | vol`` as in the codes (a differentiable concatenation); with a
+    mix in the table the fetch is raw: it gives the winner's raw material id
+    and no material rows, and the replay resolves the mix and indexes the
+    table itself."""
+    sphl = [t for t in (sc.spheres, sc.volumes) if t is not None]
+
+    def cat(vs):
+        return None if not vs else vs[0] if len(vs) == 1 else torch.cat(vs)
+
+    tri = sc.triangles
+    return (sc.kinds, sc.tri_base, cat([t.mat for t in sphl]),
+            None if tri is None else tri.mat, sc.mats,
+            cat([t.geo for t in sphl]), None if tri is None else tri.geo,
+            sc.mixes is not None)
+
+
 def replay(sc: BvhScene, codes: torch.Tensor, key, n_pixels: int, spp: int,
            width: int, *, max_depth: int, bg_kind: int, clay: bool,
            plain: bool = False, sky=None, occlude=None) -> torch.Tensor:
@@ -515,18 +725,13 @@ def replay(sc: BvhScene, codes: torch.Tensor, key, n_pixels: int, spp: int,
     from ..diff.replay import replay_rows_radiance
     from .fetch import FetchRows, fetch_rows_plain
 
-    sph, tri = sc.spheres, sc.triangles
     rows, kind = (fetch_rows_plain if plain else FetchRows.apply)(
-        codes, sc.kinds, sc.tri_base,
-        None if sph is None else sph.mat, None if tri is None else tri.mat,
-        *_rows(sc)[1:])
+        codes, *fetch_inputs(sc))
     ray_ids, px, py = K.prep_rays(
         torch.arange(n_pixels, device=codes.device), spp, width)
     return replay_rows_radiance(
-        sc.head, rows, kind, codes, key, ray_ids, px, py,
-        tri_base=sc.tri_base, has_spheres=sph is not None,
-        has_triangles=tri is not None, max_depth=max_depth, bg_kind=bg_kind,
-        clay=clay, sky=sky, occlude=occlude)
+        sc, rows, kind, codes, key, ray_ids, px, py, max_depth=max_depth,
+        bg_kind=bg_kind, clay=clay, sky=sky, occlude=occlude)
 
 
 def _replay_grad(sc: BvhScene, codes, cts, *args, **kwargs) -> tuple:
@@ -550,7 +755,7 @@ def radiance_grad_plain(sc: BvhScene, key, cts: torch.Tensor, n_pixels: int,
     """The gradient of sum(cts * radiance) by the plain route on ``sc``'s
     device: the plain record walk, then autograd through the plain fetch
     and the replay.  -> (d head, d material table, d sphere rows, d triangle
-    rows), None for an absent tree."""
+    rows, d volume rows), None for an absent tree."""
     ray_ids, px, py = K.prep_rays(
         torch.arange(n_pixels, device=cts.device), spp, width)
     with torch.no_grad():
@@ -569,10 +774,10 @@ class BvhRadiance(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, sc, key, n_pixels, spp, width, opts, head, mats,
-                sph_geo, tri_geo):
-        sc = sc.with_rows(head, mats, sph_geo, tri_geo)
+                sph_geo, tri_geo, vol_geo):
+        sc = sc.with_rows(head, mats, sph_geo, tri_geo, vol_geo)
         rad, codes = _record(sc, key, n_pixels, spp, width, **opts)
-        ctx.save_for_backward(codes, head, mats, sph_geo, tri_geo)
+        ctx.save_for_backward(codes, head, mats, sph_geo, tri_geo, vol_geo)
         ctx.args = (sc, key, n_pixels, spp, width, opts)
         return rad
 
@@ -610,7 +815,8 @@ def env_radiance(sc: BvhScene, sky: B.Background, key: tuple[int, int],
     path (the JAX ``_bvh_env_radiance``): the record walk (#5's record
     variant on the card) under a black uniform background, since the codes
     do not depend on it; then :func:`replay` with the sky and the shadow
-    rays of kernel #8 (ops/occlusion.py), once a bounce.  The replay is the
+    rays of kernel #8 (ops/occlusion.py), once a bounce, which fly through
+    the volumes with the NEE stream's uniforms.  The replay is the
     result, differentiable in ``sc``'s head, material table and primitive
     rows (#6, #7 under autograd) and in ``sky``'s texels; the walk and the
     shadow rays are discrete.  ``plain``: the plain walk, fetch and
@@ -630,4 +836,5 @@ def env_radiance(sc: BvhScene, sky: B.Background, key: tuple[int, int],
     test = occluded_plain if plain else occluded
     return replay(sc, codes, key, n_pixels, spp, width, max_depth=max_depth,
                   bg_kind=B.SKYMAP, clay=False, plain=plain, sky=sky,
-                  occlude=lambda o, d: test(sc, o, d))
+                  occlude=lambda o, d, ids, stream: test(
+                      sc, o, d, ray_ids=ids, key=key, stream=stream))

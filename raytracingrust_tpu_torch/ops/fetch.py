@@ -20,6 +20,14 @@ into the geometry rows by slot and into the material table by material
 id.  On the TPU the pair was one-hot matrix products over wide tables; here
 it is a gather and an atomic scatter-add.
 
+The sphere-like table holds the solid spheres' slots and then the volume
+spheres' (ops/bvh_kernel.fetch_inputs), as the codes number them.  In raw
+mode (a scene with mixes, whose winner's material depends on the bounce's
+coins) the fetch writes the G geometry fields only and, in place of the
+kind, the winner's raw material id; the transpose then scatters geometry
+only, and the material table's gradient comes from the replay's own
+indexing of it.
+
 On a CPU tensor the wrappers run the plain versions (index gathers and
 ``index_add_``); on a CUDA tensor they launch the kernels or raise.
 ``FETCH_LAUNCHES`` and ``TRANSPOSE_LAUNCHES`` count kernel launches.
@@ -57,12 +65,15 @@ def _winners(codes: torch.Tensor, tri_base: int):
 
 
 def fetch_rows_plain(codes, kinds, tri_base, sph_mat, tri_mat, mats, sph_geo,
-                     tri_geo):
-    """-> (rows (G + 8, *codes.shape) float32, kind codes.shape int32)."""
+                     tri_geo, raw=False):
+    """-> (rows (G + 8, *codes.shape) float32, kind codes.shape int32); in
+    raw mode (G, *codes.shape) rows and the raw material id for the
+    kind."""
     flat = codes.reshape(-1)
     hit, is_sph, is_tri, slot = _winners(flat, tri_base)
     g = geo_fields(tri_geo)
-    rows = torch.zeros((g + MAT_FIELDS, flat.shape[0]), dtype=torch.float32,
+    f = g if raw else g + MAT_FIELDS
+    rows = torch.zeros((f, flat.shape[0]), dtype=torch.float32,
                        device=flat.device)
     mid = torch.zeros_like(slot)
     for geo, mat, won in ((sph_geo, sph_mat, is_sph),
@@ -72,20 +83,22 @@ def fetch_rows_plain(codes, kinds, tri_base, sph_mat, tri_mat, mats, sph_geo,
             w = geo.shape[1]
             rows[:w] = torch.where(won, geo[at].T, rows[:w])
             mid = torch.where(won, mat[at].long(), mid)
-    rows[g:] = torch.where(hit, mats[mid].T, 0.0)
-    kind = torch.where(hit, kinds[mid], -1).to(torch.int32)
-    return rows.view(g + MAT_FIELDS, *codes.shape), kind.view(codes.shape)
+    if not raw:
+        rows[g:] = torch.where(hit, mats[mid].T, 0.0)
+    kind = torch.where(hit, mid if raw else kinds[mid], -1).to(torch.int32)
+    return rows.view(f, *codes.shape), kind.view(codes.shape)
 
 
 def fetch_rows_transpose_plain(codes, g_rows, tri_base, sph_mat, tri_mat,
-                               n_mats, n_sph, n_tri):
-    """Row cotangents (G + 8, *codes.shape) -> (d sphere rows (n_sph, 4) or
-    None, d triangle rows (n_tri, 12) or None, d material table
-    (n_mats, 8)), in the cotangents' dtype."""
+                               n_mats, n_sph, n_tri, raw=False):
+    """Row cotangents (G + 8, *codes.shape), or (G, ...) in raw mode ->
+    (d sphere-like rows (n_sph, 4) or None, d triangle rows (n_tri, 12) or
+    None, d material table (n_mats, 8), None in raw mode), in the
+    cotangents' dtype."""
     flat = codes.reshape(-1)
     g_rows = g_rows.reshape(g_rows.shape[0], -1)
     hit, is_sph, is_tri, slot = _winners(flat, tri_base)
-    g = g_rows.shape[0] - MAT_FIELDS
+    g = g_rows.shape[0] - (0 if raw else MAT_FIELDS)
     mid = torch.zeros_like(slot)
     out = []
     for n, w, mat, won in ((n_sph, 4, sph_mat, is_sph),
@@ -97,6 +110,8 @@ def fetch_rows_transpose_plain(codes, g_rows, tri_base, sph_mat, tri_mat,
                                device=flat.device).index_add_(
             0, slot[won], g_rows[:w, won].T))
         mid = torch.where(won, mat[torch.where(won, slot, 0)].long(), mid)
+    if raw:
+        return out[0], out[1], None
     d_mats = torch.zeros((n_mats, MAT_FIELDS), dtype=g_rows.dtype,
                          device=flat.device).index_add_(
         0, mid[hit], g_rows[g:, hit].T)
@@ -126,7 +141,7 @@ def _check_trees(fn, codes, tri_base, sph_mat, tri_mat, n_sph, n_tri):
 
 
 def fetch_rows_cuda(codes, kinds, tri_base, sph_mat, tri_mat, mats, sph_geo,
-                    tri_geo):
+                    tri_geo, raw=False):
     """Kernel #6: as :func:`fetch_rows_plain`, on the card."""
     global FETCH_LAUNCHES
     from . import _build
@@ -148,15 +163,15 @@ def fetch_rows_cuda(codes, kinds, tri_base, sph_mat, tri_mat, mats, sph_geo,
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned (float4 loads)")
     g = geo_fields(tri_geo)
-    rows = torch.empty((g + MAT_FIELDS, *codes.shape), dtype=torch.float32,
-                       device=dev)
+    rows = torch.empty((g + (0 if raw else MAT_FIELDS), *codes.shape),
+                       dtype=torch.float32, device=dev)
     kind = torch.empty(codes.shape, dtype=torch.int32, device=dev)
     lib = _build.load("fetch_rows")
     with torch.cuda.device(dev):
         err = lib.rtrt_fetch_rows(
             _ptr(codes), codes.numel(), _ptr(sph_geo), _ptr(sph_mat),
             _ptr(tri_geo), _ptr(tri_mat), tri_base, _ptr(mats), _ptr(kinds),
-            g, _ptr(rows), _ptr(kind),
+            g, int(bool(raw)), _ptr(rows), _ptr(kind),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_fetch_rows launch failed: CUDA error "
@@ -166,7 +181,7 @@ def fetch_rows_cuda(codes, kinds, tri_base, sph_mat, tri_mat, mats, sph_geo,
 
 
 def fetch_rows_transpose_cuda(codes, g_rows, tri_base, sph_mat, tri_mat,
-                              n_mats, n_sph, n_tri):
+                              n_mats, n_sph, n_tri, raw=False):
     """Kernel #7: as :func:`fetch_rows_transpose_plain`, on the card.  The
     sums are float32 atomics, so their order, and the last bits, vary from
     run to run."""
@@ -176,21 +191,21 @@ def fetch_rows_transpose_cuda(codes, g_rows, tri_base, sph_mat, tri_mat,
     dev = _check_trees("fetch_rows_transpose_cuda", codes, tri_base,
                        sph_mat, tri_mat, n_sph, n_tri)
     g = 4 if tri_mat is None else 12
-    K._check(g_rows, "g_rows", torch.float32, (g + MAT_FIELDS, *codes.shape),
-             dev)
+    K._check(g_rows, "g_rows", torch.float32,
+             (g + (0 if raw else MAT_FIELDS), *codes.shape), dev)
     if n_mats < 1:
         raise ValueError(f"{n_mats} materials")
     out = [None if mat is None else torch.zeros((n, w), dtype=torch.float32,
                                                 device=dev)
            for mat, n, w in ((sph_mat, n_sph, 4), (tri_mat, n_tri, 12))]
-    d_mats = torch.zeros((n_mats, MAT_FIELDS), dtype=torch.float32,
-                         device=dev)
+    d_mats = None if raw else torch.zeros((n_mats, MAT_FIELDS),
+                                          dtype=torch.float32, device=dev)
     lib = _build.load("fetch_rows")
     with torch.cuda.device(dev):
         err = lib.rtrt_fetch_rows_transpose(
             _ptr(codes), codes.numel(), _ptr(sph_mat), _ptr(tri_mat),
-            tri_base, _ptr(g_rows), g, n_mats, _ptr(out[0]), _ptr(out[1]),
-            _ptr(d_mats),
+            tri_base, _ptr(g_rows), g, int(bool(raw)), n_mats, _ptr(out[0]),
+            _ptr(out[1]), _ptr(d_mats),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_fetch_rows_transpose launch failed: CUDA "
@@ -215,27 +230,28 @@ def fetch_rows_transpose(*args):
 class FetchRows(torch.autograd.Function):
     """The winners' rows, differentiable in the material table and the
     primitive rows: #6 forward, #7 backward (the port of
-    ``_fetch_rows_cvjp``).  Arguments: codes, kinds, tri_base, the two
-    trees' slot material ids (or None), then the differentiable material
-    table and the two trees' rows (or None).  -> (rows, kind)."""
+    ``_fetch_rows_cvjp``).  Arguments: codes, kinds, tri_base, the
+    sphere-like and the triangle slots' material ids (or None), then the
+    differentiable material table and the two tables' rows (or None), and
+    raw.  -> (rows, kind)."""
 
     @staticmethod
     def forward(ctx, codes, kinds, tri_base, sph_mat, tri_mat, mats, sph_geo,
-                tri_geo):
+                tri_geo, raw=False):
         rows, kind = fetch_rows(codes, kinds, tri_base, sph_mat, tri_mat,
-                                mats, sph_geo, tri_geo)
+                                mats, sph_geo, tri_geo, raw)
         ctx.mark_non_differentiable(kind)
         ctx.save_for_backward(codes, sph_mat, tri_mat)
         ctx.sizes = (tri_base, mats.shape[0],
                      0 if sph_geo is None else sph_geo.shape[0],
-                     0 if tri_geo is None else tri_geo.shape[0])
+                     0 if tri_geo is None else tri_geo.shape[0], raw)
         return rows, kind
 
     @staticmethod
     def backward(ctx, g_rows, _g_kind):
         codes, sph_mat, tri_mat = ctx.saved_tensors
-        tri_base, n_mats, n_sph, n_tri = ctx.sizes
+        tri_base, n_mats, n_sph, n_tri, raw = ctx.sizes
         d_sph, d_tri, d_mats = fetch_rows_transpose(
             codes, g_rows.contiguous(), tri_base, sph_mat, tri_mat, n_mats,
-            n_sph, n_tri)
-        return None, None, None, None, None, d_mats, d_sph, d_tri
+            n_sph, n_tri, raw)
+        return None, None, None, None, None, d_mats, d_sph, d_tri, None

@@ -37,7 +37,7 @@ import torch
 from ..models import backgrounds as B
 from ..models import materials as M
 from ..models.scene import MODE_CLAY, MODE_FULL, Scene
-from ..utils.rng import ray_uniforms
+from ..utils.rng import cbrt01, ray_uniforms
 from ..utils.types import T_MIN
 
 MAX_SPHERES = 128
@@ -185,8 +185,11 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     tensors; ``alive`` the rays entering the bounce; ``a`` = d.d; ``hit``,
     the hit point ``pt`` and the outward normal ``n`` of the winner;
     ``mat`` its (albedo rgb, fuzz, ir, emission rgb) and ``kind`` its
-    material kind; ``u`` the bounce's [u1, u2, coin].  Rays that miss may
-    hold any winner.  -> (o, d, thr, rad, alive) entering the next bounce.
+    (resolved) material kind; ``u`` the bounce's [u1, u2, coin], and its
+    fourth column u_r when the scene holds an isotropic material, whose
+    lobe (lib/volume.rs:75-88) is the unit-ball sample: the sphere sample
+    times ``cbrt01(u_r)``.  Rays that miss may hold any winner.
+    -> (o, d, thr, rad, alive) entering the next bounce.
 
     The bounce's discrete decisions are the front face and, outside Clay
     mode, whether the metal lobe leaves above the surface and whether the
@@ -199,7 +202,7 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     dx, dy, dz = d
     nx, ny, nz = n
     al, fuzz, ir, em = mat[0:3], mat[3], mat[4], mat[5:8]
-    u1, u2, u_coin = u
+    u1, u2, u_coin = u[:3]
     zero = torch.zeros_like(a)
     bg_a = fp[_BG:_BG + 3].unbind()
     bg_b = fp[_BG + 3:_BG + 6].unbind()
@@ -293,6 +296,12 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
 
         at = [torch.where(is_emi, em[c], at[c]) for c in range(3)]
         scatters = scatters & ~is_emi
+        if len(u) > 3:  # the isotropic lobe: a point of the unit ball
+            is_iso = kind == M.ISOTROPIC
+            crt = cbrt01(u[3])
+            at = [torch.where(is_iso, al[c], at[c]) for c in range(3)]
+            nd = [torch.where(is_iso, sv * crt, nd[c])
+                  for c, sv in enumerate((sx, sy, sz))]
         if decisions is not None:
             decisions.update(metal_ok=m_ok, reflect=refl)
     if decisions is not None:

@@ -31,20 +31,42 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-def select_engine(scene: Scene) -> str:
+def wants_grad(scene: Scene) -> bool:
+    """Whether autograd is on and a tensor leaf of the scene requires
+    grad: a render that a gradient will be asked of."""
+    if not torch.is_grad_enabled():
+        return False
+    parts = (scene.camera, scene.background, scene.spheres, scene.materials,
+             scene.triangles)
+    return any(isinstance(v, torch.Tensor) and v.requires_grad
+               for part in parts for v in vars(part).values())
+
+
+def select_engine(scene: Scene, grad: bool = False) -> str:
     """"env" (the record walk of #5, the replay and kernel #8) for a scene
     that uses HDRI importance sampling and the BVH gate admits, at any
-    primitive count; else "brute" (kernel #1) for 1 to 128 spheres and no
-    triangle, at any depth; else "bvh" (kernel #5) for a scene its gate
-    admits; else NotImplementedError naming the ROADMAP item that ports
-    the scene.
+    primitive count; else "brute" (kernel #1) for 1 to 128 solid spheres
+    with no triangle, volume, mix or isotropic material, at any depth;
+    else "bvh" (kernel #5) for a scene its gate admits; else
+    NotImplementedError naming the ROADMAP item that ports the scene.
 
-    The JAX package's ``select_engine`` also sends sphere chains deeper
-    than its unroll limit to its BVH kernel; here they stay on #1, which
-    runs any depth.  It renders importance-sampled scenes of up to 256
-    primitives with its XLA integrator, which the port lacks; here they
-    take the env path too, and without their BVH they raise (ROADMAP A6,
-    A10)."""
+    ``grad``: a gradient will be asked of the render.  The brute path's
+    gradient kernels record at most ``megakernel.MAX_DEPTH`` bounces a ray,
+    so a deeper brute scene then takes "bvh" (the record walk and the
+    replay, which have no depth cap) when it was built with its BVH, and
+    raises naming ROADMAP A6 (the XLA integrator) when it was not: the JAX
+    package's ``resolve_fit_engine`` sends such chains to its BVH kernel
+    too.
+
+    Where the routes differ from the JAX package's ``select_engine``: it
+    also sends forward renders of sphere chains deeper than its unroll
+    limit to its BVH kernel; here they stay on #1, which runs any depth.
+    It renders importance-sampled scenes of up to 256 primitives with its
+    XLA integrator, which the port lacks; here they take the env path too,
+    and without their BVH they raise (ROADMAP A6, A10).  It renders the
+    small scenes with volumes, mixes or isotropic materials (such as
+    scenes/material_zoo.json) on its brute kernel; here they take #5 until
+    the brute kernels gain those branches (ROADMAP A5)."""
     if env_is_active(scene):
         if scene.cbvh is None:
             raise NotImplementedError(
@@ -56,11 +78,18 @@ def select_engine(scene: Scene) -> str:
             raise NotImplementedError(why)
         return "env"
     brute = K.unsupported(scene)
-    if brute is None:
+    deep = grad and scene.settings.max_ray_depth > K.MAX_DEPTH
+    if brute is None and not deep:
         return "brute"
     bvh = BK.unsupported_bvh(scene)
     if bvh is None:
         return "bvh"
+    if brute is None:  # a deep chain for a gradient, without its BVH
+        raise NotImplementedError(
+            f"gradients of paths deeper than {K.MAX_DEPTH} bounces without "
+            "the scene's BVH need the XLA integrator, not ported yet "
+            "(ROADMAP A6): build the scene with with_bvh=True (or "
+            "enable_bvh_tree)")
     small = (0 < len(scene.spheres) <= K.MAX_SPHERES
              and len(scene.triangles) == 0)
     raise NotImplementedError(brute if small else bvh)
@@ -77,7 +106,7 @@ def pixel_radiance(scene: Scene, width: int, height: int,
     spp = s.samples_per_pixel
     opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
                 clay=s.mode == MODE_CLAY)
-    engine = select_engine(scene)
+    engine = select_engine(scene, grad=wants_grad(scene))
     if engine == "env":
         rad = BK.env_radiance(BK.pack(scene, width, height, device),
                               scene.to(device).background, key,

@@ -71,3 +71,11 @@ def ray_uniforms(key: tuple[int, int], ray_ids: torch.Tensor, stream: int,
         a0, a1 = threefry2x32(key[0], key[1], x0, (base + j) & _MASK)
         cols += [bits_to_uniform(a0), bits_to_uniform(a1)]
     return torch.stack(cols[:n], dim=-1)
+
+
+def cbrt01(u: torch.Tensor) -> torch.Tensor:
+    """The cube root of a uniform as ``exp(log(max(u, 1e-38)) * (1/3))``,
+    the JAX package's formula (utils/rng.py ``cbrt01``), which the
+    isotropic lobe of every engine shares so their directions agree bit for
+    bit; csrc/radiance.cuh computes the same with ``logf`` and ``expf``."""
+    return torch.exp(torch.log(torch.clamp(u, min=1e-38)) * (1.0 / 3.0))

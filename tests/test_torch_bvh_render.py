@@ -208,9 +208,11 @@ def _refusal(make):
 
 
 def test_select_engine_and_refusals(tmp_path):
-    """1 to 128 spheres without triangles take the brute kernel at any
-    depth; other scenes the BVH gate admits take #5; the rest raise,
-    naming the ROADMAP item that ports them."""
+    """1 to 128 solid spheres without triangles, mixes or isotropic
+    materials take the brute kernel at any depth; other scenes the BVH gate
+    admits take #5, mixes, isotropic materials and sphere volumes included;
+    the rest raise, naming the ROADMAP item that ports them or the JAX
+    package's limit."""
     small = grid_builder(T, n=3, depth=40)
     assert select_engine(small.build()) == "brute"  # a deep sphere chain
     assert select_engine(grid_builder(T, n=6).build()) == "bvh"
@@ -225,18 +227,32 @@ def test_select_engine_and_refusals(tmp_path):
 
     mix = T.MixMaterial(T.Lambertian((1, 0, 0)), T.Metal((1, 1, 1), 0.0),
                         0.5)
-    assert "B4" in _refusal(lambda: with_material(mix))
-    assert "B4" in _refusal(lambda: with_material(T.Isotropic((1, 1, 1))))
-    # a scene of the brute kernel's size names the brute kernel's item
-    assert "A5" in _refusal(lambda: with_material(mix, n=2))
+    assert select_engine(with_material(mix)) == "bvh"
+    assert select_engine(with_material(T.Isotropic((1, 1, 1)))) == "bvh"
+    # a scene of the brute kernel's size takes #5 with its BVH, and without
+    # it names the brute kernel's item
+    assert select_engine(with_material(mix, n=2)) == "bvh"
+    b = grid_builder(T, n=2)
+    b.add_sphere((0, 9, 0), 1.0, b.add_material(mix))
+    assert "A5" in _refusal(lambda: b.build(with_bvh=False))
 
-    def with_volume():
+    def with_volumes(n_vol):
         d = grid_builder(T, n=6).to_json()
-        d["objects"].append({"type": "Volume", "neg_inv_density": -2.0,
-                             "boundary": d["objects"][0]})
+        for i in range(n_vol):
+            d["objects"].append({"type": "Volume", "neg_inv_density": -2.0,
+                                 "boundary": d["objects"][i]})
         return T.SceneBuilder.from_json(d).build()
 
-    assert "B4" in _refusal(with_volume)
+    assert select_engine(with_volumes(1)) == "bvh"
+    assert select_engine(with_volumes(8)) == "bvh"
+    # the JAX package's limits: 8 volumes, mixes nested 4 deep
+    assert "at most 8" in _refusal(lambda: with_volumes(9))
+    deep = T.Lambertian((1, 0, 0))
+    for _ in range(4):
+        deep = T.MixMaterial(deep, T.Metal((1, 1, 1), 0.0), 0.5)
+    assert select_engine(with_material(deep)) == "bvh"
+    deeper = T.MixMaterial(deep, T.Metal((1, 1, 1), 0.0), 0.5)
+    assert "deeper than 4" in _refusal(lambda: with_material(deeper))
     skymap = grid_builder(T, n=6).build()
     skymap.background = TBg.Background(TBg.SKYMAP, skymap.background.color_a,
                                        skymap.background.color_b)

@@ -251,13 +251,29 @@ def test_occluded_plain_matches_jax_kernel():
 
 
 def test_occlusion_refusals():
+    """The kernel's wrapper refuses CPU tensors; through a volume the test
+    needs the rays' ids and the key (their free-flight uniforms), and with
+    them it answers."""
     _, t = pair(spp=1, depth=2)
     sc = BK.pack(t, 8, 8, "cpu")
     rays = torch.zeros((3, 4))
     with pytest.raises(ValueError, match="CUDA"):
         OC.occluded_cuda(sc, rays, rays)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        OC.occluded_plain(sc._replace(volumes=1), rays, rays)
+    fog = env_builder(T, spp=1, depth=2)
+    fog.objects.append({"kind": "sphere", "center": (0, 0.5, 0),
+                        "radius": 0.3, "material": 0,
+                        "neg_inv_density": -2.0})
+    fsc = BK.pack(fog.build(with_bvh=True), 8, 8, "cpu")
+    assert fsc.volumes is not None
+    o = torch.tensor([[0.0, 0.0, 0.0, 0.0], [0.5, 0.5, 3.0, 3.0],
+                      [2.0, 2.0, 2.0, 2.0]])
+    d = torch.tensor([[0.0, 0.0, 0.0, 0.0], [0.0, 0.0, 1.0, 1.0],
+                      [-1.0, -1.0, 0.0, 0.0]])
+    with pytest.raises(ValueError, match="ids"):
+        OC.occluded_plain(fsc, o, d)
+    got = OC.occluded_plain(fsc, o, d, torch.arange(4, dtype=torch.int32),
+                            trng.base_key(3), 5)
+    assert got.shape == (4,) and not got[2:].any()  # upward: the sky
 
 
 # ------------------------------------------------- (d) render, (e) gradients
@@ -353,9 +369,9 @@ def test_env_gradients_match_jax(jax_refs):
 # ------------------------------------------------- the gate and refusals
 
 def test_env_gate_and_refusals():
-    """Env-IS scenes with their BVH take the env path at any size; a sky
-    map without importance sampling, env-IS without a BVH and env-IS with
-    volumes raise, naming their ROADMAP item."""
+    """Env-IS scenes with their BVH take the env path at any size, fog
+    included; a sky map without importance sampling and env-IS without a
+    BVH raise, naming their ROADMAP item."""
     b = env_builder(T)
     assert select_engine(b.build(with_bvh=True)) == "env"
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
@@ -373,8 +389,7 @@ def test_env_gate_and_refusals():
     fog.objects.append({"kind": "sphere", "center": (0, 0.5, 0),
                         "radius": 0.3, "material": 0,
                         "neg_inv_density": -2.0})
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        select_engine(fog.build(with_bvh=True))
+    assert select_engine(fog.build(with_bvh=True)) == "env"
 
 
 # ------------------------------------------------------------- (f) CLI

@@ -427,9 +427,9 @@ def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
 
     rays = []
 
-    def occlude(o, d):
-        rays.append((o, d))
-        return TO.occluded_plain(sc, o, d)
+    def occlude(o, d, ids, stream):
+        rays.append((o, d, ids, stream))
+        return TO.occluded_plain(sc, o, d, ids, key, stream)
 
     ids, px, py = TK.prep_rays(torch.arange(n_pix, device=sc.device), spp, w)
     _, codes = TB.radiance_bvh_plain(sc, key, ids, px, py, max_depth=depth,
@@ -456,9 +456,10 @@ def test_occlusion_kernel_matches_plain_on_card(cuda_device, make):
                         scene.settings.max_ray_depth)
     assert rays
     before, blocked, total = TO.LAUNCHES, 0, 0
-    for o, d in rays:
-        got = TO.occluded_cuda(sc, o, d)
-        assert torch.equal(got, TO.occluded_plain(sc, o, d))
+    for o, d, ids, stream in rays:
+        got = TO.occluded_cuda(sc, o, d, ids, key, stream)
+        assert torch.equal(got, TO.occluded_plain(sc, o, d, ids, key,
+                                                  stream))
         blocked, total = blocked + int(got.sum()), total + got.numel()
     assert TO.LAUNCHES == before + len(rays)
     assert 0 < blocked < total  # both outcomes
@@ -529,4 +530,165 @@ def test_env_render_and_fit_on_card(cuda_device):
     _, _, history = fit(scene, target, ["albedo", "emission"], 32, 24,
                         steps=3, device=cuda_device)
     assert TO.LAUNCHES > before
+    assert all(np.isfinite(history)) and history[-1] < history[0]
+
+
+# ------------- volumes, isotropic materials and mixes: the material zoo
+
+ZOO = os.path.join(os.path.dirname(__file__), "..", "scenes",
+                   "material_zoo.json")
+
+
+def _zoo(spp=2, depth=8):
+    """scenes/material_zoo.json: a fog sphere of an isotropic material and
+    a mix among 47 spheres."""
+    b = T.SceneBuilder.from_file(ZOO)
+    b.settings = dataclasses.replace(b.settings, samples_per_pixel=spp,
+                                     max_ray_depth=depth)
+    return b.build()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("depth", [1, 8])
+def test_zoo_kernels_match_plain_on_card(cuda_device, depth):
+    """On the zoo at 96x64: #5's radiance and the record variant's codes
+    equal their plain versions bit for bit (the volume tree's free flight,
+    the mix rounds and the isotropic lobe included); #6 in raw mode equals
+    its plain version; #7 agrees with index_add_ within rtol 1e-5 of each
+    entry plus 1e-6 of the largest; the gradient through the kernels
+    agrees with the plain route within rtol 2e-3 plus 2e-5 of the
+    largest."""
+    from raytracingrust_tpu_torch.ops import fetch as TF
+
+    scene = _zoo(depth=depth)
+    w, h = 96, 64
+    sc, key, spp, opts = _record_inputs(scene, w, h, 7, cuda_device)
+    assert sc.volumes is not None and sc.mixes is not None and sc.iso
+    n = w * h * spp
+    ker = TB.radiance_bvh_cuda(sc, key, n, spp, w, **opts)
+    rec, codes = TB.radiance_bvh_cuda(sc, key, n, spp, w, record=True, **opts)
+    torch.cuda.synchronize()
+    ids, px, py = TK.prep_rays(torch.arange(w * h, device=cuda_device), spp,
+                               w)
+    plain, want = TB.radiance_bvh_plain(sc, key, ids, px, py, record=True,
+                                        **opts)
+    assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+    assert torch.equal(rec.view(torch.int32), ker.view(torch.int32))
+    assert torch.equal(codes, want)
+    slot = codes & TB.REC_SLOT
+    assert bool(((codes >= 0) & (slot >= sc.vol_base)).any())  # fog hits
+
+    args = (codes, *TB.fetch_inputs(sc))
+    rows, kind = TF.fetch_rows_cuda(*args)
+    want_rows, want_kind = TF.fetch_rows_plain(*args)
+    assert rows.shape[0] == 4  # raw: geometry only
+    assert torch.equal(rows.view(torch.int32), want_rows.view(torch.int32))
+    assert torch.equal(kind, want_kind)
+    g = torch.tensor(np.random.default_rng(0).standard_normal(
+        tuple(rows.shape)), dtype=torch.float32, device=cuda_device)
+    kinds, tri_base, sph_mat, tri_mat, _, sph_geo, _, raw = args[1:]
+    targs = (codes, g, tri_base, sph_mat, tri_mat, kinds.shape[0],
+             sph_geo.shape[0], 0, raw)
+    got_t = TF.fetch_rows_transpose_cuda(*targs)
+    want_t = TF.fetch_rows_transpose_plain(*targs)
+    assert got_t[1] is None and got_t[2] is None and want_t[2] is None
+    tol = 1e-5 * want_t[0].abs() + 1e-6 * want_t[0].abs().max()
+    assert bool(((got_t[0] - want_t[0]).abs() <= tol).all())
+
+    if depth == 1:
+        return
+    cts = torch.tensor(np.random.default_rng(1).standard_normal(
+        (n, 3)), dtype=torch.float32, device=cuda_device)
+    grad_want = TB.radiance_grad_plain(sc, key, cts, w * h, spp, w, **opts)
+    rows_in = [None if v is None else v.detach().requires_grad_(True)
+               for v in TB._rows(sc)]
+    rad = TB.radiance(sc.with_rows(*rows_in), key, w * h, spp, w, **opts)
+    got = torch.autograd.grad(rad, [v for v in rows_in if v is not None],
+                              cts)
+    for a, b in zip(got, [v for v in grad_want if v is not None]):
+        assert bool(torch.isfinite(a).all())
+        tol = 2e-3 * b.abs() + 2e-5 * b.abs().max()
+        assert bool(((a - b).abs() <= tol).all())
+    assert got[-1].abs().sum() > 0  # the fog sphere's row
+
+
+@pytest.mark.gpu
+def test_sky_zoo_occlusion_and_env_on_card(cuda_device):
+    """The zoo under a sky with importance sampling at 64x48 depth 4: #8
+    equals its plain version on every shadow ray, some blocked by the fog
+    alone; the env radiance through the kernels equals the all-plain route
+    bit for bit."""
+    from raytracingrust_tpu_torch.ops import occlusion as TO
+
+    scene = _env(_zoo(depth=4))
+    w, h = 64, 48
+    sc, key, spp, _ = _record_inputs(scene, w, h, 5, cuda_device)
+    sky = scene.to(cuda_device).background
+    rays = _shadow_rays(sc, sky, key, w * h, spp, w, 4)
+    fog_only = 0
+    solid = sc._replace(volumes=None)
+    for o, d, ids, stream in rays:
+        got = TO.occluded_cuda(sc, o, d, ids, key, stream)
+        assert torch.equal(got, TO.occluded_plain(sc, o, d, ids, key,
+                                                  stream))
+        fog_only += int((got & ~TO.occluded_plain(solid, o, d)).sum())
+    assert fog_only > 0
+    with torch.no_grad():
+        ker = TB.env_radiance(sc, sky, key, w * h, spp, w, max_depth=4)
+        plain = TB.env_radiance(sc, sky, key, w * h, spp, w, max_depth=4,
+                                plain=True)
+    assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_zoo_fit_on_card(cuda_device):
+    """fit takes the zoo on the card through the record kernel, #6 and #7,
+    once each a step; the loss falls over three steps."""
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.ops import fetch as TF
+
+    scene = _zoo(spp=4, depth=4)
+    target = T.render_linear(TG.apply_params(scene, {
+        "albedo": scene.materials.albedo * 0.6}), 48, 32, seed=1,
+        device=cuda_device)
+    counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TF.TRANSPOSE_LAUNCHES)
+    _, _, history = fit(scene, target, ["albedo", "sphere_center"], 48, 32,
+                        steps=3, device=cuda_device, resample_every=0)
+    assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES,
+            TF.TRANSPOSE_LAUNCHES) == tuple(c + 3 for c in counts)
+    assert all(np.isfinite(history)) and history[-1] < history[0]
+
+
+@pytest.mark.gpu
+def test_deep_cornell_fit_on_card(cuda_device):
+    """A fit of scenes/cornell_spheres.json at depth 13, deeper than the
+    brute gradient kernels' tape, runs through the record kernel, #6 and
+    #7 (and never the brute gradient kernel #3); the loss falls.  The
+    record kernel's radiance and codes at that depth equal the plain
+    record walk's on every ray and bounce."""
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.ops import fetch as TF
+
+    b = T.SceneBuilder.from_file(CORNELL)
+    b.settings = dataclasses.replace(b.settings, samples_per_pixel=4,
+                                     max_ray_depth=13)
+    scene = b.build()
+    sc, key, spp, opts = _record_inputs(scene, 48, 48, 3, cuda_device)
+    rad, codes = TB.radiance_bvh_cuda(sc, key, 48 * 48 * spp, spp, 48,
+                                      record=True, **opts)
+    ids, px, py = TK.prep_rays(torch.arange(48 * 48, device=cuda_device),
+                               spp, 48)
+    plain, want = TB.radiance_bvh_plain(sc, key, ids, px, py, record=True,
+                                        **opts)
+    assert torch.equal(rad.view(torch.int32), plain.view(torch.int32))
+    assert torch.equal(codes, want)
+    assert bool((codes[12:] >= 0).any())  # hits past the brute tape
+    target = T.render_linear(TG.apply_params(scene, {
+        "albedo": scene.materials.albedo * 0.6}), 48, 48, seed=1,
+        device=cuda_device)
+    counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TR.LAUNCHES)
+    _, _, history = fit(scene, target, ["albedo"], 48, 48, steps=3,
+                        device=cuda_device, resample_every=0)
+    assert (TB.RECORD_LAUNCHES - counts[0], TF.FETCH_LAUNCHES - counts[1],
+            TR.LAUNCHES - counts[2]) == (3, 3, 0)
     assert all(np.isfinite(history)) and history[-1] < history[0]

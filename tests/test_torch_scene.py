@@ -113,8 +113,14 @@ def test_scene_from_arrays_equals_loader():
 
 def test_envelope_refusals(tmp_path):
     zoo = TBuilder.from_file(SCENES["material_zoo"]).build()  # loads
+    # its volume, isotropic material and mix take the BVH kernel; without
+    # its BVH it names the brute kernel's item
+    assert select_engine(zoo) == "bvh"
+    img = render_linear(zoo, 8, 6, device="cpu")
+    assert img.shape == (6, 8, 3) and bool(torch.isfinite(img).all())
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        render_linear(zoo, 8, 6, device="cpu")
+        render_linear(TBuilder.from_file(SCENES["material_zoo"]).build(
+            with_bvh=False), 8, 6, device="cpu")
     # a small sphere scene built with its BVH still takes the brute kernel
     bench = TBuilder.from_file(SCENES["benchmark"]).build(with_bvh=True)
     assert bench.cbvh is not None and select_engine(bench) == "brute"
