@@ -109,7 +109,25 @@ non-zero exit, and prints no result:
    counted; and the warm render and fit step (the zoo's: albedo, emission,
    sphere centers and radii, these held within ZOO_FIT_GEO of their start;
    sky_zoo's: albedo, emission; each loss must fall) with a ``torch.profiler``
-   breakdown and the peak memory.
+   breakdown and the peak memory;
+11. a sky map without importance sampling, and the inspection views, on
+   #5: "sky_bvh_stress" and "sky_sheet64" (phase 9's scenes and sky,
+   importance sampling off) at 1000x1000 spp 8, #5's sky-map variant
+   (the texel looked up in the kernel) bit for bit equal to its plain
+   version at depth 1 and full depth on every ray; at sky_bvh_stress the
+   sky fit's kernels as phase 8 checks them (the record walk under a
+   black background; the replay with the sky on a miss held to the
+   sky-map variant within REPLAY_ATOL), the gradient in the packed
+   tensors and the sky's texels against the plain route, an FD probe on
+   albedo and one on the texel of largest gradient; the Normal and
+   Random views of bvh_stress, sheet64, sky_sheet64 and the zoo at
+   1000x1000 spp 8, each bit for bit equal to its plain version, timed,
+   with its bound from the one-bounce tally.  Then the CLI renders of
+   both sky scenes and of the eight views (launches counted: the sky-map
+   variant and the views, no other kernel), the warm sky renders, the
+   CLI fit of sky_bvh_stress at 512x512 (record #5, #6, #7 six times,
+   never #8; the loss must fall) and the warm fit step at 1000x1000 with
+   its breakdown and peak memory.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
@@ -118,7 +136,8 @@ backward, the fused kernel's in the CLI fit, the BVH kernel's in the CLI
 renders of phase 7, the record variant's, #6's and #7's in the CLI fit of
 phase 8, #8's in the CLI renders of phase 9, and phase 10's entries of #5,
 its record variant, #6, #7 and #8 on the zoo and sky_zoo from its CLI
-render, fit and env render; the other paths' counts are in the phase
+render, fit and env render, and phase 11's sky-map variant and views of
+#5 from its CLI renders; the other paths' counts are in the phase
 lines), and its least
 possible time for one forward and one reverse sweep of the FP32
 operations the run's rays traced, or for the bytes it must move; the last
@@ -161,7 +180,10 @@ OPS_BOUNCE = 10
 OPS_SPHERE = 31
 OPS_HIT = 75  # hit point, normal, face, sphere sample
 OPS_LOBE = {0: 6, 1: 45, 2: 65, 3: 3}  # Lambertian .. Emission
-OPS_MISS = {0: 6, 1: 25}
+# a miss under a sky map (radiance.cuh sky_radiance): the normalization
+# (5 for the length, sqrtf, 3 divisions), acosf (~20), atan2f (~25), the
+# clamp, the offset, 2 scales, 2 products, 2 floors, the wrap and flip
+OPS_MISS = {0: 6, 1: 25, 2: 65}
 # The reverse of that chain, which a gradient needs once besides one
 # forward: only the adjoint's own operations count, not the forward values
 # that the kernels recompute (the hit and normal, ~45 a bounce; the metal
@@ -201,6 +223,9 @@ OPS_VOL_TEST = 30
 OPS_VOL_DRAW = 29
 OPS_MIX_HIT = 8
 OPS_ISO = 45
+# the Normal view's hit (bvh_forward.cu bvh_view_kernel): the hit point,
+# the normal, the face, its length (5, sqrtf, the division), the colour
+OPS_VIEW_HIT = 40
 
 
 def _cuda_time_ms(fn, reps: int) -> float:
@@ -376,6 +401,7 @@ def _reset_launches() -> None:
     from raytracingrust_tpu_torch.ops import radiance_grad as RG
 
     BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
+    BK.SKY_LAUNCHES = BK.VIEW_LAUNCHES = 0
     F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = RG.LAUNCHES = MS.LAUNCHES = 0
 
 
@@ -388,7 +414,8 @@ def _launches() -> dict:
     from raytracingrust_tpu_torch.ops import occlusion as OC
     from raytracingrust_tpu_torch.ops import radiance_grad as RG
 
-    return dict(fwd=BK.LAUNCHES, record=BK.RECORD_LAUNCHES,
+    return dict(fwd=BK.LAUNCHES, sky=BK.SKY_LAUNCHES, view=BK.VIEW_LAUNCHES,
+                record=BK.RECORD_LAUNCHES,
                 fetch=F.FETCH_LAUNCHES, transpose=F.TRANSPOSE_LAUNCHES,
                 occlusion=OC.LAUNCHES, brute=K.LAUNCHES, grad=RG.LAUNCHES,
                 fused=MS.LAUNCHES)
@@ -479,9 +506,10 @@ def _scene_bytes(sc, trees=("spheres", "volumes", "triangles")) -> int:
 
 
 def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
-             record: bool = False) -> int:
-    """FP32 operations of #5, or with ``record`` of its record variant,
-    over the rays a plain run tallied."""
+             record: bool = False, view=None) -> int:
+    """FP32 operations of #5, or with ``record`` of its record variant, or
+    of its ``view`` ("normal", "random"), over the rays a plain run
+    tallied."""
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
 
     hits = [tally[f"hits_{k}"] for k in range(5)]
@@ -496,6 +524,7 @@ def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
            + sum(hits) * (OPS_HIT + (OPS_MIX_HIT if sc.mixes is not None
                                      else 0))
            + sum(n * lobe[k] for k, n in enumerate(hits))
+           + tally["view_hits"] * (OPS_VIEW_HIT if view == "normal" else 0)
            + tally["misses"] * OPS_MISS[bg_kind])
     if record:  # the record's decisions: the metal and dielectric tests
         ops += sum(hits) * (
@@ -504,12 +533,19 @@ def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
     return ops
 
 
+def _texel_bytes(tally) -> int:
+    """The bytes of the sky's texels a plain run looked up, each once."""
+    seen = tally.get("sky_texels")
+    return 0 if seen is None else 12 * int(seen.sum())
+
+
 def _forward_check(label, sc, key, n_pix: int, spp: int, width: int,
-                   opts: dict) -> dict:
+                   opts: dict, tally: bool = True) -> dict:
     """#5 against its plain version on the same rays: per-ray radiance bit
-    for bit equal at depth 1 and at full depth on every ray.  Then #5's
-    time, the plain version's (the full-depth run), the work a second
-    plain run's rays did, and #5's bound from it."""
+    for bit equal at depth 1 and at full depth on every ray (``opts`` may
+    name a sky map).  Then #5's time, the plain version's (the full-depth
+    run), and with ``tally`` the work a second plain run's rays did and
+    #5's bound from it."""
     import torch
 
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
@@ -531,14 +567,17 @@ def _forward_check(label, sc, key, n_pix: int, spp: int, width: int,
         err = _bit_equal(f"{label}: #5's radiance at depth {d}", ker, plain)
     plain_ms = start.elapsed_time(end)
     del ker, plain
-    tally = collections.Counter()
-    with torch.no_grad():
-        BK.radiance_bvh_plain(sc, key, ids, px, py, tally=tally, **opts)
-    ops = _bvh_ops(sc, tally, n_rays, opts["bg_kind"])
     ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
         sc, key, n_rays, spp, width, **opts), 5)
-    return dict(ms=ms, plain_ms=plain_ms, err=err, tally=tally, ops=ops,
-                bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays))
+    if not tally:
+        return dict(ms=ms, plain_ms=plain_ms, err=err)
+    count = collections.Counter()
+    with torch.no_grad():
+        BK.radiance_bvh_plain(sc, key, ids, px, py, tally=count, **opts)
+    ops = _bvh_ops(sc, count, n_rays, opts["bg_kind"])
+    return dict(ms=ms, plain_ms=plain_ms, err=err, tally=count, ops=ops,
+                bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays
+                             + _texel_bytes(count)))
 
 
 def _per_ray(tally, n_rays: int) -> str:
@@ -752,37 +791,51 @@ def _fd_probe(label, scene, dev, width: int, height: int, key, probe,
 
 
 def _fit_path(label, scene, sc, key, width: int, height: int, opts: dict,
-              gen, probe) -> dict:
+              gen, probe, sky=None) -> dict:
     """The BVH fit path's kernels at ``sc``'s frame against their plain
     versions on the same inputs (:func:`_record_check`,
     :func:`_fetch_check`), the replay's forward within REPLAY_ATOL of
     #5's radiance, the gradient (:func:`_bvh_grad_check`) and the FD
     probe (:func:`_fd_probe`); then the record variant's time and bound
-    from the plain walk's tally.  -> the numbers, the codes among
-    them."""
+    from the plain walk's tally.  With a sky map ``sky`` (importance
+    sampling off), the path of its fit: the record walk under a black
+    uniform background, the replay with the sky on a miss held to #5's
+    sky-map variant, the gradient in the sky's texels too
+    (:func:`_env_grad_check` without MIS).  -> the numbers, the codes
+    among them."""
     import torch
 
+    from raytracingrust_tpu_torch.models import backgrounds as B
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
 
     spp = scene.settings.samples_per_pixel
     n_pix, n_rays = width * height, width * height * spp
+    rec_opts = opts if sky is None else {**opts, "bg_kind": B.UNIFORM}
     ker, codes, err, plain_ms, tally = _record_check(
-        label, sc, key, n_pix, spp, width, opts)
+        label, sc, key, n_pix, spp, width, rec_opts)
     fetch = _fetch_check(label, sc, codes, 0)
     with torch.no_grad():
-        rep = BK.replay(sc, codes, key, n_pix, spp, width, **opts)
+        rep = BK.replay(sc, codes, key, n_pix, spp, width, sky=sky, **opts)
+        if sky is not None:
+            ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, width, sky=sky,
+                                       **opts)
     rep_err = (rep - ker).abs().max().item()
     if not rep_err <= REPLAY_ATOL:
         raise AssertionError(f"{label}: the replay's forward is "
                              f"{rep_err:.3e} from #5's radiance")
     del rep, ker
-    g_err, peak_gb = _bvh_grad_check(label, sc, key, n_pix, spp, width,
-                                     opts, gen)
+    if sky is None:
+        g_err, peak_gb = _bvh_grad_check(label, sc, key, n_pix, spp, width,
+                                         opts, gen)
+    else:
+        g_err, peak_gb = _env_grad_check(label, sc, sky, key, n_pix, spp,
+                                         width, opts["max_depth"], gen,
+                                         mis=False)
     ad, fd = _fd_probe(label, scene, sc.device, width, height, key, probe,
                        gen)
     ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
-        sc, key, n_rays, spp, width, record=True, **opts), 5)
-    ops = _bvh_ops(sc, tally, n_rays, opts["bg_kind"], record=True)
+        sc, key, n_rays, spp, width, record=True, **rec_opts), 5)
+    ops = _bvh_ops(sc, tally, n_rays, rec_opts["bg_kind"], record=True)
     return dict(codes=codes, hits=int((codes >= 0).sum()), err=err,
                 fetch=fetch, rep_err=rep_err, g_err=g_err, peak_gb=peak_gb,
                 ad=ad, fd=fd, ms=ms, plain_ms=plain_ms, tally=tally,
@@ -1283,11 +1336,13 @@ def _print_env_route(phase: str, label: str, size: str, r: dict,
 
 
 def _env_grad_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
-                    depth: int, gen) -> float:
+                    depth: int, gen, mis: bool = True) -> tuple:
     """The gradient in the packed tensors and the sky's texels through the
     kernels against the plain route for numpy-seeded cotangents, within
-    GRAD_RTOL/GRAD_ATOL, finite, nonzero in the materials and the sky;
-    -> the max abs diff."""
+    GRAD_RTOL/GRAD_ATOL, finite, nonzero in the materials and the sky
+    (without ``mis``, the sky on a miss at weight 1: no term depends
+    smoothly on the camera, whose gradient is then none on both routes);
+    -> (the max abs diff, the kernels' route's peak memory in GB)."""
     import numpy as np
     import torch
 
@@ -1297,6 +1352,7 @@ def _env_grad_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
                                            dtype=np.float32),
                        device=sc.device)
     grads = []
+    torch.cuda.reset_peak_memory_stats()
     for plain in (False, True):
         rows = [None if v is None else v.detach().requires_grad_(True)
                 for v in BK._rows(sc)]
@@ -1305,13 +1361,19 @@ def _env_grad_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
         rad = BK.env_radiance(sc.with_rows(*rows),
                               dataclasses.replace(sky, image=img), key,
                               n_pix, spp, width, max_depth=depth,
-                              plain=plain)
-        grads.append(torch.autograd.grad(rad, live, cts))
+                              plain=plain, mis=mis)
+        grads.append(torch.autograd.grad(rad, live, cts, allow_unused=True))
         del rad
-    err = _grad_check(label, *grads)
+        if not plain:
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if [g is None for g in grads[0]] != [g is None for g in grads[1]]:
+        raise AssertionError(f"{label}: the routes differ in which tensors "
+                             f"have a gradient")
+    got, want = ([g for g in gs if g is not None] for gs in grads)
+    err = _grad_check(label, got, want)
     if grads[0][1].abs().sum() == 0 or grads[0][-1].abs().sum() == 0:
         raise AssertionError(f"{label}: no material or sky gradient")
-    return err
+    return err, peak_gb
 
 
 def env_phase(dev, card: str) -> dict:
@@ -1351,8 +1413,8 @@ def env_phase(dev, card: str) -> dict:
         gw, gh = 64, 48
         with torch.no_grad():
             gsc = BK.pack(scene, gw, gh, dev)
-        g_err = _env_grad_check(label, gsc, sky, key, gw * gh, spp, gw,
-                                depth, gen)
+        g_err, _ = _env_grad_check(label, gsc, sky, key, gw * gh, spp, gw,
+                                   depth, gen)
         ad, fd = _fd_probe(label, scene, dev, gw, gh, key, ["albedo"], gen)
         _print_env_route("phase 9", label, f"{w}x{h} spp {spp} depth "
                          f"{depth} ({len(scene.spheres)} spheres, "
@@ -1539,8 +1601,8 @@ def zoo_phase(dev, card: str) -> list:
                            depth)
     if env["n_fog"] == 0:
         raise AssertionError("sky_zoo: no shadow ray blocked by the fog")
-    s_err = _env_grad_check("sky_zoo", ssc, sky, key, fw * fh, f_spp, fw,
-                            depth, gen)
+    s_err, _ = _env_grad_check("sky_zoo", ssc, sky, key, fw * fh, f_spp, fw,
+                               depth, gen)
     _print_env_route("phase 10", "sky_zoo", f"{fw}x{fh} spp {f_spp} depth "
                      f"{depth}", env, card)
     print(f"phase 10 sky_zoo gradient (packed tensors and the sky's "
@@ -1685,6 +1747,285 @@ def zoo_phase(dev, card: str) -> list:
         _entry("occlusion_sky_zoo", "occlusion.cu", "3591",
                env_counts["occlusion"], env["err"], env["ms"],
                env["plain_ms"], env["bound"]),
+    ]
+
+
+# phase 11: a sky map without importance sampling, and the views
+SKY_SIZE = 1000  # the sky renders' and the fit checks' frame
+VIEW_SPP = 8
+FD_TEXEL_EPS = 0.05  # the texel probe's loss is quadratic in the texel
+
+
+def sky_scenes() -> list:
+    """Phase 11's sky shapes: (label, scene JSON, CLI flags) of
+    scenes/bvh_stress.json and phase 7's sheet64 under phase 9's sky,
+    importance sampling off, at SKY_SIZE square."""
+    if not os.path.exists(SKY):
+        procedural_sky(SKY)
+    size = ["--width", str(SKY_SIZE), "--height", str(SKY_SIZE)]
+    return [(f"sky_{label}", _write_scene(
+        path, f"sky_{label}_naive.json", sky=True,
+        env_importance_sampling=False), size)
+        for label, path, *_ in bvh_scenes() if label != "grid8k"]
+
+
+def _view_check(label, sc, key, n_pix: int, spp: int, width: int,
+                bg_kind: int, sky) -> dict:
+    """#5's two views against their plain version on the same rays, bit
+    for bit on every ray (the Normal view's plain run tallied, the
+    Random view's timed); then each view's time and its bound from the
+    one-bounce tally.  -> {view: numbers}."""
+    import torch
+
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import megakernel as K
+
+    n_rays = n_pix * spp
+    ids, px, py = K.prep_rays(torch.arange(n_pix, device=sc.device), spp,
+                              width)
+    opts = dict(max_depth=1, bg_kind=bg_kind, clay=False, sky=sky)
+    tally = collections.Counter()
+    out = {}
+    for view in ("normal", "random"):
+        ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, width, debug=view,
+                                   **opts)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        with torch.no_grad():
+            plain = BK.radiance_bvh_plain(
+                sc, key, ids, px, py, debug=view,
+                tally=tally if view == "normal" else None, **opts)
+        end.record()
+        torch.cuda.synchronize()
+        err = _bit_equal(f"{label}: #5's {view} view", ker, plain)
+        del ker, plain
+        ops = _bvh_ops(sc, tally, n_rays, bg_kind, view=view)
+        out[view] = dict(
+            err=err, plain_ms=start.elapsed_time(end), ops=ops,
+            ms=_cuda_time_ms(lambda: BK.radiance_bvh_cuda(
+                sc, key, n_rays, spp, width, debug=view, **opts), 5),
+            bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays
+                         + _texel_bytes(tally)))
+    out["tally"] = tally
+    return out
+
+
+def _texel_fd_probe(label, scene, dev, width: int, height: int, key,
+                    target) -> tuple:
+    """AD against a central difference (eps FD_TEXEL_EPS) of the loss
+    mean((image - target)^2), taken in float64, in the sky's texel of
+    largest gradient: the loss is quadratic in a texel (but where the
+    clamp cuts a sample), so the difference is exact but for rounding.
+    -> (texel, AD, FD)."""
+    import torch
+
+    from raytracingrust_tpu_torch.render.render import render_linear
+
+    sc_dev = scene.to(dev)
+    t64 = target.double()
+
+    def loss(img):
+        sky = dataclasses.replace(sc_dev.background, image=img)
+        out = render_linear(dataclasses.replace(sc_dev, background=sky),
+                            width, height, key=key, device=dev)
+        return ((out.double() - t64) ** 2).mean()
+
+    img = sc_dev.background.image.detach().clone().requires_grad_(True)
+    (g,) = torch.autograd.grad(loss(img), img)
+    at = int(g.abs().reshape(-1).argmax())
+    texel = tuple(int(v) for v in torch.unravel_index(torch.tensor(at),
+                                                      g.shape))
+    with torch.no_grad():
+        bump = torch.zeros_like(img).reshape(-1)
+        bump[at] = FD_TEXEL_EPS
+        bump = bump.view(img.shape)
+        fd = (loss(img + bump) - loss(img - bump)).item() / (
+            2 * FD_TEXEL_EPS)
+    ad = g.reshape(-1)[at].item()
+    if not abs(ad - fd) <= 0.05 * max(abs(fd), 1e-12) or fd == 0.0:
+        raise AssertionError(f"{label}: texel FD probe at {texel}: AD "
+                             f"{ad:.6e} vs FD {fd:.6e}")
+    return texel, ad, fd
+
+
+def sky_phase(dev, card: str) -> list:
+    """Phase 11; -> the report entries of #5's sky-map variant and its
+    views."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.models import backgrounds as B
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                        select_engine)
+    from raytracingrust_tpu_torch.utils import rng
+
+    shapes = sky_scenes()
+    key = rng.base_key(11)
+    gen = np.random.default_rng(11)
+    n = SKY_SIZE
+    out = {}
+    for label, path, _ in shapes:  # #5's sky-map variant at full depth
+        scene = SceneBuilder.from_file(path).build()
+        if select_engine(scene) != "bvh":
+            raise AssertionError(f"{label}: not sent to #5")
+        s = scene.settings
+        spp, depth = s.samples_per_pixel, s.max_ray_depth
+        with torch.no_grad():
+            sc = BK.pack(scene, n, n, dev)
+        sky = scene.to(dev).background
+        opts = dict(max_depth=depth, bg_kind=B.SKYMAP, clay=False, sky=sky)
+        main = label == "sky_bvh_stress"
+        out[label] = r = _forward_check(label, sc, key, n * n, spp, n, opts,
+                                        tally=main)
+        work = (f"per ray {_per_ray(r['tally'], n * n * spp)}, "
+                f"{int(r['tally']['sky_texels'].sum())} texels looked up; "
+                f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}; "
+                f"{r['ops']:.4g} FP32 operations); " if main else "")
+        print(f"phase 11 {label} {n}x{n} spp {spp} depth {depth} "
+              f"({len(scene.spheres)} spheres, {len(scene.triangles)} "
+              f"triangles; sky {tuple(sky.image.shape)}, importance "
+              f"sampling off): #5's sky-map variant == plain bit for bit "
+              f"at depth 1 and depth {depth} on all {n * n * spp} rays; "
+              + work + f"#5 {r['ms']:.4f} ms, plain {r['plain_ms']:.1f} ms")
+        del sc
+
+    # the fit's kernels at sky_bvh_stress, and the probes
+    label, path, _ = shapes[0]
+    scene = SceneBuilder.from_file(path).build()
+    with torch.no_grad():
+        sc = BK.pack(scene, n, n, dev)
+    sky = scene.to(dev).background
+    depth = scene.settings.max_ray_depth
+    opts = dict(max_depth=depth, bg_kind=B.SKYMAP, clay=False)
+    fp = _fit_path(label, scene, sc, key, n, n, opts, gen, ["albedo"],
+                   sky=sky)
+    _print_fit_path("phase 11", label, f"{n}x{n} spp "
+                    f"{scene.settings.samples_per_pixel} depth {depth} "
+                    f"(recorded under black; the replay with the sky, held "
+                    f"to #5's sky-map variant; gradient in the sky's texels "
+                    f"too)", fp, ["albedo"])
+    del fp["codes"], sc
+    dim = _write_scene(path, "sky_bvh_stress_naive_dim.json", dim=True)
+    with torch.no_grad():
+        target = render_linear(SceneBuilder.from_file(dim).build(), n, n,
+                               seed=1, device=dev)
+    texel, t_ad, t_fd = _texel_fd_probe(label, scene, dev, n, n, key,
+                                        target)
+    print(f"phase 11 {label} texel FD probe (the texel {texel} of largest "
+          f"gradient, eps {FD_TEXEL_EPS:g}, float64 loss, rtol 5%): AD "
+          f"{t_ad:.6e}, FD {t_fd:.6e}")
+
+    # the views at 1000x1000 spp 8: each kernel against its plain version
+    paths = {lab: p for lab, p, *_ in bvh_scenes()}
+    views = [("bvh_stress", paths["bvh_stress"]),
+             ("sheet64", paths["sheet64"]),
+             ("sky_sheet64", shapes[1][1]), ("material_zoo", ZOO)]
+    v_out = {}
+    for label, path in views:
+        scene = _load(path, spp=VIEW_SPP)
+        kind = scene.background.kind
+        with torch.no_grad():
+            sc = BK.pack(scene, n, n, dev)
+        sky = scene.to(dev).background if kind == B.SKYMAP else None
+        v_out[label] = r = _view_check(label, sc, key, n * n, VIEW_SPP, n,
+                                       kind, sky)
+        t = r["tally"]
+        print(f"phase 11 views of {label} {n}x{n} spp {VIEW_SPP} "
+              f"({['uniform', 'gradient', 'sky map'][kind]} background): "
+              f"Normal and Random == plain bit for bit on all "
+              f"{n * n * VIEW_SPP} rays ({t['view_hits']} hits); per ray "
+              f"{_per_ray(t, n * n * VIEW_SPP)}; "
+              + "; ".join(f"{v} {r[v]['ms']:.4f} ms (plain "
+                          f"{r[v]['plain_ms']:.1f} ms, bound "
+                          f"{r[v]['bound'][0]:.5f} ms {r[v]['bound'][1]})"
+                          for v in ("normal", "random")))
+        del sc
+
+    # the main paths, through the CLI entry: the sky renders, the views
+    _reset_launches()
+    for label, path, flags in shapes:
+        _cli_render(path, os.path.join(OUT_DIR, label + ".png"), flags)
+    sky_counts = _launches()
+    if sky_counts["sky"] != len(shapes) or any(
+            v for k, v in sky_counts.items() if k != "sky"):
+        raise AssertionError(f"the CLI sky renders launched {sky_counts}")
+    sky_launches = sky_counts["sky"]
+    view_flags = ["--width", str(n), "--height", str(n), "--spp",
+                  str(VIEW_SPP)]
+    _reset_launches()
+    for label, path in views:
+        for mode in ("Normal", "Random"):
+            _cli_render(path, os.path.join(OUT_DIR, f"{label}_{mode}.png"),
+                        [*view_flags, "--mode", mode])
+    view_counts = _launches()
+    if view_counts["view"] != 2 * len(views) or any(
+            v for k, v in view_counts.items() if k != "view"):
+        raise AssertionError(f"the CLI views launched {view_counts}")
+    view_launches = view_counts["view"]
+    for label, path, _ in shapes:
+        _check_png(os.path.join(OUT_DIR, label + ".png"), n, n, label)
+        scene = SceneBuilder.from_file(path).build()
+        best, mean = _warm_render(scene, n, n, dev, label)
+        spp = scene.settings.samples_per_pixel
+        print(f"phase 11 {label} {n}x{n} spp {spp}: warm render {best:.4f} "
+              f"s, {n * n * spp / best / 1e6:.1f} primary Mrays/s (#5 sky), "
+              f"image mean {mean:.5f}")
+    for label, _ in views:
+        for mode in ("Normal", "Random"):
+            _check_png(os.path.join(OUT_DIR, f"{label}_{mode}.png"), n, n,
+                       f"{label} {mode}")
+    print(f"phase 11 CLI renders: #5 sky-map variant {sky_launches} "
+          f"launches; views {view_launches} launches (Normal and Random of "
+          f"{len(views)} scenes); no other kernel")
+
+    # the sky fit: the CLI fit at 512x512, then the warm step at 1000x1000
+    label, path, _ = shapes[0]
+    target_png = os.path.join(OUT_DIR, "sky_fit_target.png")
+    size = str(ENV_CLI_FIT_SIZE)
+    _cli_render(dim, target_png, ["--width", size, "--height", size], seed=1)
+    steps = CLI_FIT_STEPS
+    fit_counts, first, final, text = _cli_fit(path, target_png)
+    if ((fit_counts["record"], fit_counts["fetch"], fit_counts["transpose"])
+            != (steps,) * 3 or any(fit_counts[k] for k in (
+                "occlusion", "fwd", "sky", "view", "brute", "grad",
+                "fused"))):
+        raise AssertionError(f"cli fit launches {fit_counts}\n{text}")
+    print(f"phase 11 cli fit {path} {size}x{size} depth {depth}, {steps} "
+          f"steps of {CLI_FIT_PARAMS}: loss {first:.6f} -> {final:.6f}; "
+          f"launches record #5 {fit_counts['record']}, #6 "
+          f"{fit_counts['fetch']}, #7 {fit_counts['transpose']}, #8 "
+          f"{fit_counts['occlusion']}")
+    scene = SceneBuilder.from_file(path).build()
+    spp = scene.settings.samples_per_pixel
+    r = _warm_fit(scene, target, CLI_FIT_PARAMS.split(","), n, n, dev)
+    if not r["history"][-1] < r["history"][0]:
+        raise AssertionError(f"the warm sky fit's loss did not fall: "
+                             f"{r['history']}")
+    print(f"phase 11 {label} {n}x{n} fit step ({CLI_FIT_PARAMS}): first "
+          f"step {r['first_ms']:.1f} ms, warm step {r['warm_ms']:.3f} ms "
+          f"(median of {r['n']}), {n * n * spp / r['warm_ms'] / 1e3:.1f} "
+          f"primary Mrays/s fwd+bwd; peak memory {r['peak_gb']:.2f} GB; loss "
+          f"{r['history'][0]:.6f} -> {r['history'][-1]:.6f}; per step under "
+          f"torch.profiler: " + _parts(r["part"], (
+              "record #5", "#6", "#7", "replay and rest", "busy"))
+          + f", host (warm step - busy) "
+          f"{r['warm_ms'] - r['part']['busy']:.3f} ms; {card}")
+
+    main, view = out["sky_bvh_stress"], v_out["bvh_stress"]
+    return [
+        # the CLI renders of the sky scenes; times at sky_bvh_stress 1000^2
+        _entry("bvh_forward_sky", "bvh_forward.cu", "3122", sky_launches,
+               max(o["err"] for o in out.values()), main["ms"],
+               main["plain_ms"], main["bound"]),
+        # the CLI views; times of the Normal view of bvh_stress 1000^2 spp 8
+        _entry("bvh_view", "bvh_forward.cu", "1706", view_launches,
+               max(o[v]["err"] for o in v_out.values()
+                   for v in ("normal", "random")),
+               view["normal"]["ms"], view["normal"]["plain_ms"],
+               view["normal"]["bound"]),
     ]
 
 
@@ -2187,6 +2528,9 @@ def main() -> int:
     # ---- 10. volumes, isotropic materials and mixes; the deep fit
     zoo = zoo_phase(dev, card)
 
+    # ---- 11. a sky map without importance sampling; the views
+    sky = sky_phase(dev, card)
+
     report = {"kernels": [
         # the CLI renders of phase 4; times at benchmark 512x512
         _entry("brute_forward_megakernel", "megakernel.cu", "2089", launches,
@@ -2200,7 +2544,8 @@ def main() -> int:
         bvh,  # the CLI renders of phase 7; times at bvh_stress 1000x1000
         *bvh_fit,  # the CLI fit of phase 8; times at bvh_stress 1000x1000
         env,  # the CLI renders of phase 9; times at sky_bvh_stress
-        *zoo]}  # phase 10's CLI runs; times at the zoo's full shapes
+        *zoo,  # phase 10's CLI runs; times at the zoo's full shapes
+        *sky]}  # phase 11's CLI runs; times at bvh_stress 1000x1000
     print(f"card: {card}; kernel build {build_s:.3f} s; the whole run "
           f"{time.perf_counter() - t_run:.1f} s")
     print(json.dumps(report))

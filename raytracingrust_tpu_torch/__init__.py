@@ -14,13 +14,13 @@ from .models.backgrounds import Background
 from .models.camera import Camera
 from .models.materials import (Dielectric, Emission, Isotropic, Lambertian,
                                Metal, MixMaterial)
-from .models.scene import (MODE_CLAY, MODE_FULL, RenderSettings, Scene,
-                           SceneBuilder)
+from .models.scene import (MODE_CLAY, MODE_FULL, MODE_NORMAL, MODE_RANDOM,
+                           RenderSettings, Scene, SceneBuilder)
 from .render.render import render, render_linear
 
 __all__ = [
     "Background", "Camera", "Dielectric", "Emission", "Isotropic",
     "Lambertian", "Metal", "MixMaterial", "RenderSettings", "Scene",
     "SceneBuilder", "render", "render_linear",
-    "MODE_FULL", "MODE_CLAY",
+    "MODE_FULL", "MODE_CLAY", "MODE_NORMAL", "MODE_RANDOM",
 ]

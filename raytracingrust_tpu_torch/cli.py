@@ -2,7 +2,9 @@
 
     rtrt-torch render scenes/benchmark.json -o out.png --width 512 --height 512
     rtrt-torch render scene.json --spp 64 --depth 8 --mode Clay --device cpu
-    rtrt-torch render sky_scene.json --env-is   # SkyMap background
+    rtrt-torch render sky_scene.json            # SkyMap background
+    rtrt-torch render sky_scene.json --env-is   # ... importance-sampled
+    rtrt-torch render scene.json --mode Normal  # the normals view
     rtrt-torch fit scene.json target.png --params albedo,emission --steps 50
     rtrt-torch info scene.json
 
@@ -108,13 +110,21 @@ def cmd_fit(args) -> int:
 def _engines(scene) -> tuple[str, str]:
     """(render engine, fit engine) the scene would take, or the reason it
     is refused: ``select_engine`` without and with a gradient."""
+    from .models.backgrounds import SKYMAP
+    from .ops.bvh_kernel import VIEWS
     from .ops.mse_loss import supports_fused_mse
     from .render.render import select_engine
 
+    view = VIEWS.get(scene.settings.mode)
+    sky = scene.background.kind == SKYMAP
     names = {"env": ("env: record mode of #5, then the replay over #6 with "
                      "#8's shadow rays",
                      "env: the same, with #7 under the replay's backward"),
-             "bvh": ("bvh: kernel #5",
+             "bvh": (f"bvh: the {view} view of kernel #5" if view else
+                     "bvh: kernel #5, its sky-map variant" if sky else
+                     "bvh: kernel #5",
+                     "bvh: record mode of #5 under a black background, then "
+                     "the replay with the sky over #6 and #7" if sky else
                      "bvh: record mode of #5, then the replay over #6 and "
                      "#7"),
              "brute": ("brute: kernel #1",
@@ -124,7 +134,7 @@ def _engines(scene) -> tuple[str, str]:
     for i, grad in enumerate((False, True)):
         try:
             out.append(names[select_engine(scene, grad=grad)][i])
-        except NotImplementedError as e:
+        except (NotImplementedError, ValueError) as e:
             out.append(f"unsupported: {e}")
     return out[0], out[1]
 

@@ -23,6 +23,20 @@
 // flag kExt compiles the volume walk, the mix rounds and the isotropic
 // lobe; a scene without them launches the variant without them.
 //
+// A sky map (template flag kSky): a ray that escapes adds its throughput
+// times the sky's nearest texel, looked up here (radiance.cuh
+// sky_radiance) from the (h, w, 3) texels in global memory.  The TPU
+// kernel writes the escaping direction and throughput out and gathers
+// after the kernel, since Mosaic has no in-kernel gather; here the lookup
+// is the one PyTorch makes on the card, bit for bit.  The record variant
+// runs under a black uniform background instead: the codes do not depend
+// on the background, and the replay adds the sky.
+//
+// The inspection views (bvh_view_kernel, _make_bvh_kernel's `debug`): one
+// intersection with bounce stream 1's volume uniforms, no scatter chain; a
+// hit gives 0.5 * (its normalized front-facing normal + 1) (Normal) or
+// black (Random), a miss the background, a sky map's included.
+//
 // Record mode (template flag kRecord; _make_bvh_kernel(record=True)) also
 // writes each bounce's winner code, (max_depth, n_rays) int32, for the
 // replay gradient (diff/replay.py): the winner's slot in bits 0-26 (sphere
@@ -117,29 +131,71 @@ __device__ __forceinline__ int resolve_mix(const MixTable& mx,
   return mid;
 }
 
+// The outward normal at the hit point p and the raw material id of the
+// ray's winner: a triangle's flat normal, a volume's dummy (1, 0, 0), a
+// sphere's (p - c) / r by true division.
+template <bool kExt>
+__device__ __forceinline__ int winner(const Tree& sph, const Tree& vol,
+                                      const Tree& tri, int w_sph, int w_vol,
+                                      int w_tri, float ptx, float pty,
+                                      float ptz, float& nx, float& ny,
+                                      float& nz) {
+  if (w_tri >= 0) {  // the triangle pass found a nearer hit
+    const float* g = tri.geo + 12 * w_tri;
+    nx = __ldg(g + 9);
+    ny = __ldg(g + 10);
+    nz = __ldg(g + 11);
+    return __ldg(tri.mat + w_tri);
+  }
+  if (kExt && w_vol >= 0) {
+    nx = 1.0f;
+    ny = 0.0f;
+    nz = 0.0f;
+    return __ldg(vol.mat + w_vol);
+  }
+  const float4 g = __ldg(reinterpret_cast<const float4*>(sph.geo) + w_sph);
+  const float g_rad = g.w > 0.0f ? g.w : 1.0f;
+  nx = (ptx - g.x) / g_rad;
+  ny = (pty - g.y) / g_rad;
+  nz = (ptz - g.z) / g_rad;
+  return __ldg(sph.mat + w_sph);
+}
+
+// The packed head into shared memory, then the thread's ray: its id
+// (= pixel * spp + sample) and its jittered camera ray; false for the
+// threads past the last ray.
+__device__ __forceinline__ bool start_ray(const float* __restrict__ head,
+                                          float* f, uint32_t k0, uint32_t k1,
+                                          int n_rays, int spp, int width,
+                                          int& ray, Ray& r) {
+  for (int i = threadIdx.x; i < kHead; i += blockDim.x) f[i] = head[i];
+  __syncthreads();
+  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (gid >= n_rays) return false;  // the ragged last block
+  ray = (int)gid;
+  const int pixel = ray / spp;
+  camera_ray(f, k0, k1, (uint32_t)ray, (float)(pixel % width),
+             (float)(pixel / width), r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
+  return true;
+}
+
 // kExt: the scene has volumes, mixes or an isotropic material (a
 // compile-time flag, so scenes without them run the code they always ran).
-template <bool kRecord, bool kExt>
+// kSky: the background is a sky map, looked up on a miss.
+template <bool kRecord, bool kExt, bool kSky>
 __global__ void __launch_bounds__(kThreads)
 bvh_radiance_kernel(const float* __restrict__ head,
                     const float* __restrict__ mats,
                     const int* __restrict__ kinds, Tree sph, Tree vol,
                     Tree tri, int leaf, MixTable mx, uint32_t k0,
                     uint32_t k1, int n_rays, int spp, int width,
-                    int max_depth, int bg_kind, int clay,
+                    int max_depth, int bg_kind, int clay, Sky sky,
                     float* __restrict__ out, int* __restrict__ rec,
                     int rec_mask, int vol_base, int tri_base) {
   __shared__ float f[kHead];
-  for (int i = threadIdx.x; i < kHead; i += blockDim.x) f[i] = head[i];
-  __syncthreads();
-
-  const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (gid >= n_rays) return;  // the ragged last block
-  const int ray = (int)gid;   // = pixel * spp + sample
-  const int pixel = ray / spp;
+  int ray;
   Ray r;
-  camera_ray(f, k0, k1, (uint32_t)ray, (float)(pixel % width),
-             (float)(pixel / width), r.ox, r.oy, r.oz, r.dx, r.dy, r.dz);
+  if (!start_ray(head, f, k0, k1, n_rays, spp, width, ray, r)) return;
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
   int ended = max_depth;  // record mode: the bounces after the path's end
@@ -169,7 +225,10 @@ bvh_radiance_kernel(const float* __restrict__ head,
 
     if (!(t_best < INFINITY)) {  // miss: the background ends the path
       float bg_r, bg_g, bg_b;
-      background(f, bg_kind, r.dx, r.dy, r.dz, bg_r, bg_g, bg_b);
+      if (kSky)
+        sky_radiance(sky, r.dx, r.dy, r.dz, bg_r, bg_g, bg_b);
+      else
+        background(f, bg_kind, r.dx, r.dy, r.dz, bg_r, bg_g, bg_b);
       rad_r = rad_r + thr_r * bg_r;
       rad_g = rad_g + thr_g * bg_g;
       rad_b = rad_b + thr_b * bg_b;
@@ -184,27 +243,8 @@ bvh_radiance_kernel(const float* __restrict__ head,
     const float pty = r.oy + t_best * r.dy;
     const float ptz = r.oz + t_best * r.dz;
     float nx, ny, nz;
-    int mid;
-    if (w_tri >= 0) {  // the triangle pass found a nearer hit: flat normal
-      const float* g = tri.geo + 12 * w_tri;
-      nx = __ldg(g + 9);
-      ny = __ldg(g + 10);
-      nz = __ldg(g + 11);
-      mid = __ldg(tri.mat + w_tri);
-    } else if (kExt && w_vol >= 0) {  // a volume: the dummy normal
-      nx = 1.0f;
-      ny = 0.0f;
-      nz = 0.0f;
-      mid = __ldg(vol.mat + w_vol);
-    } else {  // (p - c) / r, by true division
-      const float4 g = __ldg(reinterpret_cast<const float4*>(sph.geo) +
-                             w_sph);
-      const float g_rad = g.w > 0.0f ? g.w : 1.0f;
-      nx = (ptx - g.x) / g_rad;
-      ny = (pty - g.y) / g_rad;
-      nz = (ptz - g.z) / g_rad;
-      mid = __ldg(sph.mat + w_sph);
-    }
+    int mid = winner<kExt>(sph, vol, tri, w_sph, w_vol, w_tri, ptx, pty, ptz,
+                           nx, ny, nz);
     if (kExt && mx.first) {  // the mix coins: columns 0 .. 3
       float coin[4];
       uniform_pair(k0, k1, (uint32_t)ray, stream, 0u, coin[0], coin[1]);
@@ -260,17 +300,75 @@ bvh_radiance_kernel(const float* __restrict__ head,
   o[2] = rad_b;
 }
 
-template <bool kRecord, bool kExt>
+// The inspection views: one intersection of the camera ray, its volume
+// candidates drawing from bounce stream 1 at column `vol_col0` + ordinal
+// (after the mix coins and the lobe's four columns, as #5's first bounce
+// draws them); a hit gives 0.5 * (n / |n| + 1) of the front-facing normal n
+// (`normal`) or black, a miss the background (kSky: the sky map).  Depth 0
+// traces nothing.
+template <bool kSky>
+__global__ void __launch_bounds__(kThreads)
+bvh_view_kernel(const float* __restrict__ head, Tree sph, Tree vol, Tree tri,
+                int leaf, uint32_t k0, uint32_t k1, int n_rays, int spp,
+                int width, int max_depth, int bg_kind, Sky sky, int normal,
+                int vol_col0, float* __restrict__ out) {
+  __shared__ float f[kHead];
+  int ray;
+  Ray r;
+  if (!start_ray(head, f, k0, k1, n_rays, spp, width, ray, r)) return;
+  float c_r = 0.0f, c_g = 0.0f, c_b = 0.0f;
+  if (max_depth > 0) {
+    r.a = dot3(r.dx, r.dy, r.dz, r.dx, r.dy, r.dz);
+    r.idx = 1.0f / r.dx;
+    r.idy = 1.0f / r.dy;
+    r.idz = 1.0f / r.dz;
+    float t_best = INFINITY;
+    int w_sph = -1, w_vol = -1, w_tri = -1;
+    walk<kSphereTree>(sph, leaf, r, t_best, w_sph);
+    if (vol.n_nodes)
+      walk<kVolumeTree>(vol, leaf, r, t_best, w_vol,
+                        Flight{k0, k1, (uint32_t)ray, 1u, vol_col0,
+                               sqrtf(r.a)});
+    walk<kTriangleTree>(tri, leaf, r, t_best, w_tri);
+    if (!(t_best < INFINITY)) {
+      if (kSky)
+        sky_radiance(sky, r.dx, r.dy, r.dz, c_r, c_g, c_b);
+      else
+        background(f, bg_kind, r.dx, r.dy, r.dz, c_r, c_g, c_b);
+    } else if (normal) {
+      float nx, ny, nz;
+      winner<true>(sph, vol, tri, w_sph, w_vol, w_tri,
+                   r.ox + t_best * r.dx, r.oy + t_best * r.dy,
+                   r.oz + t_best * r.dz, nx, ny, nz);
+      const float sgn = dot3(r.dx, r.dy, r.dz, nx, ny, nz) < 0.0f ? 1.0f
+                                                                  : -1.0f;
+      nx = nx * sgn;
+      ny = ny * sgn;
+      nz = nz * sgn;
+      const float inv_n =
+          1.0f / sqrtf(fmaxf(dot3(nx, ny, nz, nx, ny, nz), 1e-30f));
+      c_r = 0.5f * (nx * inv_n + 1.0f);
+      c_g = 0.5f * (ny * inv_n + 1.0f);
+      c_b = 0.5f * (nz * inv_n + 1.0f);
+    }
+  }
+  float* o = out + 3 * (size_t)ray;
+  o[0] = c_r;
+  o[1] = c_g;
+  o[2] = c_b;
+}
+
+template <bool kRecord, bool kExt, bool kSky>
 void launch(const float* head, const float* mats, const int* kinds,
             const Tree& sph, const Tree& vol, const Tree& tri, int leaf,
             const MixTable& mx, uint32_t k0, uint32_t k1, int n_rays,
             int spp, int width, int max_depth, int bg_kind, int clay,
-            float* out, int* rec, int rec_mask, int vol_base, int tri_base,
-            cudaStream_t stream) {
-  bvh_radiance_kernel<kRecord, kExt><<<blocks_for(n_rays), kThreads, 0,
-                                       stream>>>(
+            const Sky& sky, float* out, int* rec, int rec_mask, int vol_base,
+            int tri_base, cudaStream_t stream) {
+  bvh_radiance_kernel<kRecord, kExt, kSky><<<blocks_for(n_rays), kThreads, 0,
+                                             stream>>>(
       head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1, n_rays, spp, width,
-      max_depth, bg_kind, clay, out, rec, rec_mask, vol_base, tri_base);
+      max_depth, bg_kind, clay, sky, out, rec, rec_mask, vol_base, tri_base);
 }
 
 }  // namespace
@@ -281,7 +379,10 @@ void launch(const float* head, const float* mats, const int* kinds,
 // triangle slots by `tri_base`.  The volume tree (v_*), the mix table
 // (null without mixes) and `iso` (an isotropic material is reachable)
 // select the kernel's extended variant; without them it is the variant
-// of solid spheres and triangles.  Launches on `stream` and returns
+// of solid spheres and triangles.  `sky` (the (sky_h, sky_w, 3) texels,
+// bg_kind kSkyMap) selects the sky variant, which the record walk does not
+// take.  `view` 1 (Normal) or 2 (Random) launches the inspection view
+// instead, forward only.  Launches on `stream` and returns
 // cudaGetLastError() of the launch.
 extern "C" int rtrt_bvh_radiance(
     const float* head, const float* mats, const int* kinds, int n_mats,
@@ -295,12 +396,17 @@ extern "C" int rtrt_bvh_radiance(
     const int* mix_second, const float* mix_factor, int n_vol, int iso,
     uint32_t k0, uint32_t k1, int n_rays, int spp, int width, int max_depth,
     int bg_kind, int clay, float* out, int* rec, int rec_mask, int vol_base,
-    int tri_base, void* stream) {
+    int tri_base, const float* sky, int sky_h, int sky_w, int view,
+    void* stream) {
+  const bool has_sky = bg_kind == kSkyMap;
   if (n_mats < 1 || s_nodes < 0 || v_nodes < 0 || t_nodes < 0 ||
       s_nodes + v_nodes + t_nodes < 1 || leaf < 1 || n_rays < 0 ||
       spp < 1 || width < 1 || n_vol < 0 || n_vol > 8 ||
       (v_nodes > 0 && (!v_nid || !v_ord)) ||
-      (mix_first && (!mix_second || !mix_factor)))
+      (mix_first && (!mix_second || !mix_factor)) || bg_kind < kUniform ||
+      bg_kind > kSkyMap || has_sky != (sky != nullptr) ||
+      (has_sky && (sky_h < 1 || sky_w < 1)) || view < 0 || view > 2 ||
+      (rec && (has_sky || view)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const Tree sph{s_nodes_f, s_nodes_i, s_len, s_geo, s_mat,
@@ -310,23 +416,47 @@ extern "C" int rtrt_bvh_radiance(
   const Tree tri{t_nodes_f, t_nodes_i, t_len, t_geo, t_mat,
                  nullptr,   nullptr,   t_nodes};
   const MixTable mx{mix_first, mix_second, mix_factor};
+  const Sky sk{sky, sky_h, sky_w};
   const bool ext = v_nodes > 0 || mix_first || iso;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (view) {
+    const int vol_col0 = (mix_first ? 4 : 0) + 4;
+    if (has_sky)
+      bvh_view_kernel<true><<<blocks_for(n_rays), kThreads, 0, st>>>(
+          head, sph, vol, tri, leaf, k0, k1, n_rays, spp, width, max_depth,
+          bg_kind, sk, view == 1, vol_col0, out);
+    else
+      bvh_view_kernel<false><<<blocks_for(n_rays), kThreads, 0, st>>>(
+          head, sph, vol, tri, leaf, k0, k1, n_rays, spp, width, max_depth,
+          bg_kind, sk, view == 1, vol_col0, out);
+    return (int)cudaGetLastError();
+  }
   if (rec && ext)
-    launch<true, true>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
-                       n_rays, spp, width, max_depth, bg_kind, clay, out, rec,
-                       rec_mask, vol_base, tri_base, st);
+    launch<true, true, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
+                              k0, k1, n_rays, spp, width, max_depth, bg_kind,
+                              clay, sk, out, rec, rec_mask, vol_base,
+                              tri_base, st);
   else if (rec)
-    launch<true, false>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
-                        n_rays, spp, width, max_depth, bg_kind, clay, out,
-                        rec, rec_mask, vol_base, tri_base, st);
+    launch<true, false, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
+                               k0, k1, n_rays, spp, width, max_depth,
+                               bg_kind, clay, sk, out, rec, rec_mask,
+                               vol_base, tri_base, st);
+  else if (ext && has_sky)
+    launch<false, true, true>(head, mats, kinds, sph, vol, tri, leaf, mx,
+                              k0, k1, n_rays, spp, width, max_depth, bg_kind,
+                              clay, sk, out, nullptr, 0, 0, 0, st);
   else if (ext)
-    launch<false, true>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
-                        n_rays, spp, width, max_depth, bg_kind, clay, out,
-                        nullptr, 0, 0, 0, st);
+    launch<false, true, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
+                               k0, k1, n_rays, spp, width, max_depth,
+                               bg_kind, clay, sk, out, nullptr, 0, 0, 0, st);
+  else if (has_sky)
+    launch<false, false, true>(head, mats, kinds, sph, vol, tri, leaf, mx,
+                               k0, k1, n_rays, spp, width, max_depth,
+                               bg_kind, clay, sk, out, nullptr, 0, 0, 0, st);
   else
-    launch<false, false>(head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1,
-                         n_rays, spp, width, max_depth, bg_kind, clay, out,
-                         nullptr, 0, 0, 0, st);
+    launch<false, false, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
+                                k0, k1, n_rays, spp, width, max_depth,
+                                bg_kind, clay, sk, out, nullptr, 0, 0, 0,
+                                st);
   return (int)cudaGetLastError();
 }

@@ -64,7 +64,7 @@ enum Kind {
   kIsotropic = 4,
   kMix = 5
 };
-enum BgKind { kUniform = 0, kGradient = 1 };
+enum BgKind { kUniform = 0, kGradient = 1, kSkyMap = 2 };
 
 // ---------------------------------------------------------------- Threefry
 
@@ -175,6 +175,44 @@ __device__ __forceinline__ void background(const float* f, int bg_kind,
     g = (1.0f - tt) * f[kBg + 1] + tt * f[kBg + 4];
     b = (1.0f - tt) * f[kBg + 2] + tt * f[kBg + 5];
   }
+}
+
+// An equirect sky map in device memory: (h, w, 3) float32 texels, row-major
+// (models/backgrounds.Background.image), read whole by the lookup.
+struct Sky {
+  const float* img;
+  int h, w;
+};
+
+constexpr float kPi = 3.14159274f;         // float32(pi)
+constexpr float kInvPi = 0.318309873f;     // float32(1) / float32(pi)
+constexpr float kInvTwoPi = 0.159154937f;  // float32(1) / float32(2 pi)
+
+// The sky map's radiance along d: its nearest texel, as
+// models/backgrounds.Background.sample computes it on the card, operation
+// for operation: d normalized by true division, theta = acos of -y clamped
+// to [-1, 1], phi = atan2(-z, x) + float32(pi), both scaled by the float32
+// reciprocals, floor(v w) wrapped to the width, floor(u h) wrapped to the
+// height and flipped.  acosf and atan2f are the functions torch.acos and
+// torch.atan2 call on the card.  The gather reads global memory: a 2K sky
+// is 25 MB, inside the card's L2.
+__device__ __forceinline__ void sky_radiance(const Sky& sky, float dx,
+                                             float dy, float dz, float& r,
+                                             float& g, float& b) {
+  const float len = sqrtf(dot3(dx, dy, dz, dx, dy, dz));
+  const float nx = dx / len, ny = dy / len, nz = dz / len;
+  const float theta = acosf(fminf(fmaxf(-ny, -1.0f), 1.0f));
+  const float phi = atan2f(-nz, nx) + kPi;
+  const float u = theta * kInvPi;
+  const float v = phi * kInvTwoPi;
+  int x = (int)floorf(v * (float)sky.w) % sky.w;
+  int y = (int)floorf(u * (float)sky.h) % sky.h;
+  x += x < 0 ? sky.w : 0;
+  y += y < 0 ? sky.h : 0;
+  const float* t = sky.img + 3 * ((size_t)(sky.h - 1 - y) * sky.w + x);
+  r = __ldg(t + 0);
+  g = __ldg(t + 1);
+  b = __ldg(t + 2);
 }
 
 // The unit-sphere-surface sample of the bounce's (u1, u2).

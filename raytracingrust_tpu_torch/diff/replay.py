@@ -19,8 +19,10 @@ resolved leaf's material row is read from the table by ``index_select``,
 whose backward (``index_add_``) gives the table's gradient.  Elementwise PyTorch only; autograd
 differentiates it.
 
-With a sky map (``sky``) it assembles the one-sample MIS estimator of the
-HDRI importance-sampling path instead (the JAX ``replay_radiance(env=...)``,
+With a sky map (``sky``) a miss adds the sky's texel times the
+throughput.  With the shadow-ray test ``occlude`` as well it assembles the
+one-sample MIS estimator of the HDRI importance-sampling path instead (the
+JAX ``replay_radiance(env=...)``,
 op for op render/integrator.py's env blocks): a miss adds the sky's
 radiance times the balance weight against the sky sampler's pdf when the
 last scatter was diffuse; after a Lambertian hit it also draws one sky
@@ -69,13 +71,15 @@ def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
     A miss row is all zeros: its normal and index of refraction are replaced
     by finite stand-ins, so no discarded lane puts a NaN into a gradient.
 
-    ``sky``, a SKYMAP Background on the rays' device, switches on the MIS
-    estimator (Full mode, ``bg_kind`` SKYMAP); it is differentiable in the
-    sky's texels.  ``occlude(points (3, R'), directions (3, R'), ray ids
-    (R',), stream)`` -> (R',) bool answers the shadow rays of one bounce,
-    those of its Lambertian hits that go on.  The sampled directions, their
-    pdfs, the shadow rays and the MIS pdfs are detached, as in the JAX
-    package."""
+    ``sky``, a SKYMAP Background on the rays' device (``bg_kind``
+    SKYMAP), adds its texel on a miss; it is differentiable in the sky's
+    texels.  With ``occlude`` it switches on the MIS estimator (Full mode):
+    ``occlude(points (3, R'), directions (3, R'), ray ids (R',), stream)``
+    -> (R',) bool answers the shadow rays of one bounce, those of its
+    Lambertian hits that go on.  The sampled directions, their pdfs, the
+    shadow rays and the MIS pdfs are detached, as in the JAX package.
+    Without ``occlude`` a miss adds the texel at weight 1 and no pdf is
+    computed: a sky map without importance sampling."""
     head = sc.head
     raw = sc.mixes is not None
     g_fields = rows.shape[0] - (0 if raw else MAT_FIELDS)
@@ -161,12 +165,13 @@ def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
                   "metal_ok": (raw_code & REC_METAL_OK) != 0,
                   "reflect": (raw_code & REC_REFLECT) != 0}
         if sky is not None:
-            rad = _env_miss(sky, d, thr, rad, alive & ~hit, mis_pdf)
+            rad = _env_miss(sky, d, thr, rad, alive & ~hit,
+                            None if occlude is None else mis_pdf)
             thr_in = thr
         o, d, thr, rad, alive = K.bounce_tail(
             head, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n, mat,
             kind_b, u, forced=forced)
-        if sky is not None:
+        if occlude is not None:
             sgn = torch.where(forced["front"], 1.0, -1.0)
             rad, mis_pdf = _env_nee(
                 sky, occlude, key, ray_ids, b, max_depth, thr_in, rad,
@@ -177,11 +182,14 @@ def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
 
 def _env_miss(sky, d, thr, rad, missed, mis_pdf):
     """``rad`` plus, on a miss, the sky's radiance times the balance weight
-    of the BSDF-sampled direction (1 after a primary or specular bounce)."""
+    of the BSDF-sampled direction (1 after a primary or specular bounce,
+    and everywhere without MIS: ``mis_pdf`` None)."""
     dv = torch.stack(d, dim=-1)
-    p_env = sky.pdf(vec.normalize(dv.detach()))
-    w_b = torch.where(mis_pdf > 0.0, mis_pdf / (mis_pdf + p_env), 1.0)
-    bg = sky.sample(dv) * w_b[:, None]
+    bg = sky.sample(dv)
+    if mis_pdf is not None:
+        p_env = sky.pdf(vec.normalize(dv.detach()))
+        w_b = torch.where(mis_pdf > 0.0, mis_pdf / (mis_pdf + p_env), 1.0)
+        bg = bg * w_b[:, None]
     return [rad[c] + torch.where(missed, thr[c] * bg[:, c], 0.0)
             for c in range(3)]
 

@@ -24,6 +24,9 @@ from ..utils.types import PI
 UNIFORM = 0
 GRADIENT = 1
 SKYMAP = 2
+# the lookup's angle scales, float32 reciprocals of pi and 2 pi
+INV_PI = float(np.float32(1.0) / np.float32(PI))
+INV_TWO_PI = float(np.float32(1.0) / np.float32(2.0 * PI))
 
 
 @dataclasses.dataclass
@@ -71,10 +74,13 @@ class Background:
 
     def _texel(self, sph: torch.Tensor):
         """(row, column) of the texel that (theta, phi) falls in: nearest
-        texel, x wrapped, y flipped."""
+        texel, x wrapped, y flipped.  The angles are scaled by float32
+        reciprocals, so both devices and kernel #5's lookup
+        (csrc/radiance.cuh ``sky_radiance``) round alike (PyTorch divides by
+        a scalar as such on the CPU, by its reciprocal on the card)."""
         h, w = self.image.shape[0], self.image.shape[1]
-        u = sph[..., 0] / PI
-        v = sph[..., 1] / (2.0 * PI)
+        u = sph[..., 0] * INV_PI
+        v = sph[..., 1] * INV_TWO_PI
         x = torch.remainder(torch.floor(v * w).to(torch.int32), w)
         y = (h - 1) - torch.remainder(torch.floor(u * h).to(torch.int32), h)
         return y.long(), x.long()

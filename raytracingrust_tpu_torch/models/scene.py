@@ -27,6 +27,11 @@ from .mesh import Mesh
 
 MODE_FULL = "Full"
 MODE_CLAY = "Clay"
+# the inspection views (lib/core/render.rs:42-49): one intersection, a
+# hit shaded by its normal (Normal) or black (Random), a miss by the
+# background
+MODE_RANDOM = "Random"
+MODE_NORMAL = "Normal"
 
 
 @dataclasses.dataclass(frozen=True)

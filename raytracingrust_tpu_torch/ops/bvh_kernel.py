@@ -39,12 +39,20 @@ slab test hits the leaf's box.  The TPU kernel moves one cursor for 2,048
 rays and tests a leaf when any of them hits it; the nearest hit is the same
 except where a ray's box test and its primitive test disagree at rounding.
 
+A sky map (``sky``, bg_kind SKYMAP) adds, on a miss, the throughput
+times the sky's nearest texel (``Background.sample``; the JAX
+``_env_finish`` applied at the bounce where the path escaped).  The
+inspection views (``debug`` "normal" or "random", the JAX kernel's
+``debug``) trace one intersection with bounce stream 1's volume uniforms and
+no scatter chain: a hit gives 0.5 * (its normalized front-facing normal +
+1), or black; a miss the background, a sky map's included.
+
 The envelope (:func:`unsupported_bvh`), what the JAX ``supports_bvh``
-admits but mesh-bounded volumes: solid spheres, up to ``MAX_BVH_VOLUMES``
-sphere volumes and surface triangles; Lambertian, Metal, Dielectric,
-Emission and Isotropic materials and mixes of them nested up to
-``MAX_MIX_DEPTH``; a uniform or gradient background, or a sky map with
-importance sampling; Full or Clay mode; any depth.
+admits but mesh-bounded volumes, and the views on a sky map too: solid
+spheres, up to ``MAX_BVH_VOLUMES`` sphere volumes and surface triangles;
+Lambertian, Metal, Dielectric, Emission and Isotropic materials and mixes
+of them nested up to ``MAX_MIX_DEPTH``; a uniform, gradient or sky-map
+background; Full, Clay, Normal or Random mode; any depth.
 
 Layout (:func:`pack`): the 20-float head of ``megakernel.pack_fparams``;
 the material table as (M, 8) float32 [albedo rgb, fuzz, ir, emission rgb]
@@ -56,8 +64,9 @@ ordinal, triangles as (S, 12) [v0, e1, e2, flat normal].  Under autograd
 the packing keeps the graph from the scene's leaves to the head, the
 material table and each tree's rows.  On a CPU tensor the wrapper runs the
 plain version; on a CUDA tensor it launches the kernel or raises.
-``LAUNCHES`` counts launches of the kernel, ``RECORD_LAUNCHES`` of its
-record variant.
+``LAUNCHES`` counts launches of the kernel under a uniform or gradient
+background, ``SKY_LAUNCHES`` of its sky-map variant, ``VIEW_LAUNCHES`` of
+the inspection views and ``RECORD_LAUNCHES`` of its record variant.
 """
 
 from __future__ import annotations
@@ -70,7 +79,9 @@ import torch
 
 from ..models import backgrounds as B
 from ..models import materials as M
-from ..models.scene import MODE_CLAY, MODE_FULL, ChunkTree, Scene
+from ..models.scene import (MODE_CLAY, MODE_FULL, MODE_NORMAL, MODE_RANDOM,
+                            ChunkTree, Scene)
+from ..utils import vec
 from ..utils.rng import ray_uniforms
 from ..utils.types import T_MIN
 from . import megakernel as K
@@ -91,7 +102,12 @@ REC_FRONT = 1 << 27
 REC_METAL_OK = 1 << 28
 REC_REFLECT = 1 << 29
 
+# the inspection views, by render mode
+VIEWS = {MODE_NORMAL: "normal", MODE_RANDOM: "random"}
+
 LAUNCHES = 0
+SKY_LAUNCHES = 0
+VIEW_LAUNCHES = 0
 RECORD_LAUNCHES = 0
 
 
@@ -108,8 +124,9 @@ def env_is_active(scene: Scene) -> bool:
 def unsupported_bvh(scene: Scene) -> str | None:
     """Why the BVH kernel cannot take the scene, or None (the JAX
     ``supports_bvh``, mesh-bounded volumes aside: those raise on load).  A
-    sky map passes only with importance sampling, whose path is
-    :func:`env_radiance`."""
+    sky map passes in every mode: with importance sampling its path is
+    :func:`env_radiance`; the JAX gate keeps the views of a sky map on its
+    XLA integrator, which the port lacks, so #5 serves them."""
     if scene.cbvh is None:
         return ("the scene was built without its BVH: build it with "
                 "with_bvh=True (or enable_bvh_tree)")
@@ -124,13 +141,8 @@ def unsupported_bvh(scene: Scene) -> str | None:
         return (f"mixes nested deeper than {M.MAX_MIX_DEPTH} levels (or a "
                 "cycle): a hit resolves one level a coin, as the JAX "
                 "package")
-    if (scene.background.kind not in (B.UNIFORM, B.GRADIENT)
-            and not env_is_active(scene)):
-        return ("SkyMap backgrounds without env importance sampling on the "
-                "BVH path are not ported yet (ROADMAP B4d)")
-    if scene.settings.mode not in (MODE_FULL, MODE_CLAY):
-        return (f"{scene.settings.mode} mode on the BVH path is not ported "
-                "yet (ROADMAP B4e)")
+    if scene.settings.mode not in (MODE_FULL, MODE_CLAY, *VIEWS):
+        return f"unknown render mode {scene.settings.mode!r}"
     return None
 
 
@@ -485,8 +497,61 @@ def bounce_uniforms(sc: BvhScene, key, ray_ids, b):
     return coins, lobe, u[:, off + 4:]
 
 
+def _sky_where(sky, d, missed, tally=None):
+    """(R, 3) the sky's radiance along ``d`` where ``missed``, else 0: the
+    lookup of the missed rays alone.  ``tally`` receives the texels looked
+    up, as a (H * W,) bool mask under "sky_texels"."""
+    at = missed.nonzero().squeeze(1)
+    bg = torch.zeros((missed.shape[0], 3), device=missed.device)
+    if at.numel():
+        dm = torch.stack([v[at] for v in d], dim=-1)
+        bg[at] = sky.sample(dm)
+        if tally is not None:
+            h, w = sky.image.shape[0], sky.image.shape[1]
+            y, x = sky._texel(vec.to_spherical_coords(vec.normalize(dm)))
+            seen = tally.get("sky_texels")
+            if seen is None:
+                seen = torch.zeros(h * w, dtype=torch.bool, device=dm.device)
+            tally["sky_texels"] = seen.index_fill(0, y * w + x, True)
+    return bg
+
+
+def _view_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, sky,
+               debug, tally):
+    """One tile of :func:`radiance_bvh_plain`'s inspection views (the JAX
+    kernel's ``debug`` branch): one intersection, its volume candidates
+    drawing from bounce stream 1; a hit gives ``0.5 * (n / |n| + 1)`` of
+    the front-facing normal n ("normal") or black ("random"), a miss the
+    background."""
+    o, d = K.camera_ray(sc.head, key, ray_ids, px, py)
+    zero = torch.zeros_like(d[0])
+    if max_depth <= 0:
+        return torch.stack([zero] * 3, dim=-1)
+    _, _, u_vol = bounce_uniforms(sc, key, ray_ids, 0)
+    a = _dot3(*d, *d)
+    alive = torch.ones_like(a, dtype=torch.bool)
+    t_best, wins = _walk_all(sc, o, d, a, alive, u_vol, tally)
+    hit = t_best < float("inf")
+    if tally is not None:
+        tally["bounces"] += a.numel()
+        tally["misses"] += int((~hit).sum())
+        tally["view_hits"] += int(hit.sum())
+    bg = (_sky_where(sky, d, ~hit, tally).unbind(-1) if sky is not None
+          else K.background(sc.head, bg_kind, d))
+    col = [zero] * 3
+    if debug == "normal":
+        safe_t = torch.where(hit, t_best, 1.0)
+        n, _ = _winner(sc, [o[c] + safe_t * d[c] for c in range(3)], wins)
+        sgn = torch.where(_dot3(*d, *n) < 0.0, 1.0, -1.0)
+        n = [v * sgn for v in n]
+        inv_n = 1.0 / torch.sqrt(torch.clamp(_dot3(*n, *n), min=1e-30))
+        col = [0.5 * (v * inv_n + 1.0) for v in n]
+    return torch.stack([torch.where(hit, col[c], bg[c]) for c in range(3)],
+                       dim=-1)
+
+
 def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
-              tally, rec):
+              tally, rec, sky):
     """One tile of :func:`radiance_bvh_plain`; ``rec``, when not None, is
     the tile's (max_depth, R) int32 record, filled with -1, to write the
     codes into."""
@@ -517,6 +582,11 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
                 tally[f"hits_{k}"] += int((alive & hit & (kind == k)).sum())
         decided = None if rec is None else {}
         entering = alive
+        if sky is not None:  # an escaping ray adds the sky's texel
+            missed = alive & ~hit
+            bg = _sky_where(sky, d, missed, tally)
+            rad = [rad[c] + torch.where(missed, thr[c] * bg[:, c], 0.0)
+                   for c in range(3)]
         o, d, thr, rad, alive = K.bounce_tail(
             sc.head, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
             sc.mats[mid].unbind(-1), kind, u, decisions=decided)
@@ -534,28 +604,54 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
     return torch.stack(rad, dim=-1)
 
 
+def _check_background(bg_kind: int, sky, record: bool, debug) -> None:
+    """A sky map's lookup needs the sky; the record walk takes none, nor a
+    view."""
+    if (bg_kind == B.SKYMAP) != (sky is not None):
+        raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
+                         "up in `sky`, and only then")
+    if debug not in (None, "normal", "random"):
+        raise ValueError(f"unknown view {debug!r}")
+    if record and (sky is not None or debug is not None):
+        raise ValueError("the record walk runs under a uniform or gradient "
+                         "background (the codes do not depend on it), and "
+                         "in Full or Clay mode")
+
+
 def radiance_bvh_plain(sc: BvhScene, key: tuple[int, int],
                        ray_ids: torch.Tensor, px: torch.Tensor,
                        py: torch.Tensor, *, max_depth: int, bg_kind: int,
-                       clay: bool, tally=None, record: bool = False):
+                       clay: bool, tally=None, record: bool = False,
+                       sky: Optional[B.Background] = None,
+                       debug: Optional[str] = None):
     """Per-ray radiance (R, 3) float32 of the rays ``prep_rays`` gives, in
     tensor ops on ``sc``'s device: what the CUDA kernel computes, operation
     for operation (per-ray walks, true division in the sphere root and
     normal, ``1 / sqrt`` where the JAX kernel has rsqrt).  With ``record``,
     -> (radiance, codes (max_depth, R) int32), the radiance unchanged.
-    ``tally``, for measurement only, is a ``collections.Counter`` that
-    receives the work the rays did: node visits, sphere, volume and
-    triangle tests, rays entering a bounce, misses, hits by resolved
-    kind."""
+    ``sky``: the SKYMAP background, on ``sc``'s device.  ``debug``:
+    "normal" or "random", the inspection view instead.  ``tally``, for
+    measurement only, is a ``collections.Counter`` that receives the work
+    the rays did: node visits, sphere, volume and triangle tests, rays
+    entering a bounce, misses, hits by resolved kind (a view's hits as
+    "view_hits"), and under a sky map a mask of the texels looked up
+    ("sky_texels")."""
+    _check_background(bg_kind, sky, record, debug)
     n = ray_ids.shape[0]
     codes = (torch.full((max_depth, n), -1, dtype=torch.int32,
                         device=px.device) if record else None)
-    rad = torch.cat([
-        _bvh_tile(sc, key, ray_ids[i:i + TILE_RAYS], px[i:i + TILE_RAYS],
-                  py[i:i + TILE_RAYS], max_depth, bg_kind, clay, tally,
-                  None if codes is None else codes[:, i:i + TILE_RAYS])
-        for i in range(0, n, TILE_RAYS)
-    ]) if n else torch.zeros((0, 3), device=px.device)
+
+    def tile(i):
+        at = slice(i, i + TILE_RAYS)
+        if debug is not None:
+            return _view_tile(sc, key, ray_ids[at], px[at], py[at],
+                              max_depth, bg_kind, sky, debug, tally)
+        return _bvh_tile(sc, key, ray_ids[at], px[at], py[at], max_depth,
+                         bg_kind, clay, tally,
+                         None if codes is None else codes[:, at], sky)
+
+    rad = torch.cat([tile(i) for i in range(0, n, TILE_RAYS)]) if n else \
+        torch.zeros((0, 3), device=px.device)
     return (rad, codes) if record else rad
 
 
@@ -610,14 +706,29 @@ def _leaf_size(sc: BvhScene) -> int:
     return trees[0].leaf_size
 
 
+def _sky_args(sky: Optional[B.Background], dev) -> list:
+    """The sky map's (texels pointer, height, width), after checking them;
+    a null pointer without one."""
+    if sky is None:
+        return [ctypes.c_void_p(0), 0, 0]
+    h, w = sky.image.shape[0], sky.image.shape[1]
+    K._check(sky.image, "sky image", torch.float32, (h, w, 3), dev)
+    return [ctypes.c_void_p(sky.image.data_ptr()), h, w]
+
+
 def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
                       spp: int, width: int, *, max_depth: int, bg_kind: int,
-                      clay: bool, record: bool = False):
+                      clay: bool, record: bool = False,
+                      sky: Optional[B.Background] = None,
+                      debug: Optional[str] = None):
     """Per-ray radiance (n_rays, 3) from the CUDA kernel for rays
     0 .. n_rays - 1, where ray id = pixel * spp + sample and pixels run
     row-major over ``width``.  With ``record``, the record variant:
-    -> (radiance, codes (max_depth, n_rays) int32)."""
-    global LAUNCHES, RECORD_LAUNCHES
+    -> (radiance, codes (max_depth, n_rays) int32).  ``sky``: the SKYMAP
+    background on the card, looked up in the kernel (its sky-map
+    variant).  ``debug``: "normal" or "random", the inspection view's
+    kernel instead."""
+    global LAUNCHES, SKY_LAUNCHES, VIEW_LAUNCHES, RECORD_LAUNCHES
     from . import _build
 
     dev = sc.device
@@ -634,9 +745,11 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
     K._check(sc.mats, "mats", torch.float32, (m, 8), dev)
     K._check(sc.kinds, "kinds", torch.int32, (m,), dev)
     K._check_key(key)
+    _check_background(bg_kind, sky, record, debug)
     leaf = _leaf_size(sc)
     args = (_tree_args(sc.spheres, 4) + _tree_args(sc.volumes, 4, True)
             + _tree_args(sc.triangles, 12))
+    view = {None: 0, "normal": 1, "random": 2}[debug]
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=dev)
     codes = (torch.empty((max_depth, n_rays), dtype=torch.int32, device=dev)
              if record else None)
@@ -653,6 +766,7 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(codes.data_ptr() if record else 0),
             0 if clay else sc.rec_mask, sc.vol_base, sc.tri_base,
+            *_sky_args(sky, dev), view,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_bvh_radiance launch failed: CUDA error "
@@ -660,7 +774,12 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
     if record:
         RECORD_LAUNCHES += 1
         return out, codes
-    LAUNCHES += 1
+    if view:
+        VIEW_LAUNCHES += 1
+    elif sky is not None:
+        SKY_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -792,39 +911,59 @@ class BvhRadiance(torch.autograd.Function):
 # ------------------------------------------------------------- per pixel
 
 def radiance(sc: BvhScene, key: tuple[int, int], n_pixels: int, spp: int,
-             width: int, *, max_depth: int, bg_kind: int,
-             clay: bool) -> torch.Tensor:
+             width: int, *, max_depth: int, bg_kind: int, clay: bool,
+             sky: Optional[B.Background] = None,
+             debug: Optional[str] = None) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3) of pixels 0 .. n_pixels - 1:
     the kernel for a scene on a CUDA device, the plain version on the CPU.
-    When a packed tensor requires grad, :class:`BvhRadiance` (the record
-    walk, then the replay as its backward) on either device."""
+    When a packed tensor or the sky's texels require grad, on either
+    device: :class:`BvhRadiance` (the record walk, then the replay as its
+    backward); with a sky map :func:`env_radiance` without its shadow rays
+    (the record walk under a black background, then the replay with the
+    sky as the result).  ``sky``: the SKYMAP background on ``sc``'s
+    device.  ``debug``: "normal" or "random", the inspection view, which
+    has no gradient (the JAX package gives its views no custom_vjp)."""
     opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay)
-    if requires_grad(sc):
+    grad = requires_grad(sc) or (sky is not None and torch.is_grad_enabled()
+                                 and sky.image.requires_grad)
+    if grad and debug is not None:
+        raise ValueError(f"the {debug} view is an inspection view, not a "
+                         "loss surface: it has no gradient")
+    if grad and sky is not None:
+        return env_radiance(sc, sky, key, n_pixels, spp, width,
+                            max_depth=max_depth, clay=clay, mis=False)
+    if grad:
         return BvhRadiance.apply(sc, key, n_pixels, spp, width, opts,
                                  *_rows(sc))
     if K.select_engine(sc.device) == "cuda":
-        return radiance_bvh_cuda(sc, key, n_pixels * spp, spp, width, **opts)
+        return radiance_bvh_cuda(sc, key, n_pixels * spp, spp, width,
+                                 sky=sky, debug=debug, **opts)
     ray_ids, px, py = K.prep_rays(torch.arange(n_pixels), spp, width)
-    return radiance_bvh_plain(sc, key, ray_ids, px, py, **opts)
+    return radiance_bvh_plain(sc, key, ray_ids, px, py, sky=sky, debug=debug,
+                              **opts)
 
 
 def env_radiance(sc: BvhScene, sky: B.Background, key: tuple[int, int],
                  n_pixels: int, spp: int, width: int, *, max_depth: int,
-                 plain: bool = False) -> torch.Tensor:
-    """Per-ray radiance (n_pixels * spp, 3) of the HDRI importance-sampling
-    path (the JAX ``_bvh_env_radiance``): the record walk (#5's record
-    variant on the card) under a black uniform background, since the codes
-    do not depend on it; then :func:`replay` with the sky and the shadow
-    rays of kernel #8 (ops/occlusion.py), once a bounce, which fly through
-    the volumes with the NEE stream's uniforms.  The replay is the
-    result, differentiable in ``sc``'s head, material table and primitive
-    rows (#6, #7 under autograd) and in ``sky``'s texels; the walk and the
-    shadow rays are discrete.  ``plain``: the plain walk, fetch and
-    occlusion test on ``sc``'s device, the route the kernels are held
-    to."""
+                 plain: bool = False, clay: bool = False,
+                 mis: bool = True) -> torch.Tensor:
+    """Per-ray radiance (n_pixels * spp, 3) under a sky map, replayed over
+    the record walk: the record walk (#5's record variant on the card)
+    under a black uniform background, since the codes do not depend on it;
+    then :func:`replay` with the sky on a miss.  ``mis``: the HDRI
+    importance-sampling path (the JAX ``_bvh_env_radiance``), whose replay
+    adds the shadow rays of kernel #8 (ops/occlusion.py), once a bounce,
+    which fly through the volumes with the NEE stream's uniforms, and
+    weighs both samples by the balance heuristic; without it, the sky on a
+    miss at weight 1 (the fit of a sky map without importance sampling).
+    The replay is the result, differentiable in ``sc``'s head, material
+    table and primitive rows (#6, #7 under autograd) and in ``sky``'s
+    texels; the walk and the shadow rays are discrete.  ``plain``: the
+    plain walk, fetch and occlusion test on ``sc``'s device, the route the
+    kernels are held to."""
     from .occlusion import occluded, occluded_plain
 
-    opts = dict(max_depth=max_depth, bg_kind=B.UNIFORM, clay=False)
+    opts = dict(max_depth=max_depth, bg_kind=B.UNIFORM, clay=clay)
     with torch.no_grad():
         if plain:
             ray_ids, px, py = K.prep_rays(
@@ -835,6 +974,7 @@ def env_radiance(sc: BvhScene, sky: B.Background, key: tuple[int, int],
             _, codes = _record(sc, key, n_pixels, spp, width, **opts)
     test = occluded_plain if plain else occluded
     return replay(sc, codes, key, n_pixels, spp, width, max_depth=max_depth,
-                  bg_kind=B.SKYMAP, clay=False, plain=plain, sky=sky,
-                  occlude=lambda o, d, ids, stream: test(
+                  bg_kind=B.SKYMAP, clay=clay, plain=plain, sky=sky,
+                  occlude=(lambda o, d, ids, stream: test(
                       sc, o, d, ray_ids=ids, key=key, stream=stream))
+                  if mis else None)

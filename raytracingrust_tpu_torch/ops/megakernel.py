@@ -173,6 +173,23 @@ def camera_ray(fp, key, ray_ids, px, py):
     return [zero + oxc, zero + oyc, zero + ozc], [dx, dy, dz]
 
 
+def background(fp, bg_kind, d):
+    """The uniform or gradient background's radiance along the directions
+    ``d`` (three (R,) tensors), from the packed head ``fp``: three
+    channels, 0-dim for a uniform one; None for a sky map, whose lookup is
+    the caller's (``Background.sample``)."""
+    bg_a = fp[_BG:_BG + 3].unbind()
+    if bg_kind == B.UNIFORM:
+        return list(bg_a)
+    if bg_kind != B.GRADIENT:
+        return None
+    bg_b = fp[_BG + 3:_BG + 6].unbind()
+    dx, dy, dz = d
+    norm = 1.0 / torch.sqrt(_dot3(dx, dy, dz, dx, dy, dz))
+    tt = 0.5 * (dy * norm + 1.0)
+    return [(1.0 - tt) * bg_a[c] + tt * bg_b[c] for c in range(3)]
+
+
 def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
                 mat, kind, u, forced=None, decisions=None):
     """The rest of a bounce once each ray's winner is known, shared by the
@@ -204,21 +221,14 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     al, fuzz, ir, em = mat[0:3], mat[3], mat[4], mat[5:8]
     u1, u2, u_coin = u[:3]
     zero = torch.zeros_like(a)
-    bg_a = fp[_BG:_BG + 3].unbind()
-    bg_b = fp[_BG + 3:_BG + 6].unbind()
 
-    # background on a miss (a sky map's is added by the caller, the env
-    # replay of diff/replay.py)
+    # background on a miss (a sky map's is added by the caller: the BVH
+    # walk's plain version, the replay of diff/replay.py)
     missed = alive & ~hit
-    if bg_kind == B.UNIFORM:
-        rad = [rad[c] + torch.where(missed, thr[c] * bg_a[c], 0.0)
+    bg = background(fp, bg_kind, d)
+    if bg is not None:
+        rad = [rad[c] + torch.where(missed, thr[c] * bg[c], 0.0)
                for c in range(3)]
-    elif bg_kind == B.GRADIENT:
-        norm = 1.0 / torch.sqrt(_dot3(dx, dy, dz, dx, dy, dz))
-        tt = 0.5 * (dy * norm + 1.0)
-        rad = [rad[c] + torch.where(
-            missed, thr[c] * ((1.0 - tt) * bg_a[c] + tt * bg_b[c]), 0.0)
-            for c in range(3)]
 
     front = (_dot3(dx, dy, dz, nx, ny, nz) < 0.0 if forced is None
              else forced["front"])

@@ -11,6 +11,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..models.backgrounds import SKYMAP
 from ..models.scene import MODE_CLAY, Scene
 from ..ops import bvh_kernel as BK
 from ..ops import megakernel as K
@@ -65,8 +66,17 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
     XLA integrator, which the port lacks; here they take the env path too,
     and without their BVH they raise (ROADMAP A6, A10).  It renders the
     small scenes with volumes, mixes or isotropic materials (such as
-    scenes/material_zoo.json) on its brute kernel; here they take #5 until
-    the brute kernels gain those branches (ROADMAP A5)."""
+    scenes/material_zoo.json), and sky-map scenes of up to 128 spheres
+    (its ``supports``), on its brute kernel; here they take #5 until the
+    brute kernels gain those branches (ROADMAP A5), and without their BVH
+    they raise naming A5.  It renders the Normal and Random views of a sky
+    map with its XLA integrator; here #5 renders every view (of a scene
+    without its BVH they raise naming ROADMAP A6).  A view has no
+    gradient: with ``grad`` it raises ValueError."""
+    if grad and scene.settings.mode in BK.VIEWS:
+        raise ValueError(f"the {scene.settings.mode} view is an inspection "
+                         "view, not a loss surface: it has no gradient (as "
+                         "in the JAX package)")
     if env_is_active(scene):
         if scene.cbvh is None:
             raise NotImplementedError(
@@ -101,20 +111,23 @@ def pixel_radiance(scene: Scene, width: int, height: int,
     [0, clamp_indirect], then averaged over the pixel's samples.
     Differentiable in the scene's leaves on every path: the brute path's
     gradient kernel, the BVH path's record walk and replay, or the env
-    path's replay (in the sky's texels too)."""
+    path's replay (a sky map's texels too, on either of the last two); a
+    view (Normal, Random) has no gradient."""
     s = scene.settings
     spp = s.samples_per_pixel
     opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
                 clay=s.mode == MODE_CLAY)
     engine = select_engine(scene, grad=wants_grad(scene))
+    sky = (scene.to(device).background
+           if scene.background.kind == SKYMAP else None)
     if engine == "env":
-        rad = BK.env_radiance(BK.pack(scene, width, height, device),
-                              scene.to(device).background, key,
-                              width * height, spp, width,
+        rad = BK.env_radiance(BK.pack(scene, width, height, device), sky,
+                              key, width * height, spp, width,
                               max_depth=s.max_ray_depth)
     elif engine == "bvh":
         rad = BK.radiance(BK.pack(scene, width, height, device), key,
-                          width * height, spp, width, **opts)
+                          width * height, spp, width, sky=sky,
+                          debug=BK.VIEWS.get(s.mode), **opts)
     else:
         fparams = K.pack_fparams(scene, width, height).to(device)
         kinds = K.sphere_kinds(scene).to(device)

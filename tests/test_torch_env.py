@@ -370,8 +370,9 @@ def test_env_gradients_match_jax(jax_refs):
 
 def test_env_gate_and_refusals():
     """Env-IS scenes with their BVH take the env path at any size, fog
-    included; a sky map without importance sampling and env-IS without a
-    BVH raise, naming their ROADMAP item."""
+    included; env-IS without a BVH raises, naming its ROADMAP item; a sky
+    map without importance sampling (or in Clay mode, where the flag does
+    not apply) takes #5's sky-map variant."""
     b = env_builder(T)
     assert select_engine(b.build(with_bvh=True)) == "env"
     with pytest.raises(NotImplementedError, match="ROADMAP A6"):
@@ -379,12 +380,10 @@ def test_env_gate_and_refusals():
     naive = env_builder(T)
     naive.settings = dataclasses.replace(naive.settings,
                                          env_importance_sampling=False)
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        select_engine(naive.build(with_bvh=True))
+    assert select_engine(naive.build(with_bvh=True)) == "bvh"
     clay = env_builder(T)
     clay.settings = dataclasses.replace(clay.settings, mode="Clay")
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        select_engine(clay.build(with_bvh=True))
+    assert select_engine(clay.build(with_bvh=True)) == "bvh"
     fog = env_builder(T)
     fog.objects.append({"kind": "sphere", "center": (0, 0.5, 0),
                         "radius": 0.3, "material": 0,

@@ -692,3 +692,138 @@ def test_deep_cornell_fit_on_card(cuda_device):
     assert (TB.RECORD_LAUNCHES - counts[0], TF.FETCH_LAUNCHES - counts[1],
             TR.LAUNCHES - counts[2]) == (3, 3, 0)
     assert all(np.isfinite(history)) and history[-1] < history[0]
+
+
+# ------- the sky map without importance sampling, and the views, on #5
+
+
+def _sky(scene, h=32, w=64):
+    """The scene under _env's seeded sky, with importance sampling off;
+    every texel distinct, so equal radiance means the same texel."""
+    scene = _env(scene, h, w)
+    return dataclasses.replace(scene, settings=dataclasses.replace(
+        scene.settings, env_importance_sampling=False))
+
+
+def _view(scene, mode):
+    return dataclasses.replace(scene, settings=dataclasses.replace(
+        scene.settings, mode=mode))
+
+
+def _variant_both(scene, w, h, seed, device):
+    """(kernel, plain) per-ray radiance of the same rays on the card, the
+    sky-map variant or the view as the scene asks."""
+    s = scene.settings
+    sc = TB.pack(scene, w, h, device)
+    sky = (scene.to(device).background if scene.background.kind == 2
+           else None)
+    opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
+                clay=s.mode == "Clay", sky=sky,
+                debug=TB.VIEWS.get(s.mode))
+    key = trng.base_key(seed)
+    spp = s.samples_per_pixel
+    ker = TB.radiance_bvh_cuda(sc, key, w * h * spp, spp, w, **opts)
+    torch.cuda.synchronize()
+    ids, px, py = TK.prep_rays(torch.arange(w * h, device=device), spp, w)
+    return ker, TB.radiance_bvh_plain(sc, key, ids, px, py, **opts)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("make", [
+    lambda: _sky(_stress()), lambda: _sky(_sheet()),
+    lambda: _sky(_stress("Clay")), lambda: _sky(_zoo(depth=4))],
+    ids=["stress", "sheet", "stress-clay", "zoo"])
+def test_bvh_sky_kernel_matches_plain_on_card(cuda_device, make):
+    """#5's sky-map variant (the texel looked up in the kernel) bit for bit
+    equal to its plain version (``Background.sample`` on the card) at
+    depth 1 and at full depth; each launch counts as a sky launch."""
+    scene = make()
+    d1 = dataclasses.replace(scene, settings=dataclasses.replace(
+        scene.settings, max_ray_depth=1))
+    for sc in (d1, scene):
+        before = (TB.SKY_LAUNCHES, TB.LAUNCHES)
+        ker, plain = _variant_both(sc, 48, 40, 7, cuda_device)
+        assert (TB.SKY_LAUNCHES, TB.LAUNCHES) == (before[0] + 1, before[1])
+        assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+        assert ker.abs().sum() > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["Normal", "Random"])
+@pytest.mark.parametrize("make", [_stress, lambda: _sky(_sheet()), _zoo],
+                         ids=["stress", "sky-sheet", "zoo"])
+def test_bvh_view_kernel_matches_plain_on_card(cuda_device, make, mode):
+    """#5's views (one intersection, the fog's free flight from bounce
+    stream 1) bit for bit equal to their plain version on a gradient
+    background, a sky map and the zoo; each launch counts as a view
+    launch; a view refuses a gradient."""
+    scene = _view(make(), mode)
+    before = (TB.VIEW_LAUNCHES, TB.LAUNCHES, TB.SKY_LAUNCHES)
+    ker, plain = _variant_both(scene, 48, 40, 7, cuda_device)
+    assert (TB.VIEW_LAUNCHES, TB.LAUNCHES, TB.SKY_LAUNCHES) == (
+        before[0] + 1, before[1], before[2])
+    assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+    img = T.render_linear(scene, 32, 24, seed=0, device=cuda_device)
+    assert TB.VIEW_LAUNCHES == before[0] + 2
+    assert bool(torch.isfinite(img).all()) and img.std() > 0
+    scene.materials.albedo.requires_grad_(True)
+    with pytest.raises(ValueError, match="no gradient"):
+        T.render_linear(scene, 8, 8, device=cuda_device)
+
+
+@pytest.mark.gpu
+def test_sky_fit_on_card(cuda_device):
+    """A sky map without importance sampling under autograd: the record
+    kernel, #6 and the replay with the sky on a miss; the gradient in the
+    packed tensors and the sky's texels through the kernels (#7 under the
+    fetch's backward) agrees with the plain route within rtol 2e-3 of each
+    entry plus 2e-5 of the largest (the head has none: under a sky map no
+    term of the radiance depends smoothly on the camera); fit launches
+    record #5, #6 and #7 once a step, no #8, and its loss falls."""
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.ops import fetch as TF
+    from raytracingrust_tpu_torch.ops import occlusion as TO
+
+    scene = _sky(_sheet())
+    w, h = 64, 48
+    sc, key, spp, _ = _record_inputs(scene, w, h, 5, cuda_device)
+    depth = scene.settings.max_ray_depth
+    sky = scene.to(cuda_device).background
+    cts = torch.tensor(np.random.default_rng(1).standard_normal(
+        (w * h * spp, 3)), dtype=torch.float32, device=cuda_device)
+    grads = []
+    for route in (False, True):
+        rows = [None if v is None else v.detach().requires_grad_(True)
+                for v in TB._rows(sc)]
+        img = sky.image.detach().requires_grad_(True)
+        live = [v for v in rows if v is not None] + [img]
+        rad = TB.env_radiance(sc.with_rows(*rows),
+                              dataclasses.replace(sky, image=img), key,
+                              w * h, spp, w, max_depth=depth, plain=route,
+                              mis=False)
+        # no term depends smoothly on the camera: the head's is None
+        grads.append(torch.autograd.grad(rad, live, cts,
+                                         allow_unused=True))
+    for a, b in zip(*grads):
+        assert (a is None) == (b is None)
+        if a is None:
+            continue
+        assert bool(torch.isfinite(a).all())
+        tol = 2e-3 * b.abs() + 2e-5 * b.abs().max()
+        assert bool(((a - b).abs() <= tol).all())
+    assert grads[0][1].abs().sum() > 0 and grads[0][-1].abs().sum() > 0
+
+    target = T.render_linear(TG.apply_params(scene, {
+        "albedo": scene.materials.albedo * 0.6}), 32, 24, seed=1,
+        device=cuda_device)
+    counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TF.TRANSPOSE_LAUNCHES,
+              TO.LAUNCHES)
+    # the target's own rays (seed 1, held): a sun far above the clamp
+    # makes a fresh seed's loss noisier than three steps' gain
+    _, _, history = fit(scene, target, ["albedo", "emission"], 32, 24,
+                        steps=3, device=cuda_device, seed=1,
+                        resample_every=0)
+    assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TF.TRANSPOSE_LAUNCHES,
+            TO.LAUNCHES) == (counts[0] + 3, counts[1] + 3, counts[2] + 3,
+                             counts[3])
+    assert all(np.isfinite(history)) and history[-1] < history[0]

@@ -124,14 +124,18 @@ def test_envelope_refusals(tmp_path):
     # a small sphere scene built with its BVH still takes the brute kernel
     bench = TBuilder.from_file(SCENES["benchmark"]).build(with_bvh=True)
     assert bench.cbvh is not None and select_engine(bench) == "brute"
-    # a SkyMap loads; without importance sampling the brute kernel's
-    # naive lookup is still to port
+    # a SkyMap loads; without importance sampling the BVH kernel takes it,
+    # and without the BVH the brute kernel's naive lookup is still to port
     sky = str(tmp_path / "sky.exr")
     write_exr(sky, np.full((4, 8, 3), 0.5, np.float32))
     bench.background = TB.Background.from_json({"type": "SkyMap",
                                                  "path": sky})
+    assert select_engine(bench) == "bvh"
+    img = render_linear(bench, 8, 6, device="cpu")
+    assert img.shape == (6, 8, 3) and bool(torch.isfinite(img).all())
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-        render_linear(bench, 8, 6, device="cpu")
+        render_linear(dataclasses.replace(bench, cbvh=None), 8, 6,
+                      device="cpu")
     mesh = {"camera": {}, "settings": {}, "background": {}, "objects": [
         {"type": "Volume", "neg_inv_density": -1.0, "boundary": {
             "type": "Mesh", "path": "m.obj", "material": 0}}],
