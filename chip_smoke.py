@@ -127,7 +127,24 @@ non-zero exit, and prints no result:
    variant and the views, no other kernel), the warm sky renders, the
    CLI fit of sky_bvh_stress at 512x512 (record #5, #6, #7 six times,
    never #8; the loss must fall) and the warm fit step at 1000x1000 with
-   its breakdown and peak memory.
+   its breakdown and peak memory;
+12. mesh-bounded volumes on #5: "fog_sheet" (phase 7's sheet of 8,192
+   triangles with its metal and emissive spheres under a gradient
+   background, an icosphere of 2,048 triangles bounding a fog of an
+   isotropic material, and a 12-triangle cube bounding a fog of a mix;
+   written as JSON and OBJs to build/smoke/) at 1000x1000 with its own
+   spp 8 and depth 6: #5's mesh-volume variant (the dense crossing scan
+   of each fog's boundary) bit for bit equal to its plain version at
+   depth 1 and depth 6 on every ray, and the Normal and Random views on
+   every ray, each timed with its bound from the plain run's count of
+   Moller-Trumbore tests; at the fit's frame 512x512, phase 8's list (the
+   record codes, #6 raw with the fogs' codes, #7 against its float64
+   sums, the replay's forward, the gradient against the plain route)
+   with an FD probe on the icosphere's phase albedo.  Then the CLI
+   ``render`` (1000x1000), the two views and ``fit`` (512x512, albedo and
+   emission, 6 steps; the loss must fall), each launching the mesh-volume
+   variants and no other kernel of the path, and the warm render and fit
+   step with a ``torch.profiler`` breakdown and the peak memory.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
@@ -136,9 +153,10 @@ backward, the fused kernel's in the CLI fit, the BVH kernel's in the CLI
 renders of phase 7, the record variant's, #6's and #7's in the CLI fit of
 phase 8, #8's in the CLI renders of phase 9, and phase 10's entries of #5,
 its record variant, #6, #7 and #8 on the zoo and sky_zoo from its CLI
-render, fit and env render, and phase 11's sky-map variant and views of
-#5 from its CLI renders; the other paths' counts are in the phase
-lines), and its least
+render, fit and env render, phase 11's sky-map variant and views of #5
+from its CLI renders, and phase 12's mesh-volume variants of #5, its
+record walk, views, #6 and #7 from its CLI render, views and fit; the
+other paths' counts are in the phase lines), and its least
 possible time for one forward and one reverse sweep of the FP32
 operations the run's rays traced, or for the bytes it must move; the last
 line is
@@ -226,6 +244,12 @@ OPS_ISO = 45
 # the Normal view's hit (bvh_forward.cu bvh_view_kernel): the hit point,
 # the normal, the face, its length (5, sqrtf, the division), the colour
 OPS_VIEW_HIT = 40
+# csrc/bvh_walk.cuh mesh_volume_scan, counted from its source: per boundary
+# triangle a scan tests, triangle_raw (h, det, s, u, q, v, t: 43) with its
+# 5 compares and the floor and min compares; per window a ray crosses, the
+# window (4), the draw's float part, logf (~20) and the free flight (4)
+OPS_MV_TEST = 50
+OPS_MV_DRAW = 29
 
 
 def _cuda_time_ms(fn, reps: int) -> float:
@@ -401,7 +425,7 @@ def _reset_launches() -> None:
     from raytracingrust_tpu_torch.ops import radiance_grad as RG
 
     BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
-    BK.SKY_LAUNCHES = BK.VIEW_LAUNCHES = 0
+    BK.SKY_LAUNCHES = BK.VIEW_LAUNCHES = BK.MV_LAUNCHES = 0
     F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = RG.LAUNCHES = MS.LAUNCHES = 0
 
 
@@ -415,7 +439,7 @@ def _launches() -> dict:
     from raytracingrust_tpu_torch.ops import radiance_grad as RG
 
     return dict(fwd=BK.LAUNCHES, sky=BK.SKY_LAUNCHES, view=BK.VIEW_LAUNCHES,
-                record=BK.RECORD_LAUNCHES,
+                record=BK.RECORD_LAUNCHES, mv=BK.MV_LAUNCHES,
                 fetch=F.FETCH_LAUNCHES, transpose=F.TRANSPOSE_LAUNCHES,
                 occlusion=OC.LAUNCHES, brute=K.LAUNCHES, grad=RG.LAUNCHES,
                 fused=MS.LAUNCHES)
@@ -495,8 +519,10 @@ def _grad_check(label, got, want) -> float:
     return err
 
 
-def _scene_bytes(sc, trees=("spheres", "volumes", "triangles")) -> int:
-    """Bytes of a packed scene's tensors: head, tables, the trees'."""
+def _scene_bytes(sc, trees=("spheres", "volumes", "triangles",
+                            "mesh_vols")) -> int:
+    """Bytes of a packed scene's tensors: head, tables, the trees' and the
+    mesh volumes' boundary rows."""
     import torch
 
     return sum(t.numel() * t.element_size() for t in (
@@ -521,6 +547,8 @@ def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
            + tally["volume_tests"] * OPS_VOL_TEST
            + tally["volume_draws"] * OPS_VOL_DRAW
            + tally["triangle_tests"] * OPS_TRI_TEST
+           + tally["mv_tests"] * OPS_MV_TEST
+           + tally["mv_draws"] * OPS_MV_DRAW
            + sum(hits) * (OPS_HIT + (OPS_MIX_HIT if sc.mixes is not None
                                      else 0))
            + sum(n * lobe[k] for k, n in enumerate(hits))
@@ -587,7 +615,10 @@ def _per_ray(tally, n_rays: int) -> str:
             f"{tally['sphere_tests'] / n_rays:.1f} sphere, "
             f"{tally['volume_tests'] / n_rays:.3f} volume and "
             f"{tally['triangle_tests'] / n_rays:.1f} triangle tests, "
-            f"{tally['volume_draws'] / n_rays:.3f} free flights")
+            f"{tally['volume_draws'] / n_rays:.3f} free flights"
+            + (f", {tally['mv_tests'] / n_rays:.1f} mesh-volume triangle "
+               f"tests, {tally['mv_draws'] / n_rays:.3f} mesh-volume "
+               f"windows" if tally["mv_tests"] else ""))
 
 
 def _record_check(label, sc, key, n_pix: int, spp: int, width: int,
@@ -645,7 +676,8 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
     from raytracingrust_tpu_torch.ops import fetch as F
 
     args = (codes, *BK.fetch_inputs(sc))
-    kinds, tri_base, sph_mat, tri_mat, mats, sph_geo, tri_geo, raw = args[1:]
+    (kinds, tri_base, sph_mat, tri_mat, mats, sph_geo, tri_geo, raw, mv_base,
+     mv_mat) = args[1:]
     rows, kind = F.fetch_rows_cuda(*args)
     p_rows, p_kind = F.fetch_rows_plain(*args)
     if not (torch.equal(rows.view(torch.int32), p_rows.view(torch.int32))
@@ -660,7 +692,8 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
                          generator=torch.Generator(dev).manual_seed(seed))
     sizes = (kinds.shape[0], 0 if sph_geo is None else sph_geo.shape[0],
              0 if tri_geo is None else tri_geo.shape[0])
-    targs = (codes, g_rows, tri_base, sph_mat, tri_mat, *sizes, raw)
+    targs = (codes, g_rows, tri_base, sph_mat, tri_mat, *sizes, raw, mv_base,
+             mv_mat)
     # float32 sums of ~1e5 terms of both signs (the ground sphere, a few
     # materials) differ from the exact sum, in any order, by more than
     # 1e-5 of the result, so the bound is 1e-5 of the magnitudes added
@@ -716,10 +749,14 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
     n = codes.numel()
     valid = flat >= 0
     hits = int(valid.sum())
-    n_tri = int((valid & ((flat & BK.REC_SLOT) >= tri_base)).sum())
-    moved = 4 * (hits - n_tri) + 12 * n_tri + (0 if raw else 8 * hits)
+    slots = flat & BK.REC_SLOT
+    n_mv = 0 if mv_base is None else int((valid & (slots >= mv_base)).sum())
+    n_tri = int((valid & (slots >= tri_base)).sum()) - n_mv
+    # a mesh volume's winner moves no geometry
+    moved = (4 * (hits - n_tri - n_mv) + 12 * n_tri
+             + (0 if raw else 8 * hits))
     table_bytes = sum(t.numel() * t.element_size() for t in (
-        sph_mat, tri_mat, sph_geo, tri_geo,
+        sph_mat, tri_mat, sph_geo, tri_geo, mv_mat,
         *(() if raw else (mats, kinds))) if t is not None)
     bounds = (
         # codes in; the rows and the kind out a code
@@ -759,11 +796,11 @@ def _bvh_grad_check(label, sc, key, n_pix: int, spp: int, width: int,
 
 
 def _fd_probe(label, scene, dev, width: int, height: int, key, probe,
-              gen) -> tuple:
+              gen, rows=None) -> tuple:
     """A directional finite-difference probe of ``make_loss`` along a
-    numpy-seeded direction in the ``probe`` parameters, against a target
-    at 0.9 of the scene's own render: AD within 5% of the central
-    difference.  -> (AD, FD)."""
+    numpy-seeded direction in the ``probe`` parameters (only in their rows
+    ``rows[name]`` where given), against a target at 0.9 of the scene's own
+    render: AD within 5% of the central difference.  -> (AD, FD)."""
     import torch
 
     from raytracingrust_tpu_torch.diff import grad as G
@@ -775,6 +812,10 @@ def _fd_probe(label, scene, dev, width: int, height: int, key, probe,
     v = {k: torch.tensor(gen.standard_normal(tuple(p.shape)),
                          dtype=torch.float32, device=dev)
          for k, p in params.items()}
+    for k, at in (rows or {}).items():
+        keep = torch.zeros_like(v[k])
+        keep[at] = 1.0
+        v[k] = v[k] * keep
     with torch.no_grad():
         target = render_linear(sc_dev, width, height, seed=12,
                                device=dev) * 0.9
@@ -791,7 +832,7 @@ def _fd_probe(label, scene, dev, width: int, height: int, key, probe,
 
 
 def _fit_path(label, scene, sc, key, width: int, height: int, opts: dict,
-              gen, probe, sky=None) -> dict:
+              gen, probe, sky=None, probe_rows=None) -> dict:
     """The BVH fit path's kernels at ``sc``'s frame against their plain
     versions on the same inputs (:func:`_record_check`,
     :func:`_fetch_check`), the replay's forward within REPLAY_ATOL of
@@ -832,7 +873,7 @@ def _fit_path(label, scene, sc, key, width: int, height: int, opts: dict,
                                          width, opts["max_depth"], gen,
                                          mis=False)
     ad, fd = _fd_probe(label, scene, sc.device, width, height, key, probe,
-                       gen)
+                       gen, probe_rows)
     ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
         sc, key, n_rays, spp, width, record=True, **rec_opts), 5)
     ops = _bvh_ops(sc, tally, n_rays, rec_opts["bg_kind"], record=True)
@@ -1877,13 +1918,11 @@ def sky_phase(dev, card: str) -> list:
             sc = BK.pack(scene, n, n, dev)
         sky = scene.to(dev).background
         opts = dict(max_depth=depth, bg_kind=B.SKYMAP, clay=False, sky=sky)
-        main = label == "sky_bvh_stress"
-        out[label] = r = _forward_check(label, sc, key, n * n, spp, n, opts,
-                                        tally=main)
+        out[label] = r = _forward_check(label, sc, key, n * n, spp, n, opts)
         work = (f"per ray {_per_ray(r['tally'], n * n * spp)}, "
                 f"{int(r['tally']['sky_texels'].sum())} texels looked up; "
                 f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}; "
-                f"{r['ops']:.4g} FP32 operations); " if main else "")
+                f"{r['ops']:.4g} FP32 operations); ")
         print(f"phase 11 {label} {n}x{n} spp {spp} depth {depth} "
               f"({len(scene.spheres)} spheres, {len(scene.triangles)} "
               f"triangles; sky {tuple(sky.image.shape)}, importance "
@@ -2026,6 +2065,251 @@ def sky_phase(dev, card: str) -> list:
                    for v in ("normal", "random")),
                view["normal"]["ms"], view["normal"]["plain_ms"],
                view["normal"]["bound"]),
+    ]
+
+
+# phase 12: mesh-bounded volumes (fog inside a triangle mesh)
+FOG_SIZE = 1000  # the render's frame, the scene's own spp 8 and depth 6
+FOG_FIT_SIZE = 512  # the fit's frame
+FOG_ICO_SUBDIV = 4  # 8 * 4^4 = 2,048 boundary triangles
+CUBE_FACES = ((1, 2, 4), (1, 4, 3), (5, 7, 8), (5, 8, 6), (1, 5, 6),
+              (1, 6, 2), (3, 4, 8), (3, 8, 7), (1, 3, 7), (1, 7, 5),
+              (2, 6, 8), (2, 8, 4))
+
+
+def _icosphere_obj(path: str, center, radius: float, subdiv: int) -> None:
+    """tests/test_mesh_volume.py::_icosphere's recipe (an octahedron
+    subdivided ``subdiv`` times onto the sphere, 8 * 4^subdiv triangles)
+    as an OBJ."""
+    import numpy as np
+
+    verts = [np.asarray(v, np.float64) for v in (
+        (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))]
+    faces = [(0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4), (2, 0, 5),
+             (1, 2, 5), (3, 1, 5), (0, 3, 5)]
+    for _ in range(subdiv):
+        cache, new = {}, []
+
+        def mid(i, j):
+            k = (min(i, j), max(i, j))
+            if k not in cache:
+                m = verts[i] + verts[j]
+                verts.append(m / np.linalg.norm(m))
+                cache[k] = len(verts) - 1
+            return cache[k]
+
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            new += [(a, ab, ca), (ab, b, bc), (ca, bc, c), (ab, bc, ca)]
+        faces = new
+    v = (np.asarray(verts, np.float32) * np.float32(radius)
+         + np.asarray(center, np.float32))
+    with open(path, "w") as f:
+        f.write("".join(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in v))
+        f.write("".join(f"f {a + 1} {b + 1} {c + 1}\n" for a, b, c in faces))
+
+
+def _cube_obj(path: str, center, half: float) -> None:
+    """tests/test_mesh_volume.py::_cube_mesh's 12 triangles as an OBJ."""
+    with open(path, "w") as f:
+        for x in (-half, half):
+            for y in (-half, half):
+                for z in (-half, half):
+                    f.write(f"v {center[0] + x:.9g} {center[1] + y:.9g} "
+                            f"{center[2] + z:.9g}\n")
+        f.write("".join(f"f {a} {b} {c}\n" for a, b, c in CUBE_FACES))
+
+
+def fog_scene() -> str:
+    """"fog_sheet", written as JSON (and OBJs) to OUT_DIR: phase 7's sheet
+    of 8,192 triangles with its metal and emissive spheres, under a
+    gradient background; an icosphere of 2,048 triangles bounding a fog of
+    an isotropic material; a 12-triangle cube bounding a fog whose material
+    is a mix of an isotropic and a Lambertian phase
+    (tests/test_pallas_bvh_mixn.py's mix/cube combo).  -> its path."""
+    from raytracingrust_tpu_torch import (Background, Camera, Emission,
+                                          Isotropic, Lambertian, Metal,
+                                          MixMaterial, RenderSettings,
+                                          SceneBuilder)
+    from raytracingrust_tpu_torch.models.mesh import Mesh
+
+    sheet = os.path.join(OUT_DIR, "sheet64.obj")
+    if not os.path.exists(sheet):
+        _sheet_obj(sheet, 64)
+    ico = os.path.join(OUT_DIR, "fog_icosphere.obj")
+    _icosphere_obj(ico, (-0.3, 0.9, 0.2), 0.7, FOG_ICO_SUBDIV)
+    cube = os.path.join(OUT_DIR, "fog_cube.obj")
+    _cube_obj(cube, (1.2, 0.5, -0.9), 0.35)
+    b = SceneBuilder()
+    b.camera = Camera.create((0, 2.5, 4), (0, 0, 0), (0, 1, 0), 55.0, 1.0)
+    b.settings = RenderSettings(samples_per_pixel=8, max_ray_depth=6)
+    b.background = Background.gradient((0.5, 0.7, 1.0), (1.0, 1.0, 1.0))
+    ml = b.add_material(Lambertian((0.6, 0.5, 0.3)))
+    mm = b.add_material(Metal((0.9, 0.85, 0.8), 0.05))
+    me = b.add_material(Emission((2.5, 2.2, 1.8)))
+    iso = b.add_material(Isotropic((0.8, 0.8, 0.9)))
+    mix = b.add_material(MixMaterial(Isotropic((0.9, 0.4, 0.3)),
+                                     Lambertian((0.2, 0.6, 0.3)), 0.5))
+    b.add_mesh(Mesh.from_file(sheet, ml))
+    b.add_sphere((0.8, 1.2, 0.0), 0.4, mm)
+    b.add_sphere((-1.2, 1.8, 0.5), 0.35, me)
+    b.add_volume(b.add_mesh(Mesh.from_file(ico, iso)), 1.5)
+    b.add_volume(b.add_mesh(Mesh.from_file(cube, mix)), 3.0)
+    path = os.path.join(OUT_DIR, "fog_sheet.json")
+    b.save(path)
+    return path
+
+
+def fog_phase(dev, card: str) -> list:
+    """Phase 12; -> the report entries of #5's mesh-volume variants (the
+    forward, the record walk, the views) and of #6 and #7 on their
+    codes."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.models import materials as M
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.render.render import select_engine
+    from raytracingrust_tpu_torch.utils import rng
+
+    path = fog_scene()
+    key = rng.base_key(11)
+    gen = np.random.default_rng(12)
+    n = FOG_SIZE
+    scene = _load(path)
+    if select_engine(scene) != "bvh" or select_engine(scene,
+                                                      grad=True) != "bvh":
+        raise AssertionError("fog_sheet is not sent to #5")
+    s = scene.settings
+    spp, depth = s.samples_per_pixel, s.max_ray_depth
+    n_rays = n * n * spp
+    boundary = int((scene.triangles.volume >= 0).sum())
+    opts = dict(max_depth=depth, bg_kind=scene.background.kind, clay=False)
+    with torch.no_grad():
+        sc = BK.pack(scene, n, n, dev)
+    if sc.n_mv != 2 or sc.mixes is None:
+        raise AssertionError(f"fog_sheet packs {sc.n_mv} mesh volumes")
+    fwd = _forward_check("fog_sheet", sc, key, n * n, spp, n, opts)
+    t = fwd["tally"]
+    print(f"phase 12 fog_sheet {n}x{n} spp {spp} depth {depth} "
+          f"({len(scene.spheres)} spheres, {len(scene.triangles)} triangles "
+          f"of which {boundary} bound {sc.n_mv} fogs, a mix): #5's "
+          f"mesh-volume variant == plain bit for bit at depth 1 and depth "
+          f"{depth} on all {n_rays} rays; per ray {_per_ray(t, n_rays)}; "
+          f"hits by kind {[t[f'hits_{k}'] for k in range(5)]}; #5 "
+          f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.1f} ms, bound "
+          f"{fwd['bound'][0]:.5f} ms ({fwd['bound'][1]}; {fwd['ops']:.4g} "
+          f"FP32 operations); {card}")
+
+    views = _view_check("fog_sheet", sc, key, n * n, spp, n, opts["bg_kind"],
+                        None)
+    print(f"phase 12 views of fog_sheet {n}x{n} spp {spp}: Normal and "
+          f"Random == plain bit for bit on all {n_rays} rays "
+          f"({views['tally']['view_hits']} hits); "
+          + "; ".join(f"{v} {views[v]['ms']:.4f} ms (plain "
+                      f"{views[v]['plain_ms']:.1f} ms, bound "
+                      f"{views[v]['bound'][0]:.5f} ms {views[v]['bound'][1]})"
+                      for v in ("normal", "random")))
+    del sc
+
+    # the fit's kernels at the fit's frame, the gradient, the FD probe on
+    # the icosphere fog's phase albedo
+    fw = FOG_FIT_SIZE
+    with torch.no_grad():
+        sc = BK.pack(scene, fw, fw, dev)
+    iso_row = int((scene.materials.kind == M.ISOTROPIC).nonzero()[0])
+    fp = _fit_path("fog_sheet", scene, sc, key, fw, fw, opts, gen,
+                   ["albedo"], probe_rows={"albedo": [iso_row]})
+    codes = fp["codes"]
+    fog_hits = int(((codes >= 0) & ((codes & BK.REC_SLOT) >= sc.mv_base))
+                   .sum())
+    if fog_hits == 0:
+        raise AssertionError("fog_sheet: no fog hit in the record")
+    _print_fit_path("phase 12", "fog_sheet", f"{fw}x{fw} spp {spp} depth "
+                    f"{depth} (the fit's frame; #6 raw)", fp,
+                    [f"albedo of material {iso_row}, the icosphere's phase"],
+                    f", {fog_hits} in the fogs")
+    del fp["codes"], codes, sc
+
+    # the main path, through the CLI entry: the render, the views, the fit
+    png = os.path.join(OUT_DIR, "fog_sheet.png")
+    _reset_launches()
+    _cli_render(path, png)  # the CLI's default 1000x1000
+    render_counts = _launches()
+    if (render_counts["fwd"], render_counts["mv"]) != (1, 1) or any(
+            v for k, v in render_counts.items() if k not in ("fwd", "mv")):
+        raise AssertionError(f"cli render of fog_sheet launched "
+                             f"{render_counts}")
+    _check_png(png, n, n, "fog_sheet")
+    view_flags = ["--width", str(n), "--height", str(n)]
+    _reset_launches()
+    for mode in ("Normal", "Random"):
+        _cli_render(path, os.path.join(OUT_DIR, f"fog_sheet_{mode}.png"),
+                    [*view_flags, "--mode", mode])
+    view_counts = _launches()
+    if (view_counts["view"], view_counts["mv"]) != (2, 2) or any(
+            v for k, v in view_counts.items() if k not in ("view", "mv")):
+        raise AssertionError(f"the CLI views of fog_sheet launched "
+                             f"{view_counts}")
+    for mode in ("Normal", "Random"):
+        _check_png(os.path.join(OUT_DIR, f"fog_sheet_{mode}.png"), n, n,
+                   f"fog_sheet {mode}")
+    dim = _write_scene(path, "fog_sheet_dim.json", dim=True)
+    target_png = os.path.join(OUT_DIR, "fog_fit_target.png")
+    size = ["--width", str(fw), "--height", str(fw)]
+    _cli_render(dim, target_png, size, seed=1)
+    steps = CLI_FIT_STEPS
+    fit_counts, first, final, text = _cli_fit(path, target_png)
+    if ((fit_counts["record"], fit_counts["mv"], fit_counts["fetch"],
+         fit_counts["transpose"]) != (steps,) * 4 or any(
+            fit_counts[k] for k in ("fwd", "sky", "view", "occlusion",
+                                    "brute", "grad", "fused"))):
+        raise AssertionError(f"cli fit of fog_sheet launched {fit_counts}"
+                             f"\n{text}")
+    print(f"phase 12 CLI: render {path} {n}x{n}: launches #5 "
+          f"{render_counts['fwd']} (mesh-volume variant "
+          f"{render_counts['mv']}); Normal and Random views {n}x{n}: "
+          f"launches {view_counts['view']}; fit {fw}x{fw}, {steps} steps of "
+          f"{CLI_FIT_PARAMS}: loss {first:.6f} -> {final:.6f}, launches "
+          f"record #5 {fit_counts['record']}, #6 {fit_counts['fetch']}, #7 "
+          f"{fit_counts['transpose']} (mesh-volume variant "
+          f"{fit_counts['mv']}); no other kernel")
+
+    # warm render and fit step at the main path's frames
+    best, mean = _warm_render(scene, n, n, dev, "fog_sheet")
+    print(f"phase 12 fog_sheet {n}x{n} spp {spp} depth {depth}: warm render "
+          f"{best:.4f} s, {n_rays / best / 1e6:.1f} primary Mrays/s (#5 "
+          f"mesh-volume variant), image mean {mean:.5f}; {card}")
+    target = (read_png(target_png)[..., :3].astype(np.float32) / 255.0) ** 2
+    r = _warm_fit(scene, target, CLI_FIT_PARAMS.split(","), fw, fw, dev)
+    if not r["history"][-1] < r["history"][0]:
+        raise AssertionError(f"the warm fog_sheet fit's loss did not fall: "
+                             f"{r['history']}")
+    print(f"phase 12 fog_sheet {fw}x{fw} fit step ({CLI_FIT_PARAMS}): "
+          f"first step {r['first_ms']:.1f} ms, warm step "
+          f"{r['warm_ms']:.3f} ms (median of {r['n']}), "
+          f"{fw * fw * spp / r['warm_ms'] / 1e3:.1f} primary Mrays/s "
+          f"fwd+bwd; peak memory {r['peak_gb']:.2f} GB; loss "
+          f"{r['history'][0]:.6f} -> {r['history'][-1]:.6f}; per step under "
+          f"torch.profiler: " + _parts(r["part"], (
+              "record #5", "#6", "#7", "replay forward", "replay backward",
+              "Adam", "busy"))
+          + f", host (warm step - busy) "
+          f"{r['warm_ms'] - r['part']['busy']:.3f} ms; {card}")
+
+    view = views["normal"]
+    return [
+        # the CLI render of fog_sheet; times at 1000x1000 spp 8 depth 6
+        _entry("bvh_forward_mv", "bvh_forward.cu", "1116",
+               render_counts["fwd"], fwd["err"], fwd["ms"], fwd["plain_ms"],
+               fwd["bound"]),
+        # the CLI fit of fog_sheet; times at 512x512 spp 8 depth 6
+        *_fit_entries(fp, fit_counts, "_mv"),
+        # the CLI views; times of the Normal view at 1000x1000 spp 8
+        _entry("bvh_view_mv", "bvh_forward.cu", "1706", view_counts["view"],
+               max(views[v]["err"] for v in ("normal", "random")),
+               view["ms"], view["plain_ms"], view["bound"]),
     ]
 
 
@@ -2531,6 +2815,9 @@ def main() -> int:
     # ---- 11. a sky map without importance sampling; the views
     sky = sky_phase(dev, card)
 
+    # ---- 12. mesh-bounded volumes: fog inside a triangle mesh
+    fog = fog_phase(dev, card)
+
     report = {"kernels": [
         # the CLI renders of phase 4; times at benchmark 512x512
         _entry("brute_forward_megakernel", "megakernel.cu", "2089", launches,
@@ -2545,7 +2832,8 @@ def main() -> int:
         *bvh_fit,  # the CLI fit of phase 8; times at bvh_stress 1000x1000
         env,  # the CLI renders of phase 9; times at sky_bvh_stress
         *zoo,  # phase 10's CLI runs; times at the zoo's full shapes
-        *sky]}  # phase 11's CLI runs; times at bvh_stress 1000x1000
+        *sky,  # phase 11's CLI runs; times at bvh_stress 1000x1000
+        *fog]}  # phase 12's CLI runs; times at fog_sheet's frames
     print(f"card: {card}; kernel build {build_s:.3f} s; the whole run "
           f"{time.perf_counter() - t_run:.1f} s")
     print(json.dumps(report))

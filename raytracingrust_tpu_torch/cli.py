@@ -117,12 +117,14 @@ def _engines(scene) -> tuple[str, str]:
 
     view = VIEWS.get(scene.settings.mode)
     sky = scene.background.kind == SKYMAP
+    scan = (f" with the crossing scan of {scene.num_mesh_volumes} mesh "
+            "volumes" if scene.num_mesh_volumes else "")
     names = {"env": ("env: record mode of #5, then the replay over #6 with "
                      "#8's shadow rays",
                      "env: the same, with #7 under the replay's backward"),
-             "bvh": (f"bvh: the {view} view of kernel #5" if view else
-                     "bvh: kernel #5, its sky-map variant" if sky else
-                     "bvh: kernel #5",
+             "bvh": (f"bvh: the {view} view of kernel #5{scan}" if view
+                     else f"bvh: kernel #5, its sky-map variant{scan}" if sky
+                     else f"bvh: kernel #5{scan}",
                      "bvh: record mode of #5 under a black background, then "
                      "the replay with the sky over #6 and #7" if sky else
                      "bvh: record mode of #5, then the replay over #6 and "
@@ -148,11 +150,14 @@ def cmd_info(args) -> int:
         tree = getattr(scene.cbvh, kind, None)
         trees[f"bvh_{kind}_nodes"] = tree.n_nodes if tree else 0
         trees[f"bvh_{kind}_chunks"] = tree.n_chunks if tree else 0
+    boundary = int((scene.triangles.volume >= 0).sum())
     print(json.dumps({
         "objects": len(builder.objects),
         "spheres": len(scene.spheres),
         "volumes": scene.spheres.num_volumes,
         "triangles": len(scene.triangles),
+        "mesh_volumes": scene.num_mesh_volumes,
+        "mesh_volume_triangles": boundary,
         "materials": len(builder.materials),
         **trees,
         "render_engine": render_engine,

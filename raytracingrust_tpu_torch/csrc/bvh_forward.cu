@@ -4,24 +4,40 @@
 // Replaces the forward of raytracingrust_tpu/ops/pallas_megakernel.py's
 // packet-traversal kernel: _make_bvh_kernel(record=False) over
 // _radiance_math's BVH branch, _traverse_tree, _sphere_chunk_hit,
-// _vol_chunk_hit, _tri_chunk_hit/_row_mt, _merge_leaf_rows and
+// _vol_chunk_hit, _tri_chunk_hit/_row_mt, _mv_min_t, _merge_leaf_rows and
 // _mixn_resolve, for the envelope of ops/bvh_kernel.py (solid spheres, up
-// to 8 sphere volumes and surface triangles; Lambertian, Metal,
-// Dielectric, Emission, Isotropic and mixes nested up to 4 levels; uniform
-// or gradient background; Full or Clay mode; any depth).  Per ray: the
-// jittered camera ray, then per bounce a stackless walk of the
-// solid-sphere chunk tree, then of the volume-sphere tree, then of the
-// triangle tree, each starting from the nearest hit of the walks before
-// it; the winner's mix resolved with the bounce's coins; then
-// radiance.cuh's lobes.  Output: per-ray RGB, (n_rays, 3) float32.
+// to 8 sphere volumes, surface triangles and up to 4 mesh volumes;
+// Lambertian, Metal, Dielectric, Emission, Isotropic and mixes nested up to
+// 4 levels; uniform, gradient or sky-map background; Full or Clay mode;
+// any depth).  Per ray: the jittered camera ray, then per bounce a
+// stackless walk of the solid-sphere chunk tree, then of the volume-sphere
+// tree, then of the surface-triangle tree, each starting from the nearest
+// hit of the walks before it, then the crossing scan of each mesh volume;
+// the winner's mix resolved with the bounce's coins; then radiance.cuh's
+// lobes.  Output: per-ray RGB, (n_rays, 3) float32.
 //
 // A bounce's uniforms are the JAX columns of stream 1 + b: with mixes the
 // four coins first (off = 4), then u1, u2, the coin and u_r at off + 0..3,
 // and volume v's free-flight uniform at off + 4 + v, which a volume
 // candidate draws (its own Threefry pair) only when the ray's window of it
-// is valid.  A volume's hit has the dummy normal (1, 0, 0).  The template
-// flag kExt compiles the volume walk, the mix rounds and the isotropic
-// lobe; a scene without them launches the variant without them.
+// is valid; mesh volume v's at off + 4 + n_vol + v, likewise.  A volume's
+// hit has the dummy normal (1, 0, 0).  The template flag kExt compiles the
+// volume walk, the mix rounds and the isotropic lobe; a scene without them
+// launches the variant without them.
+//
+// Mesh volumes (template flag kMv, which implies kExt; pallas_megakernel.py
+// :1620-1671): after the trees, each volume's dense crossing scan over its
+// boundary triangles (bvh_walk.cuh mesh_volume_scan): the entry at any t,
+// since a ray may start inside the medium, which a walk whose slab test
+// floors t at T_MIN cannot find; then the exit; then the free flight.  The
+// scan is two passes over every boundary triangle a bounce, the second only
+// for rays that found an entry.  It is dense, as in the JAX kernel: one
+// thread a ray, the warp's rays on the same triangle at the same time, so
+// each of its three float4 loads is a broadcast from L1 (a boundary of a
+// few thousand triangles is a few hundred KB, which L1 and L2 hold).  A
+// scene without mesh volumes launches the variants without the scan, so it
+// keeps the code it ran.  What bounds the scan: FP32 work, about 50
+// operations a triangle test.
 //
 // A sky map (template flag kSky): a ray that escapes adds its throughput
 // times the sky's nearest texel, looked up here (radiance.cuh
@@ -40,7 +56,8 @@
 // Record mode (template flag kRecord; _make_bvh_kernel(record=True)) also
 // writes each bounce's winner code, (max_depth, n_rays) int32, for the
 // replay gradient (diff/replay.py): the winner's slot in bits 0-26 (sphere
-// slots first, volume slots from vol_base, triangle slots from tri_base),
+// slots first, volume slots from vol_base, triangle slots from tri_base,
+// mesh volume v as mv_base + v),
 // the front face at bit 27, and at bits 28 and 29 the metal lobe's
 // above-the-surface test and the dielectric's reflect choice of the
 // resolved material, evaluated for every hit whatever its kind when the
@@ -132,14 +149,22 @@ __device__ __forceinline__ int resolve_mix(const MixTable& mx,
 }
 
 // The outward normal at the hit point p and the raw material id of the
-// ray's winner: a triangle's flat normal, a volume's dummy (1, 0, 0), a
-// sphere's (p - c) / r by true division.
-template <bool kExt>
+// ray's winner, the last pass that found a nearer hit: a volume's dummy
+// (1, 0, 0), a triangle's flat normal, a sphere's (p - c) / r by true
+// division.
+template <bool kExt, bool kMv = false>
 __device__ __forceinline__ int winner(const Tree& sph, const Tree& vol,
-                                      const Tree& tri, int w_sph, int w_vol,
-                                      int w_tri, float ptx, float pty,
+                                      const Tree& tri, const MeshVols& mv,
+                                      int w_sph, int w_vol, int w_tri,
+                                      int w_mv, float ptx, float pty,
                                       float ptz, float& nx, float& ny,
                                       float& nz) {
+  if (kMv && w_mv >= 0) {  // the mesh volumes' scan found a nearer hit
+    nx = 1.0f;
+    ny = 0.0f;
+    nz = 0.0f;
+    return __ldg(mv.mat + w_mv);
+  }
   if (w_tri >= 0) {  // the triangle pass found a nearer hit
     const float* g = tri.geo + 12 * w_tri;
     nx = __ldg(g + 9);
@@ -181,8 +206,9 @@ __device__ __forceinline__ bool start_ray(const float* __restrict__ head,
 
 // kExt: the scene has volumes, mixes or an isotropic material (a
 // compile-time flag, so scenes without them run the code they always ran).
-// kSky: the background is a sky map, looked up on a miss.
-template <bool kRecord, bool kExt, bool kSky>
+// kSky: the background is a sky map, looked up on a miss.  kMv: the scene
+// has mesh volumes, whose free flights draw from column mv_col0 + v.
+template <bool kRecord, bool kExt, bool kSky, bool kMv>
 __global__ void __launch_bounds__(kThreads)
 bvh_radiance_kernel(const float* __restrict__ head,
                     const float* __restrict__ mats,
@@ -191,7 +217,8 @@ bvh_radiance_kernel(const float* __restrict__ head,
                     uint32_t k1, int n_rays, int spp, int width,
                     int max_depth, int bg_kind, int clay, Sky sky,
                     float* __restrict__ out, int* __restrict__ rec,
-                    int rec_mask, int vol_base, int tri_base) {
+                    int rec_mask, int vol_base, int tri_base, MeshVols mv,
+                    int mv_col0, int mv_base) {
   __shared__ float f[kHead];
   int ray;
   Ray r;
@@ -215,13 +242,17 @@ bvh_radiance_kernel(const float* __restrict__ head,
     r.idz = 1.0f / r.dz;
 
     float t_best = INFINITY;
-    int w_sph = -1, w_vol = -1, w_tri = -1;
+    int w_sph = -1, w_vol = -1, w_tri = -1, w_mv = -1;
     walk<kSphereTree>(sph, leaf, r, t_best, w_sph);
     if (kExt && vol.n_nodes)
       walk<kVolumeTree>(vol, leaf, r, t_best, w_vol,
                         Flight{k0, k1, (uint32_t)ray, stream, off + 4,
                                sqrtf(r.a)});
     walk<kTriangleTree>(tri, leaf, r, t_best, w_tri);
+    if (kMv)
+      mesh_volume_scan(mv, r, t_best, w_mv,
+                       Flight{k0, k1, (uint32_t)ray, stream, mv_col0,
+                              sqrtf(r.a)});
 
     if (!(t_best < INFINITY)) {  // miss: the background ends the path
       float bg_r, bg_g, bg_b;
@@ -243,8 +274,8 @@ bvh_radiance_kernel(const float* __restrict__ head,
     const float pty = r.oy + t_best * r.dy;
     const float ptz = r.oz + t_best * r.dz;
     float nx, ny, nz;
-    int mid = winner<kExt>(sph, vol, tri, w_sph, w_vol, w_tri, ptx, pty, ptz,
-                           nx, ny, nz);
+    int mid = winner<kExt, kMv>(sph, vol, tri, mv, w_sph, w_vol, w_tri, w_mv,
+                                ptx, pty, ptz, nx, ny, nz);
     if (kExt && mx.first) {  // the mix coins: columns 0 .. 3
       float coin[4];
       uniform_pair(k0, k1, (uint32_t)ray, stream, 0u, coin[0], coin[1]);
@@ -267,7 +298,8 @@ bvh_radiance_kernel(const float* __restrict__ head,
                   r.dz, nx, ny, nz, u1, u2, u_coin, at_r, at_g, at_b, ndx,
                   ndy, ndz, scatters, code, u_r);
     if (kRecord) {
-      const int slot = w_tri >= 0               ? tri_base + w_tri
+      const int slot = (kMv && w_mv >= 0)     ? mv_base + w_mv
+                       : w_tri >= 0           ? tri_base + w_tri
                        : (kExt && w_vol >= 0) ? vol_base + w_vol
                                               : w_sph;
       rec[(size_t)b * n_rays + ray] =
@@ -303,15 +335,16 @@ bvh_radiance_kernel(const float* __restrict__ head,
 // The inspection views: one intersection of the camera ray, its volume
 // candidates drawing from bounce stream 1 at column `vol_col0` + ordinal
 // (after the mix coins and the lobe's four columns, as #5's first bounce
-// draws them); a hit gives 0.5 * (n / |n| + 1) of the front-facing normal n
-// (`normal`) or black, a miss the background (kSky: the sky map).  Depth 0
-// traces nothing.
-template <bool kSky>
+// draws them), its mesh volumes' (kMv) at `mv_col0` + v; a hit gives
+// 0.5 * (n / |n| + 1) of the front-facing normal n (`normal`) or black, a
+// miss the background (kSky: the sky map).  Depth 0 traces nothing.
+template <bool kSky, bool kMv>
 __global__ void __launch_bounds__(kThreads)
 bvh_view_kernel(const float* __restrict__ head, Tree sph, Tree vol, Tree tri,
                 int leaf, uint32_t k0, uint32_t k1, int n_rays, int spp,
                 int width, int max_depth, int bg_kind, Sky sky, int normal,
-                int vol_col0, float* __restrict__ out) {
+                int vol_col0, MeshVols mv, int mv_col0,
+                float* __restrict__ out) {
   __shared__ float f[kHead];
   int ray;
   Ray r;
@@ -323,13 +356,17 @@ bvh_view_kernel(const float* __restrict__ head, Tree sph, Tree vol, Tree tri,
     r.idy = 1.0f / r.dy;
     r.idz = 1.0f / r.dz;
     float t_best = INFINITY;
-    int w_sph = -1, w_vol = -1, w_tri = -1;
+    int w_sph = -1, w_vol = -1, w_tri = -1, w_mv = -1;
     walk<kSphereTree>(sph, leaf, r, t_best, w_sph);
     if (vol.n_nodes)
       walk<kVolumeTree>(vol, leaf, r, t_best, w_vol,
                         Flight{k0, k1, (uint32_t)ray, 1u, vol_col0,
                                sqrtf(r.a)});
     walk<kTriangleTree>(tri, leaf, r, t_best, w_tri);
+    if (kMv)
+      mesh_volume_scan(mv, r, t_best, w_mv,
+                       Flight{k0, k1, (uint32_t)ray, 1u, mv_col0,
+                              sqrtf(r.a)});
     if (!(t_best < INFINITY)) {
       if (kSky)
         sky_radiance(sky, r.dx, r.dy, r.dz, c_r, c_g, c_b);
@@ -337,9 +374,9 @@ bvh_view_kernel(const float* __restrict__ head, Tree sph, Tree vol, Tree tri,
         background(f, bg_kind, r.dx, r.dy, r.dz, c_r, c_g, c_b);
     } else if (normal) {
       float nx, ny, nz;
-      winner<true>(sph, vol, tri, w_sph, w_vol, w_tri,
-                   r.ox + t_best * r.dx, r.oy + t_best * r.dy,
-                   r.oz + t_best * r.dz, nx, ny, nz);
+      winner<true, kMv>(sph, vol, tri, mv, w_sph, w_vol, w_tri, w_mv,
+                        r.ox + t_best * r.dx, r.oy + t_best * r.dy,
+                        r.oz + t_best * r.dz, nx, ny, nz);
       const float sgn = dot3(r.dx, r.dy, r.dz, nx, ny, nz) < 0.0f ? 1.0f
                                                                   : -1.0f;
       nx = nx * sgn;
@@ -358,17 +395,41 @@ bvh_view_kernel(const float* __restrict__ head, Tree sph, Tree vol, Tree tri,
   o[2] = c_b;
 }
 
-template <bool kRecord, bool kExt, bool kSky>
-void launch(const float* head, const float* mats, const int* kinds,
-            const Tree& sph, const Tree& vol, const Tree& tri, int leaf,
-            const MixTable& mx, uint32_t k0, uint32_t k1, int n_rays,
-            int spp, int width, int max_depth, int bg_kind, int clay,
-            const Sky& sky, float* out, int* rec, int rec_mask, int vol_base,
-            int tri_base, cudaStream_t stream) {
-  bvh_radiance_kernel<kRecord, kExt, kSky><<<blocks_for(n_rays), kThreads, 0,
-                                             stream>>>(
-      head, mats, kinds, sph, vol, tri, leaf, mx, k0, k1, n_rays, spp, width,
-      max_depth, bg_kind, clay, sky, out, rec, rec_mask, vol_base, tri_base);
+// Everything one launch of the radiance kernel takes, whatever its variant.
+struct Args {
+  const float* head;
+  const float* mats;
+  const int* kinds;
+  Tree sph, vol, tri;
+  int leaf;
+  MixTable mx;
+  uint32_t k0, k1;
+  int n_rays, spp, width, max_depth, bg_kind, clay;
+  Sky sky;
+  float* out;
+  int* rec;
+  int rec_mask, vol_base, tri_base;
+  MeshVols mv;
+  int mv_col0, mv_base;
+};
+
+template <bool kRecord, bool kExt, bool kSky, bool kMv>
+void launch(const Args& a, cudaStream_t stream) {
+  bvh_radiance_kernel<kRecord, kExt, kSky, kMv>
+      <<<blocks_for(a.n_rays), kThreads, 0, stream>>>(
+          a.head, a.mats, a.kinds, a.sph, a.vol, a.tri, a.leaf, a.mx, a.k0,
+          a.k1, a.n_rays, a.spp, a.width, a.max_depth, a.bg_kind, a.clay,
+          a.sky, a.out, a.rec, a.rec_mask, a.vol_base, a.tri_base, a.mv,
+          a.mv_col0, a.mv_base);
+}
+
+template <bool kSky, bool kMv>
+void launch_view(const Args& a, int normal, int vol_col0,
+                 cudaStream_t stream) {
+  bvh_view_kernel<kSky, kMv><<<blocks_for(a.n_rays), kThreads, 0, stream>>>(
+      a.head, a.sph, a.vol, a.tri, a.leaf, a.k0, a.k1, a.n_rays, a.spp,
+      a.width, a.max_depth, a.bg_kind, a.sky, normal, vol_col0, a.mv,
+      a.mv_col0, a.out);
 }
 
 }  // namespace
@@ -382,8 +443,9 @@ void launch(const float* head, const float* mats, const int* kinds,
 // of solid spheres and triangles.  `sky` (the (sky_h, sky_w, 3) texels,
 // bg_kind kSkyMap) selects the sky variant, which the record walk does not
 // take.  `view` 1 (Normal) or 2 (Random) launches the inspection view
-// instead, forward only.  Launches on `stream` and returns
-// cudaGetLastError() of the launch.
+// instead, forward only.  The mesh volumes (mv_*, n_mv of them; their
+// codes from mv_base) select the variants with the crossing scan.
+// Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int rtrt_bvh_radiance(
     const float* head, const float* mats, const int* kinds, int n_mats,
     const float* s_nodes_f, const int* s_nodes_i, const int* s_len,
@@ -397,10 +459,16 @@ extern "C" int rtrt_bvh_radiance(
     uint32_t k0, uint32_t k1, int n_rays, int spp, int width, int max_depth,
     int bg_kind, int clay, float* out, int* rec, int rec_mask, int vol_base,
     int tri_base, const float* sky, int sky_h, int sky_w, int view,
+    const float* mv_geo, const int* mv_start, const int* mv_count,
+    const float* mv_nid, const int* mv_mat, int n_mv, int mv_base,
     void* stream) {
   const bool has_sky = bg_kind == kSkyMap;
+  const bool has_mv = n_mv > 0;
   if (n_mats < 1 || s_nodes < 0 || v_nodes < 0 || t_nodes < 0 ||
-      s_nodes + v_nodes + t_nodes < 1 || leaf < 1 || n_rays < 0 ||
+      (s_nodes + v_nodes + t_nodes < 1 && !has_mv) || leaf < 1 ||
+      n_rays < 0 || n_mv < 0 || n_mv > 4 ||
+      (has_mv && (!mv_geo || !mv_start || !mv_count || !mv_nid || !mv_mat ||
+                  mv_base < 0)) ||
       spp < 1 || width < 1 || n_vol < 0 || n_vol > 8 ||
       (v_nodes > 0 && (!v_nid || !v_ord)) ||
       (mix_first && (!mix_second || !mix_factor)) || bg_kind < kUniform ||
@@ -409,54 +477,65 @@ extern "C" int rtrt_bvh_radiance(
       (rec && (has_sky || view)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const Tree sph{s_nodes_f, s_nodes_i, s_len, s_geo, s_mat,
-                 nullptr,   nullptr,   s_nodes};
-  const Tree vol{v_nodes_f, v_nodes_i, v_len, v_geo, v_mat,
-                 v_nid,     v_ord,     v_nodes};
-  const Tree tri{t_nodes_f, t_nodes_i, t_len, t_geo, t_mat,
-                 nullptr,   nullptr,   t_nodes};
-  const MixTable mx{mix_first, mix_second, mix_factor};
-  const Sky sk{sky, sky_h, sky_w};
-  const bool ext = v_nodes > 0 || mix_first || iso;
+  const int vol_col0 = (mix_first ? 4 : 0) + 4;  // after the lobe's columns
+  const Args a{head,
+               mats,
+               kinds,
+               Tree{s_nodes_f, s_nodes_i, s_len, s_geo, s_mat, nullptr,
+                    nullptr, s_nodes},
+               Tree{v_nodes_f, v_nodes_i, v_len, v_geo, v_mat, v_nid, v_ord,
+                    v_nodes},
+               Tree{t_nodes_f, t_nodes_i, t_len, t_geo, t_mat, nullptr,
+                    nullptr, t_nodes},
+               leaf,
+               MixTable{mix_first, mix_second, mix_factor},
+               k0,
+               k1,
+               n_rays,
+               spp,
+               width,
+               max_depth,
+               bg_kind,
+               clay,
+               Sky{sky, sky_h, sky_w},
+               out,
+               rec,
+               rec ? rec_mask : 0,
+               rec ? vol_base : 0,
+               rec ? tri_base : 0,
+               MeshVols{mv_geo, mv_start, mv_count, mv_nid, mv_mat, n_mv},
+               vol_col0 + n_vol,
+               rec ? mv_base : 0};
+  const bool ext = v_nodes > 0 || mix_first || iso || has_mv;
   const cudaStream_t st = (cudaStream_t)stream;
   if (view) {
-    const int vol_col0 = (mix_first ? 4 : 0) + 4;
-    if (has_sky)
-      bvh_view_kernel<true><<<blocks_for(n_rays), kThreads, 0, st>>>(
-          head, sph, vol, tri, leaf, k0, k1, n_rays, spp, width, max_depth,
-          bg_kind, sk, view == 1, vol_col0, out);
+    if (has_mv && has_sky)
+      launch_view<true, true>(a, view == 1, vol_col0, st);
+    else if (has_mv)
+      launch_view<false, true>(a, view == 1, vol_col0, st);
+    else if (has_sky)
+      launch_view<true, false>(a, view == 1, vol_col0, st);
     else
-      bvh_view_kernel<false><<<blocks_for(n_rays), kThreads, 0, st>>>(
-          head, sph, vol, tri, leaf, k0, k1, n_rays, spp, width, max_depth,
-          bg_kind, sk, view == 1, vol_col0, out);
+      launch_view<false, false>(a, view == 1, vol_col0, st);
     return (int)cudaGetLastError();
   }
-  if (rec && ext)
-    launch<true, true, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
-                              k0, k1, n_rays, spp, width, max_depth, bg_kind,
-                              clay, sk, out, rec, rec_mask, vol_base,
-                              tri_base, st);
+  if (rec && has_mv)
+    launch<true, true, false, true>(a, st);
+  else if (rec && ext)
+    launch<true, true, false, false>(a, st);
   else if (rec)
-    launch<true, false, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
-                               k0, k1, n_rays, spp, width, max_depth,
-                               bg_kind, clay, sk, out, rec, rec_mask,
-                               vol_base, tri_base, st);
+    launch<true, false, false, false>(a, st);
+  else if (has_mv && has_sky)
+    launch<false, true, true, true>(a, st);
+  else if (has_mv)
+    launch<false, true, false, true>(a, st);
   else if (ext && has_sky)
-    launch<false, true, true>(head, mats, kinds, sph, vol, tri, leaf, mx,
-                              k0, k1, n_rays, spp, width, max_depth, bg_kind,
-                              clay, sk, out, nullptr, 0, 0, 0, st);
+    launch<false, true, true, false>(a, st);
   else if (ext)
-    launch<false, true, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
-                               k0, k1, n_rays, spp, width, max_depth,
-                               bg_kind, clay, sk, out, nullptr, 0, 0, 0, st);
+    launch<false, true, false, false>(a, st);
   else if (has_sky)
-    launch<false, false, true>(head, mats, kinds, sph, vol, tri, leaf, mx,
-                               k0, k1, n_rays, spp, width, max_depth,
-                               bg_kind, clay, sk, out, nullptr, 0, 0, 0, st);
+    launch<false, false, true, false>(a, st);
   else
-    launch<false, false, false>(head, mats, kinds, sph, vol, tri, leaf, mx,
-                                k0, k1, n_rays, spp, width, max_depth,
-                                bg_kind, clay, sk, out, nullptr, 0, 0, 0,
-                                st);
+    launch<false, false, false, false>(a, st);
   return (int)cudaGetLastError();
 }

@@ -2,12 +2,13 @@
 // bvh_forward.cu) and the shadow-ray occlusion kernel (#8, occlusion.cu).
 //
 // Replaces raytracingrust_tpu/ops/pallas_megakernel.py's _traverse_tree,
-// _sphere_chunk_hit, _vol_chunk_hit, _tri_chunk_hit/_row_mt and
+// _sphere_chunk_hit, _vol_chunk_hit, _tri_chunk_hit/_row_mt, _mv_min_t and
 // _merge_leaf_rows for one ray: a stackless walk over skip links, a
 // NaN-propagating slab test, and the leaf's primitives tested against the
-// ray's nearest hit so far.  The arithmetic is ops/bvh_kernel.py's plain
-// version's, operation for operation: the sphere root by true division,
-// the volume's boundary window and free flight, the direct cross-product
+// ray's nearest hit so far; and the dense crossing scan of a mesh volume's
+// boundary.  The arithmetic is ops/bvh_kernel.py's plain version's,
+// operation for operation: the sphere root by true division, the volume's
+// boundary window and free flight, the direct cross-product
 // Moller-Trumbore, and slab min/max that propagate NaN as torch.minimum
 // does (an axis-parallel ray's 0 * inf reads as a miss; fminf/fmaxf would
 // drop the NaN and read a hit).
@@ -111,9 +112,11 @@ __device__ __forceinline__ float volume_t(const Tree& tree, int s,
   return INFINITY;
 }
 
-// Candidate distance of triangle slot s (_row_mt): t in (T_MIN, tb].
-__device__ __forceinline__ float triangle_t(const float* geo, int s,
-                                            const Ray& r, float tb) {
+// The raw Moller-Trumbore t of triangle slot s (_row_mt), at any sign;
+// true when the determinant is away from 0 and the barycentrics lie in the
+// triangle.
+__device__ __forceinline__ bool triangle_raw(const float* geo, int s,
+                                             const Ray& r, float& tt) {
   const float4* g = reinterpret_cast<const float4*>(geo) + 3 * s;
   const float4 g0 = __ldg(g), g1 = __ldg(g + 1), g2 = __ldg(g + 2);
   const float v0x = g0.x, v0y = g0.y, v0z = g0.z;
@@ -131,11 +134,74 @@ __device__ __forceinline__ float triangle_t(const float* geo, int s,
   const float qy = sz * e1x - sx * e1z;
   const float qz = sx * e1y - sy * e1x;
   const float v = f * (r.dx * qx + r.dy * qy + r.dz * qz);
-  const float tt = f * (e2x * qx + e2y * qy + e2z * qz);
-  if (ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
-      tt > kTMin && tt <= tb)
-    return tt;
+  tt = f * (e2x * qx + e2y * qy + e2z * qz);
+  return ok && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f;
+}
+
+// Candidate distance of triangle slot s: t in (T_MIN, tb].
+__device__ __forceinline__ float triangle_t(const float* geo, int s,
+                                            const Ray& r, float tb) {
+  float tt;
+  if (triangle_raw(geo, s, r, tt) && tt > kTMin && tt <= tb) return tt;
   return INFINITY;
+}
+
+// The mesh volumes (ops/bvh_kernel.pack): their boundary triangles, 12
+// floats a slot as the triangle tree's, and per volume its first slot, its
+// triangle count, -1/density and raw material id.  n == 0: none.
+struct MeshVols {
+  const float* geo;
+  const int* start;
+  const int* count;
+  const float* nid;
+  const int* mat;
+  int n;
+};
+
+// The least raw t at or above `floor` of the n triangles from slot s0, or
+// inf (_mv_min_t): no T_MIN and no t_best, since a crossing exists at any
+// t.  A warp's rays read the same slot together, so each load is one
+// broadcast from L1.
+__device__ __forceinline__ float mv_min_t(const float* geo, int s0, int n,
+                                          const Ray& r, float floor) {
+  float best = INFINITY;
+  for (int j = 0; j < n; ++j) {
+    float tt;
+    if (triangle_raw(geo, s0 + j, r, tt) && tt >= floor && tt < best)
+      best = tt;
+  }
+  return best;
+}
+
+// Each mesh volume's candidate in index order (pallas_megakernel.py
+// :1620-1671): the entry t1, the least raw t at any sign; the exit t2, the
+// least t at or past t1 + T_MIN (scanned only when there is an entry); the
+// window [max(t1, T_MIN, 0), t2]; the free flight of uniform column
+// fl.col0 + v, drawn only for a valid window; it replaces (t_best, win)
+// when it ends inside the window and nearer than t_best.
+__device__ __forceinline__ void mesh_volume_scan(const MeshVols& mv,
+                                                 const Ray& r, float& t_best,
+                                                 int& win, const Flight& fl) {
+  for (int v = 0; v < mv.n; ++v) {
+    const int s0 = __ldg(mv.start + v), n = __ldg(mv.count + v);
+    const float t1 = mv_min_t(mv.geo, s0, n, r, -INFINITY);
+    if (!(t1 < INFINITY)) continue;  // no entry: t2 would be inf too
+    const float t2 = mv_min_t(mv.geo, s0, n, r, t1 + kTMin);
+    float h1 = max_nan(t1, kTMin);
+    if (!(t2 < INFINITY && h1 < t2)) continue;
+    h1 = max_nan(h1, 0.0f);
+    const float dist_inside = (t2 - h1) * fl.ray_len;
+    const int c = fl.col0 + v;
+    float u0, u1;
+    uniform_pair(fl.k0, fl.k1, fl.ray, fl.stream, (uint32_t)c >> 1, u0, u1);
+    const float u = (c & 1) ? u1 : u0;
+    const float hit_dist = __ldg(mv.nid + v) * logf(fmaxf(u, 1e-37f));
+    const float ti = h1 + hit_dist / fl.ray_len;
+    if (hit_dist <= dist_inside && ti < t_best) {
+      t_best = ti;
+      win = v;
+    }
+  }
 }
 
 // The ray's stackless walk of one tree (_traverse_tree for one ray).  A

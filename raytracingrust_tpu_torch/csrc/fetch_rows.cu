@@ -15,7 +15,12 @@
 // material id; the material table (M, 8) [albedo rgb, fuzz, ir, emission
 // rgb] with (M,) kinds.  Fetched rows are field-major, (G + 8, n) float32:
 // G = 4 or 12 geometry fields, then the 8 material fields; a miss gives
-// zeros and kind -1.
+// zeros and kind -1.  A mesh volume's code (mv_base + v) gives zero
+// geometry and the material row of the volume's phase material, from the
+// (V,) table of the volumes' material ids (the JAX record reads it from a
+// per-volume table too, _pack_fparams); #7 adds its material cotangents to
+// that material's row and its geometry's nowhere: the boundary's vertices
+// get no gradient, as in the JAX replay.
 //
 // The sphere-like table is the solid spheres' slots and then the volume
 // spheres' (ops/bvh_kernel.fetch_inputs), as the codes number them.  Raw
@@ -63,6 +68,8 @@ struct Tables {
   const float* tri_geo;  // (T, 12), or null in #7 and without triangles
   const int* tri_mat;    // (T,)
   int tri_base;          // codes from here on are triangle slots
+  const int* mv_mat;     // (V,) the mesh volumes' material ids, or null
+  int mv_base;           // codes from here on are mesh volumes
 };
 
 __global__ void __launch_bounds__(kThreads)
@@ -80,7 +87,9 @@ fetch_kernel(const int* __restrict__ codes, long long n, Tables t,
   if (code >= 0) {
     const int slot = code & kSlot;
     int mid;
-    if (slot < t.tri_base) {
+    if (t.mv_mat && slot >= t.mv_base) {  // a mesh volume: no geometry
+      mid = __ldg(t.mv_mat + (slot - t.mv_base));
+    } else if (slot < t.tri_base) {
       const float4 g = __ldg(reinterpret_cast<const float4*>(t.sph_geo) +
                              slot);
       v[0] = g.x;
@@ -171,8 +180,9 @@ transpose_kernel(const int* __restrict__ codes, long long n, Tables t,
     const int code = i < n ? __ldg(codes + i) : -1;
     if (__all_sync(0xffffffffu, code < 0)) continue;  // a warp of misses
     const int c = code & kSlot;
-    const bool tri = code >= 0 && c >= t.tri_base;
-    const int slot = tri ? c - t.tri_base : c;
+    const bool fog = code >= 0 && t.mv_mat && c >= t.mv_base;
+    const bool tri = code >= 0 && !fog && c >= t.tri_base;
+    const int slot = fog ? c - t.mv_base : tri ? c - t.tri_base : c;
     float v[12];
     float m[kMat];
     int mid = -1;
@@ -181,19 +191,19 @@ transpose_kernel(const int* __restrict__ codes, long long n, Tables t,
 #pragma unroll
     for (int k = 0; k < kMat; ++k) m[k] = 0.0f;
     if (code >= 0) {
-      const int w = tri ? 12 : 4;
+      const int w = fog ? 0 : tri ? 12 : 4;
 #pragma unroll
       for (int k = 0; k < 12; ++k)
         if (k < w) v[k] = __ldg(g + k * n + i);
       if (!raw) {
-        mid = __ldg((tri ? t.tri_mat : t.sph_mat) + slot);
+        mid = __ldg((fog ? t.mv_mat : tri ? t.tri_mat : t.sph_mat) + slot);
 #pragma unroll
         for (int k = 0; k < kMat; ++k) m[k] = __ldg(g + (geo_w + k) * n + i);
       }
     }
 
     // geometry: the lanes that won one slot, one atomic per field
-    const int key = code >= 0 ? c : -1;
+    const int key = code >= 0 && !fog ? c : -1;
     unsigned peers = __match_any_sync(0xffffffffu, key);
     reduce_peers(peers, v);
     if (key >= 0 && (peers & ((1u << lane) - 1u)) == 0u) {
@@ -224,15 +234,21 @@ transpose_kernel(const int* __restrict__ codes, long long n, Tables t,
 // Plain C entries, bound with ctypes (ops/fetch.py).  Each launches on
 // `stream` and returns cudaGetLastError() of its launch.
 
+// The mesh volumes: their first code `mv_base` and the n_mv material ids
+// `mv_mat` (null and 0 without them).
+
 extern "C" int rtrt_fetch_rows(const int* codes, long long n,
                                const float* sph_geo, const int* sph_mat,
                                const float* tri_geo, const int* tri_mat,
                                int tri_base, const float* mats,
                                const int* kinds, int geo_w, int raw,
-                               float* rows, int* kind, void* stream) {
-  if (n <= 0 || (geo_w != 4 && geo_w != 12) || tri_base < 0)
+                               float* rows, int* kind, int mv_base,
+                               const int* mv_mat, int n_mv, void* stream) {
+  if (n <= 0 || (geo_w != 4 && geo_w != 12) || tri_base < 0 || n_mv < 0 ||
+      (n_mv > 0) != (mv_mat != nullptr) || (n_mv > 0 && mv_base < tri_base))
     return (int)cudaErrorInvalidValue;
-  const Tables t{sph_geo, sph_mat, tri_geo, tri_mat, tri_base};
+  const Tables t{sph_geo, sph_mat, tri_geo, tri_mat, tri_base, mv_mat,
+                 mv_base};
   const long long blocks = (n + kThreads - 1) / kThreads;
   fetch_kernel<<<(unsigned)blocks, kThreads, 0, (cudaStream_t)stream>>>(
       codes, n, t, mats, kinds, geo_w, raw, rows, kind);
@@ -245,16 +261,19 @@ extern "C" int rtrt_fetch_rows_transpose(const int* codes, long long n,
                                          const float* g, int geo_w, int raw,
                                          int n_mats, float* d_sph,
                                          float* d_tri, float* d_mats,
-                                         void* stream) {
+                                         int mv_base, const int* mv_mat,
+                                         int n_mv, void* stream) {
   if (n <= 0 || (geo_w != 4 && geo_w != 12) || tri_base < 0 || n_mats < 1 ||
-      (!raw && !d_mats))
+      (!raw && !d_mats) || n_mv < 0 || (n_mv > 0) != (mv_mat != nullptr) ||
+      (n_mv > 0 && mv_base < tri_base))
     return (int)cudaErrorInvalidValue;
   int dev = 0, sms = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (err != cudaSuccess) return (int)err;
-  const Tables t{nullptr, sph_mat, nullptr, tri_mat, tri_base};
+  const Tables t{nullptr, sph_mat, nullptr, tri_mat, tri_base, mv_mat,
+                 mv_base};
   const long long need = (n + kThreads - 1) / kThreads;
   const long long most = (long long)sms * kBlocksPerSm;
   const unsigned blocks = (unsigned)(need < most ? need : most);

@@ -1,6 +1,6 @@
 """Differentiable shading replay over the BVH kernel's recorded hits
 (raytracingrust_tpu/diff/replay.py, ``replay_rows_radiance`` and the
-volume and mix branches of ``replay_radiance``).
+volume, mesh-volume and mix branches of ``replay_radiance``).
 
 The traversal is control flow with no derivative, but the gradient
 estimator holds every discrete decision fixed (diff/grad.py), so the
@@ -10,7 +10,10 @@ contiguous view a field, no gather), recomputes the hit distance and
 normal with kernel #5's arithmetic (the direct quadratic with true
 division; for a volume the entry of the boundary window plus the free
 flight of the volume's own uniform, with the dummy normal (1, 0, 0); the
-direct Moller-Trumbore form and the flat normal of the row), resolves a
+direct Moller-Trumbore form and the flat normal of the row; for a mesh
+volume the crossing scan of its boundary over detached rays, chunk by
+chunk, and its free flight, with no gradient in the boundary's vertices,
+as in the JAX package), resolves a
 mix with the bounce's coins (ops/shade.resolve_mix) and shades through
 ops/megakernel.bounce_tail with the record's front-face, metal and
 dielectric decisions in place of its comparisons.  In a scene with mixes
@@ -38,7 +41,7 @@ import torch
 
 from ..ops import megakernel as K
 from ..ops.bvh_kernel import (REC_FRONT, REC_METAL_OK, REC_REFLECT, REC_SLOT,
-                              TRI_DET_EPS, bounce_uniforms)
+                              TRI_DET_EPS, _mv_min_t, bounce_uniforms)
 from ..models import materials as M
 from ..models.backgrounds import sample_skymap_direction
 from ..ops.fetch import MAT_FIELDS
@@ -53,6 +56,33 @@ _dot3 = K._dot3
 def _cross(a, b):
     return [a[1] * b[2] - a[2] * b[1], a[2] * b[0] - a[0] * b[2],
             a[0] * b[1] - a[1] * b[0]]
+
+
+def _mesh_volume_t(sc, o, d, u_vol, code, is_mv):
+    """(R,) the recorded mesh-volume winners' hit distance, 1 elsewhere
+    (the JAX replay's mesh-volume branch): the volume's crossing scan over
+    detached rays, chunk by chunk (``_mv_min_t``, no (R, T) matrix), and
+    the free flight of its own uniform column from the window's entry.  A
+    winner whose recomputed t is not finite falls back to 1.  Detached:
+    the boundary's vertices and the density get no gradient."""
+    mv = sc.mesh_vols
+    t = torch.ones_like(d[0])
+    with torch.no_grad():
+        for v, (start, count) in enumerate(mv.spans):
+            at = (is_mv & (code == sc.mv_base + v)).nonzero().squeeze(1)
+            if at.numel() == 0:
+                continue
+            o_a, d_a = [x[at] for x in o], [x[at] for x in d]
+            t1 = _mv_min_t(mv, start, count, o_a, d_a,
+                           torch.full((at.numel(),), float("-inf"),
+                                      device=t.device), None)
+            h1 = torch.clamp(torch.clamp(t1, min=T_MIN), min=0.0)
+            ray_len = torch.sqrt(_dot3(*d_a, *d_a))
+            hit_dist = mv.nid[v] * torch.log(
+                torch.clamp(u_vol[at, sc.n_vol + v], min=1e-37))
+            t_v = h1 + hit_dist / ray_len
+            t[at] = torch.where(torch.isfinite(t_v), t_v, 1.0)
+    return t
 
 
 def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
@@ -84,8 +114,8 @@ def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
     raw = sc.mixes is not None
     g_fields = rows.shape[0] - (0 if raw else MAT_FIELDS)
     has_sph_rows = sc.spheres is not None or sc.volumes is not None
-    vol_base, tri_base = sc.vol_base, sc.tri_base
-    vols = sc.volumes
+    vol_base, tri_base, mv_base = sc.vol_base, sc.tri_base, sc.mv_base
+    vols, mvs = sc.volumes, sc.mesh_vols
     o, d = K.camera_ray(head, key, ray_ids, px, py)
     one = torch.ones_like(d[0])
     thr = [one, one, one]
@@ -99,7 +129,8 @@ def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
         is_sph = hit & (slot < vol_base)
         is_vol = None if vols is None else hit & (slot >= vol_base) & (
             slot < tri_base)
-        is_tri = hit & (slot >= tri_base)
+        is_mv = hit & (slot >= mv_base) if mvs is not None else None
+        is_tri = hit & (slot >= tri_base) & (slot < mv_base)
         f = rows[:, b]
         dx, dy, dz = d
         a = _dot3(dx, dy, dz, dx, dy, dz)
@@ -136,6 +167,9 @@ def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
             inv = 1.0 / torch.where(det.abs() > TRI_DET_EPS, det, 1.0)
             q = _cross([o[c] - v0[c] for c in range(3)], e1)
             t_hit = torch.where(is_tri, inv * _dot3(*e2, *q), t_hit)
+        if mvs is not None:
+            t_hit = torch.where(is_mv, _mesh_volume_t(sc, o, d, u_vol, slot,
+                                                      is_mv), t_hit)
         safe_t = torch.where(hit, t_hit, 1.0)
         pt = [o[c] + safe_t * d[c] for c in range(3)]
         if sc.triangles is not None:
@@ -146,8 +180,10 @@ def replay_rows_radiance(sc, rows, kind, codes, key, ray_ids, px, py, *,
             r_div = torch.where(is_sph & (r_s > 0.0), r_s, 1.0)
             n = [torch.where(is_sph, (pt[c] - g3[c]) / r_div, n[c])
                  for c in range(3)]
-        if vols is not None:
-            n = [torch.where(is_vol, float(c == 0), n[c]) for c in range(3)]
+        for is_fog in (is_vol, is_mv):  # the dummy normal (1, 0, 0)
+            if is_fog is not None:
+                n = [torch.where(is_fog, float(c == 0), n[c])
+                     for c in range(3)]
         n = [torch.where(hit, n[c], float(c == 2)) for c in range(3)]
         if raw:  # resolve the winner's mix, then read its leaf's row
             mid = resolve_mix(sc.mixes, kind[b].clamp(min=0), coins)

@@ -7,9 +7,13 @@ over, so both packages compute on identical float32 numbers.
 Keys: ``camera.{lookfrom, lookat, vertical, vertical_fov, aspect_ratio}``,
 ``background.{color_a, color_b}`` and, for a sky map,
 ``background.{image, cdf_rows, cdf_cols}``,
-``spheres.{center, radius, material, neg_inv_density}`` and
+``spheres.{center, radius, material, neg_inv_density}``,
 ``materials.{kind, albedo, fuzz, ir, emission, mix_first, mix_second,
-mix_factor}``.
+mix_factor}`` and, for a scene with triangles,
+``triangles.{v0, e1, e2, normal, material, volume}`` and, with mesh
+volumes, ``mesh_volumes.{neg_inv_density, material}``.  The chunk-leaf
+BVH is not carried: ``ops.bvh.build_chunked_bvh`` builds it from the
+arrays.
 """
 
 from __future__ import annotations
@@ -20,7 +24,8 @@ import torch
 from .backgrounds import Background
 from .camera import Camera
 from .materials import MaterialTable
-from .scene import RenderSettings, Scene, SphereArray
+from .scene import (MeshVolumeTable, RenderSettings, Scene, SphereArray,
+                    TriangleArray)
 
 
 def scene_from_arrays(arrays: dict[str, np.ndarray], settings: RenderSettings,
@@ -47,4 +52,15 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], settings: RenderSettings,
         mix_second=t("materials.mix_second", i32),
         mix_factor=t("materials.mix_factor", f32),
     )
-    return Scene(camera, background, spheres, materials, settings)
+    triangles = TriangleArray.empty()
+    if "triangles.v0" in arrays:
+        triangles = TriangleArray(
+            *(t(f"triangles.{k}", f32) for k in ("v0", "e1", "e2",
+                                                 "normal")),
+            t("triangles.material", i32), t("triangles.volume", i32))
+    mesh_volumes = None
+    if "mesh_volumes.neg_inv_density" in arrays:
+        mesh_volumes = MeshVolumeTable(t("mesh_volumes.neg_inv_density", f32),
+                                       t("mesh_volumes.material", i32))
+    return Scene(camera, background, spheres, materials, settings, triangles,
+                 mesh_volumes=mesh_volumes)

@@ -2,9 +2,11 @@
 the scene and its builder, with the reference JSON schema
 (raytracingrust_tpu/models/scene.py).
 
-A sphere-bounded ``Volume`` loads as in the JAX package (volume rows sort
-last, and the BVH holds them in a tree of their own); a ``Volume`` whose
-boundary is a mesh raises on load (ROADMAP B4c).  ``build(with_bvh=None)`` builds the
+A ``Volume`` loads as in the JAX package: over a sphere its row sorts last
+and the BVH holds it in a tree of its own; over a mesh its triangles carry
+the volume's ordinal (``TriangleArray.volume``), stay out of the surface
+triangle tree, and the volume's density and phase material go to a
+:class:`MeshVolumeTable`.  ``build(with_bvh=None)`` builds the
 chunk-leaf BVH when ``settings.enable_bvh_tree`` asks for it; the render
 path sends a scene to the BVH kernel only when the brute kernel cannot take
 it (render/render.select_engine).
@@ -97,14 +99,32 @@ class TriangleArray:
     e2: torch.Tensor        # (T, 3) v2 - v0
     normal: torch.Tensor    # (T, 3) the reference's face normal
     material: torch.Tensor  # (T,) int32 material handle
+    # (T,) int32: -1 for a surface triangle, else the ordinal of the mesh
+    # volume it bounds (it never shades as a surface)
+    volume: torch.Tensor
 
     @staticmethod
     def empty() -> "TriangleArray":
         z = torch.zeros((0, 3), dtype=torch.float32)
-        return TriangleArray(z, z, z, z, torch.zeros(0, dtype=torch.int32))
+        e = torch.zeros(0, dtype=torch.int32)
+        return TriangleArray(z, z, z, z, e, e)
 
     def __len__(self) -> int:
         return self.v0.shape[0]
+
+
+@dataclasses.dataclass
+class MeshVolumeTable:
+    """Constant-density media bounded by triangle meshes (the reference's
+    ``Volume::new`` over a Mesh, lib/volume.rs:25-31): per volume its
+    -1/density and its phase material, the boundary mesh's material
+    handle."""
+
+    neg_inv_density: torch.Tensor  # (V,) float32
+    material: torch.Tensor         # (V,) int32
+
+    def __len__(self) -> int:
+        return self.neg_inv_density.shape[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -137,13 +157,24 @@ class ChunkTree:
 class ChunkedBVH:
     """The JAX package's ChunkedBVH for the kinds the port renders: a tree
     over the solid spheres, one over the volume spheres and one over the
-    triangles, traversed in that order (each pass starts from the nearest
-    hit of the passes before it).  The volume tree's ``perm`` holds global
-    sphere rows, as the JAX ``vol_perm`` does."""
+    surface triangles, traversed in that order (each pass starts from the
+    nearest hit of the passes before it).  The volume tree's ``perm`` holds
+    global sphere rows, as the JAX ``vol_perm`` does, and the triangle
+    tree's global triangle rows.
+
+    Mesh volumes are scanned densely, not walked: an entry crossing may lie
+    at a negative t (a ray inside the medium), which a walk whose slab test
+    floors t at T_MIN cannot find.  ``mv_perm`` holds each volume's global
+    triangle rows, each volume padded with -1 to a multiple of
+    ``leaf_size``, and ``mv_spans`` each volume's (first chunk, chunks)."""
 
     spheres: Optional[ChunkTree]
     triangles: Optional[ChunkTree]
     volumes: Optional[ChunkTree] = None
+    mv_perm: np.ndarray = dataclasses.field(
+        default_factory=lambda: np.zeros(0, np.int32))
+    mv_spans: tuple = ()
+    leaf_size: int = 128
 
 
 def _tensors_to(obj, device):
@@ -163,10 +194,15 @@ class Scene:
     triangles: TriangleArray = dataclasses.field(
         default_factory=TriangleArray.empty)
     cbvh: Optional[ChunkedBVH] = None  # built by SceneBuilder.build
+    mesh_volumes: Optional[MeshVolumeTable] = None
 
     @property
     def num_primitives(self) -> int:
         return len(self.spheres) + len(self.triangles)
+
+    @property
+    def num_mesh_volumes(self) -> int:
+        return 0 if self.mesh_volumes is None else len(self.mesh_volumes)
 
     def to(self, device) -> "Scene":
         """The scene with every tensor leaf on ``device`` (differentiable:
@@ -176,7 +212,9 @@ class Scene:
             background=_tensors_to(self.background, device),
             spheres=_tensors_to(self.spheres, device),
             materials=_tensors_to(self.materials, device),
-            triangles=_tensors_to(self.triangles, device))
+            triangles=_tensors_to(self.triangles, device),
+            mesh_volumes=None if self.mesh_volumes is None else
+            _tensors_to(self.mesh_volumes, device))
 
 
 class SceneBuilder:
@@ -201,14 +239,13 @@ class SceneBuilder:
         return len(self.objects) - 1
 
     def add_volume(self, boundary_index: int, density: float) -> int:
-        """Make a sphere added before the boundary of a constant-density
-        medium (``Volume::new``, lib/volume.rs:25-31): it stops being a
-        solid surface, and its material is the medium's phase material.
-        A mesh boundary is not ported yet (ROADMAP B4c)."""
+        """Make a sphere or a mesh added before the boundary of a
+        constant-density medium (``Volume::new`` takes any object,
+        lib/volume.rs:25-31): it stops being a solid surface, and its
+        material is the medium's phase material."""
         rec = self.objects[boundary_index]
-        if rec["kind"] != "sphere":
-            raise NotImplementedError(
-                "volumes bounded by a mesh are not ported yet (ROADMAP B4c)")
+        if rec["kind"] not in ("sphere", "mesh"):
+            raise ValueError("a volume's boundary is a sphere or a mesh")
         rec["neg_inv_density"] = -1.0 / float(density)
         return boundary_index
 
@@ -233,14 +270,29 @@ class SceneBuilder:
             material=torch.as_tensor(mats[order]),
             neg_inv_density=torch.as_tensor(nids[order]),
         )
-        meshes = [o["mesh"] for o in self.objects if o["kind"] == "mesh"]
+        meshes = [o for o in self.objects if o["kind"] == "mesh"]
         triangles = TriangleArray.empty()
+        mesh_volumes = None
         if meshes:
             soa = [np.concatenate(a) for a in
-                   zip(*(m.triangle_soa() for m in meshes))]
-            mat = np.concatenate([np.full(m.num_triangles, m.material,
-                                          np.int32) for m in meshes])
-            triangles = TriangleArray(*map(torch.as_tensor, (*soa, mat)))
+                   zip(*(o["mesh"].triangle_soa() for o in meshes))]
+            mat = np.concatenate([np.full(o["mesh"].num_triangles,
+                                          o["mesh"].material, np.int32)
+                                  for o in meshes])
+            # a mesh volume's triangles carry its ordinal, in object order
+            vols = [o for o in meshes if o.get("neg_inv_density", 0.0)]
+            ordinal = {id(o): v for v, o in enumerate(vols)}
+            vol = np.concatenate([np.full(o["mesh"].num_triangles,
+                                          ordinal.get(id(o), -1), np.int32)
+                                  for o in meshes])
+            triangles = TriangleArray(*map(torch.as_tensor,
+                                           (*soa, mat, vol)))
+            if vols:
+                mesh_volumes = MeshVolumeTable(
+                    torch.tensor([o["neg_inv_density"] for o in vols],
+                                 dtype=torch.float32),
+                    torch.tensor([o["mesh"].material for o in vols],
+                                 dtype=torch.int32))
         if with_bvh is None:
             with_bvh = self.settings.enable_bvh_tree
         cbvh = None
@@ -249,24 +301,24 @@ class SceneBuilder:
             cbvh = build_chunked_bvh(spheres, triangles)
         return Scene(self.camera, self.background, spheres,
                      build_table(self.materials), self.settings, triangles,
-                     cbvh)
+                     cbvh, mesh_volumes)
 
     def to_json(self) -> dict:
         objs = []
         for o in self.objects:
             if o["kind"] == "mesh":
-                objs.append({"type": "Mesh", "path": o["mesh"].path,
-                             "material": o["mesh"].material})
-                continue
-            c = o["center"]
-            sphere = {"type": "Sphere",
-                      "center": {"x": c[0], "y": c[1], "z": c[2]},
-                      "radius": o["radius"], "material": o["material"]}
+                entry = {"type": "Mesh", "path": o["mesh"].path,
+                         "material": o["mesh"].material}
+            else:
+                c = o["center"]
+                entry = {"type": "Sphere",
+                         "center": {"x": c[0], "y": c[1], "z": c[2]},
+                         "radius": o["radius"], "material": o["material"]}
             if o.get("neg_inv_density", 0.0) != 0.0:
-                objs.append({"type": "Volume", "boundary": sphere,
+                objs.append({"type": "Volume", "boundary": entry,
                              "neg_inv_density": o["neg_inv_density"]})
             else:
-                objs.append(sphere)
+                objs.append(entry)
         return {
             "camera": self.camera.to_json(),
             "settings": self.settings.to_json(),
@@ -291,15 +343,11 @@ class SceneBuilder:
             if o["type"] == "Volume":
                 nid = float(o["neg_inv_density"])
                 o = o["boundary"]
-                if o["type"] == "Mesh":
-                    raise NotImplementedError(
-                        "volumes bounded by a mesh are not ported yet "
-                        "(ROADMAP B4c)")
             if o["type"] == "Mesh":
                 # ``smooth`` is read by the schema and ignored: the
                 # reference shades flat (quirk Q6)
                 b.objects.append({"kind": "mesh", "mesh": Mesh.from_file(
-                    o["path"], int(o["material"]))})
+                    o["path"], int(o["material"])), "neg_inv_density": nid})
                 continue
             if o["type"] != "Sphere":
                 raise ValueError(f"unknown object type {o['type']!r}")

@@ -95,8 +95,10 @@ def build_chunked_topology(mins: np.ndarray, maxs: np.ndarray,
 def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
     """-> ChunkedBVH: one tree over the solid spheres, one over the volume
     spheres (which sort last in the sphere arrays; its slots hold global
-    sphere rows), one over the triangles (each None when it has no
-    primitives); None for an empty scene."""
+    sphere rows), one over the surface triangles (each None when it has no
+    primitives), and the mesh volumes' dense slots (``mv_perm``,
+    ``mv_spans``): each volume's boundary triangles, in row order, padded
+    to a whole number of chunks.  None for an empty scene."""
     from ..models.scene import ChunkedBVH, ChunkTree
 
     mins, maxs = primitive_bounds(spheres, triangles)
@@ -114,10 +116,24 @@ def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
         perm[pad] = -1
         return ChunkTree(nf, ni, perm.astype(np.int32), leaf_size)
 
+    # the boundary triangles of mesh volumes stay out of the surface tree
+    tri_vol = triangles.volume.cpu().numpy()
+    surf = np.nonzero(tri_vol < 0)[0].astype(np.int64)
+    mv_parts, mv_spans, start = [], [], 0
+    for v in range(int(tri_vol.max()) + 1 if tri_vol.size else 0):
+        ids = np.nonzero(tri_vol == v)[0]
+        n_chunks = -(-ids.shape[0] // leaf_size)
+        part = np.full(n_chunks * leaf_size, -1, np.int32)
+        part[:ids.shape[0]] = ids
+        mv_parts.append(part)
+        mv_spans.append((start, n_chunks))
+        start += n_chunks
     return ChunkedBVH(
         spheres=tree(mins[:n_solid], maxs[:n_solid],
                      np.arange(n_solid, dtype=np.int64)),
-        triangles=tree(mins[ns:], maxs[ns:],
-                       np.arange(mins.shape[0] - ns, dtype=np.int64)),
+        triangles=tree(mins[ns:][surf], maxs[ns:][surf], surf),
         volumes=tree(mins[n_solid:ns], maxs[n_solid:ns],
-                     np.arange(n_solid, ns, dtype=np.int64)))
+                     np.arange(n_solid, ns, dtype=np.int64)),
+        mv_perm=(np.concatenate(mv_parts) if mv_parts
+                 else np.zeros(0, np.int32)),
+        mv_spans=tuple(mv_spans), leaf_size=leaf_size)

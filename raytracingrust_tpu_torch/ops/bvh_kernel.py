@@ -5,26 +5,33 @@ autograd Function of its record-and-replay gradient.
 Replaces raytracingrust_tpu/ops/pallas_megakernel.py's packet-traversal
 kernel (``_make_bvh_kernel``, over ``_radiance_math``'s BVH branch,
 ``_traverse_tree``, ``_sphere_chunk_hit``, ``_vol_chunk_hit``,
-``_tri_chunk_hit``/``_row_mt``, ``_merge_leaf_rows`` and
+``_tri_chunk_hit``/``_row_mt``, ``_mv_min_t``, ``_merge_leaf_rows`` and
 ``_mixn_resolve``) and its ``_bvh_cvjp``.  Per ray and bounce: a stackless
 walk of the solid-sphere chunk tree, then of the volume-sphere tree, then
-of the triangle tree, each starting from the nearest hit of the walks
-before it; the winner's mix resolved to a leaf material
+of the surface-triangle tree, each starting from the nearest hit of the
+walks before it, then the crossing scan of each mesh volume in index
+order; the winner's mix resolved to a leaf material
 (ops/shade.resolve_mix); then the bounce tail the brute kernel shares
-(ops/megakernel.bounce_tail).  A volume sphere is a constant-density
-medium: its candidate is the boundary window's entry plus an exponential
-free flight drawn from the volume's own uniform column (lib/volume.rs:35-73),
-and its hit shades with a dummy normal (1, 0, 0).
+(ops/megakernel.bounce_tail).  A volume is a constant-density medium: its
+candidate is the boundary window's entry plus an exponential free flight
+drawn from the volume's own uniform column (lib/volume.rs:35-73), and its
+hit shades with a dummy normal (1, 0, 0).  A volume sphere's window comes
+from its quadratic; a mesh volume's from a dense scan of its boundary
+triangles (``_mv_min_t``, pallas_megakernel.py:1620-1671): the entry t1 is
+the least raw Moller-Trumbore t at any sign (a ray may start inside), the
+exit the least t at or past t1 + T_MIN.
 
 The bounce's uniform columns (stream 1 + b) are the JAX layout: with any
 mix in the table, the four mix coins first, ``off = MAX_MIX_DEPTH``; then
-u1, u2, the coin and u_r at ``off + 0 .. 3``; then volume v's free-flight
-uniform at ``off + 4 + v``, v its ordinal among the volume spheres.
+u1, u2, the coin and u_r at ``off + 0 .. 3``; then volume sphere v's
+free-flight uniform at ``off + 4 + v``, v its ordinal among the volume
+spheres, and mesh volume v's at ``off + 4 + n_vol + v``.
 
 Record mode (``record=True``) also returns each bounce's winner code,
 (max_depth, R) int32 in the JAX record layout: the winner's slot in bits
 0-26 (solid-sphere slots first, volume slots from ``vol_base``, triangle
-slots from ``tri_base``, each base the slot count of the trees before it),
+slots from ``tri_base``, each base the slot count of the trees before it,
+then mesh volume v as ``mv_base + v``),
 the front face at bit 27, the metal lobe's above-the-surface test at bit 28
 and the dielectric's reflect choice at bit 29 (those two for every hit,
 whatever its kind, when a metal or a dielectric is reachable from a
@@ -48,8 +55,9 @@ no scatter chain: a hit gives 0.5 * (its normalized front-facing normal +
 1), or black; a miss the background, a sky map's included.
 
 The envelope (:func:`unsupported_bvh`), what the JAX ``supports_bvh``
-admits but mesh-bounded volumes, and the views on a sky map too: solid
-spheres, up to ``MAX_BVH_VOLUMES`` sphere volumes and surface triangles;
+admits, and the views on a sky map too: solid spheres, up to
+``MAX_BVH_VOLUMES`` sphere volumes, surface triangles and up to
+``MAX_BVH_MESH_VOLUMES`` mesh volumes (not under importance sampling);
 Lambertian, Metal, Dielectric, Emission and Isotropic materials and mixes
 of them nested up to ``MAX_MIX_DEPTH``; a uniform, gradient or sky-map
 background; Full, Clay, Normal or Random mode; any depth.
@@ -60,13 +68,18 @@ with (M,) int32 kinds and, with mixes, the mix table; per tree the nodes
 as (K, 6) float32 and (K, 3) int32, each chunk's primitive count, and the
 primitives in permuted slot order with their raw material ids: spheres and
 volumes as (S, 4) [center, radius], volumes also with their -1/density and
-ordinal, triangles as (S, 12) [v0, e1, e2, flat normal].  Under autograd
+ordinal, triangles as (S, 12) [v0, e1, e2, flat normal]; the mesh volumes'
+boundary triangles as (S, 12) rows in ``mv_perm`` order with each volume's
+first slot, triangle count, -1/density and raw material id.  Under autograd
 the packing keeps the graph from the scene's leaves to the head, the
-material table and each tree's rows.  On a CPU tensor the wrapper runs the
+material table and each tree's rows; the boundary triangles and the
+densities are constants, as in the JAX replay.  On a CPU tensor the wrapper runs the
 plain version; on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts launches of the kernel under a uniform or gradient
 background, ``SKY_LAUNCHES`` of its sky-map variant, ``VIEW_LAUNCHES`` of
-the inspection views and ``RECORD_LAUNCHES`` of its record variant.
+the inspection views and ``RECORD_LAUNCHES`` of its record variant; the
+launches of a scene with mesh volumes (the variants with the crossing
+scan) count under those names and again under ``MV_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -93,6 +106,8 @@ TRI_DET_EPS = 1e-8
 # pallas_megakernel.MAX_BVH_VOLUMES: each volume draws a uniform column of
 # its own a bounce
 MAX_BVH_VOLUMES = 8
+# pallas_megakernel.MAX_BVH_MESH_VOLUMES: each is a dense scan a bounce
+MAX_BVH_MESH_VOLUMES = 4
 # rays per step of the plain version: a leaf test holds (rays, leaf) floats
 TILE_RAYS = 1 << 18
 
@@ -109,6 +124,7 @@ LAUNCHES = 0
 SKY_LAUNCHES = 0
 VIEW_LAUNCHES = 0
 RECORD_LAUNCHES = 0
+MV_LAUNCHES = 0
 
 
 # ------------------------------------------------------------- the envelope
@@ -123,11 +139,19 @@ def env_is_active(scene: Scene) -> bool:
 
 def unsupported_bvh(scene: Scene) -> str | None:
     """Why the BVH kernel cannot take the scene, or None (the JAX
-    ``supports_bvh``, mesh-bounded volumes aside: those raise on load).  A
-    sky map passes in every mode: with importance sampling its path is
-    :func:`env_radiance`; the JAX gate keeps the views of a sky map on its
-    XLA integrator, which the port lacks, so #5 serves them."""
+    ``supports_bvh``).  A sky map passes in every mode: with importance
+    sampling its path is :func:`env_radiance`; the JAX gate keeps the views
+    of a sky map on its XLA integrator, which the port lacks, so #5 serves
+    them.  Mesh volumes pass up to MAX_BVH_MESH_VOLUMES, but not under
+    importance sampling, whose shadow rays (#8) do not model their
+    stochastic occlusion: the JAX package renders those with its XLA
+    integrator (ROADMAP A6)."""
+    n_mv = scene.num_mesh_volumes
     if scene.cbvh is None:
+        if n_mv:
+            return (f"{n_mv} mesh volumes without the scene's BVH need the "
+                    "XLA integrator, not ported yet (ROADMAP A6): build the "
+                    "scene with with_bvh=True (or enable_bvh_tree)")
         return ("the scene was built without its BVH: build it with "
                 "with_bvh=True (or enable_bvh_tree)")
     if scene.num_primitives == 0:
@@ -136,6 +160,18 @@ def unsupported_bvh(scene: Scene) -> str | None:
         return (f"{scene.spheres.num_volumes} volumes: the BVH kernel takes "
                 f"at most {MAX_BVH_VOLUMES}, each drawing a uniform of its "
                 "own a bounce (as the JAX package)")
+    if n_mv > MAX_BVH_MESH_VOLUMES:
+        return (f"{n_mv} mesh volumes: the BVH kernel scans at most "
+                f"{MAX_BVH_MESH_VOLUMES}, each densely a bounce (as the JAX "
+                "package); more need the XLA integrator, not ported yet "
+                "(ROADMAP A6)")
+    if n_mv and len(scene.cbvh.mv_spans) != n_mv:
+        return "the scene's BVH lacks its mesh volumes' slots (mv_spans)"
+    if n_mv and env_is_active(scene):
+        return ("HDRI importance sampling with mesh volumes needs the XLA "
+                "integrator, not ported yet (ROADMAP A6): the shadow-ray "
+                "kernel does not model a mesh volume's stochastic "
+                "occlusion, as in the JAX package")
     if scene.materials.has_mix and (mix_depth(scene.materials)
                                     > M.MAX_MIX_DEPTH):
         return (f"mixes nested deeper than {M.MAX_MIX_DEPTH} levels (or a "
@@ -162,6 +198,18 @@ class Tree(NamedTuple):
     ordinal: Optional[torch.Tensor] = None  # (n_chunks * leaf,) int32
 
 
+class MeshVols(NamedTuple):
+    """The mesh volumes' boundary triangles for the dense crossing scan:
+    the rows of ``ChunkedBVH.mv_perm``, constants (no gradient)."""
+    geo: torch.Tensor    # (S, 12) float32 [v0, e1, e2, normal], 0 padding
+    start: torch.Tensor  # (V,) int32 each volume's first slot
+    count: torch.Tensor  # (V,) int32 its triangles
+    nid: torch.Tensor    # (V,) float32 -1/density
+    mat: torch.Tensor    # (V,) int32 raw phase material id
+    spans: tuple         # ((first slot, triangles), ...) on the host
+    leaf_size: int
+
+
 class Mixes(NamedTuple):
     """The material table's mix columns, for the resolution rounds
     (ops/shade.resolve_mix reads them by these names)."""
@@ -184,6 +232,7 @@ class BvhScene(NamedTuple):
     n_vol: int = 0         # volume spheres: their uniform columns
     mixes: Optional[Mixes] = None  # with any mix in the table
     iso: bool = False      # an isotropic material is reachable: column u_r
+    mesh_vols: Optional[MeshVols] = None
 
     @property
     def device(self) -> torch.device:
@@ -201,12 +250,22 @@ class BvhScene(NamedTuple):
         return self.vol_base + (self.volumes.geo.shape[0] if self.volumes
                                 else 0)
 
+    @property
+    def mv_base(self) -> int:
+        """The code of mesh volume 0: the slot count of the three trees."""
+        return self.tri_base + (self.triangles.geo.shape[0]
+                                if self.triangles else 0)
+
+    @property
+    def n_mv(self) -> int:
+        return 0 if self.mesh_vols is None else len(self.mesh_vols.spans)
+
     def shade_cols(self) -> tuple[int, int]:
         """(off, n): the first lobe column of a bounce's uniforms and how
         many columns a bounce draws."""
         off = M.MAX_MIX_DEPTH if self.mixes is not None else 0
-        if self.n_vol or self.iso:
-            return off, off + 4 + self.n_vol
+        if self.n_vol or self.n_mv or self.iso:
+            return off, off + 4 + self.n_vol + self.n_mv
         return off, off + 3
 
     def with_rows(self, head, mats, sph_geo, tri_geo,
@@ -244,6 +303,31 @@ def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
                 t.nodes_i, t.leaf_size, **extra)
 
 
+def _mesh_vols(scene: Scene, device) -> Optional[MeshVols]:
+    """The mesh volumes' scan constants, None without mesh volumes."""
+    n_mv, cb = scene.num_mesh_volumes, scene.cbvh
+    if not n_mv:
+        return None
+    if len(cb.mv_spans) != n_mv:
+        raise ValueError("the scene's BVH lacks its mesh volumes' slots")
+    tri = scene.triangles
+    perm = torch.as_tensor(cb.mv_perm, device=tri.v0.device).long()
+    pad = perm < 0
+    rows = torch.cat([tri.v0, tri.e1, tri.e2, tri.normal], 1).detach()
+    geo = torch.where(pad[:, None], 0.0, rows[perm.clamp(min=0)])
+    live = (cb.mv_perm >= 0).reshape(-1, cb.leaf_size).sum(axis=1)
+    spans = tuple((c0 * cb.leaf_size, int(live[c0:c0 + nc].sum()))
+                  for c0, nc in cb.mv_spans)
+    mv = scene.mesh_volumes
+    return MeshVols(
+        geo.to(torch.float32).contiguous().to(device),
+        torch.tensor([s for s, _ in spans], dtype=torch.int32, device=device),
+        torch.tensor([n for _, n in spans], dtype=torch.int32, device=device),
+        mv.neg_inv_density.detach().to(torch.float32).contiguous().to(device),
+        mv.material.to(torch.int32).contiguous().to(device), spans,
+        cb.leaf_size)
+
+
 def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
     """The scene's constants for the kernel and its plain version, on
     ``device``, differentiable in the scene's leaves (the graph of
@@ -275,7 +359,7 @@ def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
         rec_mask,
         _tree(cb.volumes, centers, sph.material, device,
               nid=sph.neg_inv_density, n_solid=len(sph) - n_vol),
-        n_vol, mixes, M.ISOTROPIC in used)
+        n_vol, mixes, M.ISOTROPIC in used, _mesh_vols(scene, device))
 
 
 # ------------------------------------------------------------- plain version
@@ -340,12 +424,13 @@ def _volume_leaf(tree, s, o, d, a, t_best, ray_len, u_vol):
                        & (ti < t_best[:, None]), ti, float("inf"))
 
 
-def _triangle_leaf(tree, s, o, d, a, t_best):
-    """Candidate distances (R, L) of the triangles of slots ``s``
-    (``_row_mt``, the direct cross-product Moller-Trumbore, with t in
-    (T_MIN, t_best])."""
+def _moller_trumbore(geo, o, d):
+    """(t, inside) of (R, L) rays and the triangles of rows ``geo`` (L, 12):
+    ``_row_mt``, the direct cross-product Moller-Trumbore, t at any sign;
+    ``inside``: the determinant away from 0 and the barycentrics in the
+    triangle."""
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        v[None, :] for v in tree.geo[s, :9].unbind(-1))
+        v[None, :] for v in geo[:, :9].unbind(-1))
     ox, oy, oz = (v[:, None] for v in o)
     dx, dy, dz = (v[:, None] for v in d)
     hx = dy * e2z - dz * e2y  # h = d x e2
@@ -361,8 +446,14 @@ def _triangle_leaf(tree, s, o, d, a, t_best):
     qz = sx * e1y - sy * e1x
     v = f * (dx * qx + dy * qy + dz * qz)
     tt = f * (e2x * qx + e2y * qy + e2z * qz)
-    valid = (ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
-             & (tt > T_MIN) & (tt <= t_best[:, None]))
+    return tt, ok & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+
+
+def _triangle_leaf(tree, s, o, d, a, t_best):
+    """Candidate distances (R, L) of the triangles of slots ``s``, with t
+    in (T_MIN, t_best]."""
+    tt, inside = _moller_trumbore(tree.geo[s], o, d)
+    valid = inside & (tt > T_MIN) & (tt <= t_best[:, None])
     return torch.where(valid, tt, float("inf"))
 
 
@@ -459,11 +550,83 @@ def _walk_all(sc: BvhScene, o, d, a, alive, u_vol, tally, any_hit=False):
     return t_best, wins
 
 
+def _mv_min_t(mv: MeshVols, start: int, count: int, o, d, floor, tally):
+    """(R,) the least raw Moller-Trumbore t at or above ``floor`` (R,) of
+    the triangles of slots [start, start + count), else inf
+    (``_mv_min_t``), a chunk of leaf_size triangles at a time: no (R, T)
+    matrix."""
+    best = torch.full_like(floor, float("inf"))
+    for c in range(start, start + count, mv.leaf_size):
+        tt, inside = _moller_trumbore(
+            mv.geo[c:min(c + mv.leaf_size, start + count)], o, d)
+        ti = torch.where(inside & (tt >= floor[:, None]), tt, float("inf"))
+        best = torch.minimum(best, ti.min(dim=1).values)
+    if tally is not None:
+        tally["mv_tests"] += floor.numel() * count
+    return best
+
+
+def _mesh_volume_scan(sc: BvhScene, o, d, a, alive, u_vol, t_best, tally):
+    """Each alive ray's crossing scan of every mesh volume in index order
+    (pallas_megakernel.py:1620-1671): the entry t1 over the volume's
+    triangles at any t, the exit t2 at or past t1 + T_MIN (scanned only for
+    the rays that have an entry), the window [max(t1, T_MIN, 0), t2], and
+    the free flight of column ``n_vol + v`` of ``u_vol``, which wins when it
+    ends inside the window and nearer than ``t_best``.  ``t_best`` changes
+    in place; -> (R,) the winning volume, -1 where none."""
+    mv = sc.mesh_vols
+    win = torch.full(a.shape, -1, dtype=torch.long, device=a.device)
+    at = alive.nonzero().squeeze(1)
+    if at.numel() == 0:
+        return win
+    o_a, d_a = [v[at] for v in o], [v[at] for v in d]
+    ray_len = torch.sqrt(a[at])
+    tb, w = t_best[at], win[at]
+    inf = float("inf")
+    for v, (start, count) in enumerate(mv.spans):
+        t1 = _mv_min_t(mv, start, count, o_a, d_a,
+                       torch.full_like(tb, -inf), tally)
+        t2 = torch.full_like(tb, inf)
+        enter = (t1 < inf).nonzero().squeeze(1)
+        if enter.numel():
+            t2[enter] = _mv_min_t(mv, start, count,
+                                  [x[enter] for x in o_a],
+                                  [x[enter] for x in d_a],
+                                  t1[enter] + T_MIN, tally)
+        h1 = torch.clamp(t1, min=T_MIN)
+        valid = (t1 < inf) & (t2 < inf) & (h1 < t2)
+        h1 = torch.clamp(h1, min=0.0)
+        dist_inside = (t2 - h1) * ray_len
+        hit_dist = mv.nid[v] * torch.log(
+            torch.clamp(u_vol[at, sc.n_vol + v], min=1e-37))
+        ti = h1 + hit_dist / ray_len
+        won = valid & (hit_dist <= dist_inside) & (ti < tb)
+        tb = torch.where(won, ti, tb)
+        w = torch.where(won, v, w)
+        if tally is not None:
+            tally["mv_draws"] += int(valid.sum())
+    t_best[at] = tb
+    win[at] = w
+    return win
+
+
+def _intersect(sc: BvhScene, o, d, a, alive, u_vol, tally):
+    """The nearest hit of each alive ray: the three trees' walks
+    (:func:`_walk_all`), then the mesh volumes' scan; -> (t_best, the
+    winning slot of each tree and the winning mesh volume, -1 where
+    none)."""
+    t_best, wins = _walk_all(sc, o, d, a, alive, u_vol, tally)
+    if sc.mesh_vols is None:
+        return t_best, wins + [torch.full_like(wins[0], -1)]
+    return t_best, wins + [_mesh_volume_scan(sc, o, d, a, alive, u_vol,
+                                             t_best, tally)]
+
+
 def _winner(sc: BvhScene, pt, wins):
     """(outward normal, raw material id) of each ray's winner: a sphere's
     (p - c) / r by true division, a volume's dummy (1, 0, 0), a
     triangle's flat normal.  A ray that missed holds any value."""
-    w_sph, w_vol, w_tri = wins
+    w_sph, w_vol, w_tri, w_mv = wins
     n = [torch.zeros_like(pt[0])] * 3
     mid = torch.zeros_like(w_sph)
     if sc.spheres is not None:
@@ -483,13 +646,19 @@ def _winner(sc: BvhScene, pt, wins):
         n = [torch.where(is_tri, g[:, 9 + c], n[c]) for c in range(3)]
         mid = torch.where(is_tri, sc.triangles.mat[w_tri.clamp(min=0)].long(),
                           mid)
+    if sc.mesh_vols is not None:
+        is_mv = w_mv >= 0
+        n = [torch.where(is_mv, float(c == 0), n[c]) for c in range(3)]
+        mid = torch.where(is_mv, sc.mesh_vols.mat[w_mv.clamp(min=0)].long(),
+                          mid)
     return n, mid
 
 
 def bounce_uniforms(sc: BvhScene, key, ray_ids, b):
     """(mix coins or None, the lobe's uniforms [u1, u2, coin] and u_r with
-    an isotropic material, the volumes' (R, n_vol) free-flight uniforms)
-    of bounce ``b``, in the JAX column layout."""
+    an isotropic material, the volumes' (R, n_vol + n_mv) free-flight
+    uniforms, the sphere volumes' then the mesh volumes') of bounce ``b``,
+    in the JAX column layout."""
     off, n = sc.shade_cols()
     u = ray_uniforms(key, ray_ids, 1 + b, n)
     coins = u[:, :off].unbind(-1) if off else None
@@ -530,7 +699,7 @@ def _view_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, sky,
     _, _, u_vol = bounce_uniforms(sc, key, ray_ids, 0)
     a = _dot3(*d, *d)
     alive = torch.ones_like(a, dtype=torch.bool)
-    t_best, wins = _walk_all(sc, o, d, a, alive, u_vol, tally)
+    t_best, wins = _intersect(sc, o, d, a, alive, u_vol, tally)
     hit = t_best < float("inf")
     if tally is not None:
         tally["bounces"] += a.numel()
@@ -567,7 +736,7 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
         coins, u, u_vol = bounce_uniforms(sc, key, ray_ids, b)
         dx, dy, dz = d
         a = _dot3(dx, dy, dz, dx, dy, dz)
-        t_best, wins = _walk_all(sc, o, d, a, alive, u_vol, tally)
+        t_best, wins = _intersect(sc, o, d, a, alive, u_vol, tally)
         hit = t_best < float("inf")
         safe_t = torch.where(hit, t_best, 1.0)
         pt = [o[c] + safe_t * d[c] for c in range(3)]
@@ -591,10 +760,11 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
             sc.head, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
             sc.mats[mid].unbind(-1), kind, u, decisions=decided)
         if rec is not None:
-            w_sph, w_vol, w_tri = wins
+            w_sph, w_vol, w_tri, w_mv = wins
             code = torch.where(w_tri >= 0, w_tri + sc.tri_base,
                                torch.where(w_vol >= 0, w_vol + sc.vol_base,
                                            w_sph))
+            code = torch.where(w_mv >= 0, w_mv + sc.mv_base, code)
             code = code | torch.where(decided["front"], REC_FRONT, 0)
             for bit, name in ((REC_METAL_OK, "metal_ok"),
                               (REC_REFLECT, "reflect")):
@@ -632,10 +802,11 @@ def radiance_bvh_plain(sc: BvhScene, key: tuple[int, int],
     ``sky``: the SKYMAP background, on ``sc``'s device.  ``debug``:
     "normal" or "random", the inspection view instead.  ``tally``, for
     measurement only, is a ``collections.Counter`` that receives the work
-    the rays did: node visits, sphere, volume and triangle tests, rays
-    entering a bounce, misses, hits by resolved kind (a view's hits as
-    "view_hits"), and under a sky map a mask of the texels looked up
-    ("sky_texels")."""
+    the rays did: node visits, sphere, volume and triangle tests, the mesh
+    volumes' Moller-Trumbore tests ("mv_tests") and the windows whose free
+    flight they drew ("mv_draws"), rays entering a bounce, misses, hits by
+    resolved kind (a view's hits as "view_hits"), and under a sky map a mask
+    of the texels looked up ("sky_texels")."""
     _check_background(bg_kind, sky, record, debug)
     n = ray_ids.shape[0]
     codes = (torch.full((max_depth, n), -1, dtype=torch.int32,
@@ -697,13 +868,40 @@ def _mix_args(sc: BvhScene):
 
 
 def _leaf_size(sc: BvhScene) -> int:
-    trees = [t for t in (sc.spheres, sc.volumes, sc.triangles)
+    trees = [t for t in (sc.spheres, sc.volumes, sc.triangles, sc.mesh_vols)
              if t is not None]
     if not trees:
         raise ValueError("the scene has no tree")
     if len({t.leaf_size for t in trees}) > 1:
         raise ValueError("the trees have different leaf sizes")
     return trees[0].leaf_size
+
+
+def _mv_args(sc: BvhScene) -> list:
+    """The mesh volumes' (rows, first slots, counts, -1/densities, material
+    ids) pointers and count, after checking them; null pointers and 0
+    without mesh volumes."""
+    mv = sc.mesh_vols
+    if mv is None:
+        return [ctypes.c_void_p(0)] * 5 + [0]
+    n = len(mv.spans)
+    if not 0 < n <= MAX_BVH_MESH_VOLUMES:
+        raise ValueError(f"{n} mesh volumes; the kernel scans at most "
+                         f"{MAX_BVH_MESH_VOLUMES}")
+    dev = sc.device
+    K._check(mv.geo, "mesh volume rows", torch.float32,
+             (mv.geo.shape[0], 12), dev)
+    if mv.geo.data_ptr() % 16:
+        raise ValueError("mesh volume rows must be 16-byte aligned")
+    for name, v, dtype in (("start", mv.start, torch.int32),
+                           ("count", mv.count, torch.int32),
+                           ("nid", mv.nid, torch.float32),
+                           ("mat", mv.mat, torch.int32)):
+        K._check(v, f"mesh volume {name}", dtype, (n,), dev)
+    if any(s < 0 or c < 0 or s + c > mv.geo.shape[0] for s, c in mv.spans):
+        raise ValueError(f"mesh volume spans {mv.spans} outside the "
+                         f"{mv.geo.shape[0]} rows")
+    return [ctypes.c_void_p(v.data_ptr()) for v in mv[:5]] + [n]
 
 
 def _sky_args(sky: Optional[B.Background], dev) -> list:
@@ -729,6 +927,7 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
     variant).  ``debug``: "normal" or "random", the inspection view's
     kernel instead."""
     global LAUNCHES, SKY_LAUNCHES, VIEW_LAUNCHES, RECORD_LAUNCHES
+    global MV_LAUNCHES
     from . import _build
 
     dev = sc.device
@@ -766,11 +965,13 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(codes.data_ptr() if record else 0),
             0 if clay else sc.rec_mask, sc.vol_base, sc.tri_base,
-            *_sky_args(sky, dev), view,
+            *_sky_args(sky, dev), view, *_mv_args(sc), sc.mv_base,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_bvh_radiance launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")
+    if sc.mesh_vols is not None:
+        MV_LAUNCHES += 1
     if record:
         RECORD_LAUNCHES += 1
         return out, codes
@@ -813,12 +1014,14 @@ def _record(sc: BvhScene, key, n_pixels: int, spp: int, width: int, **opts):
 def fetch_inputs(sc: BvhScene) -> tuple:
     """The fetch pair's arguments after the codes: kinds, tri_base, the
     sphere-like slots' and the triangle slots' material ids, the material
-    table, the sphere-like and the triangle rows, raw.  The sphere and
-    volume trees are one table of sphere-like rows to the fetch, slots
-    ``sph | vol`` as in the codes (a differentiable concatenation); with a
-    mix in the table the fetch is raw: it gives the winner's raw material id
-    and no material rows, and the replay resolves the mix and indexes the
-    table itself."""
+    table, the sphere-like and the triangle rows, raw, and with mesh
+    volumes mv_base and their material ids (else None, None).  The sphere
+    and volume trees are one table of sphere-like rows to the fetch, slots
+    ``sph | vol`` as in the codes (a differentiable concatenation); a mesh
+    volume's code fetches its material and no geometry.  With a mix in the
+    table the fetch is raw: it gives the winner's raw material id and no
+    material rows, and the replay resolves the mix and indexes the table
+    itself."""
     sphl = [t for t in (sc.spheres, sc.volumes) if t is not None]
 
     def cat(vs):
@@ -828,7 +1031,9 @@ def fetch_inputs(sc: BvhScene) -> tuple:
     return (sc.kinds, sc.tri_base, cat([t.mat for t in sphl]),
             None if tri is None else tri.mat, sc.mats,
             cat([t.geo for t in sphl]), None if tri is None else tri.geo,
-            sc.mixes is not None)
+            sc.mixes is not None,
+            *((None, None) if sc.mesh_vols is None
+              else (sc.mv_base, sc.mesh_vols.mat)))
 
 
 def replay(sc: BvhScene, codes: torch.Tensor, key, n_pixels: int, spp: int,

@@ -76,6 +76,10 @@ def unsupported(scene: Scene) -> str | None:
     if not 0 < n <= MAX_SPHERES:
         return (f"{n} spheres: the brute kernel takes 1 to {MAX_SPHERES}; "
                 "larger scenes take the BVH kernel (ops/bvh_kernel.py)")
+    if scene.num_mesh_volumes:
+        return ("mesh volumes take the BVH kernel's crossing scan (the JAX "
+                "brute kernel excludes them too): build the scene with its "
+                "BVH")
     if len(scene.triangles):
         return ("triangles in the brute kernel are not ported yet "
                 "(ROADMAP A5); a scene built with its BVH takes the BVH "

@@ -40,6 +40,9 @@ def _check_rays(sc: BvhScene, o, d, ray_ids, key) -> int:
     """The ray count, after checking the rays against the scene."""
     if sc.spheres is None and sc.triangles is None and sc.volumes is None:
         raise ValueError("occlusion: the scene has no tree")
+    if sc.mesh_vols is not None:
+        raise ValueError("occlusion: the shadow-ray test does not model a "
+                         "mesh volume's stochastic occlusion (ROADMAP A6)")
     r = o.shape[-1]
     for name, v in (("o", o), ("d", d)):
         K._check(v, name, torch.float32, (3, r), sc.device)

@@ -48,8 +48,11 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
     that uses HDRI importance sampling and the BVH gate admits, at any
     primitive count; else "brute" (kernel #1) for 1 to 128 solid spheres
     with no triangle, volume, mix or isotropic material, at any depth;
-    else "bvh" (kernel #5) for a scene its gate admits; else
-    NotImplementedError naming the ROADMAP item that ports the scene.
+    else "bvh" (kernel #5) for a scene its gate admits, every scene with
+    up to 4 mesh volumes built with its BVH among them; else
+    NotImplementedError naming the ROADMAP item that ports the scene (a
+    mesh volume without the BVH, more than 4 of them, or one under
+    importance sampling: the XLA integrator, ROADMAP A6).
 
     ``grad``: a gradient will be asked of the render.  The brute path's
     gradient kernels record at most ``megakernel.MAX_DEPTH`` bounces a ray,

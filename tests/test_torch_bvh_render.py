@@ -259,13 +259,18 @@ def test_select_engine_and_refusals(tmp_path):
         np.ones((4, 8, 3), np.float32))
     assert select_engine(skymap) == "bvh"
     assert select_engine(grid_builder(T, n=6, mode="Normal").build()) == "bvh"
-    # a mesh-bounded volume raises on load
+    # a mesh-bounded volume loads and takes #5's crossing scan; without
+    # its BVH it needs the XLA integrator (A6)
+    obj = tmp_path / "m.obj"
+    obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\n"
+                   "f 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
     d = mesh_builder(T).to_json()
     d["objects"][0] = {"type": "Volume", "neg_inv_density": -1.0,
-                       "boundary": {"type": "Mesh", "path": "m.obj",
+                       "boundary": {"type": "Mesh", "path": str(obj),
                                     "material": 0}}
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        T.SceneBuilder.from_json(d)
+    b = T.SceneBuilder.from_json(d)
+    assert select_engine(b.build(with_bvh=True)) == "bvh"
+    assert "A6" in _refusal(lambda: b.build(with_bvh=False))
 
 
 def test_bvh_path_refuses_gradients():

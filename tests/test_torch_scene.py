@@ -136,15 +136,23 @@ def test_envelope_refusals(tmp_path):
     with pytest.raises(NotImplementedError, match="ROADMAP A5"):
         render_linear(dataclasses.replace(bench, cbvh=None), 8, 6,
                       device="cpu")
+    # fog inside a mesh loads and takes the BVH kernel's crossing scan;
+    # without the BVH it needs the XLA integrator (ROADMAP A6)
+    obj = tmp_path / "m.obj"
+    obj.write_text("v 0 0 -2\nv 1 0 -2\nv 0 1 -2\nv 0 0 -3\n"
+                   "f 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
     mesh = {"camera": {}, "settings": {}, "background": {}, "objects": [
         {"type": "Volume", "neg_inv_density": -1.0, "boundary": {
-            "type": "Mesh", "path": "m.obj", "material": 0}}],
-        "materials": []}
+            "type": "Mesh", "path": str(obj), "material": 0}}],
+        "materials": [{"type": "Isotropic",
+                       "color": {"r": 0.5, "g": 0.5, "b": 0.5}}]}
     b = TBuilder.from_file(SCENES["benchmark"]).to_json()
     mesh.update(camera=b["camera"], settings=b["settings"],
                 background=b["background"])
-    with pytest.raises(NotImplementedError, match="ROADMAP B4"):
-        TBuilder.from_json(mesh)
+    fog = TBuilder.from_json(mesh)
+    assert select_engine(fog.build(with_bvh=True)) == "bvh"
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        render_linear(fog.build(with_bvh=False), 8, 6, device="cpu")
     # cornell_spheres sets enable_bvh_tree; the brute path takes it
     cornell = TBuilder.from_file(SCENES["cornell_spheres"]).build()
     assert cornell.settings.enable_bvh_tree and TK.supports(cornell)

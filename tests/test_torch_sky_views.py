@@ -299,8 +299,9 @@ def test_zoo_view_matches_jax():
 def test_gate_routes_sky_and_views():
     """A non-IS sky map (Full, Clay) and every view take #5 with the
     scene's BVH; without it the sky names ROADMAP A5 and a view A6; a view
-    asked for a gradient raises; a mesh-bounded volume still raises on load
-    (B4c)."""
+    asked for a gradient raises; a mesh-bounded volume under the sky
+    takes #5 without importance sampling and raises naming A6 with it
+    (the JAX package renders it with its XLA integrator)."""
     for mode in ("Full", "Clay", "Normal", "Random"):
         b = sky_builder(T, mode=mode)
         scene = b.build(with_bvh=True)
@@ -324,12 +325,13 @@ def test_gate_routes_sky_and_views():
     view.materials.albedo.requires_grad_(True)
     with pytest.raises(ValueError, match="no gradient"):
         render_linear(view, 4, 4, device="cpu")
-    mesh_vol = mesh_builder(T).to_json()
-    mesh_vol["objects"][0] = {"type": "Volume", "neg_inv_density": -1.0,
-                              "boundary": {"type": "Mesh", "path": "m.obj",
-                                           "material": 0}}
-    with pytest.raises(NotImplementedError, match="ROADMAP B4c"):
-        T.SceneBuilder.from_json(mesh_vol)
+    b = sky_builder(T)
+    b.add_volume(next(i for i, o in enumerate(b.objects)
+                      if o["kind"] == "mesh"), 1.0)
+    assert select_engine(b.build(with_bvh=True)) == "bvh"
+    b.settings = dataclasses.replace(b.settings, env_importance_sampling=True)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        select_engine(b.build(with_bvh=True))
 
 
 def test_cli_views_and_sky(tmp_path, capsys):
