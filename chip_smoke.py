@@ -103,10 +103,12 @@ non-zero exit, and prints no result:
    depth-13 fit of scenes/cornell_spheres.json at 256x256 spp 8: the
    record variant's radiance and codes equal the plain record walk's on
    every ray and bounce, and two fit steps run through record #5, #6 and
-   #7, never #3 or #4, and the loss falls; the CLI ``render`` of the zoo
-   at 1200x800, ``fit`` at 600x400 (albedo, emission; 6 steps; the loss
-   must fall) and ``render --env-is`` of sky_zoo, each with its launches
-   counted; and the warm render and fit step (the zoo's: albedo, emission,
+   #7, never #3 or #4, and the loss falls; the zoo's BVH route by name
+   (the dispatch sends the zoo to the brute kernels, phase 13):
+   ``render_linear(engine="bvh")`` at 1200x800 and ``fit(engine="bvh")``
+   at 600x400 (albedo, emission; 6 steps; the loss must fall), and the CLI
+   ``render --env-is`` of sky_zoo, each with its launches counted; and
+   the warm render and fit step on #5's route (the zoo's: albedo, emission,
    sphere centers and radii, these held within ZOO_FIT_GEO of their start;
    sky_zoo's: albedo, emission; each loss must fall) with a ``torch.profiler``
    breakdown and the peak memory;
@@ -144,7 +146,29 @@ non-zero exit, and prints no result:
    ``render`` (1000x1000), the two views and ``fit`` (512x512, albedo and
    emission, 6 steps; the loss must fall), each launching the mesh-volume
    variants and no other kernel of the path, and the warm render and fit
-   step with a ``torch.profiler`` breakdown and the peak memory.
+   step with a ``torch.profiler`` breakdown and the peak memory;
+13. the brute kernels' mixes, sphere volumes, isotropic lobe and sky map
+   (#1's, #3's and #4's ``kExt`` and ``kSky`` variants) on three shapes
+   the dispatch sends to them: "zoo_brute" (scenes/material_zoo.json at
+   its own 1200x800 spp 32 depth 8; its fit at 600x400 spp 16, #4),
+   "sky_bench" (scenes/benchmark.json under phase 9's sky, importance
+   sampling off, 1000x1000 spp 8 depth 6; its fit at 512x512, #1 + #3)
+   and "sky_zoo_naive" (the zoo under the sky, importance sampling off,
+   600x400 spp 16 depth 8; both flags in #1 and #3).  #1 bit for bit
+   equal to its plain version on every ray at depth 1 and at full depth;
+   #3 (the sky's texels included) and #4 at the fit's frame within
+   GRAD_RTOL/GRAD_ATOL of autograd through the plain version (summed over
+   pixel ranges), finite; an FD probe of
+   ``make_loss`` on four albedos of the zoo and one on the texel of
+   largest gradient of sky_bench within 5%.  Then the kernels' and the
+   plain versions' times and bounds from a plain run's tally; the CLI
+   ``render`` and ``fit`` (albedo, emission; 6 steps; the loss must
+   fall) of each shape with its launches (#4 a step on the zoo, #1 and #3
+   a step under the sky, no #5), an L1 loss of the zoo through
+   ``render_linear`` (#1, then #3 as its backward), the warm render and
+   fit step with a ``torch.profiler`` breakdown and the peak memory (the
+   zoo's beside phase 10's #5 route on the same shapes), and each
+   variant's registers and spills.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
@@ -152,10 +176,13 @@ phase 4, the radiance gradient kernel's under ``render_linear``'s
 backward, the fused kernel's in the CLI fit, the BVH kernel's in the CLI
 renders of phase 7, the record variant's, #6's and #7's in the CLI fit of
 phase 8, #8's in the CLI renders of phase 9, and phase 10's entries of #5,
-its record variant, #6, #7 and #8 on the zoo and sky_zoo from its CLI
-render, fit and env render, phase 11's sky-map variant and views of #5
-from its CLI renders, and phase 12's mesh-volume variants of #5, its
-record walk, views, #6 and #7 from its CLI render, views and fit; the
+its record variant, #6, #7 and #8 on the zoo and sky_zoo from its
+render and fit by name and its CLI env render, phase 11's sky-map
+variant and views of #5 from its CLI renders, phase 12's mesh-volume
+variants of #5, its record walk, views, #6 and #7 from its CLI render,
+views and fit, and phase 13's variants of #1 (its CLI renders), #3 (the
+zoo's L1 loss, the CLI fits under the sky) and #4 (the zoo's CLI fit);
+the
 other paths' counts are in the phase lines), and its least
 possible time for one forward and one reverse sweep of the FP32
 operations the run's rays traced, or for the bytes it must move; the last
@@ -213,7 +240,7 @@ OPS_MISS = {0: 6, 1: 25, 2: 65}
 # and root, and its lobe by kind (the dielectric as the mean of its
 # reflect, ~50, and refract, ~70, branches).
 OPS_ADJ_RAY = 37
-OPS_ADJ_MISS = {0: 9, 1: 41}
+OPS_ADJ_MISS = {0: 9, 1: 41, 2: 3}
 OPS_ADJ_EMIT = 9
 OPS_ADJ_ABSORB = 6
 OPS_ADJ_HIT = 99
@@ -223,6 +250,20 @@ OPS_ADJ_LOBE = {0: 0, 1: 52, 2: 60}
 # its square and the cotangent
 OPS_LOSS_RAY = 15
 OPS_LOSS_PIXEL = 15
+# the brute kernels' kExt branches (csrc/radiance.cuh trace, adjoint),
+# counted from the source: per bounce with volumes the ray's length
+# (sqrtf, ~5); per volume a ray tests, the quadratic (OPS_SPHERE) and the
+# window (4: the clamp, the far root's test, the compare); a window a ray
+# crosses draws its free flight (OPS_VOL_DRAW); each hit in a scene with
+# mixes converts the coin and compares it with the factor (2); the
+# isotropic lobe is OPS_ISO.  Their adjoints: a volume winner's hit
+# through its window and free flight (sqrtf, logf and the divisions,
+# ~35); a miss under a sky map only g * thr (3), its lookup being a
+# forward value recomputed
+OPS_RAY_LEN = 5
+OPS_VOL_WINDOW = 4
+OPS_MIX_PICK = 2
+OPS_ADJ_VOL = 35
 # csrc/bvh_forward.cu, counted from its source: per bounce a ray enters
 # (a, 1/d, the uniforms), per node a walk visits (the slab test: 6
 # differences, 6 products, 12 min/max, the compare), per sphere and per
@@ -277,26 +318,43 @@ def _bound(ops: float, n_bytes: float) -> tuple[float, str]:
 class _Count:
     """What the rays of one plain-version run traced, from the masks it
     passes to ``radiance_plain(..., observe=count)`` once a bounce: rays
-    entering each bounce, hits by the winner's kind, misses.  Sums only,
-    so a frame of many tiles adds up."""
+    entering each bounce, hits by the winner's kind (the picked mix
+    leaf's), misses; with volumes the windows crossed; under a sky map
+    the texels looked up.  Sums only, so a frame of many tiles adds up."""
 
     def __init__(self):
-        self.bounces = self.misses = 0
+        self.bounces = self.misses = self.windows = 0
         self.hits = collections.Counter()
+        self.texels = None
 
-    def __call__(self, alive, hit, kind):
+    def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None):
         self.bounces += int(alive.sum())
         self.misses += int((alive & ~hit).sum())
-        for k in range(4):
+        self.windows += windows
+        for k in range(5):
             self.hits[k] += int((alive & hit & (kind == k)).sum())
+        if texels is not None:
+            self.texels = texels if self.texels is None else (
+                self.texels | texels)
 
-    def forward_ops(self, n_rays: int, n_spheres: int, bg_kind: int) -> int:
-        """FP32 operations of the forward chain over these rays."""
+    def texel_bytes(self) -> int:
+        """The bytes of the sky's texels looked up, each once."""
+        return 0 if self.texels is None else 12 * int(self.texels.sum())
+
+    def forward_ops(self, n_rays: int, n_spheres: int, bg_kind: int,
+                    mix: bool = False, n_vol: int = 0, **_) -> int:
+        """FP32 operations of the forward chain over these rays (the
+        options as ``megakernel.scene_opts`` gives them)."""
+        lobe = {**OPS_LOBE, 4: OPS_ISO}
+        hits = sum(self.hits.values())
         return (n_rays * OPS_RAY
                 + self.bounces * (OPS_BOUNCE + n_spheres * OPS_SPHERE)
-                + sum(self.hits.values()) * OPS_HIT
-                + sum(self.hits[k] * OPS_LOBE[k] for k in range(4))
-                + self.misses * OPS_MISS[bg_kind])
+                + hits * OPS_HIT
+                + sum(self.hits[k] * lobe[k] for k in range(5))
+                + self.misses * OPS_MISS[bg_kind]
+                + (self.bounces * (OPS_RAY_LEN + n_vol * OPS_VOL_WINDOW)
+                   + self.windows * OPS_VOL_DRAW if n_vol else 0)
+                + (hits * OPS_MIX_PICK if mix else 0))
 
 
 class _Tally(_Count):
@@ -310,21 +368,25 @@ class _Tally(_Count):
         self.calls = 0
         self.prev = None  # rays that hit a scattering kind at the last call
 
-    def __call__(self, alive, hit, kind):
+    def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None):
         import torch
 
-        super().__call__(alive, hit, kind)
+        super().__call__(alive, hit, kind, windows, vol, texels)
         if self.prev is None:
             self.ended = torch.zeros_like(alive)
             self.absorbed = torch.zeros_like(alive)
-            self.scatter = torch.zeros((3,) + alive.shape, dtype=torch.int32,
+            # scattering bounces by kind (3, the emitter, unused), then
+            # those whose winner is a volume
+            self.scatter = torch.zeros((6,) + alive.shape, dtype=torch.int32,
                                        device=alive.device)
         else:  # a metal ray reflected below the surface ends there
             self.absorbed |= self.prev & ~alive
             self.scatter[1] -= (self.prev & ~alive).int()
         self.calls += 1
-        for k in range(3):
+        for k in (0, 1, 2, 4):
             self.scatter[k] += (alive & hit & (kind == k)).int()
+        if vol is not None:
+            self.scatter[5] += (alive & vol & (kind != 3)).int()
         self.ended |= (alive & ~hit) | (alive & hit & (kind == 3))
         self.prev = alive & hit & (kind != 3)
 
@@ -335,13 +397,15 @@ class _Tally(_Count):
             absorbed |= self.prev
             self.scatter[1] -= self.prev.int()
         ended = self.ended | absorbed
-        scatter = [int(self.scatter[k][ended].sum()) for k in range(3)]
+        scatter = [int(self.scatter[k][ended].sum()) for k in range(6)]
+        lobe = {**OPS_ADJ_LOBE, 4: 0}
         return (int(ended.sum()) * OPS_ADJ_RAY
                 + self.misses * OPS_ADJ_MISS[bg_kind]
                 + self.hits[3] * OPS_ADJ_EMIT
                 + int(absorbed.sum()) * OPS_ADJ_ABSORB
-                + sum(n * (OPS_ADJ_HIT + OPS_ADJ_LOBE[k])
-                      for k, n in enumerate(scatter)))
+                + sum(scatter[k] * (OPS_ADJ_HIT + lobe[k])
+                      for k in (0, 1, 2, 4))
+                + scatter[5] * OPS_ADJ_VOL)
 
 
 def _sheet_obj(path: str, n_side: int) -> None:
@@ -427,6 +491,8 @@ def _reset_launches() -> None:
     BK.LAUNCHES = BK.RECORD_LAUNCHES = OC.LAUNCHES = K.LAUNCHES = 0
     BK.SKY_LAUNCHES = BK.VIEW_LAUNCHES = BK.MV_LAUNCHES = 0
     F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = RG.LAUNCHES = MS.LAUNCHES = 0
+    K.EXT_LAUNCHES = K.SKY_LAUNCHES = RG.EXT_LAUNCHES = RG.SKY_LAUNCHES = 0
+    MS.EXT_LAUNCHES = 0
 
 
 def _launches() -> dict:
@@ -442,7 +508,9 @@ def _launches() -> dict:
                 record=BK.RECORD_LAUNCHES, mv=BK.MV_LAUNCHES,
                 fetch=F.FETCH_LAUNCHES, transpose=F.TRANSPOSE_LAUNCHES,
                 occlusion=OC.LAUNCHES, brute=K.LAUNCHES, grad=RG.LAUNCHES,
-                fused=MS.LAUNCHES)
+                fused=MS.LAUNCHES, brute_ext=K.EXT_LAUNCHES,
+                brute_sky=K.SKY_LAUNCHES, grad_ext=RG.EXT_LAUNCHES,
+                grad_sky=RG.SKY_LAUNCHES, fused_ext=MS.EXT_LAUNCHES)
 
 
 def _entry(name: str, source: str, at: str, launches: int, err: float,
@@ -796,9 +864,10 @@ def _bvh_grad_check(label, sc, key, n_pix: int, spp: int, width: int,
 
 
 def _fd_probe(label, scene, dev, width: int, height: int, key, probe,
-              gen, rows=None) -> tuple:
-    """A directional finite-difference probe of ``make_loss`` along a
-    numpy-seeded direction in the ``probe`` parameters (only in their rows
+              gen, rows=None, engine=None) -> tuple:
+    """A directional finite-difference probe of ``make_loss`` (on the
+    route ``engine``, None for the dispatch's) along a numpy-seeded
+    direction in the ``probe`` parameters (only in their rows
     ``rows[name]`` where given), against a target at 0.9 of the scene's own
     render: AD within 5% of the central difference.  -> (AD, FD)."""
     import torch
@@ -819,7 +888,8 @@ def _fd_probe(label, scene, dev, width: int, height: int, key, probe,
     with torch.no_grad():
         target = render_linear(sc_dev, width, height, seed=12,
                                device=dev) * 0.9
-    loss = G.make_loss(sc_dev, target, width, height, device=dev)
+    loss = G.make_loss(sc_dev, target, width, height, device=dev,
+                       engine=engine)
     loss(params, key).backward()
     ad = sum((params[k].grad * v[k]).sum().item() for k in params)
     with torch.no_grad():
@@ -873,7 +943,7 @@ def _fit_path(label, scene, sc, key, width: int, height: int, opts: dict,
                                          width, opts["max_depth"], gen,
                                          mis=False)
     ad, fd = _fd_probe(label, scene, sc.device, width, height, key, probe,
-                       gen, probe_rows)
+                       gen, probe_rows, engine="bvh")
     ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
         sc, key, n_rays, spp, width, record=True, **rec_opts), 5)
     ops = _bvh_ops(sc, tally, n_rays, rec_opts["bg_kind"], record=True)
@@ -938,9 +1008,11 @@ def _check_png(path: str, width: int, height: int, label: str) -> None:
                              f"misshapen")
 
 
-def _warm_render(scene, width: int, height: int, dev, label: str) -> tuple:
-    """(best wall of three renders in s, the image's mean); the image must
-    be finite and not flat."""
+def _warm_render(scene, width: int, height: int, dev, label: str,
+                 engine=None) -> tuple:
+    """(best wall of three renders in s, the image's mean) on the route
+    ``engine`` (None for the dispatch's); the image must be finite and not
+    flat."""
     import torch
 
     from raytracingrust_tpu_torch.render.render import render_linear
@@ -948,7 +1020,8 @@ def _warm_render(scene, width: int, height: int, dev, label: str) -> tuple:
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        img = render_linear(scene, width, height, seed=0, device=dev)
+        img = render_linear(scene, width, height, seed=0, device=dev,
+                            engine=engine)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     if not bool(torch.isfinite(img).all()) or img.std().item() == 0.0:
@@ -991,6 +1064,12 @@ def _profile(run, steps: int) -> dict:
             part["#7"] += ms
         elif "occlusion_kernel" in key:
             part["#8"] += ms
+        elif "mse_kernel" in key:
+            part["#4"] += ms
+        elif "grad_kernel" in key:
+            part["#3"] += ms
+        elif "radiance_kernel" in key:
+            part["#1"] += ms
         else:
             part["replay and rest"] += ms
         part["busy"] += ms
@@ -1563,9 +1642,11 @@ C1_SHAPE = (256, 256, 8)  # cornell at depth 13
 C1_DEPTH = 13
 
 
-def zoo_phase(dev, card: str) -> list:
-    """Phase 10; -> the report entries of #5, its record variant, #6, #7
-    and #8 on the zoo and sky_zoo."""
+def zoo_phase(dev, card: str) -> tuple:
+    """Phase 10; -> (the report entries of #5, its record variant, #6, #7
+    and #8 on the zoo and sky_zoo, #5's zoo times for phase 13).  The
+    dispatch sends the zoo to the brute kernels (phase 13); #5's route is
+    driven here by name (``engine="bvh"``)."""
     import numpy as np
     import torch
 
@@ -1590,8 +1671,8 @@ def zoo_phase(dev, card: str) -> list:
     # ---- #5 at the zoo's render shape
     rw, rh = ZOO_RENDER
     scene = _load(zoo)
-    if select_engine(scene) != "bvh":
-        raise AssertionError("the zoo is not sent to the BVH kernel")
+    if select_engine(scene) != "brute":
+        raise AssertionError("the zoo is not sent to the brute kernels")
     r_spp = scene.settings.samples_per_pixel
     r_rays = rw * rh * r_spp
     opts = dict(max_depth=depth, bg_kind=scene.background.kind, clay=False)
@@ -1684,25 +1765,33 @@ def zoo_phase(dev, card: str) -> list:
           f"{c_counts['fetch']}, #7 {c_counts['transpose']}, #3 "
           f"{c_counts['grad']}, #4 {c_counts['fused']}; no exception")
 
-    # ---- the main path, through the CLI entry
-    zoo_png = os.path.join(OUT_DIR, "material_zoo.png")
+    # ---- the BVH route of the zoo, through the entries by name
     _reset_launches()
-    _cli_render(zoo, zoo_png, ["--width", str(rw), "--height", str(rh)])
+    with torch.no_grad():
+        img = render_linear(_load(zoo), rw, rh, seed=0, device=dev,
+                            engine="bvh")
     render_counts = _launches()
-    if render_counts["fwd"] != 1 or render_counts["brute"] != 0:
-        raise AssertionError(f"cli render of the zoo launched {render_counts}")
-    _check_png(zoo_png, rw, rh, "zoo")
+    if (render_counts["fwd"] != 1 or render_counts["brute"] != 0
+            or not bool(torch.isfinite(img).all())):
+        raise AssertionError(f"the zoo's BVH render launched "
+                             f"{render_counts}")
+    del img
     dim = _write_scene(zoo, "material_zoo_dim.json", dim=True)
     target_png = os.path.join(OUT_DIR, "zoo_fit_target.png")
     size = ["--width", str(fw), "--height", str(fh)]
     _cli_render(dim, target_png, [*size, "--spp", str(f_spp)], seed=1)
+    target = (read_png(target_png)[..., :3].astype(np.float32) / 255.0) ** 2
     steps = CLI_FIT_STEPS
-    fit_counts, first, final, text = _cli_fit(zoo, target_png,
-                                              ["--spp", str(f_spp)])
+    _reset_launches()
+    _, _, history = fit(scene, target, CLI_FIT_PARAMS.split(","), fw, fh,
+                        steps=steps, device=dev, engine="bvh")
+    fit_counts = _launches()
+    first, final = history[0], history[-1]
     if (fit_counts["record"], fit_counts["fetch"], fit_counts["transpose"],
-            fit_counts["brute"]) != (steps, steps, steps, 0):
-        raise AssertionError(f"cli fit of the zoo launched {fit_counts}"
-                             f"\n{text}")
+            fit_counts["brute"], fit_counts["fused"]) != (
+                steps, steps, steps, 0, 0) or not final < first:
+        raise AssertionError(f"the zoo's BVH fit launched {fit_counts}, "
+                             f"losses {history}")
     sky_png = os.path.join(OUT_DIR, "sky_zoo.png")
     _reset_launches()
     _cli_render(sky_zoo, sky_png, ["--env-is", *size])
@@ -1712,27 +1801,30 @@ def zoo_phase(dev, card: str) -> list:
             or env_counts["fwd"] or env_counts["brute"]):
         raise AssertionError(f"cli render of sky_zoo launched {env_counts}")
     _check_png(sky_png, fw, fh, "sky_zoo")
-    print(f"phase 10 CLI: render {zoo} {rw}x{rh}: launches #5 "
+    print(f"phase 10 the BVH route by name (engine='bvh'): render_linear "
+          f"{zoo} {rw}x{rh}: launches #5 "
           f"{render_counts['fwd']}, #1 {render_counts['brute']}; fit "
           f"{fw}x{fh} spp {f_spp}, {steps} steps of {CLI_FIT_PARAMS}: loss "
           f"{first:.6f} -> {final:.6f}, launches record #5 "
           f"{fit_counts['record']}, #6 {fit_counts['fetch']}, #7 "
-          f"{fit_counts['transpose']}; render --env-is sky_zoo {fw}x{fh}: "
+          f"{fit_counts['transpose']}; CLI render --env-is sky_zoo "
+          f"{fw}x{fh}: "
           f"launches record #5 {env_counts['record']}, #6 "
           f"{env_counts['fetch']}, #8 {env_counts['occlusion']} (of {depth} "
           f"bounces)")
 
     # ---- warm renders and fit steps at the full shapes
-    best, mean = _warm_render(_load(zoo), rw, rh, dev, "zoo")
+    best, mean = _warm_render(_load(zoo), rw, rh, dev, "zoo", engine="bvh")
+    zoo_bvh = {"kernel_ms": fwd["ms"], "render_s": best}
     print(f"phase 10 zoo {rw}x{rh} spp {r_spp} depth {depth}: warm render "
           f"{best:.4f} s, {r_rays / best / 1e6:.1f} primary Mrays/s (#5), "
           f"image mean {mean:.5f}")
-    target = (read_png(target_png)[..., :3].astype(np.float32) / 255.0) ** 2
     box = {k: ((v - ZOO_FIT_GEO).to(dev), (v + ZOO_FIT_GEO).to(dev))
            for k, v in G.extract_params(
                scene, ["sphere_center", "sphere_radius"]).items()}
     r = _warm_fit(scene, target, ZOO_FIT_PARAMS.split(","), fw, fh, dev,
-                  constraints=box)
+                  constraints=box, engine="bvh")
+    zoo_bvh["fit_ms"] = r["warm_ms"]
     if not r["history"][-1] < r["history"][0]:
         raise AssertionError(f"the warm zoo fit's loss did not fall: "
                              f"{r['history']}")
@@ -1778,17 +1870,17 @@ def zoo_phase(dev, card: str) -> list:
           f"{r['warm_ms'] - r['part']['busy']:.3f} ms; {card}")
 
     return [
-        # the CLI render of the zoo; times at 1200x800 spp 32
+        # render_linear(engine="bvh") of the zoo; times at 1200x800 spp 32
         _entry("bvh_forward_zoo", "bvh_forward.cu", "3001",
                render_counts["fwd"], fwd["err"], fwd["ms"], fwd["plain_ms"],
                fwd["bound"]),
-        # the CLI fit of the zoo; times at 600x400 spp 16
+        # fit(engine="bvh") of the zoo; times at 600x400 spp 16
         *_fit_entries(fp, fit_counts, "_zoo"),
         # the CLI render --env-is of sky_zoo; times at 600x400 spp 16
         _entry("occlusion_sky_zoo", "occlusion.cu", "3591",
                env_counts["occlusion"], env["err"], env["ms"],
                env["plain_ms"], env["bound"]),
-    ]
+    ], zoo_bvh
 
 
 # phase 11: a sky map without importance sampling, and the views
@@ -2313,6 +2405,476 @@ def fog_phase(dev, card: str) -> list:
     ]
 
 
+# phase 13: the brute kernels' mixes, sphere volumes, isotropic lobe and sky
+SKY_BENCH = (1000, 1000, 8, 6)  # width, height, spp, depth (CLI defaults)
+SKY_BENCH_FIT = 512
+SKY_ZOO_NAIVE = (600, 400, 16, 8)
+# rays in one autograd graph of the plain version in phase 13's gradient
+# checks: each bounce holds ~15 floats a ray and a sphere, ~9 GB here for
+# the zoo's 48 spheres
+BRUTE_PLAIN_RAYS = 400_000
+
+
+def brute_scenes() -> list:
+    """Phase 13's shapes: (label, scene JSON, render (w, h), fit (w, h,
+    spp)); sky_bench and sky_zoo_naive written beside phase 9's sky, with
+    importance sampling off."""
+    if not os.path.exists(SKY):
+        procedural_sky(SKY)
+    sky_bench = _write_scene(BENCH, "sky_bench.json", sky=True,
+                             env_importance_sampling=False,
+                             samples_per_pixel=SKY_BENCH[2],
+                             max_ray_depth=SKY_BENCH[3])
+    w, h, spp, depth = SKY_ZOO_NAIVE
+    sky_zoo = _write_scene(ZOO, "sky_zoo_naive.json", sky=True,
+                           env_importance_sampling=False,
+                           samples_per_pixel=spp, max_ray_depth=depth)
+    fw, fh, f_spp = ZOO_FIT
+    return [("zoo_brute", ZOO, ZOO_RENDER, (fw, fh, f_spp)),
+            ("sky_bench", sky_bench, SKY_BENCH[:2],
+             (SKY_BENCH_FIT, SKY_BENCH_FIT, SKY_BENCH[2])),
+            ("sky_zoo_naive", sky_zoo, (w, h), (w, h, spp))]
+
+
+def _brute_inputs(scene, w: int, h: int, dev) -> tuple:
+    """(fparams, kinds, options, sky texels or None) of a brute scene."""
+    from raytracingrust_tpu_torch.models import backgrounds as B
+    from raytracingrust_tpu_torch.ops import megakernel as K
+
+    sky = (scene.background.image.to(dev).contiguous()
+           if scene.background.kind == B.SKYMAP else None)
+    return (K.pack_fparams(scene, w, h).to(dev),
+            K.sphere_kinds(scene).to(dev), K.scene_opts(scene), sky)
+
+
+def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
+    """#1 against its plain version on every ray of the frame: per-ray
+    radiance bit for bit at depth 1 and at full depth; #1's time, the
+    plain version's (full depth), the work of the plain run's rays and
+    #1's bound from it."""
+    import torch
+
+    from raytracingrust_tpu_torch.ops import megakernel as K
+
+    fp, kinds, opts, sky = _brute_inputs(scene, w, h, dev)
+    spp = scene.settings.samples_per_pixel
+    n_rays = w * h * spp
+    ids, px, py = K.prep_rays(torch.arange(w * h, device=dev), spp, w)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    for d in (1, opts["max_depth"]):
+        at = {**opts, "max_depth": d}
+        ker = K.radiance_cuda(fp, kinds, key, n_rays, spp, w, sky=sky, **at)
+        start.record()
+        with torch.no_grad():
+            plain = K.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
+                                     **at)
+        end.record()
+        torch.cuda.synchronize()
+        err = _bit_equal(f"{label}: #1's radiance at depth {d}", ker, plain)
+    plain_ms = start.elapsed_time(end)
+    mean = ker.mean().item()
+    del ker, plain
+    ms = _cuda_time_ms(lambda: K.radiance_cuda(
+        fp, kinds, key, n_rays, spp, w, sky=sky, **opts), 5)
+    count = _Count()
+    with torch.no_grad():
+        K.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
+                         observe=count, **opts)
+    n_sph = kinds.shape[0]
+    ops = count.forward_ops(n_rays, n_sph, **opts)
+    return dict(ms=ms, plain_ms=plain_ms, err=err, count=count, ops=ops,
+                mean=mean, bound=_bound(ops, 4 * fp.numel() + 4 * n_sph
+                                        + 12 * n_rays + count.texel_bytes()))
+
+
+def _brute_plain_grads(fp, kinds, key, cts, target, spp: int, w: int,
+                       clamp: float, sky, opts: dict) -> tuple:
+    """Autograd through the plain version over pixel ranges of about
+    BRUTE_PLAIN_RAYS rays, summed: #3's gradient (dfparams, and dsky with
+    a sky map) for the cotangents ``cts`` and, with ``target``, #4's loss
+    and dfparams in its place (each range's squared errors over the whole
+    frame's pixel and channel count).  One graph of the frame would hold every bounce's
+    per-sphere temporaries, 88 GB for the zoo at the fit's 3.84M rays."""
+    import torch
+
+    from raytracingrust_tpu_torch.ops import megakernel as K
+
+    n_pix = cts.shape[0] // spp
+    step = max(1, BRUTE_PLAIN_RAYS // spp)
+    fpg = fp.detach().requires_grad_(True)
+    skg = None if sky is None else sky.detach().requires_grad_(True)
+    leaves = [fpg] if skg is None else [fpg, skg]
+    g3 = [torch.zeros_like(v) for v in leaves]
+    g4 = torch.zeros_like(fp)
+    loss = torch.zeros((), dtype=torch.float64, device=fp.device)
+    for p0 in range(0, n_pix, step):
+        p1 = min(n_pix, p0 + step)
+        ids, px, py = K.prep_rays(torch.arange(p0, p1, device=fp.device),
+                                  spp, w)
+        with torch.enable_grad():
+            rad = K.radiance_plain(fpg, kinds, key, ids, px, py, sky=skg,
+                                   **opts)
+            if target is None:
+                grads = torch.autograd.grad(rad, leaves,
+                                            cts[p0 * spp:p1 * spp],
+                                            allow_unused=True)
+                for acc, g in zip(g3, grads):
+                    if g is not None:
+                        acc += g
+            else:
+                m = K.clip_samples(rad, clamp).view(-1, spp, 3).mean(dim=1)
+                part = ((m - target[p0:p1]) ** 2).sum() / (n_pix * 3)
+                g4 += torch.autograd.grad(part, fpg)[0]
+                loss += part.detach().double()
+        del rad
+    if target is not None:
+        return loss.float(), g4
+    return g3[0] if sky is None else tuple(g3)
+
+
+def _held_grads(label, got, want) -> float:
+    """:func:`_grad_check` of the kernels' gradients against the plain
+    version's, which must be finite everywhere and nonzero."""
+    import torch
+
+    for b in want:
+        if not bool(torch.isfinite(b).all()) or b.abs().max() == 0.0:
+            raise AssertionError(
+                f"{label}: the plain gradient has {int((~torch.isfinite(b)).sum())} "
+                f"entries that are not finite, or is 0")
+    return _grad_check(label, got, want)
+
+
+def _brute_grad_check(label, scene, w: int, h: int, dev, key, gen,
+                      fused: bool) -> dict:
+    """#3 (and with ``fused`` #4) at the frame (w, h) and the scene's own
+    spp against autograd through the plain version on the same inputs (over
+    pixel ranges, :func:`_brute_plain_grads`), the texels' gradient
+    included; each entry within GRAD_RTOL of the plain gradient's or
+    GRAD_ATOL of its largest, finite, and each plain gradient finite and
+    nonzero.  Then the kernels' times, the plain versions', and their
+    bounds from a plain run's tally, all at that shape."""
+    import torch
+
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.ops import mse_loss as MS
+    from raytracingrust_tpu_torch.ops import radiance_grad as RG
+
+    fp, kinds, opts, sky = _brute_inputs(scene, w, h, dev)
+    clamp = scene.settings.clamp_indirect
+    spp = scene.settings.samples_per_pixel
+    n_rays = w * h * spp
+    cts = torch.tensor(gen.standard_normal((n_rays, 3)), dtype=torch.float32,
+                       device=dev)
+    target = torch.tensor(gen.random((w * h, 3)), dtype=torch.float32,
+                          device=dev)
+
+    def grad3():
+        return RG.radiance_grad_cuda(fp, kinds, key, cts, spp, w, sky=sky,
+                                     **opts)
+
+    def loss4():
+        return MS.mse_loss_cuda(fp, kinds, key, target, spp, w, clamp=clamp,
+                                **opts)
+
+    def plain(with_target: bool) -> tuple:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = _brute_plain_grads(fp, kinds, key, cts,
+                               target if with_target else None, spp, w,
+                               clamp, sky, opts)
+        torch.cuda.synchronize()
+        return r, (time.perf_counter() - t0) * 1e3
+
+    out = {"spp": spp}
+    got = grad3()
+    torch.cuda.reset_peak_memory_stats()
+    want, out["plain3_ms"] = plain(False)
+    out["plain_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    got, want = (got, want) if sky is not None else ((got,), (want,))
+    out["err3"] = _held_grads(f"{label} #3", got, want)
+    if sky is not None:
+        out["texels"] = int((want[1] != 0).any(-1).sum())
+    del got, want
+    if fused:
+        loss, dfp = loss4()
+        (p_loss, p_dfp), out["plain4_ms"] = plain(True)
+        if abs(loss.item() - p_loss.item()) > LOSS_RTOL * abs(p_loss.item()):
+            raise AssertionError(f"{label}: #4's loss {loss.item()} vs "
+                                 f"plain {p_loss.item()}")
+        out["err4"] = _held_grads(f"{label} #4", (dfp,), (p_dfp,))
+        out["ms4"] = _cuda_time_ms(loss4, 3)
+    out["ms3"] = _cuda_time_ms(grad3, 3)
+    tally = _Tally(opts["max_depth"])
+    ids, px, py = K.prep_rays(torch.arange(w * h, device=dev), spp, w)
+    with torch.no_grad():
+        K.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
+                         observe=tally, **opts)
+    n_sph, k_f = kinds.shape[0], fp.numel()
+    fwd = tally.forward_ops(n_rays, n_sph, **opts)
+    adj = tally.adjoint_ops(opts["bg_kind"])
+    scene_bytes = 4 * k_f + 4 * n_sph + 2 * tally.texel_bytes()
+    out["bound3"] = _bound(fwd + adj, scene_bytes + 12 * n_rays + 4 * k_f)
+    out["bound4"] = _bound(
+        fwd + adj + n_rays * OPS_LOSS_RAY + w * h * OPS_LOSS_PIXEL,
+        scene_bytes + 12 * w * h + 4 * (k_f + 1))
+    return out
+
+
+def brute_phase(dev, card: str, zoo_bvh: dict) -> list:
+    """Phase 13; -> the report entries of #1's, #3's and #4's variants
+    with mixes, volumes and the isotropic lobe (kExt) and a sky map
+    (kSky)."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.diff import grad as G
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.ops import mse_loss as MS
+    from raytracingrust_tpu_torch.ops import radiance_grad as RG
+    from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                        select_engine)
+    from raytracingrust_tpu_torch.utils import rng
+
+    key = rng.base_key(13)
+    gen = np.random.default_rng(13)
+    shapes = brute_scenes()
+    fwd, grads, cli_counts = {}, {}, {}
+    for label, path, (rw, rh), (fw, fh, f_spp) in shapes:
+        scene = _load(path)
+        opts = K.scene_opts(scene)
+        if (select_engine(scene), select_engine(scene, grad=True)) != (
+                "brute", "brute"):
+            raise AssertionError(f"{label} is not sent to the brute kernels")
+        r_spp = scene.settings.samples_per_pixel
+        f = _brute_forward_check(label, scene, rw, rh, dev, key)
+        fwd[label] = f
+        c = f["count"]
+        print(f"phase 13 {label} {rw}x{rh} spp {r_spp} depth "
+              f"{opts['max_depth']} ({len(scene.spheres)} spheres, "
+              f"{opts['n_vol']} volume, mixes {opts['mix']}, isotropic "
+              f"{opts['iso']}, sky map {scene.background.kind == 2}): #1 "
+              f"radiance == plain bit for bit at depth 1 and depth "
+              f"{opts['max_depth']} on all {rw * rh * r_spp} rays; per ray "
+              f"{c.bounces / (rw * rh * r_spp):.3f} bounces, hits by kind "
+              f"{[c.hits[k] for k in range(5)]}, misses {c.misses}, volume "
+              f"windows {c.windows}, texels looked up "
+              f"{c.texel_bytes() // 12}; #1 {f['ms']:.4f} ms, plain "
+              f"{f['plain_ms']:.1f} ms, bound {f['bound'][0]:.5f} ms "
+              f"({f['bound'][1]}; {f['ops']:.4g} FP32 operations); {card}")
+        fit_scene = _load(path, spp=f_spp)
+        g = _brute_grad_check(label, fit_scene, fw, fh, dev, key, gen,
+                              fused=scene.background.kind != 2)
+        grads[label] = g
+        texels = (f", the texels' gradient ({g['texels']} texels)"
+                  if "texels" in g else "")
+        fused = (f"; #4 max abs diff {g['err4']:.3e}, {g['ms4']:.3f} ms "
+                 f"(plain autograd {g['plain4_ms']:.1f} ms), bound "
+                 f"{g['bound4'][0]:.5f} ms ({g['bound4'][1]})"
+                 if "err4" in g else "")
+        print(f"phase 13 {label} gradients at {fw}x{fh} spp {g['spp']} "
+              f"(autograd of the plain version over ranges of "
+              f"{BRUTE_PLAIN_RAYS} rays, summed; peak {g['plain_peak_gb']:.1f}"
+              f" GB; finite everywhere): #3 max abs diff {g['err3']:.3e}"
+              f"{texels} (allowed {GRAD_RTOL:g} rel + {GRAD_ATOL:g} of max), "
+              f"finite; #3 {g['ms3']:.3f} ms (plain autograd "
+              f"{g['plain3_ms']:.1f} ms), bound {g['bound3'][0]:.5f} ms "
+              f"({g['bound3'][1]}){fused}; {card}")
+
+    # FD probes: an albedo of the zoo (make_loss: #4), the texel of
+    # largest gradient of sky_bench (#1 forward, #3 backward)
+    fw, fh, f_spp = ZOO_FIT
+    zoo_fit = _load(ZOO, spp=f_spp)
+    mats = zoo_fit.materials
+    albedo_rows = [int(i) for i in (mats.albedo.abs().sum(-1) > 0)
+                   .nonzero().squeeze(1)[:4]]
+    ad, fd = _fd_probe("zoo_brute", zoo_fit, dev, fw, fh, key, ["albedo"],
+                       gen, {"albedo": albedo_rows})
+    sky_fit = _load(shapes[1][1])
+    with torch.no_grad():
+        s_target = render_linear(sky_fit, SKY_BENCH_FIT, SKY_BENCH_FIT,
+                                 seed=12, device=dev) * 0.9
+    texel, t_ad, t_fd = _texel_fd_probe("sky_bench", sky_fit, dev,
+                                        SKY_BENCH_FIT, SKY_BENCH_FIT, key,
+                                        s_target)
+    print(f"phase 13 FD probes (rtol 5%): zoo {fw}x{fh} spp {f_spp} albedo "
+          f"rows {albedo_rows} (eps {FD_EPS:g}; #4): AD {ad:.6e}, FD "
+          f"{fd:.6e}; sky_bench {SKY_BENCH_FIT}x{SKY_BENCH_FIT} texel "
+          f"{texel} (eps {FD_TEXEL_EPS:g}; #1, #3): AD {t_ad:.6e}, FD "
+          f"{t_fd:.6e}")
+
+    # ---- the main path, through the CLI entry
+    for label, path, (rw, rh), (fw, fh, f_spp) in shapes:
+        png = os.path.join(OUT_DIR, f"{label}.png")
+        _reset_launches()
+        _cli_render(path, png, ["--width", str(rw), "--height", str(rh)])
+        cli_counts[label, "render"] = _launches()
+        _check_png(png, rw, rh, label)
+        dim = _write_scene(path, f"{label}_dim.json", dim=True)
+        target_png = os.path.join(OUT_DIR, f"{label}_fit_target.png")
+        _cli_render(dim, target_png, ["--width", str(fw), "--height",
+                                      str(fh), "--spp", str(f_spp)], seed=1)
+        counts, first, final, _ = _cli_fit(path, target_png,
+                                           ["--spp", str(f_spp)])
+        cli_counts[label, "fit"] = counts
+        print(f"phase 13 CLI {label}: render {rw}x{rh}: launches #1 "
+              f"{cli_counts[label, 'render']['brute']}, #5 "
+              f"{cli_counts[label, 'render']['fwd'] + cli_counts[label, 'render']['sky']}"
+              f"; fit {fw}x{fh} spp {f_spp}, {CLI_FIT_STEPS} steps of "
+              f"{CLI_FIT_PARAMS}: loss {first:.6f} -> {final:.6f}, launches "
+              f"#1 {counts['brute']}, #3 {counts['grad']}, #4 "
+              f"{counts['fused']}, record #5 {counts['record']}")
+    render = {k[0]: v for k, v in cli_counts.items() if k[1] == "render"}
+    fits = {k[0]: v for k, v in cli_counts.items() if k[1] == "fit"}
+    steps = CLI_FIT_STEPS
+    # (#1 in the render; #1, #3, #4 in the fit): the fused kernel a step,
+    # or under a sky map the forward and the radiance gradient kernels
+    want = {"zoo_brute": (1, 0, 0, steps), "sky_bench": (1, steps, steps, 0),
+            "sky_zoo_naive": (1, steps, steps, 0)}
+    for label, (n_render, n_fwd, n_grad, n_fused) in want.items():
+        got = (render[label]["brute"], fits[label]["brute"],
+               fits[label]["grad"], fits[label]["fused"])
+        ext, sky = label != "sky_bench", label != "zoo_brute"
+        got += (render[label]["brute_ext"], render[label]["brute_sky"],
+                fits[label]["fused_ext"] + fits[label]["grad_ext"],
+                fits[label]["grad_sky"])
+        if got != (n_render, n_fwd, n_grad, n_fused, int(ext), int(sky),
+                   steps * ext, steps * sky) or any(
+                cli_counts[k][n] for k in cli_counts
+                for n in ("fwd", "sky", "record", "view", "mv")):
+            raise AssertionError(f"{label}: the CLI launched {cli_counts}")
+
+    # a loss of the caller's own on the zoo: #1 forward, #3 backward
+    zoo_dev = zoo_fit.to(dev)
+    params = {k: v.clone().requires_grad_(True) for k, v in
+              G.extract_params(zoo_dev, ["albedo"]).items()}
+    target = torch.zeros((fh, fw, 3), device=dev)
+    _reset_launches()
+    img = render_linear(G.apply_params(zoo_dev, params), ZOO_FIT[0],
+                        ZOO_FIT[1], seed=0, device=dev)
+    (img - target).abs().mean().backward()
+    l1 = _launches()
+    l1_counts = (l1["brute_ext"], l1["grad_ext"], l1["fused"])
+    if l1_counts != (1, 1, 0) or not bool(
+            torch.isfinite(params["albedo"].grad).all()):
+        raise AssertionError(f"the zoo's L1 loss launched {l1_counts}")
+
+    # ---- warm renders and fit steps
+    for label, path, (rw, rh), (fw, fh, f_spp) in shapes:
+        scene = _load(path)
+        best, mean = _warm_render(scene, rw, rh, dev, label)
+        r_rays = rw * rh * scene.settings.samples_per_pixel
+
+        def renders(step, scene=scene, rw=rw, rh=rh):
+            for _ in range(3):
+                render_linear(scene, rw, rh, seed=0, device=dev)
+                torch.cuda.synchronize()
+                step()
+
+        part = _profile(renders, 2)
+        fit_scene = _load(path, spp=f_spp)
+        target = (read_png(os.path.join(OUT_DIR, f"{label}_fit_target.png"))
+                  [..., :3].astype(np.float32) / 255.0) ** 2
+        names = (ZOO_FIT_PARAMS if label == "zoo_brute"
+                 else CLI_FIT_PARAMS).split(",")
+        box = ({k: ((v - ZOO_FIT_GEO).to(dev), (v + ZOO_FIT_GEO).to(dev))
+                for k, v in G.extract_params(
+                    fit_scene, ["sphere_center", "sphere_radius"]).items()}
+               if label == "zoo_brute" else None)
+        r = _warm_fit(fit_scene, target, names, fw, fh, dev,
+                      constraints=box)
+        if not r["history"][-1] < r["history"][0]:
+            raise AssertionError(f"the warm {label} fit's loss did not "
+                                 f"fall: {r['history']}")
+        beside = (f" (phase 10's #5 route on the same shapes in this run: "
+                  f"#5 {zoo_bvh['kernel_ms']:.4f} ms, warm render "
+                  f"{zoo_bvh['render_s']:.4f} s; warm fit step on the "
+                  f"record walk and replay {zoo_bvh['fit_ms']:.3f} ms)"
+                  if label == "zoo_brute" else "")
+        print(f"phase 13 {label} {rw}x{rh}: warm render {best:.4f} s, "
+              f"{r_rays / best / 1e6:.1f} primary Mrays/s, image mean "
+              f"{mean:.5f}; per render under torch.profiler: "
+              + _parts(part, ("#1", "replay and rest", "busy"))
+              + f", host (warm render - busy) "
+              f"{best * 1e3 - part['busy']:.3f} ms; fit step {fw}x{fh} spp "
+              f"{f_spp} ({','.join(names)}): warm step {r['warm_ms']:.3f} "
+              f"ms (median of {r['n']}), {fw * fh * f_spp / r['warm_ms'] / 1e3:.2f}"
+              f" primary Mrays/s fwd+bwd, peak memory {r['peak_gb']:.2f} "
+              f"GB; loss {r['history'][0]:.6f} -> {r['history'][-1]:.6f}; "
+              f"per step under torch.profiler: "
+              + _parts(r["part"], ("#1", "#3", "#4", "replay and rest",
+                                   "busy"))
+              + f", host (warm step - busy) "
+              f"{r['warm_ms'] - r['part']['busy']:.3f} ms{beside}; {card}")
+    print(f"phase 13 ptxas: {_ptxas_variants()}")
+
+    z, s, b = fwd["zoo_brute"], fwd["sky_zoo_naive"], fwd["sky_bench"]
+    gz, gs, gb = grads["zoo_brute"], grads["sky_zoo_naive"], grads[
+        "sky_bench"]
+    return [
+        # the CLI render of the zoo; times at 1200x800 spp 32 depth 8
+        _entry("brute_forward_ext", "megakernel.cu", "2089",
+               render["zoo_brute"]["brute_ext"], z["err"], z["ms"],
+               z["plain_ms"], z["bound"]),
+        # the CLI render of sky_bench; times at 1000x1000 spp 8 depth 6
+        _entry("brute_forward_sky", "megakernel.cu", "2089",
+               render["sky_bench"]["brute_sky"], b["err"], b["ms"],
+               b["plain_ms"], b["bound"]),
+        # the CLI render of sky_zoo_naive; times at 600x400 spp 16 depth 8
+        _entry("brute_forward_ext_sky", "megakernel.cu", "2089",
+               render["sky_zoo_naive"]["brute"], s["err"], s["ms"],
+               s["plain_ms"], s["bound"]),
+        # the zoo's L1 loss through render_linear; times at 600x400 spp 16
+        _entry("radiance_grad_ext", "radiance_grad.cu", "2133", l1_counts[1],
+               gz["err3"], gz["ms3"], gz["plain3_ms"], gz["bound3"]),
+        # the CLI fit of sky_bench; times at 512x512 spp 8
+        _entry("radiance_grad_sky", "radiance_grad.cu", "2133",
+               fits["sky_bench"]["grad_sky"], gb["err3"], gb["ms3"],
+               gb["plain3_ms"], gb["bound3"]),
+        # the CLI fit of sky_zoo_naive; times at 600x400 spp 16
+        _entry("radiance_grad_ext_sky", "radiance_grad.cu", "2133",
+               fits["sky_zoo_naive"]["grad"], gs["err3"], gs["ms3"],
+               gs["plain3_ms"], gs["bound3"]),
+        # the CLI fit of the zoo; times at 600x400 spp 16
+        _entry("fused_mse_loss_ext", "mse_loss.cu", "2411",
+               fits["zoo_brute"]["fused_ext"], gz["err4"], gz["ms4"],
+               gz["plain4_ms"], gz["bound4"]),
+    ]
+
+
+def _ptxas_variants() -> str:
+    """Registers, stack and spills of each template variant of #1, #3 and
+    #4, from the compiler's report (kExt, kSky as the template's bools)."""
+    import re
+
+    from raytracingrust_tpu_torch.ops import _build
+
+    out = []
+    for name in ("megakernel", "radiance_grad", "mse_loss"):
+        log = _build.library_path(name=name).with_suffix(".log")
+        fn = None
+        for ln in (log.read_text().splitlines() if log.exists() else []):
+            m = re.search(r"Function properties for (\S+)", ln)
+            if m:
+                fn = m.group(1)
+                continue
+            if fn is None:
+                continue
+            flags = re.search(r"(radiance_kernel|grad_kernel|mse_kernel)"
+                              r"IL?b([01])E?(?:L?b([01])E)?", fn)
+            if "stack frame" in ln:
+                stack = ln.strip()
+            elif "registers" in ln and flags:
+                out.append(f"{flags.group(1)}<{flags.group(2)}"
+                           + (f",{flags.group(3)}" if flags.group(3) else "")
+                           + f">: {ln.split(':', 1)[1].strip()}; {stack}")
+                fn = None
+    return " | ".join(out)
+
+
 def main() -> int:
     import torch
 
@@ -2810,13 +3372,16 @@ def main() -> int:
     env = env_phase(dev, card)
 
     # ---- 10. volumes, isotropic materials and mixes; the deep fit
-    zoo = zoo_phase(dev, card)
+    zoo, zoo_bvh = zoo_phase(dev, card)
 
     # ---- 11. a sky map without importance sampling; the views
     sky = sky_phase(dev, card)
 
     # ---- 12. mesh-bounded volumes: fog inside a triangle mesh
     fog = fog_phase(dev, card)
+
+    # ---- 13. the brute kernels' mixes, volumes, isotropic lobe and sky
+    brute = brute_phase(dev, card, zoo_bvh)
 
     report = {"kernels": [
         # the CLI renders of phase 4; times at benchmark 512x512
@@ -2833,7 +3398,8 @@ def main() -> int:
         env,  # the CLI renders of phase 9; times at sky_bvh_stress
         *zoo,  # phase 10's CLI runs; times at the zoo's full shapes
         *sky,  # phase 11's CLI runs; times at bvh_stress 1000x1000
-        *fog]}  # phase 12's CLI runs; times at fog_sheet's frames
+        *fog,  # phase 12's CLI runs; times at fog_sheet's frames
+        *brute]}  # phase 13's CLI runs; times at its shapes
     print(f"card: {card}; kernel build {build_s:.3f} s; the whole run "
           f"{time.perf_counter() - t_run:.1f} s")
     print(json.dumps(report))

@@ -112,6 +112,7 @@ def _engines(scene) -> tuple[str, str]:
     is refused: ``select_engine`` without and with a gradient."""
     from .models.backgrounds import SKYMAP
     from .ops.bvh_kernel import VIEWS
+    from .ops.megakernel import scene_opts
     from .ops.mse_loss import supports_fused_mse
     from .render.render import select_engine
 
@@ -119,6 +120,11 @@ def _engines(scene) -> tuple[str, str]:
     sky = scene.background.kind == SKYMAP
     scan = (f" with the crossing scan of {scene.num_mesh_volumes} mesh "
             "volumes" if scene.num_mesh_volumes else "")
+    opts = scene_opts(scene)
+    ext = ("mixes, volumes, isotropic" if opts["mix"] or opts["n_vol"]
+           or opts["iso"] else "")
+    brute = ", ".join(v for v in (ext, "sky map" if sky else "") if v)
+    brute = f" ({brute} variant)" if brute else ""
     names = {"env": ("env: record mode of #5, then the replay over #6 with "
                      "#8's shadow rays",
                      "env: the same, with #7 under the replay's backward"),
@@ -129,9 +135,9 @@ def _engines(scene) -> tuple[str, str]:
                      "the replay with the sky over #6 and #7" if sky else
                      "bvh: record mode of #5, then the replay over #6 and "
                      "#7"),
-             "brute": ("brute: kernel #1",
-                       "fused: kernel #4" if supports_fused_mse(scene)
-                       else "brute: #1 forward, #3 backward")}
+             "brute": ("brute: kernel #1" + brute,
+                       "fused: kernel #4" + brute if supports_fused_mse(scene)
+                       else "brute: #1 forward, #3 backward" + brute)}
     out = []
     for i, grad in enumerate((False, True)):
         try:

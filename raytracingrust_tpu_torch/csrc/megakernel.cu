@@ -3,16 +3,24 @@
 //
 // Replaces raytracingrust_tpu/ops/pallas_megakernel.py::_make_kernel: the
 // body _radiance_math with its in-kernel Threefry draw _stream_uniforms, for
-// the envelope of ops/megakernel.py (1..128 solid spheres; Lambertian, Metal,
-// Dielectric and Emission; uniform or gradient background; Full or Clay
-// mode; any depth).  Per ray: a jittered camera ray, then up to max_depth
-// bounces of closest hit over every sphere, one material lobe and the
-// throughput/radiance update.  Output: per-ray RGB, (n_rays, 3) float32.
-// Clamping and the mean over samples stay in PyTorch.
+// the envelope of ops/megakernel.py (1..128 spheres, constant-density volume
+// spheres among them; Lambertian, Metal, Dielectric, Emission and Isotropic
+// materials and single-level mixes of them; uniform, gradient or sky-map
+// background; Full or Clay mode; any depth).  Per ray: a jittered camera
+// ray, then up to max_depth bounces of closest hit over every sphere, one
+// material lobe and the throughput/radiance update.  Output: per-ray RGB,
+// (n_rays, 3) float32.  Clamping and the mean over samples stay in PyTorch.
+//
+// Four variants (radiance.cuh trace's flags): solid spheres under a uniform
+// or gradient background, the code of earlier builds; kExt for mixes,
+// volumes and the isotropic lobe, whose rows are up to 22 floats; kSky for
+// a sky map, whose texel an escaping ray looks up here (the TPU kernel
+// records the escape and leaves the gather to XLA, _env_finish); both.
 //
 // What bounds it on this card: per-ray FP32 and transcendental work
 // (Threefry rounds, the quadratic against every sphere, sqrt/sin/cos) over a
-// tiny working set, at most 20 + 128 * 12 scene floats.  The design follows:
+// tiny working set, at most 20 + 128 * 22 scene floats (and the sky's
+// texels, read where rays escape).  The design follows:
 // one thread traces one ray and keeps its whole state in registers for the
 // whole chain; the scene constants are staged once per block into shared
 // memory, where every lane of a warp reads the same word (a broadcast); ray
@@ -36,16 +44,17 @@ namespace {
 
 using namespace rtrt;
 
+template <bool kExt, bool kSky>
 __global__ void __launch_bounds__(kThreads)
 radiance_kernel(const float* __restrict__ fparams,
-                const int* __restrict__ kinds, int n_spheres, uint32_t k0,
+                const int* __restrict__ kinds, Rows rows, uint32_t k0,
                 uint32_t k1, int n_rays, int spp, int width, int max_depth,
-                int bg_kind, int clay, float* __restrict__ out) {
-  __shared__ float f[kMaxFloats];
+                int bg_kind, int clay, Sky sky, float* __restrict__ out) {
+  __shared__ float f[kSpheres + kMaxSpheres * (kExt ? kMaxStride : kStride)];
   __shared__ int kind_of[kMaxSpheres];
-  const int n_f = kSpheres + n_spheres * kStride;
+  const int n_f = kSpheres + rows.n * rows.stride;
   for (int i = threadIdx.x; i < n_f; i += blockDim.x) f[i] = fparams[i];
-  for (int i = threadIdx.x; i < n_spheres; i += blockDim.x)
+  for (int i = threadIdx.x; i < rows.n; i += blockDim.x)
     kind_of[i] = kinds[i];
   __syncthreads();
 
@@ -54,9 +63,10 @@ radiance_kernel(const float* __restrict__ fparams,
   const int ray = (int)gid;   // = pixel * spp + sample
   const int pixel = ray / spp;
   float rad_r, rad_g, rad_b;
-  trace<false>(f, kind_of, n_spheres, k0, k1, (uint32_t)ray,
-               (float)(pixel % width), (float)(pixel / width), max_depth,
-               bg_kind, clay, rad_r, rad_g, rad_b, nullptr);
+  trace<false, kExt, kSky>(f, kind_of, rows, k0, k1, (uint32_t)ray,
+                           (float)(pixel % width), (float)(pixel / width),
+                           max_depth, bg_kind, clay, sky, rad_r, rad_g,
+                           rad_b, nullptr);
   float* o = out + 3 * (size_t)ray;
   o[0] = rad_r;
   o[1] = rad_g;
@@ -84,18 +94,30 @@ uniforms_kernel(const int* __restrict__ ids, int n_ids, uint32_t k0,
 // Plain C entries, bound with ctypes (ops/megakernel.py).  Each launches on
 // `stream` and returns cudaGetLastError() of the launch.
 
+// rtrt_radiance: `ext` selects the kExt variant (mixes, volumes or the
+// isotropic lobe), `mix` and `n_vol` the scene's rows; a sky map
+// (bg_kind kSkyMap) passes its (sky_h, sky_w, 3) texels.
 extern "C" int rtrt_radiance(const float* fparams, const int* kinds,
                              int n_spheres, uint32_t k0, uint32_t k1,
                              int n_rays, int spp, int width, int max_depth,
-                             int bg_kind, int clay, float* out, void* stream) {
-  if (n_spheres < 1 || n_spheres > kMaxSpheres || n_rays < 0 || spp < 1 ||
-      width < 1)
+                             int bg_kind, int clay, int ext, int mix,
+                             int n_vol, const float* sky_img, int sky_h,
+                             int sky_w, float* out, void* stream) {
+  const bool sky_map = bg_kind == kSkyMap;
+  if (!rows_ok(n_spheres, ext, mix, n_vol) || n_rays < 0 || spp < 1 ||
+      width < 1 || sky_map != (sky_img != nullptr) ||
+      (sky_map && (sky_h < 1 || sky_w < 1)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  radiance_kernel<<<blocks_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
-      fparams, kinds, n_spheres, k0, k1, n_rays, spp, width, max_depth,
-      bg_kind, clay, out);
-  return (int)cudaGetLastError();
+  const Rows rows{n_spheres, row_stride(mix, n_vol), mix, n_vol};
+  const Sky sky{sky_img, sky_h, sky_w};
+  return with_flags(ext, sky_map, [&](auto e, auto k) {
+    radiance_kernel<decltype(e)::value, decltype(k)::value>
+        <<<blocks_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
+            fparams, kinds, rows, k0, k1, n_rays, spp, width, max_depth,
+            bg_kind, clay, sky, out);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int rtrt_uniforms(const int* ids, int n_ids, uint32_t k0,

@@ -5,7 +5,10 @@
 // (reached through run_fused in _mse_cvjp, mse_loss_pallas).  It computes
 //   loss = mean over pixels and channels of (m - target)^2,
 //   m    = mean over the pixel's spp samples of clip(radiance, 0, clamp),
-// and d loss / d fparams, (20 + 12 N,) float32.  The TPU kernel's lane
+// and d loss / d fparams, (20 + stride N,) float32.  Variants: solid spheres,
+// and kExt (mixes, volumes, the isotropic lobe).  A sky map never comes
+// here: its fit takes the forward kernel and the radiance gradient kernel,
+// as the TPU package's fused kernel excludes it (supports_fused_mse).  The TPU kernel's lane
 // padding (spp_pad, the 256 x 256 averaging projector, the weight block) is
 // a lane-machine device and is gone: one thread takes one pixel (grid-stride
 // over the pixels) and loops over its samples twice.  The first loop traces
@@ -42,13 +45,15 @@ __device__ __forceinline__ float clip_slope(float x, float hi) {
   return (x == 0.0f || x == hi) ? 0.5f : 0.0f;
 }
 
+template <bool kExt>
 __global__ void __launch_bounds__(kThreads)
 mse_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
-           int n_spheres, uint32_t k0, uint32_t k1, int n_pixels, int spp,
+           Rows rows, uint32_t k0, uint32_t k1, int n_pixels, int spp,
            int width, int max_depth, int bg_kind, int clay, float clamp,
            const float* __restrict__ target, float* __restrict__ partials) {
-  __shared__ GradShared sh;
-  load_scene(sh, fparams, kinds, n_spheres);
+  __shared__ GradShared<kExt> sh;
+  load_scene(sh, fparams, kinds, rows);
+  const Sky no_sky{nullptr, 0, 0};
   float head[kHead];
 #pragma unroll
   for (int k = 0; k < kHead; ++k) head[k] = 0.0f;
@@ -64,9 +69,9 @@ mse_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
     float mr = 0.0f, mg = 0.0f, mb = 0.0f;
     for (int s = 0; s < spp; ++s) {
       float r, g, b;
-      trace<false>(sh.f, sh.kind_of, n_spheres, k0, k1,
-                   (uint32_t)(pixel * spp + s), px, py, max_depth, bg_kind,
-                   clay, r, g, b, nullptr);
+      trace<false, kExt>(sh.f, sh.kind_of, rows, k0, k1,
+                         (uint32_t)(pixel * spp + s), px, py, max_depth,
+                         bg_kind, clay, no_sky, r, g, b, nullptr);
       mr += clip(r, clamp);
       mg += clip(g, clamp);
       mb += clip(b, clamp);
@@ -82,47 +87,51 @@ mse_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
       const uint32_t rid = (uint32_t)(pixel * spp + s);
       Tape tape;
       float r, g, b;
-      trace<true>(sh.f, sh.kind_of, n_spheres, k0, k1, rid, px, py,
-                  max_depth, bg_kind, clay, r, g, b, &tape);
+      trace<true, kExt>(sh.f, sh.kind_of, rows, k0, k1, rid, px, py,
+                        max_depth, bg_kind, clay, no_sky, r, g, b, &tape);
       const float gr = cr * clip_slope(r, clamp),
                   gg = cg * clip_slope(g, clamp),
                   gb = cb * clip_slope(b, clamp);
       if (gr == 0.0f && gg == 0.0f && gb == 0.0f) continue;
-      adjoint(sh.f, sh.kind_of, k0, k1, rid, px, py, bg_kind, clay, tape, gr,
-              gg, gb, head, sh.gs);
+      adjoint<kExt>(sh.f, sh.kind_of, rows, k0, k1, rid, px, py, bg_kind,
+                    clay, no_sky, tape, gr, gg, gb, head, sh.gs, nullptr);
     }
   }
-  write_partials(sh, head, sse, n_spheres,
-                 kSpheres + n_spheres * kStride + 1, partials);
+  write_partials(sh, head, sse, rows, kSpheres + rows.n * rows.stride + 1,
+                 partials);
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes (ops/mse_loss.py).  Launches the fused
 // kernel on at most `max_blocks` blocks, then the row sum, on `stream`.
-// `target` is (n_pixels, 3); `out` gets 20 + 12 N gradient entries and then
-// the loss; `partials` holds max_blocks rows of 21 + 12 N floats.  Returns
+// `target` is (n_pixels, 3); `out` gets 20 + stride N gradient entries and
+// then the loss; `partials` holds max_blocks rows of 21 + stride N floats.
+// `ext`, `mix` and `n_vol` as rtrt_radiance's; no sky map.  Returns
 // cudaGetLastError() of the launches.
 extern "C" int rtrt_mse_loss(const float* fparams, const int* kinds,
                              int n_spheres, uint32_t k0, uint32_t k1,
                              int n_pixels, int spp, int width, int max_depth,
-                             int bg_kind, int clay, float clamp,
-                             const float* target, float* partials,
-                             int max_blocks, float* out, void* stream) {
-  if (n_spheres < 1 || n_spheres > kMaxSpheres || n_pixels < 1 || spp < 1 ||
+                             int bg_kind, int clay, int ext, int mix,
+                             int n_vol, float clamp, const float* target,
+                             float* partials, int max_blocks, float* out,
+                             void* stream) {
+  if (!rows_ok(n_spheres, ext, mix, n_vol) || n_pixels < 1 || spp < 1 ||
       width < 1 || max_depth < 0 || max_depth > kMaxTape || max_blocks < 1 ||
-      (long long)n_pixels * spp >= (1ll << 31))
+      bg_kind == kSkyMap || (long long)n_pixels * spp >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  const int n_out = kSpheres + n_spheres * kStride + 1;
+  const Rows rows{n_spheres, row_stride(mix, n_vol), mix, n_vol};
+  const int n_out = kSpheres + n_spheres * rows.stride + 1;
   const int blocks = blocks_for(n_pixels) < max_blocks ? blocks_for(n_pixels)
                                                        : max_blocks;
   cudaStream_t s = (cudaStream_t)stream;
-  mse_kernel<<<blocks, kThreads, 0, s>>>(fparams, kinds, n_spheres, k0, k1,
-                                         n_pixels, spp, width, max_depth,
-                                         bg_kind, clay, clamp, target,
-                                         partials);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = with_flags(ext, false, [&](auto e, auto) {
+    mse_kernel<decltype(e)::value><<<blocks, kThreads, 0, s>>>(
+        fparams, kinds, rows, k0, k1, n_pixels, spp, width, max_depth,
+        bg_kind, clay, clamp, target, partials);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err;
   reduce_partials_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(
       partials, blocks, n_out, 3.0f * (float)n_pixels, out);
   return (int)cudaGetLastError();

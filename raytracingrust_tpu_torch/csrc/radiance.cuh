@@ -9,15 +9,19 @@
 //                                       its gradient, in one launch
 //   bvh_forward.cu    bvh_kernel        forward over the chunk-leaf BVH,
 //                                       per-ray RGB (and each bounce's
-//                                       winner code in record mode); it
-//                                       alone takes the isotropic lobe
-//                                       (scatter<true>)
+//                                       winner code in record mode)
 //
 // The forward chain is raytracingrust_tpu/ops/pallas_megakernel.py's
-// _radiance_math for the envelope of ops/megakernel.py.  The adjoint is the
-// reverse of that chain with its discrete decisions (winner, root, front
-// face, metal-above-surface, dielectric reflect) held fixed, which is what
-// jax.vjp of _radiance_math and autograd of the plain PyTorch version compute
+// _radiance_math for the envelope of ops/megakernel.py.  Its branches past
+// solid spheres under a uniform or gradient background sit behind two
+// template flags, so a scene without them runs the code it ran before:
+// kExt (single-level mixes, constant-density volume spheres, the isotropic
+// lobe; the row stride and the volume count are run-time values) and kSky
+// (a sky map, its nearest texel looked up where a ray escapes).  The
+// adjoint is the reverse of that chain with its discrete decisions (winner,
+// root, front face, metal-above-surface, dielectric reflect, the mix leaf,
+// a volume's window and free-flight test) held fixed, which is what jax.vjp
+// of _radiance_math and autograd of the plain PyTorch version compute
 // where they are finite.  Spheres a ray misses contribute nothing: unlike
 // jax.vjp through jnp.sqrt(jnp.maximum(disc, 0)), no masked branch is
 // differentiated, so no NaN can come out of one.
@@ -47,8 +51,14 @@ constexpr int kInvW = 18;     // 1 / (width - 1)
 constexpr int kInvH = 19;     // 1 / (height - 1)
 constexpr int kSpheres = 20;  // per sphere: c xyz, r, albedo rgb, fuzz, ir,
 constexpr int kStride = 12;   //             emission rgb
+// kExt rows: with mixes leaf A in the base slots, then the mix factor and
+// leaf B (stride 21); with volume spheres one more slot, -1/density
+constexpr int kFactor = 12;
+constexpr int kLeafA = 4;
+constexpr int kLeafB = 13;
+constexpr int kStrideMix = 21;
+constexpr int kMaxStride = kStrideMix + 1;
 constexpr int kHead = kSpheres;
-constexpr int kMaxFloats = kSpheres + kMaxSpheres * kStride;
 constexpr uint32_t kCipherBlock = 256;
 constexpr float kTMin = 1e-5f;
 constexpr float kTwoPi = 6.28318548202514648f;  // 2 * float32(pi)
@@ -112,6 +122,15 @@ __device__ __forceinline__ void uniform_pair(uint32_t k0, uint32_t k1,
   b = bits_to_uniform(x1);
 }
 
+// Uniform column c of `stream` for ray `ray`.
+__device__ __forceinline__ float uniform_col(uint32_t k0, uint32_t k1,
+                                             uint32_t ray, uint32_t stream,
+                                             uint32_t c) {
+  float a, b;
+  uniform_pair(k0, k1, ray, stream, c >> 1, a, b);
+  return (c & 1u) ? b : a;
+}
+
 __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
                                      float by, float bz) {
   return ax * bx + ay * by + az * bz;
@@ -127,6 +146,21 @@ constexpr int kRoot2 = 1 << 8;     // the far root of the quadratic won
 constexpr int kFront = 1 << 9;     // the ray hit the outside
 constexpr int kMetalOk = 1 << 10;  // the metal lobe left above the surface
 constexpr int kReflect = 1 << 11;  // the dielectric reflected
+constexpr int kVolume = 1 << 12;   // a volume's free flight won (kExt)
+constexpr int kPickB = 1 << 13;    // the mix coin picked leaf B (kExt)
+
+// The brute kernels' scene rows (ops/megakernel.py): the sphere count, the
+// floats of a row (kStride outside kExt), single-level mixes, and the
+// volume spheres, the last n_vol.
+struct Rows {
+  int n, stride, mix, n_vol;
+};
+
+// A winner's material kind: with mixes kind A in bits 0-7, kind B in bits
+// 8-15, picked by the code's kPickB.
+__device__ __forceinline__ int kind_at(int kinds, int code) {
+  return ((code & kPickB) ? kinds >> 8 : kinds) & 0xff;
+}
 
 struct Bounce {
   float ox, oy, oz, dx, dy, dz;  // the ray entering the bounce
@@ -188,7 +222,7 @@ constexpr float kPi = 3.14159274f;         // float32(pi)
 constexpr float kInvPi = 0.318309873f;     // float32(1) / float32(pi)
 constexpr float kInvTwoPi = 0.159154937f;  // float32(1) / float32(2 pi)
 
-// The sky map's radiance along d: its nearest texel, as
+// The offset of the sky map's texel along d: its nearest texel, as
 // models/backgrounds.Background.sample computes it on the card, operation
 // for operation: d normalized by true division, theta = acos of -y clamped
 // to [-1, 1], phi = atan2(-z, x) + float32(pi), both scaled by the float32
@@ -196,9 +230,8 @@ constexpr float kInvTwoPi = 0.159154937f;  // float32(1) / float32(2 pi)
 // height and flipped.  acosf and atan2f are the functions torch.acos and
 // torch.atan2 call on the card.  The gather reads global memory: a 2K sky
 // is 25 MB, inside the card's L2.
-__device__ __forceinline__ void sky_radiance(const Sky& sky, float dx,
-                                             float dy, float dz, float& r,
-                                             float& g, float& b) {
+__device__ __forceinline__ size_t sky_texel(const Sky& sky, float dx,
+                                            float dy, float dz) {
   const float len = sqrtf(dot3(dx, dy, dz, dx, dy, dz));
   const float nx = dx / len, ny = dy / len, nz = dz / len;
   const float theta = acosf(fminf(fmaxf(-ny, -1.0f), 1.0f));
@@ -209,7 +242,14 @@ __device__ __forceinline__ void sky_radiance(const Sky& sky, float dx,
   int y = (int)floorf(u * (float)sky.h) % sky.h;
   x += x < 0 ? sky.w : 0;
   y += y < 0 ? sky.h : 0;
-  const float* t = sky.img + 3 * ((size_t)(sky.h - 1 - y) * sky.w + x);
+  return 3 * ((size_t)(sky.h - 1 - y) * sky.w + x);
+}
+
+// The sky map's radiance along d: its texel of sky_texel.
+__device__ __forceinline__ void sky_radiance(const Sky& sky, float dx,
+                                             float dy, float dz, float& r,
+                                             float& g, float& b) {
+  const float* t = sky.img + sky_texel(sky, dx, dy, dz);
   r = __ldg(t + 0);
   g = __ldg(t + 1);
   b = __ldg(t + 2);
@@ -282,7 +322,7 @@ __device__ __forceinline__ bool dielectric_reflects(
 // throughput factor `at`, the new direction nd, whether the path goes on,
 // and the lobe's decisions added to `code`.  kIso: the isotropic lobe
 // (lib/volume.rs:75-88), a point of the unit ball, the sphere sample times
-// cbrt01(u_r); the brute kernels' envelope has none and leave it out.
+// cbrt01(u_r), compiled in by the kernels whose scenes may have one.
 template <bool kIso = false>
 __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
                                         bool front, float a, float dx,
@@ -371,13 +411,27 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
 // arithmetic is the same either way.  A thread stops at its own ray's end: a
 // finished ray's state never changes, so this equals the TPU kernel's
 // all-lanes chain.
-template <bool kRecord>
+//
+// kExt: the bounce's columns shift by MAX_MIX_DEPTH = 4 with mixes (coin 0
+// is the mix coin: u >= factor picks leaf A); a volume sphere's candidate
+// is its boundary window's entry h1 = max(t1, T_MIN) plus the free flight
+// -1/density * log(u) along the unit ray, drawn from column off + 4 + its
+// ordinal, accepted inside the window; its hit shades with the normal
+// (1, 0, 0) (lib/volume.rs:35-73); the isotropic lobe draws u_r, column
+// off + 3.  kSky: an escaping ray adds its throughput times the sky's
+// texel.
+template <bool kRecord, bool kExt = false, bool kSky = false>
 __device__ __forceinline__ void trace(const float* f, const int* kind_of,
-                                      int n_spheres, uint32_t k0, uint32_t k1,
-                                      uint32_t rid, float px, float py,
-                                      int max_depth, int bg_kind, int clay,
-                                      float& rad_r, float& rad_g,
-                                      float& rad_b, Tape* tape) {
+                                      const Rows& rows, uint32_t k0,
+                                      uint32_t k1, uint32_t rid, float px,
+                                      float py, int max_depth, int bg_kind,
+                                      int clay, const Sky& sky, float& rad_r,
+                                      float& rad_g, float& rad_b,
+                                      Tape* tape) {
+  const int stride = kExt ? rows.stride : kStride;
+  const int n_solid = kExt ? rows.n - rows.n_vol : rows.n;
+  // the cipher word pair of [u1, u2]: columns off, off + 1
+  const uint32_t jl = (kExt && rows.mix) ? 2u : 0u;
   float ox, oy, oz, dx, dy, dz;
   camera_ray(f, k0, k1, rid, px, py, ox, oy, oz, dx, dy, dz);
   float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
@@ -390,12 +444,14 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
   }
 
   for (int b = 0; b < max_depth; ++b) {
-    // bounce stream 1 + b: columns [u1, u2, coin]
-    float u1, u2, u_coin, u_spare;
-    uniform_pair(k0, k1, rid, 1u + (uint32_t)b, 0u, u1, u2);
-    uniform_pair(k0, k1, rid, 1u + (uint32_t)b, 1u, u_coin, u_spare);
+    // bounce stream 1 + b: columns [u1, u2, coin, u_r] from off
+    const uint32_t stream = 1u + (uint32_t)b;
+    float u1, u2, u_coin, u_r;
+    uniform_pair(k0, k1, rid, stream, jl, u1, u2);
+    uniform_pair(k0, k1, rid, stream, jl + 1u, u_coin, u_r);
     const float a = dot3(dx, dy, dz, dx, dy, dz);
     const float inv_a = 1.0f / a;
+    const float ray_len = (kExt && rows.n_vol) ? sqrtf(a) : 0.0f;
     if (kRecord) {
       tape->b[b] = Bounce{ox, oy, oz, dx, dy, dz, thr_r, thr_g, thr_b, kMiss};
       tape->n = b + 1;
@@ -405,8 +461,8 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
     float t_best = INFINITY;
     int best = -1;
     bool root2 = false;
-    for (int i = 0; i < n_spheres; ++i) {
-      const float* sp = f + kSpheres + i * kStride;
+    for (int i = 0; i < rows.n; ++i) {
+      const float* sp = f + kSpheres + i * stride;
       const float ocx = ox - sp[0], ocy = oy - sp[1], ocz = oz - sp[2];
       const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
       const float cq = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - sp[3] * sp[3];
@@ -414,6 +470,24 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
       const float sq = sqrtf(fmaxf(disc, 0.0f));
       const float t1 = (-half_b - sq) * inv_a;
       const float t2 = (-half_b + sq) * inv_a;
+      if (kExt && i >= n_solid) {  // a volume: window, then free flight
+        float h1 = fmaxf(t1, kTMin);
+        const float h2 = t2 >= t1 + kTMin ? t2 : INFINITY;
+        if (disc >= 0.0f && h1 < h2) {
+          h1 = fmaxf(h1, 0.0f);
+          const float dist_inside = (h2 - h1) * ray_len;
+          const float u_v = uniform_col(k0, k1, rid, stream,
+                                        2u * jl + 4u + (uint32_t)(i - n_solid));
+          const float hit_dist = sp[stride - 1] * logf(fmaxf(u_v, 1e-37f));
+          const float ti = h1 + hit_dist / ray_len;
+          if (hit_dist <= dist_inside && ti < t_best) {
+            t_best = ti;
+            best = i;
+            root2 = false;
+          }
+        }
+        continue;
+      }
       const bool t1ok = t1 >= kTMin && t1 <= t_best;
       const bool t2ok = t2 >= kTMin && t2 <= t_best;
       const float ti = t1ok ? t1 : (t2ok ? t2 : INFINITY);
@@ -426,7 +500,10 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
 
     if (best < 0) {  // miss: the background ends the path
       float bg_r, bg_g, bg_b;
-      background(f, bg_kind, dx, dy, dz, bg_r, bg_g, bg_b);
+      if (kSky)
+        sky_radiance(sky, dx, dy, dz, bg_r, bg_g, bg_b);
+      else
+        background(f, bg_kind, dx, dy, dz, bg_r, bg_g, bg_b);
       rad_r = rad_r + thr_r * bg_r;
       rad_g = rad_g + thr_g * bg_g;
       rad_b = rad_b + thr_b * bg_b;
@@ -434,25 +511,35 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
       break;
     }
 
-    const float* sp = f + kSpheres + best * kStride;
+    const float* sp = f + kSpheres + best * stride;
+    const bool vol = kExt && best >= n_solid;
     const float inv_r = 1.0f / sp[3];
     const float ptx = ox + t_best * dx;
     const float pty = oy + t_best * dy;
     const float ptz = oz + t_best * dz;
-    float nx = (ptx - sp[0]) * inv_r;
-    float ny = (pty - sp[1]) * inv_r;
-    float nz = (ptz - sp[2]) * inv_r;
+    float nx = vol ? 1.0f : (ptx - sp[0]) * inv_r;
+    float ny = vol ? 0.0f : (pty - sp[1]) * inv_r;
+    float nz = vol ? 0.0f : (ptz - sp[2]) * inv_r;
     const bool front = dot3(dx, dy, dz, nx, ny, nz) < 0.0f;
     const float sgn = front ? 1.0f : -1.0f;
     nx = nx * sgn;
     ny = ny * sgn;
     nz = nz * sgn;
-    int code = best | (root2 ? kRoot2 : 0) | (front ? kFront : 0);
+    int code = best | (root2 ? kRoot2 : 0) | (front ? kFront : 0) |
+               (vol ? kVolume : 0);
+    const float* mat = sp + kLeafA;
+    if (kExt && rows.mix &&
+        !(uniform_col(k0, k1, rid, stream, 0u) >= sp[kFactor])) {
+      mat = sp + kLeafB;
+      code |= kPickB;
+    }
+    const int kind = kExt ? kind_at(kind_of[best], code) : kind_of[best];
 
     float at_r, at_g, at_b, ndx, ndy, ndz;
     bool scatters;
-    scatter(sp + 4, kind_of[best], clay, front, a, dx, dy, dz, nx, ny, nz,
-            u1, u2, u_coin, at_r, at_g, at_b, ndx, ndy, ndz, scatters, code);
+    scatter<kExt>(mat, kind, clay, front, a, dx, dy, dz, nx, ny, nz, u1, u2,
+                  u_coin, at_r, at_g, at_b, ndx, ndy, ndz, scatters, code,
+                  u_r);
     if (kRecord) tape->b[b].code = code;
 
     if (!scatters) {  // absorbed or emitted: the path ends
@@ -479,22 +566,38 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
 // Adds d(loss)/d(fparams) of one recorded ray, given g = d(loss)/d(radiance).
 // The head entries (camera, background, pixel scale: fparams 0..19) add into
 // `head`, which the caller keeps in registers; the winning spheres' entries
-// add into the block's `gs` (shared memory, kStride floats per sphere) with
-// atomics.
+// add into the block's `gs` (shared memory, `stride` floats per sphere) with
+// atomics; under kSky the looked-up texel's entries add into `gsky` (device
+// memory, (h, w, 3) floats) with atomics.
 //
 // The radiance of a path that ends at bounce B is thr_B * L_B, where L_B is
 // the background (a miss) or the winner's emission (Metal below the surface
 // gives 0), and thr_{b+1} = thr_b * at_b.  The sweep runs b = B .. 0 with the
 // adjoints of the state entering bounce b + 1: origin (= hit point p_b),
 // direction (= the lobe's new direction) and throughput.
+//
+// kExt: the cotangents of a hit's material go to the leaf its mix coin
+// picked (the factor gets none: the coin is a comparison).  A volume's hit
+// t = h1 + hit_dist / |d| runs back through |d|, through -1/density
+// (hit_dist = -1/density * log u) and, while the ray starts outside the
+// sphere (t1 >= T_MIN), through its entry t1 = (-half_b - sq) / a into
+// origin, direction, center and radius; its normal is a constant.  The
+// isotropic lobe's throughput factor is the albedo and its direction
+// depends on no parameter.  kSky: a miss's L_B is the texel, constant in d
+// (the lookup is piecewise constant); g * thr goes to the texel.
+template <bool kExt = false, bool kSky = false>
 __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
-                                        uint32_t k0, uint32_t k1,
-                                        uint32_t rid, float px, float py,
-                                        int bg_kind, int clay,
-                                        const Tape& tape, float gr, float gg,
-                                        float gb, float (&head)[kHead],
-                                        float* gs) {
+                                        const Rows& rows, uint32_t k0,
+                                        uint32_t k1, uint32_t rid, float px,
+                                        float py, int bg_kind, int clay,
+                                        const Sky& sky, const Tape& tape,
+                                        float gr, float gg, float gb,
+                                        float (&head)[kHead], float* gs,
+                                        float* gsky) {
   if (!tape.ended) return;  // outlived max_depth: radiance 0 everywhere
+  const int stride = kExt ? rows.stride : kStride;
+  const int n_solid = kExt ? rows.n - rows.n_vol : rows.n;
+  const uint32_t jl = (kExt && rows.mix) ? 2u : 0u;
   int b = tape.n - 1;
   float gox = 0.0f, goy = 0.0f, goz = 0.0f;
   float gdx = 0.0f, gdy = 0.0f, gdz = 0.0f;
@@ -503,7 +606,15 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
     const Bounce& e = tape.b[b];
     const float glr = gr * e.tr, glg = gg * e.tg, glb = gb * e.tb;
     const int w = e.code & kWinner;
-    if (w == kMiss) {
+    if (w == kMiss && kSky) {
+      const size_t t = sky_texel(sky, e.dx, e.dy, e.dz);
+      lr = __ldg(sky.img + t + 0);
+      lg = __ldg(sky.img + t + 1);
+      lb = __ldg(sky.img + t + 2);
+      atomicAdd(gsky + t + 0, glr);
+      atomicAdd(gsky + t + 1, glg);
+      atomicAdd(gsky + t + 2, glb);
+    } else if (w == kMiss) {
       const float* ca = f + kBg;
       const float* cb = f + kBg + 3;
       if (bg_kind == kGradient) {
@@ -536,14 +647,17 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
         head[kBg + 1] += glg;
         head[kBg + 2] += glb;
       }
-    } else if (!clay && kind_of[w] == kEmission) {
-      const float* sp = f + kSpheres + w * kStride;
-      lr = sp[9];
-      lg = sp[10];
-      lb = sp[11];
-      atomicAdd(gs + w * kStride + 9, glr);
-      atomicAdd(gs + w * kStride + 10, glg);
-      atomicAdd(gs + w * kStride + 11, glb);
+    } else if (!clay && (kExt ? kind_at(kind_of[w], e.code)
+                              : kind_of[w]) == kEmission) {
+      const int mo = (kExt && (e.code & kPickB)) ? kLeafB : kLeafA;
+      const float* mat = f + kSpheres + w * stride + mo;
+      float* gmat = gs + w * stride + mo;
+      lr = mat[5];
+      lg = mat[6];
+      lb = mat[7];
+      atomicAdd(gmat + 5, glr);
+      atomicAdd(gmat + 6, glg);
+      atomicAdd(gmat + 7, glb);
     }  // else Metal below the surface: L = 0, constant
   }
   float gtr = gr * lr, gtg = gg * lg, gtb = gb * lb;
@@ -551,8 +665,12 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
   for (--b; b >= 0; --b) {  // bounce b scattered
     const Bounce& e = tape.b[b];
     const int w = e.code & kWinner;
-    const float* sp = f + kSpheres + w * kStride;
-    float* gsp = gs + w * kStride;
+    const float* sp = f + kSpheres + w * stride;
+    float* gsp = gs + w * stride;
+    const int mo = (kExt && (e.code & kPickB)) ? kLeafB : kLeafA;
+    const float* mat = sp + mo;
+    float* gmat = gsp + mo;
+    const bool vol = kExt && (e.code & kVolume);
     const float ox = e.ox, oy = e.oy, oz = e.oz;
     const float dx = e.dx, dy = e.dy, dz = e.dz;
     // adjoints of its outputs: hit point, new direction
@@ -560,8 +678,9 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
     const float gndx = gdx, gndy = gdy, gndz = gdz;
 
     // ---- recompute the bounce
+    const uint32_t stream = 1u + (uint32_t)b;
     float u1, u2;
-    uniform_pair(k0, k1, rid, 1u + (uint32_t)b, 0u, u1, u2);
+    uniform_pair(k0, k1, rid, stream, jl, u1, u2);
     const float a = dot3(dx, dy, dz, dx, dy, dz);
     const float inv_a = 1.0f / a;
     const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
@@ -572,35 +691,52 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
     const float sq = sqrtf(fmaxf(disc, 0.0f));
     const bool root2 = (e.code & kRoot2) != 0;
     const float num = root2 ? (-half_b + sq) : (-half_b - sq);
-    const float t = num * inv_a;
+    float t = num * inv_a;
+    // a volume's hit: t = h1 + hit_dist / ray_len
+    float ray_len = 1.0f, hit_dist = 0.0f, log_u = 0.0f;
+    const bool entry = t >= kTMin;  // the window opens at t1 (volumes)
+    if (vol) {
+      ray_len = sqrtf(a);
+      log_u = logf(fmaxf(uniform_col(k0, k1, rid, stream,
+                                     2u * jl + 4u + (uint32_t)(w - n_solid)),
+                         1e-37f));
+      hit_dist = sp[stride - 1] * log_u;
+      t = fmaxf(fmaxf(t, kTMin), 0.0f) + hit_dist / ray_len;
+    }
     const float inv_r = 1.0f / r;
     const float ptx = ox + t * dx, pty = oy + t * dy, ptz = oz + t * dz;
     const float qx = ptx - cx, qy = pty - cy, qz = ptz - cz;
     const float sgn = (e.code & kFront) ? 1.0f : -1.0f;
-    const float nx = qx * inv_r * sgn, ny = qy * inv_r * sgn,
-                nz = qz * inv_r * sgn;
+    const float nx = vol ? sgn : qx * inv_r * sgn;
+    const float ny = vol ? 0.0f * sgn : qy * inv_r * sgn;
+    const float nz = vol ? 0.0f * sgn : qz * inv_r * sgn;
 
     // ---- the lobe: adjoints of n, d, a; throughput factor at
     float gnx = 0.0f, gny = 0.0f, gnz = 0.0f;
     float g_dx = 0.0f, g_dy = 0.0f, g_dz = 0.0f, ga = 0.0f;
     float atr = 1.0f, atg = 1.0f, atb = 1.0f;
-    const int kind = clay ? kLambertian : kind_of[w];
+    const int kind = clay ? kLambertian
+                          : (kExt ? kind_at(kind_of[w], e.code) : kind_of[w]);
     if (clay) {  // at = 0.8, d' = n + s (or n)
       atr = atg = atb = 0.8f;
       gnx = gndx;
       gny = gndy;
       gnz = gndz;
     } else if (kind == kLambertian) {  // at = albedo, d' = n + s (or n)
-      atr = sp[4];
-      atg = sp[5];
-      atb = sp[6];
+      atr = mat[0];
+      atg = mat[1];
+      atb = mat[2];
       gnx = gndx;
       gny = gndy;
       gnz = gndz;
+    } else if (kExt && kind == kIsotropic) {  // at = albedo, d' = s cbrt(u)
+      atr = mat[0];
+      atg = mat[1];
+      atb = mat[2];
     } else if (kind == kMetal) {  // above the surface: at = albedo
-      atr = sp[4];
-      atg = sp[5];
-      atb = sp[6];
+      atr = mat[0];
+      atg = mat[1];
+      atb = mat[2];
       float sx, sy, sz;
       sphere_sample(u1, u2, sx, sy, sz);
       const float dn = dot3(dx, dy, dz, nx, ny, nz);
@@ -610,7 +746,7 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
       const float ll = dot3(rfx, rfy, rfz, rfx, rfy, rfz);
       const float inv_len = 1.0f / sqrtf(fmaxf(ll, 1e-30f));
       // d' = rf * inv_len + fuzz * s
-      atomicAdd(gsp + 7, dot3(gndx, gndy, gndz, sx, sy, sz));
+      atomicAdd(gmat + 3, dot3(gndx, gndy, gndz, sx, sy, sz));
       float grfx = gndx * inv_len, grfy = gndy * inv_len,
             grfz = gndz * inv_len;
       const float ginv = dot3(gndx, gndy, gndz, rfx, rfy, rfz);
@@ -628,7 +764,7 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
       gny = -2.0f * dn * grfy + gdn * dy;
       gnz = -2.0f * dn * grfz + gdn * dz;
     } else {  // Dielectric: at = 1
-      const float ir = sp[8];
+      const float ir = mat[4];
       const bool front = (e.code & kFront) != 0;
       const float ratio = front ? 1.0f / ir : ir;
       const float inv_len = 1.0f / sqrtf(fmaxf(a, 1e-30f));
@@ -677,7 +813,7 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
         gnx += cos_t * gwx;
         gny += cos_t * gwy;
         gnz += cos_t * gwz;
-        atomicAdd(gsp + 8, front ? -gratio * ratio * ratio : gratio);
+        atomicAdd(gmat + 4, front ? -gratio * ratio * ratio : gratio);
       }
       // cos_t = min(-(n . ud), 1)
       if (xc <= 1.0f) {
@@ -697,27 +833,45 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
     }
 
     // ---- throughput: thr' = thr * at
-    if (!clay && (kind == kLambertian || kind == kMetal)) {
-      atomicAdd(gsp + 4, gtr * e.tr);
-      atomicAdd(gsp + 5, gtg * e.tg);
-      atomicAdd(gsp + 6, gtb * e.tb);
+    if (!clay && (kind == kLambertian || kind == kMetal ||
+                  (kExt && kind == kIsotropic))) {
+      atomicAdd(gmat + 0, gtr * e.tr);
+      atomicAdd(gmat + 1, gtg * e.tg);
+      atomicAdd(gmat + 2, gtb * e.tb);
     }
     gtr = gtr * atr;
     gtg = gtg * atg;
     gtb = gtb * atb;
 
-    // ---- normal n = sgn (p - c) / r, hit point p = o + t d
-    const float gqx = sgn * gnx * inv_r, gqy = sgn * gny * inv_r,
-                gqz = sgn * gnz * inv_r;
-    const float ginv_r = sgn * dot3(gnx, gny, gnz, qx, qy, qz);
-    float gcx = -gqx, gcy = -gqy, gcz = -gqz;
-    float grad_r = -ginv_r * inv_r * inv_r;
-    const float gpx = gpx0 + gqx, gpy = gpy0 + gqy, gpz = gpz0 + gqz;
+    // ---- normal n = sgn (p - c) / r (a volume's is constant), hit point
+    // p = o + t d
+    float gcx = 0.0f, gcy = 0.0f, gcz = 0.0f, grad_r = 0.0f;
+    float gpx = gpx0, gpy = gpy0, gpz = gpz0;
+    if (!vol) {
+      const float gqx = sgn * gnx * inv_r, gqy = sgn * gny * inv_r,
+                  gqz = sgn * gnz * inv_r;
+      const float ginv_r = sgn * dot3(gnx, gny, gnz, qx, qy, qz);
+      gcx = -gqx;
+      gcy = -gqy;
+      gcz = -gqz;
+      grad_r = -ginv_r * inv_r * inv_r;
+      gpx = gpx0 + gqx;
+      gpy = gpy0 + gqy;
+      gpz = gpz0 + gqz;
+    }
     float gx = gpx, gy = gpy, gz = gpz;  // origin
     g_dx += t * gpx;
     g_dy += t * gpy;
     g_dz += t * gpz;
-    const float gt = dot3(gpx, gpy, gpz, dx, dy, dz);
+    float gt = dot3(gpx, gpy, gpz, dx, dy, dz);
+
+    if (vol) {
+      // t = max(t1, T_MIN) + hit_dist / ray_len, ray_len = sqrt(a)
+      const float ghd = gt / ray_len;
+      atomicAdd(gsp + stride - 1, ghd * log_u);
+      ga += 0.5f * (-ghd * hit_dist / ray_len) / ray_len;
+      if (!entry) gt = 0.0f;  // the ray starts inside: h1 = T_MIN
+    }
 
     // ---- the root t = (-half_b -+ sq) / a
     const float gnum = gt * inv_a;
@@ -778,23 +932,28 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
 
 // ---------------------------------------------------------------- sums
 
-// Shared memory of a gradient block: the scene, and the block's sums.
+// Shared memory of a gradient block: the scene, and the block's sums (rows
+// of at most kMaxStride floats under kExt).
+template <bool kExt>
 struct GradShared {
-  float f[kMaxFloats];
+  static constexpr int kRow = kExt ? kMaxStride : kStride;
+  float f[kSpheres + kMaxSpheres * kRow];
   int kind_of[kMaxSpheres];
-  float gs[kMaxSpheres * kStride];  // per-sphere entries of d/d(fparams)
-  float ghead[kHead + 1];           // head entries, then one extra sum
+  float gs[kMaxSpheres * kRow];  // per-sphere entries of d/d(fparams)
+  float ghead[kHead + 1];        // head entries, then one extra sum
 };
 
-__device__ __forceinline__ void load_scene(GradShared& sh,
+template <bool kExt>
+__device__ __forceinline__ void load_scene(GradShared<kExt>& sh,
                                            const float* fparams,
-                                           const int* kinds, int n_spheres) {
-  const int n_f = kSpheres + n_spheres * kStride;
-  for (int i = threadIdx.x; i < n_f; i += blockDim.x) sh.f[i] = fparams[i];
-  for (int i = threadIdx.x; i < n_spheres; i += blockDim.x)
+                                           const int* kinds,
+                                           const Rows& rows) {
+  const int n_row = rows.n * rows.stride;
+  for (int i = threadIdx.x; i < kSpheres + n_row; i += blockDim.x)
+    sh.f[i] = fparams[i];
+  for (int i = threadIdx.x; i < rows.n; i += blockDim.x)
     sh.kind_of[i] = kinds[i];
-  for (int i = threadIdx.x; i < n_spheres * kStride; i += blockDim.x)
-    sh.gs[i] = 0.0f;
+  for (int i = threadIdx.x; i < n_row; i += blockDim.x) sh.gs[i] = 0.0f;
   for (int i = threadIdx.x; i <= kHead; i += blockDim.x) sh.ghead[i] = 0.0f;
   __syncthreads();
 }
@@ -803,9 +962,10 @@ __device__ __forceinline__ void load_scene(GradShared& sh,
 // `extra` are summed over each warp with shuffles, then over the block in
 // shared memory; the block's n_out sums (head, spheres, then extra when
 // n_out = K + 1) go to row blockIdx.x of `partials`.
-__device__ __forceinline__ void write_partials(GradShared& sh,
+template <bool kExt>
+__device__ __forceinline__ void write_partials(GradShared<kExt>& sh,
                                                float (&head)[kHead],
-                                               float extra, int n_spheres,
+                                               float extra, const Rows& rows,
                                                int n_out, float* partials) {
 #pragma unroll
   for (int k = 0; k <= kHead; ++k) {
@@ -815,11 +975,23 @@ __device__ __forceinline__ void write_partials(GradShared& sh,
     if ((threadIdx.x & 31) == 0) atomicAdd(&sh.ghead[k], v);
   }
   __syncthreads();
-  const int k_sph = kSpheres + n_spheres * kStride;
+  const int k_sph = kSpheres + rows.n * rows.stride;
   float* row = partials + (size_t)blockIdx.x * n_out;
   for (int k = threadIdx.x; k < n_out; k += blockDim.x)
     row[k] = k < kHead ? sh.ghead[k]
              : k < k_sph ? sh.gs[k - kHead] : sh.ghead[kHead];
+}
+
+// The row stride of a scene (ops/megakernel.py sphere_stride).
+inline int row_stride(int mix, int n_vol) {
+  return (mix ? kStrideMix : kStride) + (n_vol > 0 ? 1 : 0);
+}
+
+// The run-time flags of a launch are consistent: the extended variant for
+// mixes and volumes, volumes among the spheres.
+inline bool rows_ok(int n_spheres, int ext, int mix, int n_vol) {
+  return n_spheres >= 1 && n_spheres <= kMaxSpheres && n_vol >= 0 &&
+         n_vol <= n_spheres && (ext || (!mix && n_vol == 0));
 }
 
 // out[k] = sum over the n_blocks rows of partials[., k], in row order;
@@ -837,6 +1009,22 @@ reduce_partials_kernel(const float* __restrict__ partials, int n_blocks,
 
 inline int blocks_for(long long n) {
   return (int)((n + kThreads - 1) / kThreads);
+}
+
+// A template flag as a value: with_flags(ext, sky, f) calls f(Flag<ext>{},
+// Flag<sky>{}), so an entry names its kernel's launch once and reads the
+// variant as decltype(e)::value.
+template <bool B>
+struct Flag {
+  static constexpr bool value = B;
+};
+
+template <class F>
+inline auto with_flags(bool ext, bool sky, F f) {
+  if (ext)
+    return sky ? f(Flag<true>{}, Flag<true>{}) : f(Flag<true>{}, Flag<false>{});
+  return sky ? f(Flag<false>{}, Flag<true>{})
+             : f(Flag<false>{}, Flag<false>{});
 }
 
 }  // namespace rtrt

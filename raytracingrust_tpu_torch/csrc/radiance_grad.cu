@@ -8,8 +8,18 @@
 // cotangent (3 floats), replays the ray with a recording trace and runs the
 // hand-derived adjoint of radiance.cuh; the result is
 // dfparams = sum over rays of cts[ray] . d radiance[ray] / d fparams,
-// (20 + 12 N,) float32.  Rays whose cotangent is zero are skipped (their
-// term is exactly 0).  Depth is capped at kMaxTape = 12, the tape's size.
+// (20 + stride N,) float32, and under a sky map the texels' gradient.  Rays
+// whose cotangent is zero are skipped (their term is exactly 0).  Depth is
+// capped at kMaxTape = 12, the tape's size.  The variants are the forward
+// kernel's (kExt: mixes, volumes, the isotropic lobe; kSky: a sky map).
+//
+// The texels' gradient: in the TPU package the sky's gather, and so its
+// transpose, run outside the kernel (_env_finish); here the lookup is in
+// the kernel, and each escaping ray adds g * thr to its texel's three
+// floats with device-memory atomics into `gsky` (zeroed by the caller).  A
+// ray escapes at most once, so the atomics are one per escaping ray; the
+// alternative, writing each ray's texel index and g * thr for an
+// index_add_ in PyTorch, would move 16 more bytes a ray and add a launch.
 //
 // The sum over rays: each thread keeps the 20 head entries (camera,
 // background, pixel scale) in registers for all its rays; the winners'
@@ -32,13 +42,15 @@ namespace {
 
 using namespace rtrt;
 
+template <bool kExt, bool kSky>
 __global__ void __launch_bounds__(kThreads)
 grad_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
-            int n_spheres, uint32_t k0, uint32_t k1, int n_rays, int spp,
-            int width, int max_depth, int bg_kind, int clay,
-            const float* __restrict__ cts, float* __restrict__ partials) {
-  __shared__ GradShared sh;
-  load_scene(sh, fparams, kinds, n_spheres);
+            Rows rows, uint32_t k0, uint32_t k1, int n_rays, int spp,
+            int width, int max_depth, int bg_kind, int clay, Sky sky,
+            float* __restrict__ gsky, const float* __restrict__ cts,
+            float* __restrict__ partials) {
+  __shared__ GradShared<kExt> sh;
+  load_scene(sh, fparams, kinds, rows);
   float head[kHead];
 #pragma unroll
   for (int k = 0; k < kHead; ++k) head[k] = 0.0f;
@@ -53,12 +65,14 @@ grad_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
     const float px = (float)(pixel % width), py = (float)(pixel / width);
     Tape tape;
     float r, g, b;
-    trace<true>(sh.f, sh.kind_of, n_spheres, k0, k1, (uint32_t)ray, px, py,
-                max_depth, bg_kind, clay, r, g, b, &tape);
-    adjoint(sh.f, sh.kind_of, k0, k1, (uint32_t)ray, px, py, bg_kind, clay,
-            tape, gr, gg, gb, head, sh.gs);
+    trace<true, kExt, kSky>(sh.f, sh.kind_of, rows, k0, k1, (uint32_t)ray,
+                            px, py, max_depth, bg_kind, clay, sky, r, g, b,
+                            &tape);
+    adjoint<kExt, kSky>(sh.f, sh.kind_of, rows, k0, k1, (uint32_t)ray, px,
+                        py, bg_kind, clay, sky, tape, gr, gg, gb, head,
+                        sh.gs, gsky);
   }
-  write_partials(sh, head, 0.0f, n_spheres, kSpheres + n_spheres * kStride,
+  write_partials(sh, head, 0.0f, rows, kSpheres + rows.n * rows.stride,
                  partials);
 }
 
@@ -66,26 +80,39 @@ grad_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
 
 // Plain C entry, bound with ctypes (ops/radiance_grad.py).  Launches the
 // gradient kernel on at most `max_blocks` blocks, then the row sum into
-// `out` (20 + 12 N floats), on `stream`; `partials` holds max_blocks rows of
-// 20 + 12 N floats.  Returns cudaGetLastError() of the launches.
+// `out` (20 + stride N floats), on `stream`; `partials` holds max_blocks
+// rows of 20 + stride N floats.  `ext`, `mix`, `n_vol` and the sky as
+// rtrt_radiance's; under a sky map `gsky` (sky_h, sky_w, 3) receives the
+// texels' gradient.  Returns cudaGetLastError() of the launches.
 extern "C" int rtrt_radiance_grad(const float* fparams, const int* kinds,
                                   int n_spheres, uint32_t k0, uint32_t k1,
                                   int n_rays, int spp, int width,
                                   int max_depth, int bg_kind, int clay,
-                                  const float* cts, float* partials,
-                                  int max_blocks, float* out, void* stream) {
-  if (n_spheres < 1 || n_spheres > kMaxSpheres || n_rays < 1 || spp < 1 ||
-      width < 1 || max_depth < 0 || max_depth > kMaxTape || max_blocks < 1)
+                                  int ext, int mix, int n_vol,
+                                  const float* sky_img, int sky_h, int sky_w,
+                                  float* gsky, const float* cts,
+                                  float* partials, int max_blocks, float* out,
+                                  void* stream) {
+  const bool sky_map = bg_kind == kSkyMap;
+  if (!rows_ok(n_spheres, ext, mix, n_vol) || n_rays < 1 || spp < 1 ||
+      width < 1 || max_depth < 0 || max_depth > kMaxTape || max_blocks < 1 ||
+      sky_map != (sky_img != nullptr) || sky_map != (gsky != nullptr) ||
+      (sky_map && (sky_h < 1 || sky_w < 1)))
     return (int)cudaErrorInvalidValue;
-  const int n_out = kSpheres + n_spheres * kStride;
+  const Rows rows{n_spheres, row_stride(mix, n_vol), mix, n_vol};
+  const Sky sky{sky_img, sky_h, sky_w};
+  const int n_out = kSpheres + n_spheres * rows.stride;
   const int blocks = blocks_for(n_rays) < max_blocks ? blocks_for(n_rays)
                                                      : max_blocks;
   cudaStream_t s = (cudaStream_t)stream;
-  grad_kernel<<<blocks, kThreads, 0, s>>>(fparams, kinds, n_spheres, k0, k1,
-                                          n_rays, spp, width, max_depth,
-                                          bg_kind, clay, cts, partials);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int err = with_flags(ext, sky_map, [&](auto e, auto k) {
+    grad_kernel<decltype(e)::value, decltype(k)::value>
+        <<<blocks, kThreads, 0, s>>>(fparams, kinds, rows, k0, k1, n_rays,
+                                     spp, width, max_depth, bg_kind, clay,
+                                     sky, gsky, cts, partials);
+    return (int)cudaGetLastError();
+  });
+  if (err != 0) return err;
   reduce_partials_kernel<<<blocks_for(n_out), kThreads, 0, s>>>(
       partials, blocks, n_out, 0.0f, out);
   return (int)cudaGetLastError();

@@ -18,10 +18,10 @@ from typing import Iterable
 
 import torch
 
-from ..models.scene import MODE_CLAY, Scene
-from ..ops.megakernel import pack_fparams, sphere_kinds
+from ..models.scene import Scene
+from ..ops.megakernel import pack_fparams, scene_opts, sphere_kinds
 from ..ops.mse_loss import mse_loss, supports_fused_mse
-from ..render.render import render_linear, resolve_device
+from ..render.render import render_linear, resolve_device, resolve_engine
 from ..utils import rng
 
 # Trainable leaf names -> (sub-object, field) paths
@@ -65,7 +65,7 @@ def apply_params(scene: Scene, params: dict) -> Scene:
 
 
 def make_loss(scene: Scene, target, width: int, height: int, *,
-              seed: int = 0, device=None, mesh=None):
+              seed: int = 0, device=None, mesh=None, engine=None):
     """-> loss(params, key=None) = mean squared error against ``target``
     (H, W, 3) linear radiance, differentiable in every PARAM_PATHS leaf
     present in ``params``.  ``key`` (two cipher words, as
@@ -75,8 +75,11 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
     target is (H, W, 3), the loss is the fused render -> MSE -> gradient
     path: on the card one kernel launch gives the loss and its gradient.
     Otherwise, and for every scene that takes the BVH kernel, it is
-    ``render_linear`` plus the mean in PyTorch.  ``device`` as in
-    ``render_linear`` (None means cuda)."""
+    ``render_linear`` plus the mean in PyTorch: a brute scene under a sky
+    map takes the forward kernel and, backward, the radiance gradient
+    kernel (the JAX package's fused kernel excludes sky maps too).
+    ``device`` and ``engine`` as in ``render_linear`` (None means cuda and
+    the dispatch's route)."""
     if mesh is not None:
         raise NotImplementedError(
             "sharded fits are not ported yet (ROADMAP A9)")
@@ -91,36 +94,35 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
         return rng.base_key(seed) if key is None else tuple(
             int(w) for w in key)
 
-    if (supports_fused_mse(scene)
+    if engine is not None:
+        resolve_engine(scene, engine, grad=True)
+    if (engine in (None, "brute") and supports_fused_mse(scene)
             and tuple(target.shape) == (height, width, 3)):
         s = scene.settings
         kinds = sphere_kinds(scene)
         flat = target.reshape(-1, 3).contiguous()
+        opts = scene_opts(scene)
 
         def loss(params: dict, key=None):
             return mse_loss(pack_fparams(scene_of(params), width, height),
                             kinds, key_of(key), flat, s.samples_per_pixel,
-                            width,
-                            max_depth=s.max_ray_depth,
-                            bg_kind=scene.background.kind,
-                            clay=s.mode == MODE_CLAY,
-                            clamp=s.clamp_indirect)
+                            width, clamp=s.clamp_indirect, **opts)
 
         return loss
 
     def loss(params: dict, key=None):
         img = render_linear(scene_of(params), width, height,
-                            key=key_of(key), device=dev)
+                            key=key_of(key), device=dev, engine=engine)
         return torch.mean((img - target) ** 2)
 
     return loss
 
 
 def render_and_grad(scene: Scene, target, names, width: int, height: int,
-                    *, seed: int = 0, device=None, mesh=None):
+                    *, seed: int = 0, device=None, mesh=None, engine=None):
     """Convenience: (loss value, grads dict) for the selected params."""
     loss = make_loss(scene, target, width, height, seed=seed, device=device,
-                     mesh=mesh)
+                     mesh=mesh, engine=engine)
     params = {k: v.detach().clone().requires_grad_(True) for k, v in
               extract_params(scene.to(resolve_device(device)),
                              names).items()}

@@ -37,6 +37,7 @@ def fit(
     checkpoint_every: int = 25,
     mesh=None,
     sharded: bool = False,
+    engine=None,
 ):
     """Optimize ``names`` parameters of ``scene`` to match ``target``.
 
@@ -48,7 +49,8 @@ def fit(
     after each step (e.g. albedo in [0, 1], fuzz >= 0).
     ``callback(step, loss, params)`` runs after each step.  ``device`` as
     in ``render_linear`` (None means cuda): on the card each step is one
-    launch of the fused loss kernel plus the Adam update.
+    launch of the fused loss kernel plus the Adam update.  ``engine`` as
+    in ``render_linear`` (None: the dispatch's route).
     Checkpoints (``checkpoint_path``/``checkpoint_every``, ROADMAP A10) and
     sharded fits (``mesh``/``sharded``, ROADMAP A9) are not ported yet:
     asking for either raises NotImplementedError.
@@ -65,7 +67,8 @@ def fit(
               for k, v in extract_params(scene, list(names)).items()}
     opt = torch.optim.Adam(list(params.values()), lr=learning_rate,
                            betas=(0.9, 0.999), eps=1e-8)
-    loss_fn = make_loss(scene, target, width, height, seed=seed, device=dev)
+    loss_fn = make_loss(scene, target, width, height, seed=seed, device=dev,
+                        engine=engine)
 
     history = []
     for i in range(steps):

@@ -94,7 +94,6 @@ from ..models import backgrounds as B
 from ..models import materials as M
 from ..models.scene import (MODE_CLAY, MODE_FULL, MODE_NORMAL, MODE_RANDOM,
                             ChunkTree, Scene)
-from ..utils import vec
 from ..utils.rng import ray_uniforms
 from ..utils.types import T_MIN
 from . import megakernel as K
@@ -666,25 +665,6 @@ def bounce_uniforms(sc: BvhScene, key, ray_ids, b):
     return coins, lobe, u[:, off + 4:]
 
 
-def _sky_where(sky, d, missed, tally=None):
-    """(R, 3) the sky's radiance along ``d`` where ``missed``, else 0: the
-    lookup of the missed rays alone.  ``tally`` receives the texels looked
-    up, as a (H * W,) bool mask under "sky_texels"."""
-    at = missed.nonzero().squeeze(1)
-    bg = torch.zeros((missed.shape[0], 3), device=missed.device)
-    if at.numel():
-        dm = torch.stack([v[at] for v in d], dim=-1)
-        bg[at] = sky.sample(dm)
-        if tally is not None:
-            h, w = sky.image.shape[0], sky.image.shape[1]
-            y, x = sky._texel(vec.to_spherical_coords(vec.normalize(dm)))
-            seen = tally.get("sky_texels")
-            if seen is None:
-                seen = torch.zeros(h * w, dtype=torch.bool, device=dm.device)
-            tally["sky_texels"] = seen.index_fill(0, y * w + x, True)
-    return bg
-
-
 def _view_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, sky,
                debug, tally):
     """One tile of :func:`radiance_bvh_plain`'s inspection views (the JAX
@@ -705,7 +685,7 @@ def _view_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, sky,
         tally["bounces"] += a.numel()
         tally["misses"] += int((~hit).sum())
         tally["view_hits"] += int(hit.sum())
-    bg = (_sky_where(sky, d, ~hit, tally).unbind(-1) if sky is not None
+    bg = (K.sky_where(sky, d, ~hit, tally).unbind(-1) if sky is not None
           else K.background(sc.head, bg_kind, d))
     col = [zero] * 3
     if debug == "normal":
@@ -753,7 +733,7 @@ def _bvh_tile(sc: BvhScene, key, ray_ids, px, py, max_depth, bg_kind, clay,
         entering = alive
         if sky is not None:  # an escaping ray adds the sky's texel
             missed = alive & ~hit
-            bg = _sky_where(sky, d, missed, tally)
+            bg = K.sky_where(sky, d, missed, tally)
             rad = [rad[c] + torch.where(missed, thr[c] * bg[:, c], 0.0)
                    for c in range(3)]
         o, d, thr, rad, alive = K.bounce_tail(

@@ -8,19 +8,38 @@ Replaces the forward half of raytracingrust_tpu/ops/pallas_megakernel.py
 one material lobe and the throughput/radiance update; a miss adds the
 background and ends the path.
 
-Layouts are the JAX package's, so its own packed constants can be fed in:
-``fparams`` is (20 + 12 N,) float32 — camera origin, horizontal, vertical,
-lower-left (0..11), background colors a and b (12..17), 1/(width-1) and
-1/(height-1) (18, 19), then per sphere cx cy cz r, albedo rgb, fuzz, ir,
-emission rgb.  Sphere material kinds ride beside it as an int32 (N,) tensor,
-a runtime input, so one kernel build serves every scene in the envelope.
+Layouts are the JAX package's (``_pack_fparams``), so its own packed
+constants can be fed in: ``fparams`` is (20 + stride N,) float32 — camera
+origin, horizontal, vertical, lower-left (0..11), background colors a and b
+(12..17), 1/(width-1) and 1/(height-1) (18, 19), then per sphere cx cy cz
+r, albedo rgb, fuzz, ir, emission rgb (stride 12).  A scene with mixes
+packs leaf A of each sphere's material (``mix_first``) in those slots, then
+the mix factor and leaf B (``mix_second``): stride 21, and a non-mix row
+has A == B and factor 0.  A scene with volume spheres adds one slot, the
+sphere's -1/density (0 for a solid sphere); volumes come last.  Sphere
+material kinds ride beside it as an int32 (N,) tensor, a runtime input, so
+one kernel build serves every scene in the envelope: with mixes kind A in
+bits 0-7 and kind B in bits 8-15.
 
-The envelope (:func:`unsupported`): 1 to 128 solid spheres and no
-triangle; Lambertian, Metal, Dielectric and Emission materials; a uniform
-or gradient background; Full or Clay mode; any depth.
+The bounce's uniform columns (stream 1 + b) are the JAX layout: with any
+mix in the table the four mix coins first (``off = MAX_MIX_DEPTH``; a
+single-level mix reads coin 0), then u1, u2, the coin and u_r at
+``off + 0 .. 3``, then volume v's free-flight uniform at ``off + 4 + v``.
+
+The envelope (:func:`unsupported`, the JAX ``supports`` without
+triangles): 1 to 128 spheres, constant-density sphere volumes among them,
+and no triangle; Lambertian, Metal, Dielectric, Emission and Isotropic
+materials and single-level mixes of them; a uniform, gradient or sky-map
+background (the sky's nearest texel looked up in the kernel, as #5's
+sky-map variant does); Full or Clay mode; any depth.  The kernels' new
+branches (mixes, volumes, the isotropic lobe, the sky) sit behind
+compile-time flags, so a scene of solid spheres runs the code it ran
+before.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
-launch the kernel or raise.  ``LAUNCHES`` counts kernel launches.  The
+launch the kernel or raise.  ``LAUNCHES`` counts kernel launches,
+``EXT_LAUNCHES`` and ``SKY_LAUNCHES`` again those of the variants with
+mixes, volumes or the isotropic lobe, and with a sky map.  The
 plain version is differentiable by autograd; on the card the gradient is a
 kernel of its own (ops/radiance_grad.py, ops/mse_loss.py), whose limits
 (``MAX_DEPTH``, the partial-sum blocks) sit here beside the input checks
@@ -30,6 +49,7 @@ that all kernels share.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import numpy as np
 import torch
@@ -37,8 +57,10 @@ import torch
 from ..models import backgrounds as B
 from ..models import materials as M
 from ..models.scene import MODE_CLAY, MODE_FULL, Scene
+from ..utils import vec
 from ..utils.rng import cbrt01, ray_uniforms
 from ..utils.types import T_MIN
+from .shade import mix_depth
 
 MAX_SPHERES = 128
 _CAM = 0
@@ -47,8 +69,12 @@ _INV_W = 18
 _INV_H = 19
 _SPHERES = 20
 _SPHERE_STRIDE = 12
-# offsets within one sphere's row
+_SPHERE_STRIDE_MIX = 21
+# offsets within one sphere's row: geometry and leaf A; with mixes the
+# factor and leaf B (albedo rgb, fuzz, ir, emission rgb as leaf A)
 _CENTER, _RADIUS, _ALBEDO, _FUZZ, _IR, _EMISSION = 0, 3, 4, 7, 8, 9
+_FACTOR, _LEAF_B = 12, 13
+_MAT = 8  # floats of one leaf's material
 # rays per step of the plain version: bounds its temporaries
 TILE_RAYS = 1 << 22
 # 2 * float32(pi), the float32 constant of the sphere sample's angle
@@ -61,17 +87,47 @@ MAX_DEPTH = 12
 BLOCKS_PER_SM = 8
 
 LAUNCHES = 0
+EXT_LAUNCHES = 0
+SKY_LAUNCHES = 0
+
+
+def sphere_stride(mix: bool, n_vol: int) -> int:
+    """Floats of one sphere's row (``pallas_megakernel._sphere_stride``)."""
+    return (_SPHERE_STRIDE_MIX if mix else _SPHERE_STRIDE) + int(n_vol > 0)
 
 
 # ------------------------------------------------------------- the envelope
 
 def sphere_kinds(scene: Scene) -> torch.Tensor:
-    """(N,) int32 material kind of each sphere."""
-    return scene.materials.kind[scene.spheres.material.long()]
+    """(N,) int32 material kind of each sphere; in a scene with mixes, kind
+    A (of ``mix_first``) in bits 0-7 and kind B (``mix_second``) in bits
+    8-15 (the JAX ``_sphere_kinds`` pairs)."""
+    mats = scene.materials
+    mid = scene.spheres.material.long()
+    if not mats.has_mix:
+        return mats.kind[mid]
+    ka = mats.kind[mats.mix_first[mid].long()]
+    kb = mats.kind[mats.mix_second[mid].long()]
+    return (ka | (kb << 8)).to(torch.int32)
+
+
+def scene_opts(scene: Scene) -> dict:
+    """The static options of the scene's brute path: depth, background
+    kind, Clay mode, mixes, volume spheres and whether an isotropic
+    material is shaded (which draws u_r, as the JAX kernel's ``iso``)."""
+    s = scene.settings
+    mix = scene.materials.has_mix
+    kinds = sphere_kinds(scene)
+    iso = bool(((kinds & 0xFF) == M.ISOTROPIC).any()
+               or (mix and ((kinds >> 8) == M.ISOTROPIC).any()))
+    return dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
+                clay=s.mode == MODE_CLAY, mix=mix,
+                n_vol=scene.spheres.num_volumes, iso=iso)
 
 
 def unsupported(scene: Scene) -> str | None:
-    """Why the scene lies outside the kernel's envelope, or None."""
+    """Why the scene lies outside the kernels' envelope, or None: the JAX
+    ``supports``, but for triangles (still to come, ROADMAP A5)."""
     n = len(scene.spheres)
     if not 0 < n <= MAX_SPHERES:
         return (f"{n} spheres: the brute kernel takes 1 to {MAX_SPHERES}; "
@@ -84,16 +140,23 @@ def unsupported(scene: Scene) -> str | None:
         return ("triangles in the brute kernel are not ported yet "
                 "(ROADMAP A5); a scene built with its BVH takes the BVH "
                 "kernel")
-    if scene.spheres.num_volumes:
-        return "constant-density volumes are not ported yet (ROADMAP A5)"
-    if scene.materials.has_mix:
-        return "mix materials are not ported yet (ROADMAP A5)"
-    if bool((sphere_kinds(scene) == M.ISOTROPIC).any()):
-        return "isotropic materials are not ported yet (ROADMAP A5)"
-    if scene.background.kind not in (B.UNIFORM, B.GRADIENT):
-        return "SkyMap backgrounds are not ported yet (ROADMAP A5)"
+    if scene.materials.has_mix and mix_depth(scene.materials) > 1:
+        return ("mixes nested more than one level deep: the brute kernels "
+                "shade single-level mixes (as the JAX package); a scene "
+                "built with its BVH takes the BVH kernel's resolution "
+                "chain, one without it needs the XLA integrator, not ported "
+                "yet (ROADMAP A6)")
+    if (scene.settings.env_importance_sampling
+            and scene.background.kind == B.SKYMAP
+            and scene.settings.mode == MODE_FULL):
+        return ("HDRI importance sampling: the brute kernels look a miss up "
+                "in the sky only (as the JAX package); the env path takes "
+                "the scene with its BVH, without it the XLA integrator, not "
+                "ported yet (ROADMAP A6)")
     if scene.settings.mode not in (MODE_FULL, MODE_CLAY):
-        return (f"{scene.settings.mode} mode is not ported yet "
+        return (f"the {scene.settings.mode} view is not a brute-kernel mode "
+                "(as in the JAX package): the BVH kernel renders it with the "
+                "scene's BVH; without it the XLA integrator, not ported yet "
                 "(ROADMAP A6)")
     return None
 
@@ -128,17 +191,29 @@ def pack_head(scene: Scene, width: int, height: int) -> torch.Tensor:
 
 
 def pack_fparams(scene: Scene, width: int, height: int) -> torch.Tensor:
-    """Scene constants -> (20 + 12 N,) float32 on the scene's device, in the
-    layout of ``pallas_megakernel._pack_fparams``.  Differentiable in every
-    scene leaf that requires grad."""
+    """Scene constants -> (20 + stride N,) float32 on the scene's device,
+    in the layout of ``pallas_megakernel._pack_fparams(mix=has_mix)``.
+    Plain tensor ops, so autograd folds each slot's cotangent back onto the
+    scene leaf it was read from (a mix row's leaves onto their material
+    rows, its factor onto ``mix_factor``)."""
     head = pack_head(scene, width, height)
     mats = scene.materials
-    mid = scene.spheres.material.long()
-    per_sphere = torch.cat([
-        scene.spheres.center, scene.spheres.radius[:, None],
-        mats.albedo[mid], mats.fuzz[mid][:, None], mats.ir[mid][:, None],
-        mats.emission[mid],
-    ], dim=1).reshape(-1)
+    sph = scene.spheres
+    mid = sph.material.long()
+
+    def leaf(m):
+        return [mats.albedo[m], mats.fuzz[m][:, None], mats.ir[m][:, None],
+                mats.emission[m]]
+
+    mix = mats.has_mix
+    cols = [sph.center, sph.radius[:, None],
+            *leaf(mats.mix_first[mid].long() if mix else mid)]
+    if mix:
+        cols += [mats.mix_factor[mid][:, None],
+                 *leaf(mats.mix_second[mid].long())]
+    if sph.num_volumes:
+        cols.append(sph.neg_inv_density[:, None])
+    per_sphere = torch.cat(cols, dim=1).reshape(-1)
     return torch.cat([head, per_sphere]).to(torch.float32)
 
 
@@ -181,7 +256,7 @@ def background(fp, bg_kind, d):
     """The uniform or gradient background's radiance along the directions
     ``d`` (three (R,) tensors), from the packed head ``fp``: three
     channels, 0-dim for a uniform one; None for a sky map, whose lookup is
-    the caller's (``Background.sample``)."""
+    the caller's (:func:`sky_where`)."""
     bg_a = fp[_BG:_BG + 3].unbind()
     if bg_kind == B.UNIFORM:
         return list(bg_a)
@@ -192,6 +267,33 @@ def background(fp, bg_kind, d):
     norm = 1.0 / torch.sqrt(_dot3(dx, dy, dz, dx, dy, dz))
     tt = 0.5 * (dy * norm + 1.0)
     return [(1.0 - tt) * bg_a[c] + tt * bg_b[c] for c in range(3)]
+
+
+def sky_where(sky: B.Background, d, missed, tally=None):
+    """(R, 3) the sky map's radiance along ``d`` where ``missed``, else 0:
+    the lookup (``Background.sample``, the JAX ``_env_finish``) of the
+    missed rays alone, differentiable in the texels.  ``tally`` receives
+    the texels looked up, as a (H * W,) bool mask under "sky_texels"."""
+    at = missed.nonzero().squeeze(1)
+    bg = torch.zeros((missed.shape[0], 3), device=missed.device,
+                     dtype=sky.image.dtype)
+    if at.numel():
+        dm = torch.stack([v[at] for v in d], dim=-1)
+        bg = bg.index_put((at,), sky.sample(dm))
+        if tally is not None:
+            h, w = sky.image.shape[0], sky.image.shape[1]
+            y, x = sky._texel(vec.to_spherical_coords(vec.normalize(dm)))
+            seen = tally.get("sky_texels")
+            if seen is None:
+                seen = torch.zeros(h * w, dtype=torch.bool, device=dm.device)
+            tally["sky_texels"] = seen.index_fill(0, y * w + x, True)
+    return bg
+
+
+def sky_map(image: torch.Tensor) -> B.Background:
+    """A sky-map background around (H, W, 3) texels, for its lookup."""
+    zero = image.new_zeros(3)
+    return B.Background(B.SKYMAP, zero, zero, image)
 
 
 def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
@@ -226,8 +328,8 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     u1, u2, u_coin = u[:3]
     zero = torch.zeros_like(a)
 
-    # background on a miss (a sky map's is added by the caller: the BVH
-    # walk's plain version, the replay of diff/replay.py)
+    # background on a miss (a sky map's is added by the caller:
+    # sky_where)
     missed = alive & ~hit
     bg = background(fp, bg_kind, d)
     if bg is not None:
@@ -332,14 +434,22 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
 
 
 def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
-                   clay, observe=None):
+                   clay, mix, n_vol, iso, sky, observe=None):
     """One tile of :func:`radiance_plain`.  ``fp`` is the packed constants
     tensor on the rays' device; every constant is read by indexing it, so
     autograd reaches each packed entry."""
     n = kinds.shape[0]
-    tab = fp[_SPHERES:_SPHERES + n * _SPHERE_STRIDE].view(n, _SPHERE_STRIDE)
+    stride = sphere_stride(mix, n_vol)
+    n_solid = n - n_vol
+    tab = fp[_SPHERES:_SPHERES + n * stride].view(n, stride)
     inv_r_tab = 1.0 / tab[:, _RADIUS]
     spheres = [tab[i, _CENTER:_RADIUS + 1].unbind() for i in range(n)]
+    kind_a = kinds & 0xFF if mix else kinds
+    kind_b = kinds >> 8 if mix else kinds
+    # the bounce's uniform columns (pallas_megakernel's n_u)
+    off = M.MAX_MIX_DEPTH if mix else 0
+    n_u = off + ((4 if iso else 3) if n_vol == 0 else 4 + n_vol)
+    n_lobe = 4 if iso else 3
 
     o, d = camera_ray(fp, key, ray_ids, px, py)
     one = torch.ones_like(d[0])
@@ -351,11 +461,15 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
     for b in range(max_depth):
         if not bool(alive.any()):
             break  # dead rays never change: stopping early is exact
-        u = ray_uniforms(key, ray_ids, 1 + b, 3).unbind(-1)
+        us = ray_uniforms(key, ray_ids, 1 + b, n_u)
+        u = us[:, off:off + n_lobe].unbind(-1)
         ox, oy, oz = o
         dx, dy, dz = d
         a = _dot3(dx, dy, dz, dx, dy, dz)
         inv_a = 1.0 / a
+        if n_vol:
+            ray_len = torch.sqrt(a)
+            windows = 0
 
         # closest hit; a tie keeps the lower sphere index
         t_best = inf
@@ -366,55 +480,108 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
             cq = _dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r
             disc = half_b * half_b - a * cq
             ok = disc >= 0.0
-            sq = torch.sqrt(torch.clamp(disc, min=0.0))
+            # sqrt(max(disc, 0)), whose gradient is 0 (not 0/0) at disc 0,
+            # where the kernels' adjoint gives 0 too
+            pos = disc > 0.0
+            sq = torch.where(pos, torch.sqrt(torch.where(pos, disc, 1.0)),
+                             0.0)
             t1 = (-half_b - sq) * inv_a
             t2 = (-half_b + sq) * inv_a
-            t1ok = (t1 >= T_MIN) & (t1 <= t_best)
-            t2ok = (t2 >= T_MIN) & (t2 <= t_best)
-            ti = torch.where(t1ok, t1, torch.where(t2ok, t2, inf))
-            better = ok & (ti < t_best)
+            if i >= n_solid:
+                # a constant-density volume (lib/volume.rs:35-73): the
+                # boundary window, then the free flight of its own column
+                h1 = torch.clamp(t1, min=T_MIN)
+                h2 = torch.where(t2 >= t1 + T_MIN, t2, inf)
+                valid = ok & (h1 < h2)
+                h1 = torch.clamp(h1, min=0.0)
+                dist_inside = (h2 - h1) * ray_len
+                hit_dist = tab[i, stride - 1] * torch.log(torch.clamp(
+                    us[:, off + 4 + i - n_solid], min=1e-37))
+                ti = h1 + hit_dist / ray_len
+                ti = torch.where(valid & (hit_dist <= dist_inside), ti, inf)
+                better = ti < t_best
+                if observe is not None:
+                    windows += int((alive & valid).sum())
+            else:
+                t1ok = (t1 >= T_MIN) & (t1 <= t_best)
+                t2ok = (t2 >= T_MIN) & (t2 <= t_best)
+                ti = torch.where(t1ok, t1, torch.where(t2ok, t2, inf))
+                better = ok & (ti < t_best)
             t_best = torch.where(better, ti, t_best)
             best = torch.where(better, i, best)
         hit = best >= 0
         idx = best.clamp(min=0).long()
         row = tab[idx]
-        kind = kinds[idx]
         inv_r = inv_r_tab[idx]
 
         safe_t = torch.where(hit, t_best, 1.0)
         pt = [ox + safe_t * dx, oy + safe_t * dy, oz + safe_t * dz]
         n_ = [(pt[c] - row[:, _CENTER + c]) * inv_r for c in range(3)]
+        if n_vol:  # a volume's dummy normal (1, 0, 0) (lib/volume.rs:66-72)
+            vol = best >= n_solid
+            n_ = [torch.where(vol, float(c == 0), n_[c]) for c in range(3)]
+        mat = row[:, _ALBEDO:_ALBEDO + _MAT]
+        kind = kind_a[idx]
+        if mix:  # the level-0 coin: u >= factor picks leaf A
+            pick_a = us[:, 0] >= row[:, _FACTOR]
+            mat = torch.where(pick_a[:, None], mat,
+                              row[:, _LEAF_B:_LEAF_B + _MAT])
+            kind = torch.where(pick_a, kind, kind_b[idx])
+        seen = {} if observe is not None else None
+        if sky is not None:  # an escaping ray adds the sky's texel
+            missed = alive & ~hit
+            bg = sky_where(sky, d, missed, seen)
+            rad = [rad[c] + torch.where(missed, thr[c] * bg[:, c], 0.0)
+                   for c in range(3)]
         if observe is not None:
-            observe(alive, hit, kind)
+            extra = {"texels": seen.get("sky_texels")} if sky else {}
+            if n_vol:
+                extra.update(windows=windows, vol=hit & vol)
+            observe(alive, hit, kind, **extra)
         o, d, thr, rad, alive = bounce_tail(
             fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n_,
-            row[:, _ALBEDO:_EMISSION + 3].unbind(-1), kind, u)
+            mat.unbind(-1), kind, u)
     return torch.stack(rad, dim=-1)
 
 
 def radiance_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                    key: tuple[int, int], ray_ids: torch.Tensor,
                    px: torch.Tensor, py: torch.Tensor, *, max_depth: int,
-                   bg_kind: int, clay: bool, observe=None) -> torch.Tensor:
+                   bg_kind: int, clay: bool, mix: bool = False,
+                   n_vol: int = 0, iso: bool = False,
+                   sky: Optional[torch.Tensor] = None,
+                   observe=None) -> torch.Tensor:
     """Per-ray radiance (R, 3) float32, in tensor ops on any device, and
-    differentiable in ``fparams`` by autograd.
+    differentiable in ``fparams`` (and ``sky``) by autograd.
 
     Mirrors ``_radiance_math``'s op order (not the XLA integrator's): the
     direct quadratic with ``inv_a = 1/a``, ``<=``/``<`` tie rules, the
-    normal as ``(p - c) * (1/r)``, the [u1, u2, coin] bounce stream and the
+    normal as ``(p - c) * (1/r)``, a volume's window and free flight, the
+    mix coin ``u >= factor``, the bounce stream's column layout and the
     lobe where-chain.  Where the JAX kernel calls ``rsqrt`` this computes
-    ``1 / sqrt``, as the CUDA kernel does.  Frames larger than
-    ``TILE_RAYS`` run tile by tile.
+    ``1 / sqrt``, as the CUDA kernel does.  ``mix``, ``n_vol`` and ``iso``
+    as :func:`scene_opts` gives them; ``sky``, the (H, W, 3) texels of a
+    SKYMAP background (``bg_kind`` SKYMAP), looked up where a ray escapes
+    (the JAX ``_env_finish``).  Frames larger than ``TILE_RAYS`` run tile
+    by tile.
 
     ``observe``, for measurement only, is called once per bounce traced
     with the rays' masks ``(alive, hit, kind)``: alive at the bounce's
-    start, hit something, the winner's material kind."""
+    start, hit something, the winner's material kind (the picked leaf's);
+    with volumes also ``windows=``, the volume windows the rays crossed
+    (each draws its free flight), and ``vol=``, the rays whose winner is a
+    volume; with a sky map ``texels=``, a (H * W,) bool mask of the texels
+    the bounce's escaping rays looked up (None when none escaped)."""
+    if (bg_kind == B.SKYMAP) != (sky is not None):
+        raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
+                         "up in `sky`, and only then")
     fp = fparams.to(px.device)
     kinds = kinds.to(px.device)
+    bg = None if sky is None else sky_map(sky.to(px.device))
+    opts = (max_depth, bg_kind, clay, mix, n_vol, iso, bg, observe)
     return torch.cat([
         _radiance_tile(fp, kinds, key, ray_ids[i:i + TILE_RAYS],
-                       px[i:i + TILE_RAYS], py[i:i + TILE_RAYS], max_depth,
-                       bg_kind, clay, observe)
+                       px[i:i + TILE_RAYS], py[i:i + TILE_RAYS], *opts)
         for i in range(0, ray_ids.shape[0], TILE_RAYS)
     ]) if ray_ids.shape[0] else torch.zeros((0, 3), device=px.device)
 
@@ -453,50 +620,79 @@ def max_blocks(device: torch.device) -> int:
 
 
 def check_scene_inputs(fn: str, fparams: torch.Tensor, kinds: torch.Tensor,
-                       key: tuple[int, int]) -> int:
+                       key: tuple[int, int], mix: bool = False,
+                       n_vol: int = 0) -> int:
     """Check what every kernel of csrc/ takes (CUDA tensors, the packed
-    constants and kinds of 1 to MAX_SPHERES spheres, a key); -> the sphere
-    count."""
+    constants and kinds of 1 to MAX_SPHERES spheres, of which the last
+    ``n_vol`` are volumes, a key); -> the sphere count."""
     if fparams.device.type != "cuda":
         raise ValueError(f"{fn} needs CUDA tensors, got {fparams.device}")
     n = kinds.shape[0]
-    if not 0 < n <= MAX_SPHERES:
-        raise ValueError(f"{n} spheres; the kernel takes 1 to {MAX_SPHERES}")
-    _check(fparams, "fparams", torch.float32, (_SPHERES + n * _SPHERE_STRIDE,),
-           fparams.device)
+    if not 0 < n <= MAX_SPHERES or not 0 <= n_vol <= n:
+        raise ValueError(f"{n} spheres ({n_vol} volumes); the kernel takes "
+                         f"1 to {MAX_SPHERES}")
+    _check(fparams, "fparams", torch.float32,
+           (_SPHERES + n * sphere_stride(mix, n_vol),), fparams.device)
     _check(kinds, "kinds", torch.int32, (n,), fparams.device)
     _check_key(key)
     return n
 
 
+def sky_args(sky: Optional[torch.Tensor], device) -> list:
+    """The texels' pointer, height and width of a sky map (null, 0, 0
+    without one), checked."""
+    if sky is None:
+        return [ctypes.c_void_p(0), 0, 0]
+    if sky.dim() != 3 or sky.shape[2] != 3:
+        raise ValueError(f"sky has shape {tuple(sky.shape)}, expected "
+                         "(H, W, 3)")
+    _check(sky, "sky", torch.float32, tuple(sky.shape), device)
+    return [ctypes.c_void_p(sky.data_ptr()), sky.shape[0], sky.shape[1]]
+
+
+def ext_flags(mix: bool, n_vol: int, iso: bool) -> list:
+    """The kernels' run-time flags of a scene: its new branches (any of
+    mixes, volumes, the isotropic lobe), mixes, volume spheres."""
+    return [int(bool(mix or n_vol or iso)), int(bool(mix)), int(n_vol)]
+
+
 def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                   key: tuple[int, int], n_rays: int, spp: int, width: int, *,
-                  max_depth: int, bg_kind: int, clay: bool) -> torch.Tensor:
+                  max_depth: int, bg_kind: int, clay: bool, mix: bool = False,
+                  n_vol: int = 0, iso: bool = False,
+                  sky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-ray radiance (n_rays, 3) from the CUDA kernel for rays
     0 .. n_rays - 1, where ray id = pixel * spp + sample and pixels run
     row-major over ``width``."""
-    global LAUNCHES
+    global LAUNCHES, EXT_LAUNCHES, SKY_LAUNCHES
     from . import _build
 
-    n = check_scene_inputs("radiance_cuda", fparams, kinds, key)
+    n = check_scene_inputs("radiance_cuda", fparams, kinds, key, mix, n_vol)
     if not 0 <= n_rays < 2 ** 31 or spp < 1 or width < 1 or max_depth < 0:
         raise ValueError(f"bad launch: n_rays={n_rays} spp={spp} "
                          f"width={width} max_depth={max_depth}")
+    if (bg_kind == B.SKYMAP) != (sky is not None):
+        raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
+                         "up in `sky`, and only then")
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=fparams.device)
     if n_rays == 0:
         return out
+    flags = ext_flags(mix, n_vol, iso)
     lib = _build.load()
     with torch.cuda.device(fparams.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.rtrt_radiance(
             ctypes.c_void_p(fparams.data_ptr()),
             ctypes.c_void_p(kinds.data_ptr()), n, key[0], key[1], n_rays,
-            spp, width, max_depth, int(bg_kind), int(bool(clay)),
-            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
+            spp, width, max_depth, int(bg_kind), int(bool(clay)), *flags,
+            *sky_args(sky, fparams.device), ctypes.c_void_p(out.data_ptr()),
+            ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"rtrt_radiance launch failed: CUDA error {err} "
                            f"({_build.error_string(err)})")
     LAUNCHES += 1
+    EXT_LAUNCHES += flags[0]
+    SKY_LAUNCHES += int(sky is not None)
     return out
 
 
@@ -532,12 +728,15 @@ def uniforms_cuda(key: tuple[int, int], ray_ids: torch.Tensor, stream: int,
 
 def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
              key: tuple[int, int], n_pixels: int, spp: int, width: int, *,
-             max_depth: int, bg_kind: int, clay: bool) -> torch.Tensor:
+             max_depth: int, bg_kind: int, clay: bool, mix: bool = False,
+             n_vol: int = 0, iso: bool = False,
+             sky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3) of pixels 0 .. n_pixels - 1:
     the kernel for CUDA tensors, the plain version for CPU tensors (which
     autograd differentiates).  ops/radiance_grad.radiance adds the card's
     gradient."""
-    opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay)
+    opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay, mix=mix,
+                n_vol=n_vol, iso=iso, sky=sky)
     if select_engine(fparams.device) == "cuda":
         return radiance_cuda(fparams, kinds, key, n_pixels * spp, spp, width,
                              **opts)

@@ -16,7 +16,9 @@ PyTorch (the JAX ``mse`` primal).  The plain version is that reduction over
 :func:`megakernel.radiance_plain`, differentiated by autograd.  The clip's
 gradient follows ``jnp.clip``: half at a sample exactly on 0 or ``clamp``.
 
-Gate: :func:`supports_fused_mse`.  ``LAUNCHES`` counts kernel launches.
+Gate: :func:`supports_fused_mse`.  ``LAUNCHES`` counts kernel launches,
+``EXT_LAUNCHES`` again those of its variant with mixes, volumes or the
+isotropic lobe.
 """
 
 from __future__ import annotations
@@ -25,15 +27,19 @@ import ctypes
 
 import torch
 
+from ..models import backgrounds as B
 from ..models.scene import Scene
 from . import megakernel as K
 
 LAUNCHES = 0
+EXT_LAUNCHES = 0
 
 
 def supports_fused_mse(scene: Scene) -> bool:
-    """The kernel's envelope, at depth <= megakernel.MAX_DEPTH."""
-    return (K.supports(scene)
+    """The kernel's envelope without a sky map (the JAX
+    ``supports_fused_mse``: its fused kernel cannot gather the sky), at
+    depth <= megakernel.MAX_DEPTH."""
+    return (K.supports(scene) and scene.background.kind != B.SKYMAP
             and scene.settings.max_ray_depth <= K.MAX_DEPTH)
 
 
@@ -47,24 +53,32 @@ def reduce_mse(rad: torch.Tensor, target: torch.Tensor, spp: int,
 def mse_loss_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                    key: tuple[int, int], target: torch.Tensor, spp: int,
                    width: int, *, max_depth: int, bg_kind: int, clay: bool,
-                   clamp: float) -> torch.Tensor:
+                   clamp: float, mix: bool = False, n_vol: int = 0,
+                   iso: bool = False) -> torch.Tensor:
     """The loss in PyTorch ops on any device, differentiable by autograd."""
     ray_ids, px, py = K.prep_rays(
         torch.arange(target.shape[0], device=target.device), spp, width)
     rad = K.radiance_plain(fparams, kinds, key, ray_ids, px, py,
-                           max_depth=max_depth, bg_kind=bg_kind, clay=clay)
+                           max_depth=max_depth, bg_kind=bg_kind, clay=clay,
+                           mix=mix, n_vol=n_vol, iso=iso)
     return reduce_mse(rad, target, spp, clamp)
 
 
 def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                   key: tuple[int, int], target: torch.Tensor, spp: int,
                   width: int, *, max_depth: int, bg_kind: int, clay: bool,
-                  clamp: float) -> tuple[torch.Tensor, torch.Tensor]:
+                  clamp: float, mix: bool = False, n_vol: int = 0,
+                  iso: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss, d loss / d fparams) from one launch of the fused kernel."""
-    global LAUNCHES
+    global LAUNCHES, EXT_LAUNCHES
     from . import _build
 
-    n = K.check_scene_inputs("mse_loss_cuda", fparams, kinds, key)
+    n = K.check_scene_inputs("mse_loss_cuda", fparams, kinds, key, mix,
+                             n_vol)
+    if bg_kind == B.SKYMAP:
+        raise ValueError("the fused loss kernel takes no sky map (as the JAX "
+                         "package's): its fit takes the forward and the "
+                         "radiance gradient kernels")
     dev, k = fparams.device, fparams.shape[0]
     n_pixels = target.shape[0]
     K._check(target, "target", torch.float32, (n_pixels, 3), dev)
@@ -75,12 +89,13 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
     blocks = K.max_blocks(dev)
     partials = torch.empty((blocks, k + 1), dtype=torch.float32, device=dev)
     out = torch.empty((k + 1,), dtype=torch.float32, device=dev)
+    flags = K.ext_flags(mix, n_vol, iso)
     lib = _build.load("mse_loss")
     with torch.cuda.device(dev):
         err = lib.rtrt_mse_loss(
             ctypes.c_void_p(fparams.data_ptr()),
             ctypes.c_void_p(kinds.data_ptr()), n, key[0], key[1], n_pixels,
-            spp, width, max_depth, int(bg_kind), int(bool(clay)),
+            spp, width, max_depth, int(bg_kind), int(bool(clay)), *flags,
             float(clamp), ctypes.c_void_p(target.data_ptr()),
             ctypes.c_void_p(partials.data_ptr()), blocks,
             ctypes.c_void_p(out.data_ptr()),
@@ -89,6 +104,7 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
         raise RuntimeError(f"rtrt_mse_loss launch failed: CUDA error {err} "
                            f"({_build.error_string(err)})")
     LAUNCHES += 1
+    EXT_LAUNCHES += flags[0]
     return out[k], out[:k]
 
 
@@ -97,32 +113,32 @@ class FusedMSE(torch.autograd.Function):
     kernel and keeps its gradient (the port of ``_mse_cvjp``)."""
 
     @staticmethod
-    def forward(ctx, fparams, kinds, key, target, spp, width, max_depth,
-                bg_kind, clay, clamp):
+    def forward(ctx, fparams, kinds, key, target, spp, width, clamp, opts):
         loss, dfp = mse_loss_cuda(fparams, kinds, key, target, spp, width,
-                                  max_depth=max_depth, bg_kind=bg_kind,
-                                  clay=clay, clamp=clamp)
+                                  clamp=clamp, **opts)
         ctx.save_for_backward(dfp)
         return loss
 
     @staticmethod
     def backward(ctx, gbar):
         (dfp,) = ctx.saved_tensors
-        return (dfp * gbar,) + (None,) * 9
+        return (dfp * gbar,) + (None,) * 7
 
 
 def mse_loss(fparams: torch.Tensor, kinds: torch.Tensor,
              key: tuple[int, int], target: torch.Tensor, spp: int,
              width: int, *, max_depth: int, bg_kind: int, clay: bool,
-             clamp: float) -> torch.Tensor:
+             clamp: float, mix: bool = False, n_vol: int = 0,
+             iso: bool = False) -> torch.Tensor:
     """The frame's loss, differentiable in ``fparams``: on the card the
     fused kernel under autograd, the forward kernel plus a PyTorch
     reduction without it; on the CPU the plain version."""
-    opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay)
+    opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay, mix=mix,
+                n_vol=n_vol, iso=iso)
     if K.select_engine(fparams.device) == "cuda":
         if fparams.requires_grad and torch.is_grad_enabled():
             return FusedMSE.apply(fparams, kinds, key, target, spp, width,
-                                  max_depth, bg_kind, clay, clamp)
+                                  clamp, opts)
         rad = K.radiance_cuda(fparams, kinds, key, target.shape[0] * spp,
                               spp, width, **opts)
         return reduce_mse(rad, target, spp, clamp)

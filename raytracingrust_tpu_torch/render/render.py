@@ -46,13 +46,16 @@ def wants_grad(scene: Scene) -> bool:
 def select_engine(scene: Scene, grad: bool = False) -> str:
     """"env" (the record walk of #5, the replay and kernel #8) for a scene
     that uses HDRI importance sampling and the BVH gate admits, at any
-    primitive count; else "brute" (kernel #1) for 1 to 128 solid spheres
-    with no triangle, volume, mix or isotropic material, at any depth;
-    else "bvh" (kernel #5) for a scene its gate admits, every scene with
-    up to 4 mesh volumes built with its BVH among them; else
-    NotImplementedError naming the ROADMAP item that ports the scene (a
-    mesh volume without the BVH, more than 4 of them, or one under
-    importance sampling: the XLA integrator, ROADMAP A6).
+    primitive count; else "brute" (kernel #1) for what the JAX package's
+    brute kernel takes but triangles: 1 to 128 spheres, constant-density
+    sphere volumes among them, single-level mixes, isotropic materials, a
+    uniform, gradient or sky-map background, at any depth, whether or not
+    the scene was built with its BVH; else "bvh" (kernel #5) for a scene
+    its gate admits, every scene with up to 4 mesh volumes built with its
+    BVH among them; else NotImplementedError naming the ROADMAP item that
+    ports the scene (brute triangles without the BVH: A5; a mesh volume,
+    nested mixes or a view without the BVH, more than 4 mesh volumes, or
+    one under importance sampling: the XLA integrator, A6).
 
     ``grad``: a gradient will be asked of the render.  The brute path's
     gradient kernels record at most ``megakernel.MAX_DEPTH`` bounces a ray,
@@ -67,15 +70,12 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
     limit to its BVH kernel; here they stay on #1, which runs any depth.
     It renders importance-sampled scenes of up to 256 primitives with its
     XLA integrator, which the port lacks; here they take the env path too,
-    and without their BVH they raise (ROADMAP A6, A10).  It renders the
-    small scenes with volumes, mixes or isotropic materials (such as
-    scenes/material_zoo.json), and sky-map scenes of up to 128 spheres
-    (its ``supports``), on its brute kernel; here they take #5 until the
-    brute kernels gain those branches (ROADMAP A5), and without their BVH
-    they raise naming A5.  It renders the Normal and Random views of a sky
-    map with its XLA integrator; here #5 renders every view (of a scene
-    without its BVH they raise naming ROADMAP A6).  A view has no
-    gradient: with ``grad`` it raises ValueError."""
+    and without their BVH they raise (ROADMAP A6, A10).  It renders sphere
+    scenes with triangles on its brute kernel when they were built without
+    their BVH; here they raise naming A5.  It renders the Normal and Random
+    views of a sky map with its XLA integrator; here #5 renders every view
+    (of a scene without its BVH they raise naming ROADMAP A6).  A view has
+    no gradient: with ``grad`` it raises ValueError."""
     if grad and scene.settings.mode in BK.VIEWS:
         raise ValueError(f"the {scene.settings.mode} view is an inspection "
                          "view, not a loss surface: it has no gradient (as "
@@ -104,23 +104,46 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
             "(ROADMAP A6): build the scene with with_bvh=True (or "
             "enable_bvh_tree)")
     small = (0 < len(scene.spheres) <= K.MAX_SPHERES
-             and len(scene.triangles) == 0)
+             and not scene.num_mesh_volumes)
     raise NotImplementedError(brute if small else bvh)
 
 
+def resolve_engine(scene: Scene, engine=None, grad: bool = False) -> str:
+    """``engine`` None: :func:`select_engine`'s route.  "brute" or "bvh":
+    that route (the JAX ``engine="pallas"``/``"pallas_bvh"``), for
+    measuring one route where the dispatch would take the other; a scene
+    outside its gate raises ValueError."""
+    if engine is None:
+        return select_engine(scene, grad)
+    if engine == "brute":
+        why = K.unsupported(scene)
+        if why is None and grad and scene.settings.max_ray_depth > K.MAX_DEPTH:
+            why = f"the gradient kernels record at most {K.MAX_DEPTH} bounces"
+    elif engine == "bvh":
+        why = ("HDRI importance sampling takes the env path"
+               if env_is_active(scene) else BK.unsupported_bvh(scene))
+    else:
+        raise ValueError(f"unknown engine {engine!r}: None, 'brute' or 'bvh'")
+    if why is not None:
+        raise ValueError(f"engine {engine!r} cannot take the scene: {why}")
+    return engine
+
+
 def pixel_radiance(scene: Scene, width: int, height: int,
-                   key: tuple[int, int], device: torch.device) -> torch.Tensor:
+                   key: tuple[int, int], device: torch.device,
+                   engine=None) -> torch.Tensor:
     """(width * height, 3) mean radiance per pixel: each sample clamped to
     [0, clamp_indirect], then averaged over the pixel's samples.
     Differentiable in the scene's leaves on every path: the brute path's
     gradient kernel, the BVH path's record walk and replay, or the env
-    path's replay (a sky map's texels too, on either of the last two); a
-    view (Normal, Random) has no gradient."""
+    path's replay (a sky map's texels too, on each of them); a view
+    (Normal, Random) has no gradient.  ``engine`` as
+    :func:`resolve_engine`."""
     s = scene.settings
     spp = s.samples_per_pixel
     opts = dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
                 clay=s.mode == MODE_CLAY)
-    engine = select_engine(scene, grad=wants_grad(scene))
+    engine = resolve_engine(scene, engine, grad=wants_grad(scene))
     sky = (scene.to(device).background
            if scene.background.kind == SKYMAP else None)
     if engine == "env":
@@ -135,20 +158,23 @@ def pixel_radiance(scene: Scene, width: int, height: int,
         fparams = K.pack_fparams(scene, width, height).to(device)
         kinds = K.sphere_kinds(scene).to(device)
         rad = radiance(fparams, kinds, key, width * height, spp, width,
-                       **opts)
+                       sky=None if sky is None else sky.image,
+                       **K.scene_opts(scene))
     rad = K.clip_samples(rad, s.clamp_indirect)
     return rad.view(width * height, spp, 3).mean(dim=1)
 
 
 def render_linear(scene: Scene, width: int, height: int, *, seed: int = 0,
-                  key=None, device=None) -> torch.Tensor:
+                  key=None, device=None, engine=None) -> torch.Tensor:
     """(H, W, 3) float32 mean radiance (clamped, before gamma) on ``device``,
     differentiable in the scene's leaves.  ``key``, two
     cipher words as :func:`..utils.rng.base_key` gives them, overrides
-    ``seed``.  A scene outside the port's envelope raises
-    NotImplementedError naming the ROADMAP item that ports it."""
+    ``seed``; ``engine`` as :func:`resolve_engine`.  A scene outside the
+    port's envelope raises NotImplementedError naming the ROADMAP item
+    that ports it."""
     key = rng.base_key(seed) if key is None else tuple(int(w) for w in key)
-    mean = pixel_radiance(scene, width, height, key, resolve_device(device))
+    mean = pixel_radiance(scene, width, height, key, resolve_device(device),
+                          engine)
     return mean.view(height, width, 3)
 
 

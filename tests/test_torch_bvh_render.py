@@ -208,10 +208,11 @@ def _refusal(make):
 
 
 def test_select_engine_and_refusals(tmp_path):
-    """1 to 128 solid spheres without triangles, mixes or isotropic
-    materials take the brute kernel at any depth; other scenes the BVH gate
-    admits take #5, mixes, isotropic materials and sphere volumes included;
-    the rest raise, naming the ROADMAP item that ports them or the JAX
+    """1 to 128 spheres without triangles take the brute kernel at any
+    depth, single-level mixes, isotropic materials and sphere volumes
+    included (as in the JAX package); other scenes the BVH gate admits
+    take #5, mixes, isotropic materials and sphere volumes included; the
+    rest raise, naming the ROADMAP item that ports them or the JAX
     package's limit."""
     small = grid_builder(T, n=3, depth=40)
     assert select_engine(small.build()) == "brute"  # a deep sphere chain
@@ -229,12 +230,12 @@ def test_select_engine_and_refusals(tmp_path):
                         0.5)
     assert select_engine(with_material(mix)) == "bvh"
     assert select_engine(with_material(T.Isotropic((1, 1, 1)))) == "bvh"
-    # a scene of the brute kernel's size takes #5 with its BVH, and without
-    # it names the brute kernel's item
-    assert select_engine(with_material(mix, n=2)) == "bvh"
+    # a scene of the brute kernel's size takes the brute kernels, with or
+    # without its BVH (as in the JAX package)
+    assert select_engine(with_material(mix, n=2)) == "brute"
     b = grid_builder(T, n=2)
     b.add_sphere((0, 9, 0), 1.0, b.add_material(mix))
-    assert "A5" in _refusal(lambda: b.build(with_bvh=False))
+    assert select_engine(b.build(with_bvh=False)) == "brute"
 
     def with_volumes(n_vol):
         d = grid_builder(T, n=6).to_json()

@@ -649,8 +649,9 @@ def test_sky_zoo_occlusion_and_env_on_card(cuda_device):
 
 @pytest.mark.gpu
 def test_zoo_fit_on_card(cuda_device):
-    """fit takes the zoo on the card through the record kernel, #6 and #7,
-    once each a step; the loss falls over three steps."""
+    """fit's BVH route (``engine="bvh"``; the dispatch sends the zoo to the
+    brute kernels) takes the zoo on the card through the record kernel, #6
+    and #7, once each a step; the loss falls over three steps."""
     from raytracingrust_tpu_torch.diff.inverse import fit
     from raytracingrust_tpu_torch.ops import fetch as TF
 
@@ -660,10 +661,176 @@ def test_zoo_fit_on_card(cuda_device):
         device=cuda_device)
     counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TF.TRANSPOSE_LAUNCHES)
     _, _, history = fit(scene, target, ["albedo", "sphere_center"], 48, 32,
-                        steps=3, device=cuda_device, resample_every=0)
+                        steps=3, device=cuda_device, resample_every=0,
+                        engine="bvh")
     assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES,
             TF.TRANSPOSE_LAUNCHES) == tuple(c + 3 for c in counts)
     assert all(np.isfinite(history)) and history[-1] < history[0]
+
+
+# ------- the brute kernels' mixes, sphere volumes, isotropic lobe and sky
+
+
+def brute_ext_builder(mod, depth=3, spp=2, sky=False):
+    """A small scene of every branch the brute kernels' kExt and kSky
+    variants add: a ground, a metal sphere, a single-level mix (Lambertian
+    and glass), an emitter, an isotropic sphere and a fog sphere of an
+    isotropic material; a gradient background, or a numpy-seeded 16x32 sky
+    map with a bright patch.  ``mod`` is the package (the port's or the
+    JAX one's), so the CPU tests build the same scene in both."""
+    b = mod.SceneBuilder()
+    b.camera = mod.Camera.create((0, 1, 4), (0, 0.3, 0), (0, 1, 0), 50.0,
+                                 4 / 3)
+    b.settings = mod.RenderSettings(samples_per_pixel=spp,
+                                    max_ray_depth=depth,
+                                    enable_bvh_tree=False)
+    if sky:
+        img = (0.1 + 0.5 * np.random.RandomState(2).rand(16, 32, 3)).astype(
+            np.float32)
+        img[2:4, 8:11] = (6.0, 5.0, 4.0)
+        b.background = mod.Background.skymap_from_array(img)
+    else:
+        b.background = mod.Background.gradient((0.5, 0.7, 1.0),
+                                               (1.0, 1.0, 1.0))
+    ground = b.add_material(mod.Lambertian((0.7, 0.6, 0.4)))
+    metal = b.add_material(mod.Metal((0.9, 0.8, 0.7), 0.1))
+    mix = b.add_material(mod.MixMaterial(mod.Lambertian((0.2, 0.5, 0.8)),
+                                         mod.Dielectric(1.5), 0.4))
+    light = b.add_material(mod.Emission((3.0, 2.5, 2.0)))
+    iso = b.add_material(mod.Isotropic((0.8, 0.8, 0.9)))
+    b.add_sphere((0, -100.5, 0), 100.0, ground)
+    b.add_sphere((-1.1, 0.2, 0), 0.6, metal)
+    b.add_sphere((1.1, 0.2, 0), 0.6, mix)
+    b.add_sphere((0, 2.2, -1), 0.5, light)
+    b.add_sphere((0.4, 1.0, 0.6), 0.3, iso)
+    b.add_volume(b.add_sphere((0, 0.3, 0.2), 0.7, iso), 1.5)
+    return b
+
+
+def _brute_inputs(scene, w, h, device):
+    """The packed constants, kinds, options and sky of a brute scene."""
+    fp = TK.pack_fparams(scene, w, h).to(device)
+    kinds = TK.sphere_kinds(scene).to(device)
+    sky = (scene.background.image.to(device)
+           if scene.background.image is not None else None)
+    return fp, kinds, TK.scene_opts(scene), sky
+
+
+_BRUTE_EXT = {
+    "ext": lambda depth: brute_ext_builder(T, depth).build(),
+    "sky": lambda depth: _solid_sky(depth),
+    "ext-sky": lambda depth: brute_ext_builder(T, depth, sky=True).build(),
+    "zoo": lambda depth: _zoo(depth=depth),
+}
+
+
+def _solid_sky(depth):
+    """The benchmark-like scene (solid spheres) under the small sky: the
+    kSky variant alone."""
+    scene = _benchmark_like()
+    sky = brute_ext_builder(T, sky=True).background
+    return dataclasses.replace(scene, background=sky,
+                               settings=dataclasses.replace(
+                                   scene.settings, max_ray_depth=depth))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_BRUTE_EXT))
+def test_brute_ext_kernel_matches_plain_on_card(cuda_device, name):
+    """Kernel #1's kExt, kSky and kExt + kSky variants (and the zoo on kExt)
+    bit for bit equal to their plain version at depth 1 and 6 (as
+    chip_smoke.py phase 13); each launch counts as its variant."""
+    w, h = 64, 48
+    for depth in (1, 6):
+        scene = _BRUTE_EXT[name](depth)
+        fp, kinds, opts, sky = _brute_inputs(scene, w, h, cuda_device)
+        key = trng.base_key(11)
+        spp = scene.settings.samples_per_pixel
+        before = (TK.LAUNCHES, TK.EXT_LAUNCHES, TK.SKY_LAUNCHES)
+        ker = TK.radiance_cuda(fp, kinds, key, w * h * spp, spp, w, sky=sky,
+                               **opts)
+        torch.cuda.synchronize()
+        ext = int(name != "sky")
+        assert (TK.LAUNCHES, TK.EXT_LAUNCHES, TK.SKY_LAUNCHES) == (
+            before[0] + 1, before[1] + ext, before[2] + int(sky is not None))
+        ids, px, py = TK.prep_rays(torch.arange(w * h, device=cuda_device),
+                                   spp, w)
+        plain = TK.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
+                                  **opts)
+        assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_BRUTE_EXT))
+def test_brute_ext_gradients_match_plain_on_card(cuda_device, name):
+    """Kernel #3's variants (the sky's texels included) and, without a sky
+    map, kernel #4's against autograd through the plain version at depth
+    6: every entry within rtol 2e-3 plus 2e-5 of the largest."""
+    w, h = 48, 32
+    scene = _BRUTE_EXT[name](6)
+    fp, kinds, opts, sky = _brute_inputs(scene, w, h, cuda_device)
+    key = trng.base_key(5)
+    spp = scene.settings.samples_per_pixel
+    gen = np.random.default_rng(0)
+    cts = torch.tensor(gen.standard_normal((w * h * spp, 3)),
+                       dtype=torch.float32, device=cuda_device)
+    got = TR.radiance_grad_cuda(fp, kinds, key, cts, spp, w, sky=sky, **opts)
+    want = TR.radiance_grad_plain(fp, kinds, key, cts, spp, w, sky=sky,
+                                  **opts)
+    for a, b in zip(*((got, want) if sky is not None else ([got], [want]))):
+        assert bool(torch.isfinite(a).all()) and b.abs().max() > 0
+        assert _close(a, b)
+    if sky is not None:
+        return
+    target = torch.tensor(gen.random((w * h, 3)), dtype=torch.float32,
+                          device=cuda_device)
+    clamp = scene.settings.clamp_indirect
+    loss, dfp = TM.mse_loss_cuda(fp, kinds, key, target, spp, w,
+                                 clamp=clamp, **opts)
+    fpg = fp.clone().requires_grad_(True)
+    p_loss = TM.mse_loss_plain(fpg, kinds, key, target, spp, w, clamp=clamp,
+                               **opts)
+    (p_dfp,) = torch.autograd.grad(p_loss, fpg)
+    assert abs(loss.item() - p_loss.item()) <= 1e-5 * p_loss.item()
+    assert _close(dfp, p_dfp)
+
+
+@pytest.mark.gpu
+def test_brute_ext_render_and_fit_on_card(cuda_device):
+    """The dispatch takes the zoo and a sky scene to the brute kernels:
+    render_linear launches #1's variant; make_loss under autograd launches
+    #4's kExt variant on the zoo, and #1 + #3 with the sky (the texels'
+    gradient finite and nonzero); fit's loss falls."""
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.render.render import select_engine
+
+    zoo = _zoo(spp=2, depth=4)
+    assert select_engine(zoo) == select_engine(zoo, grad=True) == "brute"
+    before = (TK.EXT_LAUNCHES, TM.EXT_LAUNCHES, TB.LAUNCHES)
+    target = T.render_linear(TG.apply_params(zoo, {
+        "albedo": zoo.materials.albedo * 0.6}), 48, 32, seed=1,
+        device=cuda_device)
+    _, _, history = fit(zoo, target, ["albedo", "emission"], 48, 32,
+                        steps=3, device=cuda_device, resample_every=0)
+    assert (TK.EXT_LAUNCHES, TM.EXT_LAUNCHES, TB.LAUNCHES) == (
+        before[0] + 1, before[1] + 3, before[2])
+    assert all(np.isfinite(history)) and history[-1] < history[0]
+
+    sky = brute_ext_builder(T, depth=4, sky=True).build()
+    image = sky.background.image.to(cuda_device).requires_grad_(True)
+    scene = dataclasses.replace(sky, background=dataclasses.replace(
+        sky.background, image=image))
+    before = (TK.SKY_LAUNCHES, TR.SKY_LAUNCHES, TM.LAUNCHES)
+    loss = TG.make_loss(scene, torch.zeros(24, 32, 3), 32, 24,
+                        device=cuda_device)
+    params = {k: v.to(cuda_device).requires_grad_(True) for k, v in
+              TG.extract_params(scene, ["albedo"]).items()}
+    value = loss(params)
+    value.backward()
+    assert (TK.SKY_LAUNCHES, TR.SKY_LAUNCHES, TM.LAUNCHES) == (
+        before[0] + 1, before[1] + 1, before[2])
+    assert bool(torch.isfinite(image.grad).all()) and image.grad.abs().sum() > 0
+    assert bool(torch.isfinite(params["albedo"].grad).all())
 
 
 @pytest.mark.gpu

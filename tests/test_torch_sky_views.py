@@ -298,9 +298,10 @@ def test_zoo_view_matches_jax():
 
 def test_gate_routes_sky_and_views():
     """A non-IS sky map (Full, Clay) and every view take #5 with the
-    scene's BVH; without it the sky names ROADMAP A5 and a view A6; a view
-    asked for a gradient raises; a mesh-bounded volume under the sky
-    takes #5 without importance sampling and raises naming A6 with it
+    scene's BVH; a sky scene of the brute kernels' size takes #1 (Full,
+    Clay) with or without it, a view #5 with it and without it names A6;
+    a view asked for a gradient raises; a mesh-bounded volume under the
+    sky takes #5 without importance sampling and raises naming A6 with it
     (the JAX package renders it with its XLA integrator)."""
     for mode in ("Full", "Clay", "Normal", "Random"):
         b = sky_builder(T, mode=mode)
@@ -310,9 +311,13 @@ def test_gate_routes_sky_and_views():
         small = grid_builder(T, n=2, depth=2)  # brute-kernel size
         small.background = b.background
         small.settings = dataclasses.replace(small.settings, mode=mode)
-        assert select_engine(small.build(with_bvh=True)) == "bvh"
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            select_engine(small.build(with_bvh=False))
+        if mode in ("Full", "Clay"):
+            assert select_engine(small.build(with_bvh=True)) == "brute"
+            assert select_engine(small.build(with_bvh=False)) == "brute"
+        else:
+            assert select_engine(small.build(with_bvh=True)) == "bvh"
+            with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+                select_engine(small.build(with_bvh=False))
     for bg in ("uniform", "gradient"):
         b = grid_builder(T, n=2, depth=2, mode="Normal")
         b.background = _bg(T, bg)

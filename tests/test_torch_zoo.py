@@ -107,8 +107,11 @@ def zoos():
 
 
 def port_image(scene, w=W, h=H, seed=0):
-    assert select_engine(scene) == "bvh"
-    return render_linear(scene, w, h, seed=seed, device="cpu").numpy()
+    """The BVH route's image (the dispatch takes the zoo, a sphere scene
+    of the brute kernels' size, to #1; the nested mixes to #5)."""
+    assert select_engine(scene) in ("brute", "bvh")
+    return render_linear(scene, w, h, seed=seed, device="cpu",
+                         engine="bvh").numpy()
 
 
 def _ulps(a, b):
@@ -367,7 +370,8 @@ def test_zoo_make_loss_matches_jax_pallas_bvh():
         j, np.where(flip[..., None], img_j, target), w, h, seed=SEED,
         engine="pallas_bvh")))(JG.extract_params(j, names))
     _, got = TG.render_and_grad(t, np.where(flip[..., None], img_t, target),
-                                names, w, h, seed=SEED, device="cpu")
+                                names, w, h, seed=SEED, device="cpu",
+                                engine="bvh")
     for k in names:
         g, ref = got[k].numpy(), np.asarray(want[k])
         fin = np.isfinite(ref)
