@@ -169,6 +169,20 @@ non-zero exit, and prints no result:
    fit step with a ``torch.profiler`` breakdown and the peak memory (the
    zoo's beside phase 10's #5 route on the same shapes), and each
    variant's registers and spills.
+14. the brute kernels' triangles (#1's, #3's and #4's ``kTri`` variants,
+   with ``kExt`` and ``kSky``) on three shapes built without their BVH,
+   written with their OBJs to OUT_DIR: "tri_brute" (scenes/benchmark.json
+   over a numpy-seeded height field of 1,024 triangles, half Lambertian
+   and half metal, 1000x1000 spp 8 depth 6; its fit at 512x512 with
+   ``bench.py``'s six parameters, #4), "tri_zoo" (the zoo with a
+   320-triangle icosphere of its mix and a two-triangle mirror, 1200x800
+   spp 32 depth 8; its fit at 600x400 spp 16, #4) and "tri_zoo_sky" (that
+   under phase 9's sky, importance sampling off, 600x400 spp 16; its fit
+   #1 + #3).  The checks, times, CLI runs, an L1 loss of tri_brute
+   (#1, then #3) and the warm renders and fit steps as phase 13's; then
+   the route comparison: tri_brute built with its BVH on #5 (its kernel,
+   warm render and fit step on the record walk and the replay).
+   ``python3 chip_smoke.py 14`` runs the build and this phase alone.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
@@ -180,10 +194,11 @@ its record variant, #6, #7 and #8 on the zoo and sky_zoo from its
 render and fit by name and its CLI env render, phase 11's sky-map
 variant and views of #5 from its CLI renders, phase 12's mesh-volume
 variants of #5, its record walk, views, #6 and #7 from its CLI render,
-views and fit, and phase 13's variants of #1 (its CLI renders), #3 (the
-zoo's L1 loss, the CLI fits under the sky) and #4 (the zoo's CLI fit);
-the
-other paths' counts are in the phase lines), and its least
+views and fit, phase 13's variants of #1 (its CLI renders), #3 (the
+zoo's L1 loss, the CLI fits under the sky) and #4 (the zoo's CLI fit),
+and phase 14's triangle variants of #1 (its CLI renders), #3 (tri_brute's
+L1 loss, the CLI fit under the sky) and #4 (the CLI fits); the other
+paths' counts are in the phase lines), and its least
 possible time for one forward and one reverse sweep of the FP32
 operations the run's rays traced, or for the bytes it must move; the last
 line is
@@ -291,6 +306,18 @@ OPS_VIEW_HIT = 40
 # window (4), the draw's float part, logf (~20) and the free flight (4)
 OPS_MV_TEST = 50
 OPS_MV_DRAW = 29
+# the brute kernels' kTri branch (csrc/radiance.cuh tri_hit), counted from
+# its source with a fused multiply-add as two operations: per ray and
+# bounce the moment w = o x d (9); per triangle a ray tests, the
+# determinant and num_t (7 multiply-adds and an add, 15), |a| and its
+# compare, 1/a (~4), t and its two compares: ~24, and for a t below the
+# best so far u and v (12 multiply-adds, 3 products and 5 compares, ~32),
+# ~30 on average; the adjoint of a triangle winner's t (1/a, num_t,
+# the four products, the origin's and direction's terms: ~30)
+OPS_TRI_W = 9
+OPS_TRI_BRUTE = 30
+OPS_ADJ_TRI = 30
+BYTES_TRI = 80  # a triangle's row (pack_tri)
 
 
 def _cuda_time_ms(fn, reps: int) -> float:
@@ -323,14 +350,17 @@ class _Count:
     the texels looked up.  Sums only, so a frame of many tiles adds up."""
 
     def __init__(self):
-        self.bounces = self.misses = self.windows = 0
+        self.bounces = self.misses = self.windows = self.tri_hits = 0
         self.hits = collections.Counter()
         self.texels = None
 
-    def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None):
+    def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None,
+                 tri=None):
         self.bounces += int(alive.sum())
         self.misses += int((alive & ~hit).sum())
         self.windows += windows
+        if tri is not None:
+            self.tri_hits += int((alive & tri).sum())
         for k in range(5):
             self.hits[k] += int((alive & hit & (kind == k)).sum())
         if texels is not None:
@@ -342,9 +372,11 @@ class _Count:
         return 0 if self.texels is None else 12 * int(self.texels.sum())
 
     def forward_ops(self, n_rays: int, n_spheres: int, bg_kind: int,
-                    mix: bool = False, n_vol: int = 0, **_) -> int:
+                    mix: bool = False, n_vol: int = 0, n_tri: int = 0,
+                    **_) -> int:
         """FP32 operations of the forward chain over these rays (the
-        options as ``megakernel.scene_opts`` gives them)."""
+        options as ``megakernel.scene_opts`` gives them; ``n_tri``
+        triangles)."""
         lobe = {**OPS_LOBE, 4: OPS_ISO}
         hits = sum(self.hits.values())
         return (n_rays * OPS_RAY
@@ -354,7 +386,9 @@ class _Count:
                 + self.misses * OPS_MISS[bg_kind]
                 + (self.bounces * (OPS_RAY_LEN + n_vol * OPS_VOL_WINDOW)
                    + self.windows * OPS_VOL_DRAW if n_vol else 0)
-                + (hits * OPS_MIX_PICK if mix else 0))
+                + (hits * OPS_MIX_PICK if mix else 0)
+                + (self.bounces * (OPS_TRI_W + n_tri * OPS_TRI_BRUTE)
+                   if n_tri else 0))
 
 
 class _Tally(_Count):
@@ -368,16 +402,17 @@ class _Tally(_Count):
         self.calls = 0
         self.prev = None  # rays that hit a scattering kind at the last call
 
-    def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None):
+    def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None,
+                 tri=None):
         import torch
 
-        super().__call__(alive, hit, kind, windows, vol, texels)
+        super().__call__(alive, hit, kind, windows, vol, texels, tri)
         if self.prev is None:
             self.ended = torch.zeros_like(alive)
             self.absorbed = torch.zeros_like(alive)
             # scattering bounces by kind (3, the emitter, unused), then
             # those whose winner is a volume
-            self.scatter = torch.zeros((6,) + alive.shape, dtype=torch.int32,
+            self.scatter = torch.zeros((7,) + alive.shape, dtype=torch.int32,
                                        device=alive.device)
         else:  # a metal ray reflected below the surface ends there
             self.absorbed |= self.prev & ~alive
@@ -387,6 +422,8 @@ class _Tally(_Count):
             self.scatter[k] += (alive & hit & (kind == k)).int()
         if vol is not None:
             self.scatter[5] += (alive & vol & (kind != 3)).int()
+        if tri is not None:  # scattering bounces off a triangle
+            self.scatter[6] += (alive & tri & (kind != 3)).int()
         self.ended |= (alive & ~hit) | (alive & hit & (kind == 3))
         self.prev = alive & hit & (kind != 3)
 
@@ -397,7 +434,7 @@ class _Tally(_Count):
             absorbed |= self.prev
             self.scatter[1] -= self.prev.int()
         ended = self.ended | absorbed
-        scatter = [int(self.scatter[k][ended].sum()) for k in range(6)]
+        scatter = [int(self.scatter[k][ended].sum()) for k in range(7)]
         lobe = {**OPS_ADJ_LOBE, 4: 0}
         return (int(ended.sum()) * OPS_ADJ_RAY
                 + self.misses * OPS_ADJ_MISS[bg_kind]
@@ -405,7 +442,8 @@ class _Tally(_Count):
                 + int(absorbed.sum()) * OPS_ADJ_ABSORB
                 + sum(scatter[k] * (OPS_ADJ_HIT + lobe[k])
                       for k in (0, 1, 2, 4))
-                + scatter[5] * OPS_ADJ_VOL)
+                + scatter[5] * OPS_ADJ_VOL
+                + scatter[6] * (OPS_ADJ_TRI - OPS_ADJ_HIT))
 
 
 def _sheet_obj(path: str, n_side: int) -> None:
@@ -492,7 +530,7 @@ def _reset_launches() -> None:
     BK.SKY_LAUNCHES = BK.VIEW_LAUNCHES = BK.MV_LAUNCHES = 0
     F.FETCH_LAUNCHES = F.TRANSPOSE_LAUNCHES = RG.LAUNCHES = MS.LAUNCHES = 0
     K.EXT_LAUNCHES = K.SKY_LAUNCHES = RG.EXT_LAUNCHES = RG.SKY_LAUNCHES = 0
-    MS.EXT_LAUNCHES = 0
+    MS.EXT_LAUNCHES = K.TRI_LAUNCHES = RG.TRI_LAUNCHES = MS.TRI_LAUNCHES = 0
 
 
 def _launches() -> dict:
@@ -510,7 +548,9 @@ def _launches() -> dict:
                 occlusion=OC.LAUNCHES, brute=K.LAUNCHES, grad=RG.LAUNCHES,
                 fused=MS.LAUNCHES, brute_ext=K.EXT_LAUNCHES,
                 brute_sky=K.SKY_LAUNCHES, grad_ext=RG.EXT_LAUNCHES,
-                grad_sky=RG.SKY_LAUNCHES, fused_ext=MS.EXT_LAUNCHES)
+                grad_sky=RG.SKY_LAUNCHES, fused_ext=MS.EXT_LAUNCHES,
+                brute_tri=K.TRI_LAUNCHES, grad_tri=RG.TRI_LAUNCHES,
+                fused_tri=MS.TRI_LAUNCHES)
 
 
 def _entry(name: str, source: str, at: str, launches: int, err: float,
@@ -2169,16 +2209,29 @@ CUBE_FACES = ((1, 2, 4), (1, 4, 3), (5, 7, 8), (5, 8, 6), (1, 5, 6),
               (2, 6, 8), (2, 8, 4))
 
 
-def _icosphere_obj(path: str, center, radius: float, subdiv: int) -> None:
+def _icosphere_obj(path: str, center, radius: float, subdiv: int,
+                   ico: bool = False) -> None:
     """tests/test_mesh_volume.py::_icosphere's recipe (an octahedron
-    subdivided ``subdiv`` times onto the sphere, 8 * 4^subdiv triangles)
-    as an OBJ."""
+    subdivided ``subdiv`` times onto the sphere, 8 * 4^subdiv triangles;
+    with ``ico`` an icosahedron, 20 * 4^subdiv) as an OBJ."""
     import numpy as np
 
-    verts = [np.asarray(v, np.float64) for v in (
-        (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1), (0, 0, -1))]
-    faces = [(0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4), (2, 0, 5),
-             (1, 2, 5), (3, 1, 5), (0, 3, 5)]
+    if ico:
+        p = (1 + 5 ** 0.5) / 2
+        verts = [np.asarray(v, np.float64) / np.linalg.norm(v) for v in (
+            (-1, p, 0), (1, p, 0), (-1, -p, 0), (1, -p, 0), (0, -1, p),
+            (0, 1, p), (0, -1, -p), (0, 1, -p), (p, 0, -1), (p, 0, 1),
+            (-p, 0, -1), (-p, 0, 1))]
+        faces = [(0, 11, 5), (0, 5, 1), (0, 1, 7), (0, 7, 10), (0, 10, 11),
+                 (1, 5, 9), (5, 11, 4), (11, 10, 2), (10, 7, 6), (7, 1, 8),
+                 (3, 9, 4), (3, 4, 2), (3, 2, 6), (3, 6, 8), (3, 8, 9),
+                 (4, 9, 5), (2, 4, 11), (6, 2, 10), (8, 6, 7), (9, 8, 1)]
+    else:
+        verts = [np.asarray(v, np.float64) for v in (
+            (1, 0, 0), (-1, 0, 0), (0, 1, 0), (0, -1, 0), (0, 0, 1),
+            (0, 0, -1))]
+        faces = [(0, 2, 4), (2, 1, 4), (1, 3, 4), (3, 0, 4), (2, 0, 5),
+                 (1, 2, 5), (3, 1, 5), (0, 3, 5)]
     for _ in range(subdiv):
         cache, new = {}, []
 
@@ -2437,21 +2490,33 @@ def brute_scenes() -> list:
 
 
 def _brute_inputs(scene, w: int, h: int, dev) -> tuple:
-    """(fparams, kinds, options, sky texels or None) of a brute scene."""
+    """(fparams, kinds, options with the triangles' rows, sky texels or
+    None) of a brute scene."""
     from raytracingrust_tpu_torch.models import backgrounds as B
     from raytracingrust_tpu_torch.ops import megakernel as K
 
     sky = (scene.background.image.to(dev).contiguous()
            if scene.background.kind == B.SKYMAP else None)
+    tri = K.pack_tri(scene)
     return (K.pack_fparams(scene, w, h).to(dev),
-            K.sphere_kinds(scene).to(dev), K.scene_opts(scene), sky)
+            K.brute_kinds(scene).to(dev),
+            {**K.scene_opts(scene),
+             "tri": None if tri is None else tri.to(dev)}, sky)
+
+
+def _brute_sizes(fp, kinds, opts) -> tuple:
+    """(spheres, triangles, the bytes of the scene's inputs) of
+    :func:`_brute_inputs`' tensors."""
+    n_tri = 0 if opts["tri"] is None else opts["tri"].shape[0]
+    return (kinds.shape[0] - opts["n_tm"], n_tri,
+            4 * fp.numel() + 4 * kinds.numel() + BYTES_TRI * n_tri)
 
 
 def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
     """#1 against its plain version on every ray of the frame: per-ray
     radiance bit for bit at depth 1 and at full depth; #1's time, the
-    plain version's (full depth), the work of the plain run's rays and
-    #1's bound from it."""
+    plain version's (full depth, counting its rays' work as it runs), the
+    work of the plain run's rays and #1's bound from it."""
     import torch
 
     from raytracingrust_tpu_torch.ops import megakernel as K
@@ -2462,13 +2527,15 @@ def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
     ids, px, py = K.prep_rays(torch.arange(w * h, device=dev), spp, w)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    count = _Count()
     for d in (1, opts["max_depth"]):
         at = {**opts, "max_depth": d}
         ker = K.radiance_cuda(fp, kinds, key, n_rays, spp, w, sky=sky, **at)
         start.record()
         with torch.no_grad():
-            plain = K.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
-                                     **at)
+            plain = K.radiance_plain(
+                fp, kinds, key, ids, px, py, sky=sky,
+                observe=count if d == opts["max_depth"] else None, **at)
         end.record()
         torch.cuda.synchronize()
         err = _bit_equal(f"{label}: #1's radiance at depth {d}", ker, plain)
@@ -2477,15 +2544,11 @@ def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
     del ker, plain
     ms = _cuda_time_ms(lambda: K.radiance_cuda(
         fp, kinds, key, n_rays, spp, w, sky=sky, **opts), 5)
-    count = _Count()
-    with torch.no_grad():
-        K.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
-                         observe=count, **opts)
-    n_sph = kinds.shape[0]
-    ops = count.forward_ops(n_rays, n_sph, **opts)
+    n_sph, n_tri, scene_bytes = _brute_sizes(fp, kinds, opts)
+    ops = count.forward_ops(n_rays, n_sph, n_tri=n_tri, **opts)
     return dict(ms=ms, plain_ms=plain_ms, err=err, count=count, ops=ops,
-                mean=mean, bound=_bound(ops, 4 * fp.numel() + 4 * n_sph
-                                        + 12 * n_rays + count.texel_bytes()))
+                mean=mean, bound=_bound(ops, scene_bytes + 12 * n_rays
+                                        + count.texel_bytes()))
 
 
 def _brute_plain_grads(fp, kinds, key, cts, target, spp: int, w: int,
@@ -2611,10 +2674,11 @@ def _brute_grad_check(label, scene, w: int, h: int, dev, key, gen,
     with torch.no_grad():
         K.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
                          observe=tally, **opts)
-    n_sph, k_f = kinds.shape[0], fp.numel()
-    fwd = tally.forward_ops(n_rays, n_sph, **opts)
+    n_sph, n_tri, scene_bytes = _brute_sizes(fp, kinds, opts)
+    k_f = fp.numel()
+    fwd = tally.forward_ops(n_rays, n_sph, n_tri=n_tri, **opts)
     adj = tally.adjoint_ops(opts["bg_kind"])
-    scene_bytes = 4 * k_f + 4 * n_sph + 2 * tally.texel_bytes()
+    scene_bytes += 2 * tally.texel_bytes()
     out["bound3"] = _bound(fwd + adj, scene_bytes + 12 * n_rays + 4 * k_f)
     out["bound4"] = _bound(
         fwd + adj + n_rays * OPS_LOSS_RAY + w * h * OPS_LOSS_PIXEL,
@@ -2847,7 +2911,8 @@ def brute_phase(dev, card: str, zoo_bvh: dict) -> list:
 
 def _ptxas_variants() -> str:
     """Registers, stack and spills of each template variant of #1, #3 and
-    #4, from the compiler's report (kExt, kSky as the template's bools)."""
+    #4, from the compiler's report (kExt, kSky, kTri as the template's
+    bools; #4 has kExt, kTri)."""
     import re
 
     from raytracingrust_tpu_torch.ops import _build
@@ -2864,18 +2929,359 @@ def _ptxas_variants() -> str:
             if fn is None:
                 continue
             flags = re.search(r"(radiance_kernel|grad_kernel|mse_kernel)"
-                              r"IL?b([01])E?(?:L?b([01])E)?", fn)
+                              r"IL?b([01])E((?:L?b[01]E)*)", fn)
             if "stack frame" in ln:
                 stack = ln.strip()
             elif "registers" in ln and flags:
-                out.append(f"{flags.group(1)}<{flags.group(2)}"
-                           + (f",{flags.group(3)}" if flags.group(3) else "")
-                           + f">: {ln.split(':', 1)[1].strip()}; {stack}")
+                bits = [flags.group(2)] + re.findall(r"b([01])E",
+                                                     flags.group(3))
+                out.append(f"{flags.group(1)}<{','.join(bits)}>: "
+                           f"{ln.split(':', 1)[1].strip()}; {stack}")
                 fn = None
     return " | ".join(out)
 
 
+# phase 14: the brute kernels' triangle branch (scenes built without their
+# BVH)
+TRI_SHEET = (16, 32)  # quads of the height field: 1,024 triangles
+TRI_RENDER = (1000, 1000, 8, 6)  # width, height, spp, depth
+TRI_FIT = (512, 512, 8)  # width, height, spp; depth 6
+TRI_ZOO_ICO = 2  # an icosahedron subdivided twice: 320 triangles
+
+
+def _tri_sheet_objs(lam: str, metal: str, seed: int = 14) -> None:
+    """A height field of TRI_SHEET quads under benchmark.json's spheres
+    (x in [-2, 2], z in [-3, -0.2], its height from a numpy seed), as two
+    OBJs: the quads of even (i + j) and their two triangles in ``lam``, the
+    others in ``metal``, 1,024 triangles together."""
+    import numpy as np
+
+    nz, nx = TRI_SHEET
+    xs = np.linspace(-2.0, 2.0, nx + 1)
+    zs = np.linspace(-3.0, -0.2, nz + 1)
+    gx, gz = np.meshgrid(xs, zs, indexing="ij")
+    gy = -0.55 + 0.08 * np.random.default_rng(seed).random(gx.shape)
+    verts = np.stack([gx, gy, gz], -1).reshape(-1, 3).astype(np.float32)
+    vlines = "".join(f"v {x:.9g} {y:.9g} {z:.9g}\n" for x, y, z in verts)
+    faces = ([], [])
+    for i in range(nx):
+        for j in range(nz):
+            a = i * (nz + 1) + j + 1  # 1-based
+            faces[(i + j) % 2].extend([(a, a + 1, a + nz + 1),
+                                       (a + 1, a + nz + 2, a + nz + 1)])
+    for path, fs in zip((lam, metal), faces):
+        with open(path, "w") as f:
+            f.write(vlines + "".join(f"f {a} {b} {c}\n" for a, b, c in fs))
+
+
+def tri_scenes() -> list:
+    """Phase 14's shapes, written as JSON (and OBJs) to OUT_DIR, each
+    built without its BVH: (label, scene JSON, render (w, h), fit (w, h,
+    spp)).  "tri_brute": scenes/benchmark.json (its camera, settings at
+    spp 8 depth 6, and five spheres) over a 1,024-triangle height field,
+    half Lambertian and half metal; "tri_zoo": scenes/material_zoo.json
+    with a 320-triangle icosphere of its mix material and a two-triangle
+    mirror; "tri_zoo_sky": that under phase 9's sky, importance sampling
+    off."""
+    lam = os.path.join(OUT_DIR, "tri_sheet_lambertian.obj")
+    metal = os.path.join(OUT_DIR, "tri_sheet_metal.obj")
+    _tri_sheet_objs(lam, metal)
+    with open(BENCH) as f:
+        d = json.load(f)
+    n_mat = len(d["materials"])
+    d["materials"] += [
+        {"type": "Lambertian", "albedo": {"r": 0.55, "g": 0.5, "b": 0.45}},
+        {"type": "Metal", "albedo": {"r": 0.8, "g": 0.85, "b": 0.9},
+         "fuzz": 0.05}]
+    d["objects"] += [{"type": "Mesh", "path": lam, "material": n_mat},
+                     {"type": "Mesh", "path": metal, "material": n_mat + 1}]
+    w, h, spp, depth = TRI_RENDER
+    d["settings"].update(samples_per_pixel=spp, max_ray_depth=depth,
+                         enable_bvh_tree=False)
+    brute = os.path.join(OUT_DIR, "tri_brute.json")
+    with open(brute, "w") as f:
+        json.dump(d, f)
+
+    ico = os.path.join(OUT_DIR, "tri_zoo_icosphere.obj")
+    _icosphere_obj(ico, (-1.0, 0.25, 0.9), 0.3, TRI_ZOO_ICO, ico=True)
+    quad = os.path.join(OUT_DIR, "tri_zoo_mirror.obj")
+    with open(quad, "w") as f:
+        f.write("v -1.5 -0.5 -2.5\nv 1.5 -0.5 -2.5\nv 1.5 1.3 -2.6\n"
+                "v -1.5 1.3 -2.6\nf 1 2 3\nf 1 3 4\n")
+    with open(ZOO) as f:
+        d = json.load(f)
+    mix = next(i for i, m in enumerate(d["materials"])
+               if m["type"] == "MixMaterial")
+    mirror = next(i for i, m in enumerate(d["materials"])
+                  if m["type"] == "Metal" and m["fuzz"] == 0.0)
+    d["objects"] += [{"type": "Mesh", "path": ico, "material": mix},
+                     {"type": "Mesh", "path": quad, "material": mirror}]
+    d["settings"]["enable_bvh_tree"] = False
+    zoo = os.path.join(OUT_DIR, "tri_zoo.json")
+    with open(zoo, "w") as f:
+        json.dump(d, f)
+    fw, fh, f_spp = ZOO_FIT
+    zoo_sky = _write_scene(zoo, "tri_zoo_sky.json", sky=True,
+                           env_importance_sampling=False,
+                           samples_per_pixel=f_spp)
+    return [("tri_brute", brute, (w, h), TRI_FIT),
+            ("tri_zoo", zoo, ZOO_RENDER, ZOO_FIT),
+            ("tri_zoo_sky", zoo_sky, (fw, fh), ZOO_FIT)]
+
+
+def tri_phase(dev, card: str) -> list:
+    """Phase 14; -> the report entries of #1's, #3's and #4's triangle
+    variants (kTri, with kExt and kSky)."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.diff import grad as G
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+    from raytracingrust_tpu_torch.ops import bvh_kernel as BK
+    from raytracingrust_tpu_torch.ops import megakernel as K
+    from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                        select_engine)
+    from raytracingrust_tpu_torch.utils import rng
+
+    key = rng.base_key(14)
+    gen = np.random.default_rng(14)
+    shapes = tri_scenes()
+    fwd, grads, cli_counts = {}, {}, {}
+    for label, path, (rw, rh), (fw, fh, f_spp) in shapes:
+        scene = _load(path)
+        opts = K.scene_opts(scene)
+        if (select_engine(scene), select_engine(scene, grad=True)) != (
+                "brute", "brute"):
+            raise AssertionError(f"{label} is not sent to the brute kernels")
+        r_spp = scene.settings.samples_per_pixel
+        f = _brute_forward_check(label, scene, rw, rh, dev, key)
+        fwd[label] = f
+        c = f["count"]
+        print(f"phase 14 {label} {rw}x{rh} spp {r_spp} depth "
+              f"{opts['max_depth']} ({len(scene.spheres)} spheres, "
+              f"{len(scene.triangles)} triangles in {opts['n_tm']} "
+              f"materials, mixes {opts['mix']}, volumes {opts['n_vol']}, "
+              f"isotropic {opts['iso']}, sky map "
+              f"{scene.background.kind == 2}): #1 radiance == plain bit for "
+              f"bit at depth 1 and depth {opts['max_depth']} on all "
+              f"{rw * rh * r_spp} rays; per ray "
+              f"{c.bounces / (rw * rh * r_spp):.3f} bounces, triangle hits "
+              f"{c.tri_hits}, hits by kind {[c.hits[k] for k in range(5)]}, "
+              f"misses {c.misses}; #1 {f['ms']:.4f} ms, plain "
+              f"{f['plain_ms']:.1f} ms, bound {f['bound'][0]:.5f} ms "
+              f"({f['bound'][1]}; {f['ops']:.4g} FP32 operations); {card}")
+        fit_scene = _load(path, spp=f_spp)
+        g = _brute_grad_check(label, fit_scene, fw, fh, dev, key, gen,
+                              fused=scene.background.kind != 2)
+        grads[label] = g
+        texels = (f", the texels' gradient ({g['texels']} texels)"
+                  if "texels" in g else "")
+        fused = (f"; #4 max abs diff {g['err4']:.3e}, {g['ms4']:.3f} ms "
+                 f"(plain autograd {g['plain4_ms']:.1f} ms), bound "
+                 f"{g['bound4'][0]:.5f} ms ({g['bound4'][1]})"
+                 if "err4" in g else "")
+        print(f"phase 14 {label} gradients at {fw}x{fh} spp {g['spp']} "
+              f"(autograd of the plain version over ranges of "
+              f"{BRUTE_PLAIN_RAYS} rays, summed; peak "
+              f"{g['plain_peak_gb']:.1f} GB; finite everywhere): #3 max abs "
+              f"diff {g['err3']:.3e}{texels} (allowed {GRAD_RTOL:g} rel + "
+              f"{GRAD_ATOL:g} of max), finite; #3 {g['ms3']:.3f} ms (plain "
+              f"autograd {g['plain3_ms']:.1f} ms), bound "
+              f"{g['bound3'][0]:.5f} ms ({g['bound3'][1]}){fused}; {card}")
+
+    # FD probes: the sheet's albedos (make_loss: #4), the zoo's icosphere
+    # mix leaves and mirror (#4), the sky's texel of largest gradient (#1,
+    # #3)
+    probes = []
+    for label, path, _, (fw, fh, f_spp) in shapes[:2]:
+        sc = _load(path, spp=f_spp)
+        tm = K.tri_slots(sc)[0]
+        mats = sc.materials
+        rows = torch.cat([tm, mats.mix_first[tm].long(),
+                          mats.mix_second[tm].long()]).unique().tolist()
+        ad, fd = _fd_probe(label, sc, dev, fw, fh, key, ["albedo"], gen,
+                           {"albedo": rows})
+        probes.append(f"{label} {fw}x{fh} spp {f_spp} albedo rows {rows} "
+                      f"(the triangles' materials and leaves; #4): AD "
+                      f"{ad:.6e}, FD {fd:.6e}")
+    label, path, _, (fw, fh, f_spp) = shapes[2]
+    sky_fit = _load(path)
+    with torch.no_grad():
+        s_target = render_linear(sky_fit, fw, fh, seed=12, device=dev) * 0.9
+    texel, t_ad, t_fd = _texel_fd_probe(label, sky_fit, dev, fw, fh, key,
+                                        s_target)
+    probes.append(f"{label} {fw}x{fh} spp {f_spp} texel {texel} (eps "
+                  f"{FD_TEXEL_EPS:g}; #1, #3): AD {t_ad:.6e}, FD {t_fd:.6e}")
+    print(f"phase 14 FD probes (eps {FD_EPS:g}, rtol 5%): "
+          + "; ".join(probes))
+
+    # ---- the main path, through the CLI entry
+    for label, path, (rw, rh), (fw, fh, f_spp) in shapes:
+        png = os.path.join(OUT_DIR, f"{label}.png")
+        _reset_launches()
+        _cli_render(path, png, ["--width", str(rw), "--height", str(rh)])
+        cli_counts[label, "render"] = _launches()
+        _check_png(png, rw, rh, label)
+        dim = _write_scene(path, f"{label}_dim.json", dim=True)
+        target_png = os.path.join(OUT_DIR, f"{label}_fit_target.png")
+        _cli_render(dim, target_png, ["--width", str(fw), "--height",
+                                      str(fh), "--spp", str(f_spp)], seed=1)
+        counts, first, final, _ = _cli_fit(path, target_png,
+                                           ["--spp", str(f_spp)])
+        cli_counts[label, "fit"] = counts
+        r = cli_counts[label, "render"]
+        print(f"phase 14 CLI {label}: render {rw}x{rh}: launches #1 "
+              f"{r['brute']} (triangle variant {r['brute_tri']}), #5 "
+              f"{r['fwd'] + r['sky']}; fit {fw}x{fh} spp {f_spp}, "
+              f"{CLI_FIT_STEPS} steps of {CLI_FIT_PARAMS}: loss {first:.6f} "
+              f"-> {final:.6f}, launches #1 {counts['brute']}, #3 "
+              f"{counts['grad']}, #4 {counts['fused']} (triangle variants "
+              f"{counts['brute_tri']}, {counts['grad_tri']}, "
+              f"{counts['fused_tri']}), record #5 {counts['record']}")
+    render = {k[0]: v for k, v in cli_counts.items() if k[1] == "render"}
+    fits = {k[0]: v for k, v in cli_counts.items() if k[1] == "fit"}
+    steps = CLI_FIT_STEPS
+    # (#1 in the render; #1, #3, #4 in the fit), all of them triangle
+    # variants: the fused kernel a step, or under a sky map the forward
+    # and the radiance gradient kernels
+    want = {"tri_brute": (1, 0, 0, steps), "tri_zoo": (1, 0, 0, steps),
+            "tri_zoo_sky": (1, steps, steps, 0)}
+    for label, counts in want.items():
+        r, f = render[label], fits[label]
+        got = (r["brute"], f["brute"], f["grad"], f["fused"])
+        tri = (r["brute_tri"], f["brute_tri"], f["grad_tri"], f["fused_tri"])
+        ext = label != "tri_brute"
+        if got != counts or tri != counts or (
+                r["brute_ext"], f["fused_ext"] + f["grad_ext"]) != (
+                int(ext), steps * ext) or any(
+                cli_counts[k][n] for k in cli_counts
+                for n in ("fwd", "sky", "record", "view", "mv")):
+            raise AssertionError(f"{label}: the CLI launched {cli_counts}")
+
+    # a loss of the caller's own on tri_brute: #1 forward, #3 backward
+    fw, fh, f_spp = TRI_FIT
+    sc_dev = _load(shapes[0][1], spp=f_spp).to(dev)
+    params = {k: v.clone().requires_grad_(True) for k, v in
+              G.extract_params(sc_dev, ["albedo"]).items()}
+    _reset_launches()
+    img = render_linear(G.apply_params(sc_dev, params), fw, fh, seed=0,
+                        device=dev)
+    img.abs().mean().backward()
+    l1 = _launches()
+    l1_counts = (l1["brute_tri"], l1["grad_tri"], l1["fused"])
+    if l1_counts != (1, 1, 0) or not bool(
+            torch.isfinite(params["albedo"].grad).all()):
+        raise AssertionError(f"tri_brute's L1 loss launched {l1_counts}")
+
+    # ---- warm renders and fit steps; tri_brute with its BVH on #5
+    walls = {}
+    for label, path, (rw, rh), (fw, fh, f_spp) in shapes:
+        scene = _load(path)
+        best, mean = _warm_render(scene, rw, rh, dev, label)
+        r_rays = rw * rh * scene.settings.samples_per_pixel
+
+        def renders(step, scene=scene, rw=rw, rh=rh):
+            for _ in range(3):
+                render_linear(scene, rw, rh, seed=0, device=dev)
+                torch.cuda.synchronize()
+                step()
+
+        part = _profile(renders, 2)
+        fit_scene = _load(path, spp=f_spp)
+        target = (read_png(os.path.join(OUT_DIR, f"{label}_fit_target.png"))
+                  [..., :3].astype(np.float32) / 255.0) ** 2
+        names = (BENCH_PARAMS if label == "tri_brute"
+                 else CLI_FIT_PARAMS).split(",")
+        r = _warm_fit(fit_scene, target, names, fw, fh, dev)
+        if not r["history"][-1] < r["history"][0]:
+            raise AssertionError(f"the warm {label} fit's loss did not "
+                                 f"fall: {r['history']}")
+        walls[label] = (best, r["warm_ms"])
+        print(f"phase 14 {label} {rw}x{rh}: warm render {best:.4f} s, "
+              f"{r_rays / best / 1e6:.1f} primary Mrays/s, image mean "
+              f"{mean:.5f}; per render under torch.profiler: "
+              + _parts(part, ("#1", "replay and rest", "busy"))
+              + f", host (warm render - busy) "
+              f"{best * 1e3 - part['busy']:.3f} ms; fit step {fw}x{fh} spp "
+              f"{f_spp} ({','.join(names)}): warm step {r['warm_ms']:.3f} "
+              f"ms (median of {r['n']}), "
+              f"{fw * fh * f_spp / r['warm_ms'] / 1e3:.2f} primary Mrays/s "
+              f"fwd+bwd, peak memory {r['peak_gb']:.2f} GB; loss "
+              f"{r['history'][0]:.6f} -> {r['history'][-1]:.6f}; per step "
+              f"under torch.profiler: "
+              + _parts(r["part"], ("#1", "#3", "#4", "replay and rest",
+                                   "busy"))
+              + f", host (warm step - busy) "
+              f"{r['warm_ms'] - r['part']['busy']:.3f} ms; {card}")
+
+    # the route comparison (ROADMAP A10): tri_brute built with its BVH
+    # takes #5 (the dispatch's route for it), by name here
+    label, path, (rw, rh), (fw, fh, f_spp) = shapes[0]
+    b = SceneBuilder.from_file(path)
+    with_bvh = b.build(with_bvh=True)
+    if select_engine(with_bvh) != "bvh":
+        raise AssertionError("tri_brute with its BVH is not sent to #5")
+    sc = BK.pack(with_bvh, rw, rh, dev)
+    bvh_opts = dict(max_depth=with_bvh.settings.max_ray_depth,
+                    bg_kind=with_bvh.background.kind, clay=False)
+    spp = with_bvh.settings.samples_per_pixel
+    bvh_ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
+        sc, key, rw * rh * spp, spp, rw, **bvh_opts), 5)
+    bvh_best, _ = _warm_render(with_bvh, rw, rh, dev, label, engine="bvh")
+    target = (read_png(os.path.join(OUT_DIR, f"{label}_fit_target.png"))
+              [..., :3].astype(np.float32) / 255.0) ** 2
+    fit_bvh = SceneBuilder.from_file(path)
+    fit_bvh.settings = dataclasses.replace(fit_bvh.settings,
+                                           samples_per_pixel=f_spp)
+    r = _warm_fit(fit_bvh.build(with_bvh=True), target,
+                  BENCH_PARAMS.split(","), fw, fh, dev, engine="bvh")
+    print(f"phase 14 route comparison, tri_brute with its BVH on #5 "
+          f"(engine='bvh'; the dispatch's route for it): #5 {bvh_ms:.4f} ms "
+          f"against #1 kTri {fwd[label]['ms']:.4f} ms at {rw}x{rh} spp "
+          f"{spp} depth {bvh_opts['max_depth']}; warm render {bvh_best:.4f}"
+          f" s against {walls[label][0]:.4f} s; warm fit step {fw}x{fh} spp "
+          f"{f_spp} on the record walk and replay {r['warm_ms']:.3f} ms "
+          f"against {walls[label][1]:.3f} ms on #4; {card}")
+    print(f"phase 14 ptxas: {_ptxas_variants()}")
+
+    b_, z, s = fwd["tri_brute"], fwd["tri_zoo"], fwd["tri_zoo_sky"]
+    gb, gz, gs = (grads[k] for k in ("tri_brute", "tri_zoo",
+                                     "tri_zoo_sky"))
+    return [
+        # the CLI render of tri_brute; times at 1000x1000 spp 8 depth 6
+        _entry("brute_forward_tri", "megakernel.cu", "2089",
+               render["tri_brute"]["brute_tri"], b_["err"], b_["ms"],
+               b_["plain_ms"], b_["bound"]),
+        # the CLI render of tri_zoo; times at 1200x800 spp 32 depth 8
+        _entry("brute_forward_ext_tri", "megakernel.cu", "2089",
+               render["tri_zoo"]["brute_tri"], z["err"], z["ms"],
+               z["plain_ms"], z["bound"]),
+        # the CLI render of tri_zoo_sky; times at 600x400 spp 16 depth 8
+        _entry("brute_forward_ext_sky_tri", "megakernel.cu", "2089",
+               render["tri_zoo_sky"]["brute_tri"], s["err"], s["ms"],
+               s["plain_ms"], s["bound"]),
+        # tri_brute's L1 loss through render_linear; times at 512x512
+        _entry("radiance_grad_tri", "radiance_grad.cu", "2133", l1_counts[1],
+               gb["err3"], gb["ms3"], gb["plain3_ms"], gb["bound3"]),
+        # the CLI fit of tri_zoo_sky; times at 600x400 spp 16
+        _entry("radiance_grad_ext_sky_tri", "radiance_grad.cu", "2133",
+               fits["tri_zoo_sky"]["grad_tri"], gs["err3"], gs["ms3"],
+               gs["plain3_ms"], gs["bound3"]),
+        # the CLI fit of tri_brute; times at 512x512 spp 8
+        _entry("fused_mse_loss_tri", "mse_loss.cu", "2411",
+               fits["tri_brute"]["fused_tri"], gb["err4"], gb["ms4"],
+               gb["plain4_ms"], gb["bound4"]),
+        # the CLI fit of tri_zoo; times at 600x400 spp 16
+        _entry("fused_mse_loss_ext_tri", "mse_loss.cu", "2411",
+               fits["tri_zoo"]["fused_tri"], gz["err4"], gz["ms4"],
+               gz["plain4_ms"], gz["bound4"]),
+    ]
+
+
 def main() -> int:
+    """Every phase; with the one argument "14", the build and phase 14
+    alone, with phase 14's report entries and no last line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -2907,6 +3313,13 @@ def main() -> int:
     regs = " | ".join(f"{name}: {_ptxas(name)}" for name in _build.SOURCES)
     print(f"phase 1 build ({len(_build.SOURCES)} sources in parallel): "
           f"{build_s:.3f} s; {regs}")
+    if sys.argv[1:] == ["14"]:  # phase 14 alone, for working on it
+        os.makedirs(OUT_DIR, exist_ok=True)
+        if not os.path.exists(SKY):
+            procedural_sky(SKY)
+        print(json.dumps({"kernels": tri_phase(dev, card)}))
+        print(f"phase 14 alone: {time.perf_counter() - t_run:.1f} s")
+        return 0
 
     # ---- 2. RNG bit for bit
     key = rng.base_key(SEED_WORDS_HIGH)
@@ -3362,26 +3775,28 @@ def main() -> int:
           f"at 512x512 spp 8 depth 6: launches forward {render_counts[0]}, "
           f"radiance grad {render_counts[1]}; gradients finite, nonzero")
 
-    # ---- 7. the BVH path (kernel #5)
-    bvh = bvh_phase(dev, card)
+    # ---- 7-14, each timed: the BVH path (#5); its fit path (record #5,
+    # #6, #7); the HDRI importance-sampling path (record #5, #6, #7, #8);
+    # volumes, isotropic materials and mixes, the deep fit; a sky map
+    # without importance sampling, the views; fog inside a triangle mesh;
+    # the brute kernels' mixes, volumes, isotropic lobe and sky; their
+    # triangles
+    took = {1: build_s, "1-6": time.perf_counter() - t_run}
 
-    # ---- 8. the BVH fit path (record mode of #5, #6, #7)
-    bvh_fit = bvh_fit_phase(dev, card)
+    def timed(phase, run, *args):
+        t0 = time.perf_counter()
+        out = run(dev, card, *args)
+        took[phase] = time.perf_counter() - t0
+        return out
 
-    # ---- 9. the HDRI importance-sampling path (record #5, #6, #7, #8)
-    env = env_phase(dev, card)
-
-    # ---- 10. volumes, isotropic materials and mixes; the deep fit
-    zoo, zoo_bvh = zoo_phase(dev, card)
-
-    # ---- 11. a sky map without importance sampling; the views
-    sky = sky_phase(dev, card)
-
-    # ---- 12. mesh-bounded volumes: fog inside a triangle mesh
-    fog = fog_phase(dev, card)
-
-    # ---- 13. the brute kernels' mixes, volumes, isotropic lobe and sky
-    brute = brute_phase(dev, card, zoo_bvh)
+    bvh = timed(7, bvh_phase)
+    bvh_fit = timed(8, bvh_fit_phase)
+    env = timed(9, env_phase)
+    zoo, zoo_bvh = timed(10, zoo_phase)
+    sky = timed(11, sky_phase)
+    fog = timed(12, fog_phase)
+    brute = timed(13, brute_phase, zoo_bvh)
+    tri = timed(14, tri_phase)
 
     report = {"kernels": [
         # the CLI renders of phase 4; times at benchmark 512x512
@@ -3399,7 +3814,10 @@ def main() -> int:
         *zoo,  # phase 10's CLI runs; times at the zoo's full shapes
         *sky,  # phase 11's CLI runs; times at bvh_stress 1000x1000
         *fog,  # phase 12's CLI runs; times at fog_sheet's frames
-        *brute]}  # phase 13's CLI runs; times at its shapes
+        *brute,  # phase 13's CLI runs; times at its shapes
+        *tri]}  # phase 14's CLI runs and L1 loss; times at its shapes
+    print("seconds by phase: " + ", ".join(f"{k} {v:.1f}"
+                                           for k, v in took.items()))
     print(f"card: {card}; kernel build {build_s:.3f} s; the whole run "
           f"{time.perf_counter() - t_run:.1f} s")
     print(json.dumps(report))

@@ -123,7 +123,8 @@ def _engines(scene) -> tuple[str, str]:
     opts = scene_opts(scene)
     ext = ("mixes, volumes, isotropic" if opts["mix"] or opts["n_vol"]
            or opts["iso"] else "")
-    brute = ", ".join(v for v in (ext, "sky map" if sky else "") if v)
+    tri = "triangles" if len(scene.triangles) else ""
+    brute = ", ".join(v for v in (ext, "sky map" if sky else "", tri) if v)
     brute = f" ({brute} variant)" if brute else ""
     names = {"env": ("env: record mode of #5, then the replay over #6 with "
                      "#8's shadow rays",

@@ -19,8 +19,6 @@
 
 namespace rtrt {
 
-constexpr float kTriDetEps = 1e-8f;  // pallas_megakernel.TRI_DET_EPS
-
 // min and max that return NaN when either argument is NaN
 __device__ __forceinline__ float min_nan(float a, float b) {
   return a != a ? a : (a < b ? a : b);

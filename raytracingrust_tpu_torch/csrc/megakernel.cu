@@ -1,21 +1,24 @@
-// Brute-force forward megakernel for sphere scenes, written for Hopper
-// (sm_90a).
+// Brute-force forward megakernel for scenes of spheres and triangles,
+// written for Hopper (sm_90a).
 //
 // Replaces raytracingrust_tpu/ops/pallas_megakernel.py::_make_kernel: the
 // body _radiance_math with its in-kernel Threefry draw _stream_uniforms, for
-// the envelope of ops/megakernel.py (1..128 spheres, constant-density volume
-// spheres among them; Lambertian, Metal, Dielectric, Emission and Isotropic
-// materials and single-level mixes of them; uniform, gradient or sky-map
-// background; Full or Clay mode; any depth).  Per ray: a jittered camera
-// ray, then up to max_depth bounces of closest hit over every sphere, one
-// material lobe and the throughput/radiance update.  Output: per-ray RGB,
-// (n_rays, 3) float32.  Clamping and the mean over samples stay in PyTorch.
+// the envelope of ops/megakernel.py (0..128 spheres, constant-density volume
+// spheres among them, and 0..8,192 surface triangles; Lambertian, Metal,
+// Dielectric, Emission and Isotropic materials and single-level mixes of
+// them; uniform, gradient or sky-map background; Full or Clay mode; any
+// depth).  Per ray: a jittered camera ray, then up to max_depth bounces of
+// closest hit over every sphere and every triangle, one material lobe and
+// the throughput/radiance update.  Output: per-ray RGB, (n_rays, 3) float32.
+// Clamping and the mean over samples stay in PyTorch.
 //
-// Four variants (radiance.cuh trace's flags): solid spheres under a uniform
-// or gradient background, the code of earlier builds; kExt for mixes,
-// volumes and the isotropic lobe, whose rows are up to 22 floats; kSky for
-// a sky map, whose texel an escaping ray looks up here (the TPU kernel
-// records the escape and leaves the gather to XLA, _env_finish); both.
+// Eight variants (radiance.cuh trace's flags): solid spheres under a
+// uniform or gradient background, the code of earlier builds; kExt for
+// mixes, volumes and the isotropic lobe, whose rows are up to 22 floats;
+// kSky for a sky map, whose texel an escaping ray looks up here (the TPU
+// kernel records the escape and leaves the gather to XLA, _env_finish);
+// kTri for triangles (_tri_intersect, its one-hot matmuls of the shading
+// rows an index here); each combination of the three.
 //
 // What bounds it on this card: per-ray FP32 and transcendental work
 // (Threefry rounds, the quadratic against every sphere, sqrt/sin/cos) over a
@@ -27,6 +30,20 @@
 // ids and pixel coordinates come from the thread index, so the only device
 // memory traffic is 12 bytes of output per ray.  The chain itself is
 // radiance.cuh's trace<false>, which the gradient kernels replay.
+//
+// Triangles (kTri): the TPU kernel tests each ray against chunks of 512
+// triangles as one matmul of its features [d, o x d, o, 1] by a (16, 4 TB)
+// coefficient matrix, then gathers the winner's shading rows by a one-hot
+// matmul.  Here one thread loops over every triangle: its 80-byte row
+// (coefficients, flat normal, material slot) comes from device memory
+// through the read-only path, as 5 float4 loads that every lane of a warp
+// makes at the same address (a broadcast; 1,024 triangles are 80 KB, which
+// L1 holds); the determinant and t first, u and v only for a t below the
+// best so far.  Each sum is the chain of fused multiply-adds that XLA's
+// dot computes, so t agrees bit for bit with the TPU kernel's on the CPU.
+// The slots' material rows (few: one per material) are staged in shared
+// memory with the spheres'.  What bounds it: FP32 work, about 12
+// operations a triangle a bounce (up to 40 for a near one).
 //
 // Build (see ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -44,17 +61,19 @@ namespace {
 
 using namespace rtrt;
 
-template <bool kExt, bool kSky>
+template <bool kExt, bool kSky, bool kTri>
 __global__ void __launch_bounds__(kThreads)
 radiance_kernel(const float* __restrict__ fparams,
                 const int* __restrict__ kinds, Rows rows, uint32_t k0,
                 uint32_t k1, int n_rays, int spp, int width, int max_depth,
                 int bg_kind, int clay, Sky sky, float* __restrict__ out) {
-  __shared__ float f[kSpheres + kMaxSpheres * (kExt ? kMaxStride : kStride)];
-  __shared__ int kind_of[kMaxSpheres];
-  const int n_f = kSpheres + rows.n * rows.stride;
+  constexpr int kMats = kTri ? kMaxTriMats : 0;
+  __shared__ float f[kSpheres + kMaxSpheres * (kExt ? kMaxStride : kStride) +
+                     kMats * (kExt ? kTriStrideMix : kTriStride)];
+  __shared__ int kind_of[kMaxSpheres + kMats];
+  const int n_f = scene_floats(rows);
   for (int i = threadIdx.x; i < n_f; i += blockDim.x) f[i] = fparams[i];
-  for (int i = threadIdx.x; i < rows.n; i += blockDim.x)
+  for (int i = threadIdx.x; i < rows.n + rows.n_tm; i += blockDim.x)
     kind_of[i] = kinds[i];
   __syncthreads();
 
@@ -63,10 +82,10 @@ radiance_kernel(const float* __restrict__ fparams,
   const int ray = (int)gid;   // = pixel * spp + sample
   const int pixel = ray / spp;
   float rad_r, rad_g, rad_b;
-  trace<false, kExt, kSky>(f, kind_of, rows, k0, k1, (uint32_t)ray,
-                           (float)(pixel % width), (float)(pixel / width),
-                           max_depth, bg_kind, clay, sky, rad_r, rad_g,
-                           rad_b, nullptr);
+  trace<false, kExt, kSky, kTri>(f, kind_of, rows, k0, k1, (uint32_t)ray,
+                                 (float)(pixel % width),
+                                 (float)(pixel / width), max_depth, bg_kind,
+                                 clay, sky, rad_r, rad_g, rad_b, nullptr);
   float* o = out + 3 * (size_t)ray;
   o[0] = rad_r;
   o[1] = rad_g;
@@ -95,24 +114,28 @@ uniforms_kernel(const int* __restrict__ ids, int n_ids, uint32_t k0,
 // `stream` and returns cudaGetLastError() of the launch.
 
 // rtrt_radiance: `ext` selects the kExt variant (mixes, volumes or the
-// isotropic lobe), `mix` and `n_vol` the scene's rows; a sky map
+// isotropic lobe), `mix` and `n_vol` the scene's rows; triangles pass their
+// (n_tri, 20) rows and the count of their material slots, whose rows end
+// fparams and whose kinds end `kinds` (the kTri variant); a sky map
 // (bg_kind kSkyMap) passes its (sky_h, sky_w, 3) texels.
 extern "C" int rtrt_radiance(const float* fparams, const int* kinds,
                              int n_spheres, uint32_t k0, uint32_t k1,
                              int n_rays, int spp, int width, int max_depth,
                              int bg_kind, int clay, int ext, int mix,
-                             int n_vol, const float* sky_img, int sky_h,
+                             int n_vol, const float* tri, int n_tri,
+                             int n_tm, const float* sky_img, int sky_h,
                              int sky_w, float* out, void* stream) {
   const bool sky_map = bg_kind == kSkyMap;
-  if (!rows_ok(n_spheres, ext, mix, n_vol) || n_rays < 0 || spp < 1 ||
-      width < 1 || sky_map != (sky_img != nullptr) ||
+  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm) || n_rays < 0 ||
+      spp < 1 || width < 1 || sky_map != (sky_img != nullptr) ||
       (sky_map && (sky_h < 1 || sky_w < 1)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const Rows rows{n_spheres, row_stride(mix, n_vol), mix, n_vol};
+  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm);
   const Sky sky{sky_img, sky_h, sky_w};
-  return with_flags(ext, sky_map, [&](auto e, auto k) {
-    radiance_kernel<decltype(e)::value, decltype(k)::value>
+  return with_flags(ext, sky_map, n_tri > 0, [&](auto e, auto k, auto t) {
+    radiance_kernel<decltype(e)::value, decltype(k)::value,
+                    decltype(t)::value>
         <<<blocks_for(n_rays), kThreads, 0, (cudaStream_t)stream>>>(
             fparams, kinds, rows, k0, k1, n_rays, spp, width, max_depth,
             bg_kind, clay, sky, out);

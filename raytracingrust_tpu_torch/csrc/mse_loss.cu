@@ -1,12 +1,15 @@
-// Fused render -> MSE -> gradient kernel for sphere scenes, written for
-// Hopper (sm_90a): one launch gives the fit step's loss and its gradient.
+// Fused render -> MSE -> gradient kernel for scenes of spheres and
+// triangles, written for Hopper (sm_90a): one launch gives the fit step's
+// loss and its gradient.
 //
 // Replaces raytracingrust_tpu/ops/pallas_megakernel.py::_make_mse_kernel
 // (reached through run_fused in _mse_cvjp, mse_loss_pallas).  It computes
 //   loss = mean over pixels and channels of (m - target)^2,
 //   m    = mean over the pixel's spp samples of clip(radiance, 0, clamp),
-// and d loss / d fparams, (20 + stride N,) float32.  Variants: solid spheres,
-// and kExt (mixes, volumes, the isotropic lobe).  A sky map never comes
+// and d loss / d fparams, (K,) float32.  Variants: solid spheres, kExt
+// (mixes, volumes, the isotropic lobe), kTri (triangles, whose materials'
+// cotangents go to their slots' rows, radiance_grad.cu), both.  A sky map
+// never comes
 // here: its fit takes the forward kernel and the radiance gradient kernel,
 // as the TPU package's fused kernel excludes it (supports_fused_mse).  The TPU kernel's lane
 // padding (spp_pad, the 256 x 256 averaging projector, the weight block) is
@@ -45,13 +48,13 @@ __device__ __forceinline__ float clip_slope(float x, float hi) {
   return (x == 0.0f || x == hi) ? 0.5f : 0.0f;
 }
 
-template <bool kExt>
+template <bool kExt, bool kTri>
 __global__ void __launch_bounds__(kThreads)
 mse_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
            Rows rows, uint32_t k0, uint32_t k1, int n_pixels, int spp,
            int width, int max_depth, int bg_kind, int clay, float clamp,
            const float* __restrict__ target, float* __restrict__ partials) {
-  __shared__ GradShared<kExt> sh;
+  __shared__ GradShared<kExt, kTri> sh;
   load_scene(sh, fparams, kinds, rows);
   const Sky no_sky{nullptr, 0, 0};
   float head[kHead];
@@ -69,9 +72,10 @@ mse_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
     float mr = 0.0f, mg = 0.0f, mb = 0.0f;
     for (int s = 0; s < spp; ++s) {
       float r, g, b;
-      trace<false, kExt>(sh.f, sh.kind_of, rows, k0, k1,
-                         (uint32_t)(pixel * spp + s), px, py, max_depth,
-                         bg_kind, clay, no_sky, r, g, b, nullptr);
+      trace<false, kExt, false, kTri>(sh.f, sh.kind_of, rows, k0, k1,
+                                      (uint32_t)(pixel * spp + s), px, py,
+                                      max_depth, bg_kind, clay, no_sky, r, g,
+                                      b, nullptr);
       mr += clip(r, clamp);
       mg += clip(g, clamp);
       mb += clip(b, clamp);
@@ -87,46 +91,51 @@ mse_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
       const uint32_t rid = (uint32_t)(pixel * spp + s);
       Tape tape;
       float r, g, b;
-      trace<true, kExt>(sh.f, sh.kind_of, rows, k0, k1, rid, px, py,
-                        max_depth, bg_kind, clay, no_sky, r, g, b, &tape);
+      trace<true, kExt, false, kTri>(sh.f, sh.kind_of, rows, k0, k1, rid, px,
+                                     py, max_depth, bg_kind, clay, no_sky, r,
+                                     g, b, &tape);
       const float gr = cr * clip_slope(r, clamp),
                   gg = cg * clip_slope(g, clamp),
                   gb = cb * clip_slope(b, clamp);
       if (gr == 0.0f && gg == 0.0f && gb == 0.0f) continue;
-      adjoint<kExt>(sh.f, sh.kind_of, rows, k0, k1, rid, px, py, bg_kind,
-                    clay, no_sky, tape, gr, gg, gb, head, sh.gs, nullptr);
+      adjoint<kExt, false, kTri>(sh.f, sh.kind_of, rows, k0, k1, rid, px, py,
+                                 bg_kind, clay, no_sky, tape, gr, gg, gb,
+                                 head, sh.gs, nullptr);
     }
   }
-  write_partials(sh, head, sse, rows, kSpheres + rows.n * rows.stride + 1,
-                 partials);
+  write_partials(sh, head, sse, rows, scene_floats(rows) + 1, partials);
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes (ops/mse_loss.py).  Launches the fused
 // kernel on at most `max_blocks` blocks, then the row sum, on `stream`.
-// `target` is (n_pixels, 3); `out` gets 20 + stride N gradient entries and
-// then the loss; `partials` holds max_blocks rows of 21 + stride N floats.
-// `ext`, `mix` and `n_vol` as rtrt_radiance's; no sky map.  Returns
-// cudaGetLastError() of the launches.
+// `target` is (n_pixels, 3); `out` gets the K gradient entries of fparams
+// and then the loss; `partials` holds max_blocks rows of K + 1 floats.
+// `ext`, `mix`, `n_vol` and the triangles as rtrt_radiance's; no sky map.
+// Returns cudaGetLastError() of the launches.
 extern "C" int rtrt_mse_loss(const float* fparams, const int* kinds,
                              int n_spheres, uint32_t k0, uint32_t k1,
                              int n_pixels, int spp, int width, int max_depth,
                              int bg_kind, int clay, int ext, int mix,
-                             int n_vol, float clamp, const float* target,
+                             int n_vol, const float* tri, int n_tri,
+                             int n_tm, float clamp, const float* target,
                              float* partials, int max_blocks, float* out,
                              void* stream) {
-  if (!rows_ok(n_spheres, ext, mix, n_vol) || n_pixels < 1 || spp < 1 ||
+  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm) ||
+      n_pixels < 1 || spp < 1 ||
       width < 1 || max_depth < 0 || max_depth > kMaxTape || max_blocks < 1 ||
       bg_kind == kSkyMap || (long long)n_pixels * spp >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  const Rows rows{n_spheres, row_stride(mix, n_vol), mix, n_vol};
-  const int n_out = kSpheres + n_spheres * rows.stride + 1;
+  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm);
+  const int n_out = scene_floats(rows) + 1;
   const int blocks = blocks_for(n_pixels) < max_blocks ? blocks_for(n_pixels)
                                                        : max_blocks;
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = with_flags(ext, false, [&](auto e, auto) {
-    mse_kernel<decltype(e)::value><<<blocks, kThreads, 0, s>>>(
+  const int err = with_flags(ext, false, n_tri > 0, [&](auto e, auto,
+                                                        auto t) {
+    mse_kernel<decltype(e)::value, decltype(t)::value>
+        <<<blocks, kThreads, 0, s>>>(
         fparams, kinds, rows, k0, k1, n_pixels, spp, width, max_depth,
         bg_kind, clay, clamp, target, partials);
     return (int)cudaGetLastError();

@@ -13,16 +13,17 @@
 //
 // The forward chain is raytracingrust_tpu/ops/pallas_megakernel.py's
 // _radiance_math for the envelope of ops/megakernel.py.  Its branches past
-// solid spheres under a uniform or gradient background sit behind two
+// solid spheres under a uniform or gradient background sit behind three
 // template flags, so a scene without them runs the code it ran before:
 // kExt (single-level mixes, constant-density volume spheres, the isotropic
-// lobe; the row stride and the volume count are run-time values) and kSky
-// (a sky map, its nearest texel looked up where a ray escapes).  The
-// adjoint is the reverse of that chain with its discrete decisions (winner,
-// root, front face, metal-above-surface, dielectric reflect, the mix leaf,
-// a volume's window and free-flight test) held fixed, which is what jax.vjp
-// of _radiance_math and autograd of the plain PyTorch version compute
-// where they are finite.  Spheres a ray misses contribute nothing: unlike
+// lobe; the row stride and the volume count are run-time values), kSky
+// (a sky map, its nearest texel looked up where a ray escapes) and kTri
+// (surface triangles, _tri_intersect's bilinear test after the spheres).
+// The adjoint is the reverse of that chain with its discrete decisions
+// (winner, root, front face, metal-above-surface, dielectric reflect, the
+// mix leaf, a volume's window and free-flight test) held fixed, which is
+// what jax.vjp of _radiance_math and autograd of the plain PyTorch version
+// compute where they are finite.  Spheres a ray misses contribute nothing: unlike
 // jax.vjp through jnp.sqrt(jnp.maximum(disc, 0)), no masked branch is
 // differentiated, so no NaN can come out of one.
 //
@@ -65,6 +66,22 @@ constexpr float kTwoPi = 6.28318548202514648f;  // 2 * float32(pi)
 // bounces a recording trace can hold: the JAX fit path's depth gate
 // (pallas_megakernel.UNROLL_MAX_DEPTH)
 constexpr int kMaxTape = 12;
+// kTri: the triangles' rows (ops/megakernel.py pack_tri), in device memory:
+// n = e1 x e2, v0 x e2, e2, v0 x e1, e1, v0 . n, the flat normal, the slot
+constexpr int kMaxTris = 8192;
+constexpr int kTriCols = 20;
+constexpr int kTriNrm = 16;
+constexpr int kTriSlot = 19;
+// ... and the rows of their material slots after the spheres' in fparams:
+// leaf A, then with mixes the factor and leaf B
+constexpr int kMaxTriMats = 128;
+constexpr int kTriStride = 8;
+constexpr int kTriStrideMix = 17;
+// a material row from its leaf A on, a sphere's or a slot's: the factor,
+// then leaf B
+constexpr int kRowFactor = kFactor - kLeafA;
+constexpr int kRowLeafB = kLeafB - kLeafA;
+constexpr float kTriDetEps = 1e-8f;  // pallas_megakernel.TRI_DET_EPS
 
 enum Kind {
   kLambertian = 0,
@@ -138,23 +155,38 @@ __device__ __forceinline__ float dot3(float ax, float ay, float az, float bx,
 
 // ---------------------------------------------------------------- the tape
 
-// Bounce::code: the winning sphere in bits 0-7 (kMiss when none), then the
-// bounce's discrete decisions.
-constexpr int kWinner = 0xff;
-constexpr int kMiss = 0xff;
-constexpr int kRoot2 = 1 << 8;     // the far root of the quadratic won
-constexpr int kFront = 1 << 9;     // the ray hit the outside
-constexpr int kMetalOk = 1 << 10;  // the metal lobe left above the surface
-constexpr int kReflect = 1 << 11;  // the dielectric reflected
-constexpr int kVolume = 1 << 12;   // a volume's free flight won (kExt)
-constexpr int kPickB = 1 << 13;    // the mix coin picked leaf B (kExt)
+// Bounce::code: the winner in bits 0-13 (a sphere, or under kTriHit a
+// triangle up to kMaxTris - 1; kMiss when none), then the bounce's discrete
+// decisions.  The code stays one int, so the tape's frame keeps its size.
+constexpr int kWinner = 0x3fff;
+constexpr int kMiss = 0x3fff;
+constexpr int kRoot2 = 1 << 14;    // the far root of the quadratic won
+constexpr int kFront = 1 << 15;    // the ray hit the outside
+constexpr int kMetalOk = 1 << 16;  // the metal lobe left above the surface
+constexpr int kReflect = 1 << 17;  // the dielectric reflected
+constexpr int kVolume = 1 << 18;   // a volume's free flight won (kExt)
+constexpr int kPickB = 1 << 19;    // the mix coin picked leaf B (kExt)
+constexpr int kTriHit = 1 << 20;   // the winner is a triangle (kTri)
 
 // The brute kernels' scene rows (ops/megakernel.py): the sphere count, the
 // floats of a row (kStride outside kExt), single-level mixes, and the
-// volume spheres, the last n_vol.
+// volume spheres, the last n_vol; under kTri the triangles' rows in device
+// memory, their count and the count of their material slots.
 struct Rows {
   int n, stride, mix, n_vol;
+  const float* tri;
+  int n_tri, n_tm;
 };
+
+// Floats of one triangle material slot's row.
+__host__ __device__ inline int tri_stride(const Rows& rows) {
+  return rows.mix ? kTriStrideMix : kTriStride;
+}
+
+// Floats of fparams: the head, the spheres' rows, the slots' rows.
+__host__ __device__ inline int scene_floats(const Rows& rows) {
+  return kSpheres + rows.n * rows.stride + rows.n_tm * tri_stride(rows);
+}
 
 // A winner's material kind: with mixes kind A in bits 0-7, kind B in bits
 // 8-15, picked by the code's kPickB.
@@ -406,6 +438,65 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
   }
 }
 
+// ---------------------------------------------------------------- triangles
+
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+
+// The determinant a = -n . d and num_t = n . o - v0 . n of triangle row g:
+// _tri_intersect's matmul as XLA's float32 dot computes it on the CPU, a
+// fused multiply-add a feature, in feature order (d, w, o, 1), each rounded
+// once.  __fmaf_rn is fused whatever --fmad says.
+__device__ __forceinline__ void tri_det_t(const float* g, float ox, float oy,
+                                          float oz, float dx, float dy,
+                                          float dz, float& a, float& num_t) {
+  const float4 q0 = ldg4(g);       // n, (v0 x e2).x
+  const float4 q3 = ldg4(g + 12);  // e1, v0 . n
+  a = __fmaf_rn(-q0.z, dz, __fmaf_rn(-q0.y, dy, __fmul_rn(-q0.x, dx)));
+  num_t = __fadd_rn(
+      __fmaf_rn(q0.z, oz, __fmaf_rn(q0.y, oy, __fmul_rn(q0.x, ox))), -q3.w);
+}
+
+// _tri_intersect's test of triangle row g against the ray (o, d) with
+// w = o x d: a hit needs |a| > kTriDetEps, u, v >= 0, u + v <= 1 and
+// t > T_MIN, with f = 1 / a, u = f num_u, v = f num_v, t = f num_t.  True,
+// with `t`, when it hits below `bound` (so a tie keeps the earlier winner);
+// num_u and num_v are computed only for such a t.
+__device__ __forceinline__ bool tri_hit(const float* g, float ox, float oy,
+                                        float oz, float dx, float dy,
+                                        float dz, float wx, float wy,
+                                        float wz, float bound, float& t) {
+  float a, num_t;
+  tri_det_t(g, ox, oy, oz, dx, dy, dz, a, num_t);
+  if (!(fabsf(a) > kTriDetEps)) return false;
+  const float f = 1.0f / a;
+  t = f * num_t;
+  if (!(t > kTMin && t < bound)) return false;
+  const float4 q0 = ldg4(g), q1 = ldg4(g + 4), q2 = ldg4(g + 8),
+               q3 = ldg4(g + 12);
+  // num_u = (v0 x e2) . d + e2 . w
+  const float num_u = __fmaf_rn(
+      q2.x, wz,
+      __fmaf_rn(q1.w, wy,
+                __fmaf_rn(q1.z, wx,
+                          __fmaf_rn(q1.y, dz,
+                                    __fmaf_rn(q1.x, dy,
+                                              __fmul_rn(q0.w, dx))))));
+  const float u = f * num_u;
+  if (!(u >= 0.0f && u <= 1.0f)) return false;
+  // num_v = -(v0 x e1) . d - e1 . w
+  const float num_v = __fmaf_rn(
+      -q3.z, wz,
+      __fmaf_rn(-q3.y, wy,
+                __fmaf_rn(-q3.x, wx,
+                          __fmaf_rn(-q2.w, dz,
+                                    __fmaf_rn(-q2.z, dy,
+                                              __fmul_rn(-q2.y, dx))))));
+  const float v = f * num_v;
+  return v >= 0.0f && u + v <= 1.0f;
+}
+
 // One ray's radiance.  With kRecord the bounces go to `tape` (the caller
 // keeps max_depth <= kMaxTape); without it `tape` is unused, and the
 // arithmetic is the same either way.  A thread stops at its own ray's end: a
@@ -419,8 +510,13 @@ __device__ __forceinline__ void scatter(const float* mat, int kind, int clay,
 // ordinal, accepted inside the window; its hit shades with the normal
 // (1, 0, 0) (lib/volume.rs:35-73); the isotropic lobe draws u_r, column
 // off + 3.  kSky: an escaping ray adds its throughput times the sky's
-// texel.
-template <bool kRecord, bool kExt = false, bool kSky = false>
+// texel.  kTri: after the spheres every triangle is tested (tri_hit), and
+// the closest replaces the sphere winner only with a strictly lower t (the
+// lowest t, and among equal t the lowest index, as _tri_intersect's chunk
+// minimum); its hit shades with the flat normal and its material slot's
+// row, leaf A or under a mix the leaf its coin picks.
+template <bool kRecord, bool kExt = false, bool kSky = false,
+          bool kTri = false>
 __device__ __forceinline__ void trace(const float* f, const int* kind_of,
                                       const Rows& rows, uint32_t k0,
                                       uint32_t k1, uint32_t rid, float px,
@@ -497,8 +593,22 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
         root2 = !t1ok;
       }
     }
+    int tri_best = -1;
+    if (kTri) {
+      const float wx = oy * dz - oz * dy;
+      const float wy = oz * dx - ox * dz;
+      const float wz = ox * dy - oy * dx;
+      for (int j = 0; j < rows.n_tri; ++j) {
+        float tt;
+        if (tri_hit(rows.tri + (size_t)j * kTriCols, ox, oy, oz, dx, dy, dz,
+                    wx, wy, wz, t_best, tt)) {
+          t_best = tt;
+          tri_best = j;
+        }
+      }
+    }
 
-    if (best < 0) {  // miss: the background ends the path
+    if (best < 0 && tri_best < 0) {  // miss: the background ends the path
       float bg_r, bg_g, bg_b;
       if (kSky)
         sky_radiance(sky, dx, dy, dz, bg_r, bg_g, bg_b);
@@ -511,29 +621,46 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
       break;
     }
 
-    const float* sp = f + kSpheres + best * stride;
-    const bool vol = kExt && best >= n_solid;
-    const float inv_r = 1.0f / sp[3];
     const float ptx = ox + t_best * dx;
     const float pty = oy + t_best * dy;
     const float ptz = oz + t_best * dz;
-    float nx = vol ? 1.0f : (ptx - sp[0]) * inv_r;
-    float ny = vol ? 0.0f : (pty - sp[1]) * inv_r;
-    float nz = vol ? 0.0f : (ptz - sp[2]) * inv_r;
+    float nx, ny, nz;
+    const float* row;  // the winner's material row: leaf A, factor, leaf B
+    int code, kinds;
+    if (kTri && tri_best >= 0) {  // the flat normal, the slot's row
+      const float* g = rows.tri + (size_t)tri_best * kTriCols;
+      const float4 q4 = ldg4(g + kTriNrm);
+      nx = q4.x;
+      ny = q4.y;
+      nz = q4.z;
+      const int slot = (int)q4.w;
+      row = f + kSpheres + rows.n * stride + slot * tri_stride(rows);
+      code = tri_best | kTriHit;
+      kinds = kind_of[rows.n + slot];
+    } else {
+      const float* sp = f + kSpheres + best * stride;
+      const bool vol = kExt && best >= n_solid;
+      const float inv_r = 1.0f / sp[3];
+      nx = vol ? 1.0f : (ptx - sp[0]) * inv_r;
+      ny = vol ? 0.0f : (pty - sp[1]) * inv_r;
+      nz = vol ? 0.0f : (ptz - sp[2]) * inv_r;
+      row = sp + kLeafA;
+      code = best | (root2 ? kRoot2 : 0) | (vol ? kVolume : 0);
+      kinds = kind_of[best];
+    }
     const bool front = dot3(dx, dy, dz, nx, ny, nz) < 0.0f;
     const float sgn = front ? 1.0f : -1.0f;
     nx = nx * sgn;
     ny = ny * sgn;
     nz = nz * sgn;
-    int code = best | (root2 ? kRoot2 : 0) | (front ? kFront : 0) |
-               (vol ? kVolume : 0);
-    const float* mat = sp + kLeafA;
+    code |= front ? kFront : 0;
+    const float* mat = row;
     if (kExt && rows.mix &&
-        !(uniform_col(k0, k1, rid, stream, 0u) >= sp[kFactor])) {
-      mat = sp + kLeafB;
+        !(uniform_col(k0, k1, rid, stream, 0u) >= row[kRowFactor])) {
+      mat = row + kRowLeafB;
       code |= kPickB;
     }
-    const int kind = kExt ? kind_at(kind_of[best], code) : kind_of[best];
+    const int kind = kExt ? kind_at(kinds, code) : kinds;
 
     float at_r, at_g, at_b, ndx, ndy, ndz;
     bool scatters;
@@ -563,6 +690,22 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
 
 // ---------------------------------------------------------------- adjoint
 
+// The offset in fparams of a recorded winner's material row (from its leaf
+// A on: the factor and leaf B follow), and its kinds.
+template <bool kTri>
+__device__ __forceinline__ int row_at(const Rows& rows, int stride, int code,
+                                      const int* kind_of, int& kinds) {
+  const int w = code & kWinner;
+  if (kTri && (code & kTriHit)) {
+    const int slot =
+        (int)__ldg(rows.tri + (size_t)w * kTriCols + kTriSlot);
+    kinds = kind_of[rows.n + slot];
+    return kSpheres + rows.n * stride + slot * tri_stride(rows);
+  }
+  kinds = kind_of[w];
+  return kSpheres + w * stride + kLeafA;
+}
+
 // Adds d(loss)/d(fparams) of one recorded ray, given g = d(loss)/d(radiance).
 // The head entries (camera, background, pixel scale: fparams 0..19) add into
 // `head`, which the caller keeps in registers; the winning spheres' entries
@@ -584,8 +727,13 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
 // origin, direction, center and radius; its normal is a constant.  The
 // isotropic lobe's throughput factor is the albedo and its direction
 // depends on no parameter.  kSky: a miss's L_B is the texel, constant in d
-// (the lookup is piecewise constant); g * thr goes to the texel.
-template <bool kExt = false, bool kSky = false>
+// (the lookup is piecewise constant); g * thr goes to the texel.  kTri: a
+// triangle's t = num_t / a (recomputed as the forward computed it) runs
+// back into origin and direction, dt/do = n / a and dt/dd = -t n / a with
+// n = e1 x e2 and a = -n . d; its flat normal is a constant and its
+// vertices get no cotangent (they are not trained); its material's
+// cotangents go to its slot's row, the leaf its coin picked.
+template <bool kExt = false, bool kSky = false, bool kTri = false>
 __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
                                         const Rows& rows, uint32_t k0,
                                         uint32_t k1, uint32_t rid, float px,
@@ -647,17 +795,20 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
         head[kBg + 1] += glg;
         head[kBg + 2] += glb;
       }
-    } else if (!clay && (kExt ? kind_at(kind_of[w], e.code)
-                              : kind_of[w]) == kEmission) {
-      const int mo = (kExt && (e.code & kPickB)) ? kLeafB : kLeafA;
-      const float* mat = f + kSpheres + w * stride + mo;
-      float* gmat = gs + w * stride + mo;
-      lr = mat[5];
-      lg = mat[6];
-      lb = mat[7];
-      atomicAdd(gmat + 5, glr);
-      atomicAdd(gmat + 6, glg);
-      atomicAdd(gmat + 7, glb);
+    } else if (!clay) {
+      int kinds;
+      const int off = row_at<kTri>(rows, stride, e.code, kind_of, kinds);
+      if ((kExt ? kind_at(kinds, e.code) : kinds) == kEmission) {
+        const int mo = (kExt && (e.code & kPickB)) ? kRowLeafB : 0;
+        const float* mat = f + off + mo;
+        float* gmat = gs + (off - kHead) + mo;
+        lr = mat[5];
+        lg = mat[6];
+        lb = mat[7];
+        atomicAdd(gmat + 5, glr);
+        atomicAdd(gmat + 6, glg);
+        atomicAdd(gmat + 7, glb);
+      }
     }  // else Metal below the surface: L = 0, constant
   }
   float gtr = gr * lr, gtg = gg * lg, gtb = gb * lb;
@@ -665,11 +816,12 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
   for (--b; b >= 0; --b) {  // bounce b scattered
     const Bounce& e = tape.b[b];
     const int w = e.code & kWinner;
-    const float* sp = f + kSpheres + w * stride;
-    float* gsp = gs + w * stride;
-    const int mo = (kExt && (e.code & kPickB)) ? kLeafB : kLeafA;
-    const float* mat = sp + mo;
-    float* gmat = gsp + mo;
+    const bool tri = kTri && (e.code & kTriHit);
+    int kinds;
+    const int off = row_at<kTri>(rows, stride, e.code, kind_of, kinds);
+    const int mo = (kExt && (e.code & kPickB)) ? kRowLeafB : 0;
+    const float* mat = f + off + mo;
+    float* gmat = gs + (off - kHead) + mo;
     const bool vol = kExt && (e.code & kVolume);
     const float ox = e.ox, oy = e.oy, oz = e.oz;
     const float dx = e.dx, dy = e.dy, dz = e.dz;
@@ -682,41 +834,70 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
     float u1, u2;
     uniform_pair(k0, k1, rid, stream, jl, u1, u2);
     const float a = dot3(dx, dy, dz, dx, dy, dz);
-    const float inv_a = 1.0f / a;
-    const float cx = sp[0], cy = sp[1], cz = sp[2], r = sp[3];
-    const float ocx = ox - cx, ocy = oy - cy, ocz = oz - cz;
-    const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
-    const float cq = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r;
-    const float disc = half_b * half_b - a * cq;
-    const float sq = sqrtf(fmaxf(disc, 0.0f));
-    const bool root2 = (e.code & kRoot2) != 0;
-    const float num = root2 ? (-half_b + sq) : (-half_b - sq);
-    float t = num * inv_a;
-    // a volume's hit: t = h1 + hit_dist / ray_len
-    float ray_len = 1.0f, hit_dist = 0.0f, log_u = 0.0f;
-    const bool entry = t >= kTMin;  // the window opens at t1 (volumes)
-    if (vol) {
-      ray_len = sqrtf(a);
-      log_u = logf(fmaxf(uniform_col(k0, k1, rid, stream,
-                                     2u * jl + 4u + (uint32_t)(w - n_solid)),
-                         1e-37f));
-      hit_dist = sp[stride - 1] * log_u;
-      t = fmaxf(fmaxf(t, kTMin), 0.0f) + hit_dist / ray_len;
-    }
-    const float inv_r = 1.0f / r;
-    const float ptx = ox + t * dx, pty = oy + t * dy, ptz = oz + t * dz;
-    const float qx = ptx - cx, qy = pty - cy, qz = ptz - cz;
     const float sgn = (e.code & kFront) ? 1.0f : -1.0f;
-    const float nx = vol ? sgn : qx * inv_r * sgn;
-    const float ny = vol ? 0.0f * sgn : qy * inv_r * sgn;
-    const float nz = vol ? 0.0f * sgn : qz * inv_r * sgn;
+    float t, nx, ny, nz;
+    // a sphere's: the root and the normal's inputs
+    float inv_a = 0.0f, cx = 0.0f, cy = 0.0f, cz = 0.0f, r = 1.0f;
+    float ocx = 0.0f, ocy = 0.0f, ocz = 0.0f, half_b = 0.0f, cq = 0.0f;
+    float sq = 0.0f, num = 0.0f, inv_r = 1.0f, qx = 0.0f, qy = 0.0f,
+          qz = 0.0f;
+    bool root2 = false, entry = false;
+    float ray_len = 1.0f, hit_dist = 0.0f, log_u = 0.0f;
+    // a triangle's: t = num_t * (1 / det)
+    const float* g = nullptr;
+    float det = 1.0f, num_t = 0.0f, inv_det = 1.0f;
+    if (tri) {
+      g = rows.tri + (size_t)w * kTriCols;
+      tri_det_t(g, ox, oy, oz, dx, dy, dz, det, num_t);
+      inv_det = 1.0f / det;
+      t = inv_det * num_t;
+      const float4 q4 = ldg4(g + kTriNrm);
+      nx = q4.x * sgn;
+      ny = q4.y * sgn;
+      nz = q4.z * sgn;
+    } else {
+      const float* sp = f + kSpheres + w * stride;
+      inv_a = 1.0f / a;
+      cx = sp[0];
+      cy = sp[1];
+      cz = sp[2];
+      r = sp[3];
+      ocx = ox - cx;
+      ocy = oy - cy;
+      ocz = oz - cz;
+      half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
+      cq = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - r * r;
+      const float disc = half_b * half_b - a * cq;
+      sq = sqrtf(fmaxf(disc, 0.0f));
+      root2 = (e.code & kRoot2) != 0;
+      num = root2 ? (-half_b + sq) : (-half_b - sq);
+      t = num * inv_a;
+      // a volume's hit: t = h1 + hit_dist / ray_len
+      entry = t >= kTMin;  // the window opens at t1 (volumes)
+      if (vol) {
+        ray_len = sqrtf(a);
+        log_u = logf(fmaxf(uniform_col(k0, k1, rid, stream,
+                                       2u * jl + 4u + (uint32_t)(w - n_solid)),
+                           1e-37f));
+        hit_dist = sp[stride - 1] * log_u;
+        t = fmaxf(fmaxf(t, kTMin), 0.0f) + hit_dist / ray_len;
+      }
+      inv_r = 1.0f / r;
+      const float ptx = ox + t * dx, pty = oy + t * dy, ptz = oz + t * dz;
+      qx = ptx - cx;
+      qy = pty - cy;
+      qz = ptz - cz;
+      nx = vol ? sgn : qx * inv_r * sgn;
+      ny = vol ? 0.0f * sgn : qy * inv_r * sgn;
+      nz = vol ? 0.0f * sgn : qz * inv_r * sgn;
+    }
 
     // ---- the lobe: adjoints of n, d, a; throughput factor at
     float gnx = 0.0f, gny = 0.0f, gnz = 0.0f;
     float g_dx = 0.0f, g_dy = 0.0f, g_dz = 0.0f, ga = 0.0f;
     float atr = 1.0f, atg = 1.0f, atb = 1.0f;
     const int kind = clay ? kLambertian
-                          : (kExt ? kind_at(kind_of[w], e.code) : kind_of[w]);
+                          : (kExt ? kind_at(kinds, e.code) : kinds);
     if (clay) {  // at = 0.8, d' = n + s (or n)
       atr = atg = atb = 0.8f;
       gnx = gndx;
@@ -843,11 +1024,11 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
     gtg = gtg * atg;
     gtb = gtb * atb;
 
-    // ---- normal n = sgn (p - c) / r (a volume's is constant), hit point
-    // p = o + t d
+    // ---- normal n = sgn (p - c) / r (a volume's and a triangle's are
+    // constant), hit point p = o + t d
     float gcx = 0.0f, gcy = 0.0f, gcz = 0.0f, grad_r = 0.0f;
     float gpx = gpx0, gpy = gpy0, gpz = gpz0;
-    if (!vol) {
+    if (!vol && !tri) {
       const float gqx = sgn * gnx * inv_r, gqy = sgn * gny * inv_r,
                   gqz = sgn * gnz * inv_r;
       const float ginv_r = sgn * dot3(gnx, gny, gnz, qx, qy, qz);
@@ -865,6 +1046,26 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
     g_dz += t * gpz;
     float gt = dot3(gpx, gpy, gpz, dx, dy, dz);
 
+    if (tri) {
+      // t = num_t / det: num_t = n . o - v0 . n, det = -n . d
+      const float4 q0 = ldg4(g);
+      const float gnum_t = gt * inv_det;
+      const float gdet = -(gt * num_t) * inv_det * inv_det;
+      gx += gnum_t * q0.x;
+      gy += gnum_t * q0.y;
+      gz += gnum_t * q0.z;
+      g_dx += 2.0f * ga * dx - gdet * q0.x;
+      g_dy += 2.0f * ga * dy - gdet * q0.y;
+      g_dz += 2.0f * ga * dz - gdet * q0.z;
+      gox = gx;
+      goy = gy;
+      goz = gz;
+      gdx = g_dx;
+      gdy = g_dy;
+      gdz = g_dz;
+      continue;
+    }
+    float* gsp = gs + w * stride;
     if (vol) {
       // t = max(t1, T_MIN) + hit_dist / ray_len, ray_len = sqrt(a)
       const float ghd = gt / ray_len;
@@ -933,37 +1134,40 @@ __device__ __forceinline__ void adjoint(const float* f, const int* kind_of,
 // ---------------------------------------------------------------- sums
 
 // Shared memory of a gradient block: the scene, and the block's sums (rows
-// of at most kMaxStride floats under kExt).
-template <bool kExt>
+// of at most kMaxStride floats under kExt; under kTri the triangles'
+// material slots after them, rows of at most kTriStrideMix floats).
+template <bool kExt, bool kTri = false>
 struct GradShared {
   static constexpr int kRow = kExt ? kMaxStride : kStride;
-  float f[kSpheres + kMaxSpheres * kRow];
-  int kind_of[kMaxSpheres];
-  float gs[kMaxSpheres * kRow];  // per-sphere entries of d/d(fparams)
-  float ghead[kHead + 1];        // head entries, then one extra sum
+  static constexpr int kMats = kTri ? kMaxTriMats : 0;
+  static constexpr int kMatRow = kExt ? kTriStrideMix : kTriStride;
+  float f[kSpheres + kMaxSpheres * kRow + kMats * kMatRow];
+  int kind_of[kMaxSpheres + kMats];
+  // entries of d/d(fparams) past the head: spheres', then slots'
+  float gs[kMaxSpheres * kRow + kMats * kMatRow];
+  float ghead[kHead + 1];  // head entries, then one extra sum
 };
 
-template <bool kExt>
-__device__ __forceinline__ void load_scene(GradShared<kExt>& sh,
+template <bool kExt, bool kTri>
+__device__ __forceinline__ void load_scene(GradShared<kExt, kTri>& sh,
                                            const float* fparams,
                                            const int* kinds,
                                            const Rows& rows) {
-  const int n_row = rows.n * rows.stride;
-  for (int i = threadIdx.x; i < kSpheres + n_row; i += blockDim.x)
-    sh.f[i] = fparams[i];
-  for (int i = threadIdx.x; i < rows.n; i += blockDim.x)
+  const int n_f = scene_floats(rows);
+  for (int i = threadIdx.x; i < n_f; i += blockDim.x) sh.f[i] = fparams[i];
+  for (int i = threadIdx.x; i < rows.n + rows.n_tm; i += blockDim.x)
     sh.kind_of[i] = kinds[i];
-  for (int i = threadIdx.x; i < n_row; i += blockDim.x) sh.gs[i] = 0.0f;
+  for (int i = threadIdx.x; i < n_f - kHead; i += blockDim.x) sh.gs[i] = 0.0f;
   for (int i = threadIdx.x; i <= kHead; i += blockDim.x) sh.ghead[i] = 0.0f;
   __syncthreads();
 }
 
 // Every thread of the block calls this once, at its end: the head entries and
 // `extra` are summed over each warp with shuffles, then over the block in
-// shared memory; the block's n_out sums (head, spheres, then extra when
-// n_out = K + 1) go to row blockIdx.x of `partials`.
-template <bool kExt>
-__device__ __forceinline__ void write_partials(GradShared<kExt>& sh,
+// shared memory; the block's n_out sums (head, spheres and slots, then
+// extra when n_out = scene_floats + 1) go to row blockIdx.x of `partials`.
+template <bool kExt, bool kTri>
+__device__ __forceinline__ void write_partials(GradShared<kExt, kTri>& sh,
                                                float (&head)[kHead],
                                                float extra, const Rows& rows,
                                                int n_out, float* partials) {
@@ -975,7 +1179,7 @@ __device__ __forceinline__ void write_partials(GradShared<kExt>& sh,
     if ((threadIdx.x & 31) == 0) atomicAdd(&sh.ghead[k], v);
   }
   __syncthreads();
-  const int k_sph = kSpheres + rows.n * rows.stride;
+  const int k_sph = scene_floats(rows);
   float* row = partials + (size_t)blockIdx.x * n_out;
   for (int k = threadIdx.x; k < n_out; k += blockDim.x)
     row[k] = k < kHead ? sh.ghead[k]
@@ -988,10 +1192,22 @@ inline int row_stride(int mix, int n_vol) {
 }
 
 // The run-time flags of a launch are consistent: the extended variant for
-// mixes and volumes, volumes among the spheres.
-inline bool rows_ok(int n_spheres, int ext, int mix, int n_vol) {
-  return n_spheres >= 1 && n_spheres <= kMaxSpheres && n_vol >= 0 &&
-         n_vol <= n_spheres && (ext || (!mix && n_vol == 0));
+// mixes and volumes, volumes among the spheres, triangles (16-byte aligned
+// rows) with their material slots and only then, at least one primitive.
+inline bool rows_ok(int n_spheres, int ext, int mix, int n_vol,
+                    const float* tri, int n_tri, int n_tm) {
+  return n_spheres >= 0 && n_spheres <= kMaxSpheres && n_vol >= 0 &&
+         n_vol <= n_spheres && (ext || (!mix && n_vol == 0)) && n_tri >= 0 &&
+         n_tri <= kMaxTris && n_tm >= 0 && n_tm <= kMaxTriMats &&
+         (n_tri > 0) == (n_tm > 0) && (n_tri > 0) == (tri != nullptr) &&
+         ((uintptr_t)tri & 15) == 0 && n_spheres + n_tri > 0;
+}
+
+// A launch's rows.
+inline Rows make_rows(int n_spheres, int mix, int n_vol, const float* tri,
+                      int n_tri, int n_tm) {
+  return Rows{n_spheres, row_stride(mix, n_vol), mix, n_vol, tri, n_tri,
+              n_tm};
 }
 
 // out[k] = sum over the n_blocks rows of partials[., k], in row order;
@@ -1011,9 +1227,9 @@ inline int blocks_for(long long n) {
   return (int)((n + kThreads - 1) / kThreads);
 }
 
-// A template flag as a value: with_flags(ext, sky, f) calls f(Flag<ext>{},
-// Flag<sky>{}), so an entry names its kernel's launch once and reads the
-// variant as decltype(e)::value.
+// A template flag as a value: with_flags(ext, sky, tri, f) calls
+// f(Flag<ext>{}, Flag<sky>{}, Flag<tri>{}), so an entry names its kernel's
+// launch once and reads the variant as decltype(e)::value.
 template <bool B>
 struct Flag {
   static constexpr bool value = B;
@@ -1025,6 +1241,15 @@ inline auto with_flags(bool ext, bool sky, F f) {
     return sky ? f(Flag<true>{}, Flag<true>{}) : f(Flag<true>{}, Flag<false>{});
   return sky ? f(Flag<false>{}, Flag<true>{})
              : f(Flag<false>{}, Flag<false>{});
+}
+
+template <class F>
+inline auto with_flags(bool ext, bool sky, bool tri, F f) {
+  if (tri)
+    return with_flags(ext, sky,
+                      [&](auto e, auto k) { return f(e, k, Flag<true>{}); });
+  return with_flags(ext, sky,
+                    [&](auto e, auto k) { return f(e, k, Flag<false>{}); });
 }
 
 }  // namespace rtrt

@@ -1,5 +1,5 @@
-// Radiance gradient kernel for sphere scenes, written for Hopper (sm_90a):
-// the backward of the forward megakernel.
+// Radiance gradient kernel for scenes of spheres and triangles, written for
+// Hopper (sm_90a): the backward of the forward megakernel.
 //
 // Replaces raytracingrust_tpu/ops/pallas_megakernel.py::_make_grad_kernel
 // (reached through run_grad in _radiance_cvjp), which replays the forward
@@ -11,7 +11,13 @@
 // (20 + stride N,) float32, and under a sky map the texels' gradient.  Rays
 // whose cotangent is zero are skipped (their term is exactly 0).  Depth is
 // capped at kMaxTape = 12, the tape's size.  The variants are the forward
-// kernel's (kExt: mixes, volumes, the isotropic lobe; kSky: a sky map).
+// kernel's (kExt: mixes, volumes, the isotropic lobe; kSky: a sky map;
+// kTri: triangles).  The TPU kernel returns the cotangents of its triangle
+// operands (the per-triangle C, S and S2 columns); here a triangle's t
+// passes its cotangent to the ray, and its material's go to the row of its
+// material slot, a section of fparams after the spheres: the block's sums
+// grow with the materials the triangles use (at most kMaxTriMats rows of
+// 17 floats, 8.7 KB), not with the triangles.
 //
 // The texels' gradient: in the TPU package the sky's gather, and so its
 // transpose, run outside the kernel (_env_finish); here the lookup is in
@@ -42,14 +48,14 @@ namespace {
 
 using namespace rtrt;
 
-template <bool kExt, bool kSky>
+template <bool kExt, bool kSky, bool kTri>
 __global__ void __launch_bounds__(kThreads)
 grad_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
             Rows rows, uint32_t k0, uint32_t k1, int n_rays, int spp,
             int width, int max_depth, int bg_kind, int clay, Sky sky,
             float* __restrict__ gsky, const float* __restrict__ cts,
             float* __restrict__ partials) {
-  __shared__ GradShared<kExt> sh;
+  __shared__ GradShared<kExt, kTri> sh;
   load_scene(sh, fparams, kinds, rows);
   float head[kHead];
 #pragma unroll
@@ -65,48 +71,51 @@ grad_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
     const float px = (float)(pixel % width), py = (float)(pixel / width);
     Tape tape;
     float r, g, b;
-    trace<true, kExt, kSky>(sh.f, sh.kind_of, rows, k0, k1, (uint32_t)ray,
-                            px, py, max_depth, bg_kind, clay, sky, r, g, b,
-                            &tape);
-    adjoint<kExt, kSky>(sh.f, sh.kind_of, rows, k0, k1, (uint32_t)ray, px,
-                        py, bg_kind, clay, sky, tape, gr, gg, gb, head,
-                        sh.gs, gsky);
+    trace<true, kExt, kSky, kTri>(sh.f, sh.kind_of, rows, k0, k1,
+                                  (uint32_t)ray, px, py, max_depth, bg_kind,
+                                  clay, sky, r, g, b, &tape);
+    adjoint<kExt, kSky, kTri>(sh.f, sh.kind_of, rows, k0, k1, (uint32_t)ray,
+                              px, py, bg_kind, clay, sky, tape, gr, gg, gb,
+                              head, sh.gs, gsky);
   }
-  write_partials(sh, head, 0.0f, rows, kSpheres + rows.n * rows.stride,
-                 partials);
+  write_partials(sh, head, 0.0f, rows, scene_floats(rows), partials);
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes (ops/radiance_grad.py).  Launches the
 // gradient kernel on at most `max_blocks` blocks, then the row sum into
-// `out` (20 + stride N floats), on `stream`; `partials` holds max_blocks
-// rows of 20 + stride N floats.  `ext`, `mix`, `n_vol` and the sky as
-// rtrt_radiance's; under a sky map `gsky` (sky_h, sky_w, 3) receives the
-// texels' gradient.  Returns cudaGetLastError() of the launches.
+// `out` (the K floats of fparams), on `stream`; `partials` holds
+// max_blocks rows of K floats.  `ext`, `mix`, `n_vol`, the triangles and
+// the sky as rtrt_radiance's; under a sky map `gsky` (sky_h, sky_w, 3)
+// receives the texels' gradient.  Returns cudaGetLastError() of the
+// launches.
 extern "C" int rtrt_radiance_grad(const float* fparams, const int* kinds,
                                   int n_spheres, uint32_t k0, uint32_t k1,
                                   int n_rays, int spp, int width,
                                   int max_depth, int bg_kind, int clay,
                                   int ext, int mix, int n_vol,
+                                  const float* tri, int n_tri, int n_tm,
                                   const float* sky_img, int sky_h, int sky_w,
                                   float* gsky, const float* cts,
                                   float* partials, int max_blocks, float* out,
                                   void* stream) {
   const bool sky_map = bg_kind == kSkyMap;
-  if (!rows_ok(n_spheres, ext, mix, n_vol) || n_rays < 1 || spp < 1 ||
+  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm) || n_rays < 1 ||
+      spp < 1 ||
       width < 1 || max_depth < 0 || max_depth > kMaxTape || max_blocks < 1 ||
       sky_map != (sky_img != nullptr) || sky_map != (gsky != nullptr) ||
       (sky_map && (sky_h < 1 || sky_w < 1)))
     return (int)cudaErrorInvalidValue;
-  const Rows rows{n_spheres, row_stride(mix, n_vol), mix, n_vol};
+  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm);
   const Sky sky{sky_img, sky_h, sky_w};
-  const int n_out = kSpheres + n_spheres * rows.stride;
+  const int n_out = scene_floats(rows);
   const int blocks = blocks_for(n_rays) < max_blocks ? blocks_for(n_rays)
                                                      : max_blocks;
   cudaStream_t s = (cudaStream_t)stream;
-  const int err = with_flags(ext, sky_map, [&](auto e, auto k) {
-    grad_kernel<decltype(e)::value, decltype(k)::value>
+  const int err = with_flags(ext, sky_map, n_tri > 0, [&](auto e, auto k,
+                                                          auto t) {
+    grad_kernel<decltype(e)::value, decltype(k)::value, decltype(t)::value>
         <<<blocks, kThreads, 0, s>>>(fparams, kinds, rows, k0, k1, n_rays,
                                      spp, width, max_depth, bg_kind, clay,
                                      sky, gsky, cts, partials);

@@ -19,7 +19,7 @@ from typing import Iterable
 import torch
 
 from ..models.scene import Scene
-from ..ops.megakernel import pack_fparams, scene_opts, sphere_kinds
+from ..ops.megakernel import brute_kinds, pack_fparams, pack_tri, scene_opts
 from ..ops.mse_loss import mse_loss, supports_fused_mse
 from ..render.render import render_linear, resolve_device, resolve_engine
 from ..utils import rng
@@ -94,19 +94,19 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
         return rng.base_key(seed) if key is None else tuple(
             int(w) for w in key)
 
-    if engine is not None:
-        resolve_engine(scene, engine, grad=True)
-    if (engine in (None, "brute") and supports_fused_mse(scene)
+    if (resolve_engine(scene, engine, grad=True) == "brute"
+            and supports_fused_mse(scene)
             and tuple(target.shape) == (height, width, 3)):
         s = scene.settings
-        kinds = sphere_kinds(scene)
+        kinds = brute_kinds(scene)
         flat = target.reshape(-1, 3).contiguous()
         opts = scene_opts(scene)
+        tri = pack_tri(scene)
 
         def loss(params: dict, key=None):
             return mse_loss(pack_fparams(scene_of(params), width, height),
                             kinds, key_of(key), flat, s.samples_per_pixel,
-                            width, clamp=s.clamp_indirect, **opts)
+                            width, clamp=s.clamp_indirect, tri=tri, **opts)
 
         return loss
 

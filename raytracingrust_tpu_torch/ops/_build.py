@@ -44,15 +44,19 @@ _P, _I32, _I64, _U32, _F32 = (ctypes.c_void_p, ctypes.c_int,
 # C entry -> (argument types, result type)
 _SIGNATURES = {
     "rtrt_radiance": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
-                       _I32, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P, _P],
-                      _I32),
+                       _I32, _I32, _I32, _I32, _I32]
+                      + [_P, _I32, _I32]  # the triangles
+                      + [_P, _I32, _I32, _P, _P], _I32),
     "rtrt_uniforms": ([_P, _I32, _U32, _U32, _U32, _I32, _P, _P], _I32),
     "rtrt_radiance_grad": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
-                            _I32, _I32, _I32, _I32, _I32, _P, _I32, _I32, _P,
-                            _P, _P, _I32, _P, _P], _I32),
+                            _I32, _I32, _I32, _I32, _I32]
+                           + [_P, _I32, _I32]  # the triangles
+                           + [_P, _I32, _I32, _P, _P, _P, _I32, _P, _P],
+                           _I32),
     "rtrt_mse_loss": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
-                       _I32, _I32, _I32, _I32, _I32, _F32, _P, _P, _I32, _P,
-                       _P], _I32),
+                       _I32, _I32, _I32, _I32, _I32]
+                      + [_P, _I32, _I32]  # the triangles
+                      + [_F32, _P, _P, _I32, _P, _P], _I32),
     "rtrt_bvh_radiance": ([_P, _P, _P, _I32]
                           + [_P] * 5 + [_I32]    # the sphere tree
                           + [_P] * 7 + [_I32]    # the volume tree

@@ -1,12 +1,13 @@
-"""Brute-force forward megakernel for sphere scenes: the CUDA kernel's
-wrapper and its plain PyTorch version.
+"""Brute-force forward megakernel for scenes of spheres and triangles: the
+CUDA kernel's wrapper and its plain PyTorch version.
 
 Replaces the forward half of raytracingrust_tpu/ops/pallas_megakernel.py
 (``_make_kernel`` over ``_radiance_math``, reached through
 ``pixel_radiance_pallas``).  Per ray: a jittered camera ray, then up to
-``max_depth`` bounces of closest hit over every sphere (direct quadratic),
-one material lobe and the throughput/radiance update; a miss adds the
-background and ends the path.
+``max_depth`` bounces of closest hit over every sphere (direct quadratic)
+and every triangle (the bilinear form of ``_tri_intersect``), one material
+lobe and the throughput/radiance update; a miss adds the background and
+ends the path.
 
 Layouts are the JAX package's (``_pack_fparams``), so its own packed
 constants can be fed in: ``fparams`` is (20 + stride N,) float32 — camera
@@ -16,30 +17,44 @@ r, albedo rgb, fuzz, ir, emission rgb (stride 12).  A scene with mixes
 packs leaf A of each sphere's material (``mix_first``) in those slots, then
 the mix factor and leaf B (``mix_second``): stride 21, and a non-mix row
 has A == B and factor 0.  A scene with volume spheres adds one slot, the
-sphere's -1/density (0 for a solid sphere); volumes come last.  Sphere
-material kinds ride beside it as an int32 (N,) tensor, a runtime input, so
-one kernel build serves every scene in the envelope: with mixes kind A in
-bits 0-7 and kind B in bits 8-15.
+sphere's -1/density (0 for a solid sphere); volumes come last.  A scene
+with triangles appends one row per material the triangles use (their
+"slots", :func:`tri_slots`): leaf A, and with mixes the factor and leaf B
+(stride 8 or 17).  Material kinds ride beside it as an int32 (N + M,)
+tensor, each sphere's then each slot's (:func:`brute_kinds`), a runtime
+input, so one kernel build serves every scene in the envelope: with mixes
+kind A in bits 0-7 and kind B in bits 8-15.
+
+The triangles' geometry is a (T, 20) float32 tensor of its own
+(:func:`pack_tri`): the coefficients of ``pallas_megakernel._pack_tri``'s
+C matrix in the port's layout (n = e1 x e2, v0 x e2, e2, v0 x e1, e1,
+v0 . n), the flat face normal and the triangle's slot.  The determinant
+and the numerators of u, v and t are sequential fused multiply-adds over
+the ray's features [d, w = o x d, o, 1], as XLA's float32 dot computes the
+TPU kernel's matmul on the CPU; the kernel uses ``__fmaf_rn``, the plain
+version an exact emulation (:func:`_fma_chain`).
 
 The bounce's uniform columns (stream 1 + b) are the JAX layout: with any
 mix in the table the four mix coins first (``off = MAX_MIX_DEPTH``; a
 single-level mix reads coin 0), then u1, u2, the coin and u_r at
 ``off + 0 .. 3``, then volume v's free-flight uniform at ``off + 4 + v``.
 
-The envelope (:func:`unsupported`, the JAX ``supports`` without
-triangles): 1 to 128 spheres, constant-density sphere volumes among them,
-and no triangle; Lambertian, Metal, Dielectric, Emission and Isotropic
-materials and single-level mixes of them; a uniform, gradient or sky-map
+The envelope (:func:`unsupported`, the JAX ``supports``): 0 to 128
+spheres, constant-density sphere volumes among them, and 0 to 8,192
+surface triangles, at least one primitive; Lambertian, Metal,
+Dielectric, Emission and Isotropic materials and single-level mixes of
+them; a uniform, gradient or sky-map
 background (the sky's nearest texel looked up in the kernel, as #5's
 sky-map variant does); Full or Clay mode; any depth.  The kernels' new
-branches (mixes, volumes, the isotropic lobe, the sky) sit behind
-compile-time flags, so a scene of solid spheres runs the code it ran
-before.
+branches (mixes, volumes, the isotropic lobe, the sky, triangles) sit
+behind compile-time flags, so a scene of solid spheres runs the code it
+ran before.
 
 On a CPU tensor the wrappers run the plain version; on a CUDA tensor they
 launch the kernel or raise.  ``LAUNCHES`` counts kernel launches,
-``EXT_LAUNCHES`` and ``SKY_LAUNCHES`` again those of the variants with
-mixes, volumes or the isotropic lobe, and with a sky map.  The
+``EXT_LAUNCHES``, ``SKY_LAUNCHES`` and ``TRI_LAUNCHES`` again those of the
+variants with mixes, volumes or the isotropic lobe, with a sky map, and
+with triangles.  The
 plain version is differentiable by autograd; on the card the gradient is a
 kernel of its own (ops/radiance_grad.py, ops/mse_loss.py), whose limits
 (``MAX_DEPTH``, the partial-sum blocks) sit here beside the input checks
@@ -63,6 +78,22 @@ from ..utils.types import T_MIN
 from .shade import mix_depth
 
 MAX_SPHERES = 128
+MAX_TRIS = 8192  # pallas_megakernel.MAX_TRIS
+# materials the triangles of one scene may use: rows of the gradient
+# kernels' per-block sums in shared memory
+MAX_TRI_MATS = 128
+TRI_DET_EPS = 1e-8  # pallas_megakernel.TRI_DET_EPS
+# the plain version's triangle test: triangles and rays of one step, which
+# bound its (rays x triangles) temporaries (float64, 256 MB each)
+TRI_BLOCK = 512
+TRI_RAYS = 1 << 16
+# columns of one triangle's row (pack_tri): the coefficients, the flat
+# normal, the material slot
+TRI_COLS = 20
+_TN, _TU_D, _TU_W, _TV_D, _TV_W, _TV0N, _TNRM, _TSLOT = (0, 3, 6, 9, 12, 15,
+                                                         16, 19)
+_TRI_STRIDE = 8
+_TRI_STRIDE_MIX = 17
 _CAM = 0
 _BG = 12
 _INV_W = 18
@@ -89,11 +120,18 @@ BLOCKS_PER_SM = 8
 LAUNCHES = 0
 EXT_LAUNCHES = 0
 SKY_LAUNCHES = 0
+TRI_LAUNCHES = 0
 
 
 def sphere_stride(mix: bool, n_vol: int) -> int:
     """Floats of one sphere's row (``pallas_megakernel._sphere_stride``)."""
     return (_SPHERE_STRIDE_MIX if mix else _SPHERE_STRIDE) + int(n_vol > 0)
+
+
+def tri_stride(mix: bool) -> int:
+    """Floats of one triangle material slot's row: leaf A, and with mixes
+    the factor and leaf B."""
+    return _TRI_STRIDE_MIX if mix else _TRI_STRIDE
 
 
 # ------------------------------------------------------------- the envelope
@@ -102,8 +140,16 @@ def sphere_kinds(scene: Scene) -> torch.Tensor:
     """(N,) int32 material kind of each sphere; in a scene with mixes, kind
     A (of ``mix_first``) in bits 0-7 and kind B (``mix_second``) in bits
     8-15 (the JAX ``_sphere_kinds`` pairs)."""
-    mats = scene.materials
-    mid = scene.spheres.material.long()
+    return _kinds_of(scene.materials, scene.spheres.material.long())
+
+
+def tri_slots(scene: Scene) -> tuple[torch.Tensor, torch.Tensor]:
+    """(slots, slot_of): the material ids the triangles use, ascending,
+    and each triangle's index into them."""
+    return torch.unique(scene.triangles.material.long(), return_inverse=True)
+
+
+def _kinds_of(mats, mid: torch.Tensor) -> torch.Tensor:
     if not mats.has_mix:
         return mats.kind[mid]
     ka = mats.kind[mats.mix_first[mid].long()]
@@ -111,35 +157,59 @@ def sphere_kinds(scene: Scene) -> torch.Tensor:
     return (ka | (kb << 8)).to(torch.int32)
 
 
+def brute_kinds(scene: Scene) -> torch.Tensor:
+    """(N + M,) int32: :func:`sphere_kinds`, then each triangle material
+    slot's kind (or kind pair) in the same form (the JAX ``_pack_tri``'s
+    kind one-hot rows, ``_TS_LAM``.. and ``_T2_LAM``..)."""
+    kinds = sphere_kinds(scene)
+    if not len(scene.triangles):
+        return kinds
+    return torch.cat([kinds, _kinds_of(scene.materials,
+                                       tri_slots(scene)[0])]).to(torch.int32)
+
+
 def scene_opts(scene: Scene) -> dict:
     """The static options of the scene's brute path: depth, background
-    kind, Clay mode, mixes, volume spheres and whether an isotropic
-    material is shaded (which draws u_r, as the JAX kernel's ``iso``)."""
+    kind, Clay mode, mixes, volume spheres, whether an isotropic material
+    is shaded (which draws u_r, as the JAX kernel's ``iso`` over the sphere
+    and triangle kinds) and the triangles' material slots."""
     s = scene.settings
     mix = scene.materials.has_mix
-    kinds = sphere_kinds(scene)
+    kinds = brute_kinds(scene)
     iso = bool(((kinds & 0xFF) == M.ISOTROPIC).any()
                or (mix and ((kinds >> 8) == M.ISOTROPIC).any()))
+    n_tm = kinds.shape[0] - len(scene.spheres)
     return dict(max_depth=s.max_ray_depth, bg_kind=scene.background.kind,
                 clay=s.mode == MODE_CLAY, mix=mix,
-                n_vol=scene.spheres.num_volumes, iso=iso)
+                n_vol=scene.spheres.num_volumes, iso=iso, n_tm=n_tm)
 
 
 def unsupported(scene: Scene) -> str | None:
     """Why the scene lies outside the kernels' envelope, or None: the JAX
-    ``supports``, but for triangles (still to come, ROADMAP A5)."""
-    n = len(scene.spheres)
-    if not 0 < n <= MAX_SPHERES:
-        return (f"{n} spheres: the brute kernel takes 1 to {MAX_SPHERES}; "
-                "larger scenes take the BVH kernel (ops/bvh_kernel.py)")
+    ``supports``, and at most MAX_TRI_MATS materials on the triangles (the
+    gradient kernels' shared rows; the JAX kernel has no such limit)."""
+    n, n_tri = len(scene.spheres), len(scene.triangles)
+    xla = ("; without its BVH the scene needs the XLA integrator, not "
+           "ported yet (ROADMAP A6); built with it (with_bvh=True, or "
+           "enable_bvh_tree) it takes the BVH kernel")
+    if n > MAX_SPHERES:
+        return (f"{n} spheres: the brute kernels take at most {MAX_SPHERES}"
+                + xla)
+    if n_tri > MAX_TRIS:
+        return (f"{n_tri} triangles: the brute kernels take at most "
+                f"{MAX_TRIS}" + xla)
+    if n + n_tri == 0:
+        return ("the scene has no primitive: the brute kernels take at "
+                "least one (as the JAX package; its XLA integrator renders "
+                "the background, not ported yet: ROADMAP A6)")
     if scene.num_mesh_volumes:
         return ("mesh volumes take the BVH kernel's crossing scan (the JAX "
                 "brute kernel excludes them too): build the scene with its "
                 "BVH")
-    if len(scene.triangles):
-        return ("triangles in the brute kernel are not ported yet "
-                "(ROADMAP A5); a scene built with its BVH takes the BVH "
-                "kernel")
+    if n_tri and tri_slots(scene)[0].shape[0] > MAX_TRI_MATS:
+        return (f"the triangles use more than {MAX_TRI_MATS} materials: the "
+                "brute kernels keep their gradient rows in shared memory"
+                + xla)
     if scene.materials.has_mix and mix_depth(scene.materials) > 1:
         return ("mixes nested more than one level deep: the brute kernels "
                 "shade single-level mixes (as the JAX package); a scene "
@@ -191,11 +261,13 @@ def pack_head(scene: Scene, width: int, height: int) -> torch.Tensor:
 
 
 def pack_fparams(scene: Scene, width: int, height: int) -> torch.Tensor:
-    """Scene constants -> (20 + stride N,) float32 on the scene's device,
-    in the layout of ``pallas_megakernel._pack_fparams(mix=has_mix)``.
-    Plain tensor ops, so autograd folds each slot's cotangent back onto the
-    scene leaf it was read from (a mix row's leaves onto their material
-    rows, its factor onto ``mix_factor``)."""
+    """Scene constants -> (20 + stride N + tri_stride M,) float32 on the
+    scene's device: the layout of ``pallas_megakernel._pack_fparams(mix=
+    has_mix)``, then a row for each triangle material slot (the material
+    rows of ``_pack_tri``'s S and S2 matrices, one per material instead of
+    one per triangle).  Plain tensor ops, so autograd folds each slot's
+    cotangent back onto the scene leaf it was read from (a mix row's leaves
+    onto their material rows, its factor onto ``mix_factor``)."""
     head = pack_head(scene, width, height)
     mats = scene.materials
     sph = scene.spheres
@@ -213,8 +285,33 @@ def pack_fparams(scene: Scene, width: int, height: int) -> torch.Tensor:
                  *leaf(mats.mix_second[mid].long())]
     if sph.num_volumes:
         cols.append(sph.neg_inv_density[:, None])
-    per_sphere = torch.cat(cols, dim=1).reshape(-1)
-    return torch.cat([head, per_sphere]).to(torch.float32)
+    parts = [head, torch.cat(cols, dim=1).reshape(-1)]
+    if len(scene.triangles):
+        slots = tri_slots(scene)[0].to(mid.device)
+        cols = leaf(mats.mix_first[slots].long() if mix else slots)
+        if mix:
+            cols += [mats.mix_factor[slots][:, None],
+                     *leaf(mats.mix_second[slots].long())]
+        parts.append(torch.cat(cols, dim=1).reshape(-1))
+    return torch.cat(parts).to(torch.float32)
+
+
+def pack_tri(scene: Scene) -> Optional[torch.Tensor]:
+    """The triangles' geometry -> (T, TRI_COLS) float32 on the scene's
+    device, None without triangles: per triangle n = e1 x e2, v0 x e2, e2,
+    v0 x e1, e1, v0 . n (the coefficients of ``_pack_tri``'s C matrix:
+    a = -n . d, num_u = (v0 x e2) . d + e2 . w, num_v = -(v0 x e1) . d -
+    e1 . w, num_t = n . o - v0 . n), the flat face normal (its S rows
+    ``_TS_NRM``) and the triangle's material slot (:func:`tri_slots`)."""
+    tris = scene.triangles
+    if not len(tris):
+        return None
+    n = vec.cross(tris.e1, tris.e2)
+    slot = tri_slots(scene)[1].to(n.device, torch.float32)
+    return torch.cat([
+        n, vec.cross(tris.v0, tris.e2), tris.e2, vec.cross(tris.v0, tris.e1),
+        tris.e1, vec.dot(tris.v0, n)[:, None], tris.normal, slot[:, None],
+    ], dim=1).to(torch.float32).contiguous()
 
 
 def prep_rays(pixel_ids: torch.Tensor, spp: int, width: int):
@@ -433,19 +530,171 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     return o, d, thr, rad, cont
 
 
+# the low 29 bits of a float64 that lies halfway between two float32s
+_MID_MASK = (1 << 29) - 1
+_MID = 1 << 28
+
+
+def _fma_exact(c: torch.Tensor, x: torch.Tensor,
+               acc: torch.Tensor) -> torch.Tensor:
+    """float32 RN(c * x + acc), one rounding, of float64 ``c`` and ``x``
+    holding float32 values (so c * x is exact) and float32 ``acc``: the sum
+    rounded to odd in float64 (Knuth's two-sum gives its error), which then
+    rounds to float32 as the exact sum would."""
+    p = c * x
+    a = acc.double()
+    s = a + p
+    bp = s - a
+    err = (a - (s - bp)) + (p - bp)
+    bits = s.view(torch.int64)
+    away = torch.where((err > 0) == (s > 0), 1, -1)
+    bits = torch.where((err != 0) & ((bits & 1) == 0), bits + away, bits)
+    return bits.view(torch.float64).float()
+
+
+class _Fma(torch.autograd.Function):
+    """:func:`_fma_exact` under autograd: the gradient of c * x + acc."""
+
+    @staticmethod
+    def forward(ctx, c, x, acc):
+        ctx.save_for_backward(c, x)
+        return _fma_exact(c, x, acc)
+
+    @staticmethod
+    def backward(ctx, g):
+        c, x = ctx.saved_tensors
+        g64 = g.double()
+        return g64 * x, g64 * c, g
+
+
+def _fma_chain(terms, exact: bool = False):
+    """XLA's float32 dot on the CPU, as it computes ``_tri_intersect``'s
+    matmul: acc = RN(c * x + acc) over the (c, x) pairs in feature order,
+    each step rounded once, from acc = RN(c0 x0).  ``terms`` holds float64
+    tensors of float32 values, so each product is exact.  -> (float32
+    result, bool mask of the entries that may be wrong by an ulp, or None):
+    a step's float64 sum that lands halfway between two float32s may have
+    rounded twice, and ``exact`` recomputes those."""
+    (c, x), rest = terms[0], terms[1:]
+    acc = (c * x).float()
+    risky = None
+    for c, x in rest:
+        if exact:
+            acc = _Fma.apply(c, x, acc)
+            continue
+        s = torch.addcmul(acc.double(), c, x)
+        acc = s.float()
+        mid = (s.view(torch.int64) & _MID_MASK) == _MID
+        risky = mid if risky is None else risky | mid
+    return acc, risky
+
+
+def _fma_sum(terms) -> torch.Tensor:
+    """:func:`_fma_chain`'s float32 result, exact: the entries whose float64
+    sum may have rounded twice are computed again, exactly."""
+    acc, risky = _fma_chain(terms)
+    if risky is not None and bool(risky.any()):
+        at = risky.nonzero(as_tuple=True)
+        acc[at] = _fma_chain([(c.expand_as(acc)[at], x.expand_as(acc)[at])
+                              for c, x in terms], exact=True)[0]
+    return acc
+
+
+def _features(o, d) -> list:
+    """The rays' features [d, w = o x d, o] (three floats each) as float32
+    rounds them."""
+    ox, oy, oz = o
+    dx, dy, dz = d
+    return [dx, dy, dz, oy * dz - oz * dy, oz * dx - ox * dz,
+            ox * dy - oy * dx, ox, oy, oz]
+
+
+@torch.no_grad()
+def tri_closest(tri: torch.Tensor, o, d, bound=None):
+    """Each ray's closest triangle below ``bound`` (R,) (None: inf) ->
+    (t (R,) float32, ``bound`` where none is closer; index (R,) int64, -1
+    where none is): ``_tri_intersect``'s test, a = -n . d, num_t, and for
+    a t in (T_MIN, the best so far) num_u and num_v, each sum the fused
+    multiply-adds of XLA's dot (:func:`_fma_sum`), with |a| >
+    TRI_DET_EPS, u, v >= 0, u + v <= 1; the lowest t, and among equal t
+    the lowest index (its chunk minimum and strict merge).  In steps of
+    TRI_RAYS rays and TRI_BLOCK triangles."""
+    feat = [v.detach().double() for v in _features(o, d)]
+    n_rays, n_tri = feat[0].shape[0], tri.shape[0]
+    t_best = (torch.full((n_rays,), float("inf"), device=tri.device)
+              if bound is None else bound.detach().clone())
+    best = torch.full((n_rays,), -1, dtype=torch.long, device=tri.device)
+    cols = tri.detach().double().t()
+    for r0 in range(0, n_rays, TRI_RAYS):
+        rs = slice(r0, r0 + TRI_RAYS)
+        f = [v[rs, None] for v in feat]
+        for c0 in range(0, n_tri, TRI_BLOCK):
+            g = cols[:, None, c0:c0 + TRI_BLOCK]
+            a = _fma_sum([(-g[_TN + k], f[k]) for k in range(3)])
+            nt = (_fma_sum([(g[_TN + k], f[6 + k]) for k in range(3)])
+                  + (-g[_TV0N]).float())  # the feature 1: one rounding
+            ok = a.abs() > TRI_DET_EPS
+            inv = 1.0 / torch.where(ok, a, 1.0)
+            t = inv * nt
+            i, j = (ok & (t > T_MIN) & (t < t_best[rs, None])).nonzero(
+                as_tuple=True)
+            if not i.numel():
+                continue
+            # u and v of the pairs whose t would win
+            gj, fi = g[:, 0, j], [v[i, 0] for v in f]
+            nu = _fma_sum([(gj[_TU_D + k], fi[k]) for k in range(3)]
+                          + [(gj[_TU_W + k], fi[3 + k]) for k in range(3)])
+            nv = _fma_sum([(-gj[_TV_D + k], fi[k]) for k in range(3)]
+                          + [(-gj[_TV_W + k], fi[3 + k]) for k in range(3)])
+            u, v = inv[i, j] * nu, inv[i, j] * nv
+            hit = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+            i, j, tt = i[hit], j[hit], t[i, j][hit]
+            t_min = torch.full_like(t_best[rs], float("inf")).scatter_reduce(
+                0, i, tt, "amin")
+            first = torch.full_like(best[rs], TRI_BLOCK).scatter_reduce(
+                0, i, torch.where(tt == t_min[i], j, TRI_BLOCK), "amin")
+            better = t_min < t_best[rs]
+            t_best[rs] = torch.where(better, t_min, t_best[rs])
+            best[rs] = torch.where(better, first + c0, best[rs])
+    return t_best, best
+
+
+def tri_t(row: torch.Tensor, o, d) -> torch.Tensor:
+    """t of each ray against the triangle of its ``row`` (its pack_tri
+    row), as :func:`tri_closest` computes it and differentiable in ``o``
+    and ``d`` (the VJP of ``_tri_intersect``'s matmul, through a and
+    num_t; u and v are tests only)."""
+    g = [row[:, k].double() for k in range(TRI_COLS)]
+    feat = _features(o, d)
+    d64 = [v.double() for v in feat[0:3]]
+    o64 = [v.double() for v in feat[6:9]]
+    a, _ = _fma_chain([(-g[_TN + k], d64[k]) for k in range(3)], exact=True)
+    nt, _ = _fma_chain([(g[_TN + k], o64[k]) for k in range(3)], exact=True)
+    nt = nt + (-g[_TV0N]).float()
+    return 1.0 / torch.where(a.abs() > TRI_DET_EPS, a, 1.0) * nt
+
+
 def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
-                   clay, mix, n_vol, iso, sky, observe=None):
+                   clay, mix, n_vol, iso, n_tm, tri, sky, observe=None):
     """One tile of :func:`radiance_plain`.  ``fp`` is the packed constants
     tensor on the rays' device; every constant is read by indexing it, so
     autograd reaches each packed entry."""
-    n = kinds.shape[0]
+    n = kinds.shape[0] - n_tm
     stride = sphere_stride(mix, n_vol)
     n_solid = n - n_vol
     tab = fp[_SPHERES:_SPHERES + n * stride].view(n, stride)
-    inv_r_tab = 1.0 / tab[:, _RADIUS]
     spheres = [tab[i, _CENTER:_RADIUS + 1].unbind() for i in range(n)]
-    kind_a = kinds & 0xFF if mix else kinds
-    kind_b = kinds >> 8 if mix else kinds
+    if not n:  # a row to index where no sphere won (radius 1: finite)
+        tab = torch.cat([fp.new_zeros(_RADIUS), fp.new_ones(1),
+                         fp.new_zeros(stride - _RADIUS - 1)])[None]
+    inv_r_tab = 1.0 / tab[:, _RADIUS]
+    kind_s = kinds[:n] if n else kinds.new_zeros(1)
+    kind_a = kind_s & 0xFF if mix else kind_s
+    kind_b = kind_s >> 8 if mix else kind_s
+    if tri is not None:
+        ts = tri_stride(mix)
+        tmat = fp[_SPHERES + n * stride:].view(n_tm, ts)
+        tkind = kinds[n:]
     # the bounce's uniform columns (pallas_megakernel's n_u)
     off = M.MAX_MIX_DEPTH if mix else 0
     n_u = off + ((4 if iso else 3) if n_vol == 0 else 4 + n_vol)
@@ -510,6 +759,14 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
             t_best = torch.where(better, ti, t_best)
             best = torch.where(better, i, best)
         hit = best >= 0
+        if tri is not None:
+            # the closest triangle replaces the sphere winner only with a
+            # strictly lower t; its t again, differentiable, for the winners
+            tbest = tri_closest(tri, o, d, t_best)[1]
+            tri_win = tbest >= 0
+            trow = tri[tbest.clamp(min=0)]
+            t_best = torch.where(tri_win, tri_t(trow, o, d), t_best)
+            hit = hit | tri_win
         idx = best.clamp(min=0).long()
         row = tab[idx]
         inv_r = inv_r_tab[idx]
@@ -522,11 +779,28 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
             n_ = [torch.where(vol, float(c == 0), n_[c]) for c in range(3)]
         mat = row[:, _ALBEDO:_ALBEDO + _MAT]
         kind = kind_a[idx]
+        if mix:
+            fac = row[:, _FACTOR]
+            mat_b = row[:, _LEAF_B:_LEAF_B + _MAT]
+            kind_pb = kind_b[idx]
+        if tri is not None:  # the flat normal and the slot's material
+            slot = trow[:, _TSLOT].long()
+            trm, tk = tmat[slot], tkind[slot]
+            n_ = [torch.where(tri_win, trow[:, _TNRM + c], n_[c])
+                  for c in range(3)]
+            mat = torch.where(tri_win[:, None], trm[:, :_MAT], mat)
+            kind = torch.where(tri_win, tk & 0xFF if mix else tk, kind)
+            if mix:
+                fac = torch.where(tri_win, trm[:, _MAT], fac)
+                mat_b = torch.where(tri_win[:, None], trm[:, _MAT + 1:],
+                                    mat_b)
+                kind_pb = torch.where(tri_win, tk >> 8, kind_pb)
+            if n_vol:
+                vol = vol & ~tri_win
         if mix:  # the level-0 coin: u >= factor picks leaf A
-            pick_a = us[:, 0] >= row[:, _FACTOR]
-            mat = torch.where(pick_a[:, None], mat,
-                              row[:, _LEAF_B:_LEAF_B + _MAT])
-            kind = torch.where(pick_a, kind, kind_b[idx])
+            pick_a = us[:, 0] >= fac
+            mat = torch.where(pick_a[:, None], mat, mat_b)
+            kind = torch.where(pick_a, kind, kind_pb)
         seen = {} if observe is not None else None
         if sky is not None:  # an escaping ray adds the sky's texel
             missed = alive & ~hit
@@ -537,6 +811,8 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
             extra = {"texels": seen.get("sky_texels")} if sky else {}
             if n_vol:
                 extra.update(windows=windows, vol=hit & vol)
+            if tri is not None:
+                extra.update(tri=hit & tri_win)
             observe(alive, hit, kind, **extra)
         o, d, thr, rad, alive = bounce_tail(
             fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n_,
@@ -548,7 +824,8 @@ def radiance_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                    key: tuple[int, int], ray_ids: torch.Tensor,
                    px: torch.Tensor, py: torch.Tensor, *, max_depth: int,
                    bg_kind: int, clay: bool, mix: bool = False,
-                   n_vol: int = 0, iso: bool = False,
+                   n_vol: int = 0, iso: bool = False, n_tm: int = 0,
+                   tri: Optional[torch.Tensor] = None,
                    sky: Optional[torch.Tensor] = None,
                    observe=None) -> torch.Tensor:
     """Per-ray radiance (R, 3) float32, in tensor ops on any device, and
@@ -557,28 +834,38 @@ def radiance_plain(fparams: torch.Tensor, kinds: torch.Tensor,
     Mirrors ``_radiance_math``'s op order (not the XLA integrator's): the
     direct quadratic with ``inv_a = 1/a``, ``<=``/``<`` tie rules, the
     normal as ``(p - c) * (1/r)``, a volume's window and free flight, the
+    triangles' bilinear test after the spheres (:func:`tri_closest`), the
     mix coin ``u >= factor``, the bounce stream's column layout and the
     lobe where-chain.  Where the JAX kernel calls ``rsqrt`` this computes
-    ``1 / sqrt``, as the CUDA kernel does.  ``mix``, ``n_vol`` and ``iso``
-    as :func:`scene_opts` gives them; ``sky``, the (H, W, 3) texels of a
-    SKYMAP background (``bg_kind`` SKYMAP), looked up where a ray escapes
-    (the JAX ``_env_finish``).  Frames larger than ``TILE_RAYS`` run tile
-    by tile.
+    ``1 / sqrt``, as the CUDA kernel does.  ``mix``, ``n_vol``, ``iso`` and
+    ``n_tm`` as :func:`scene_opts` gives them; ``tri``, the triangles'
+    rows (:func:`pack_tri`), with ``n_tm`` material slots at the end of
+    ``fparams`` and ``kinds``; ``sky``, the (H, W, 3) texels of a SKYMAP
+    background (``bg_kind`` SKYMAP), looked up where a ray escapes (the
+    JAX ``_env_finish``).  Frames larger than ``TILE_RAYS`` run tile by
+    tile.  A triangle's t has a gradient in the ray (through a and num_t);
+    its vertices and its flat normal are constants here, as in the kernels.
 
     ``observe``, for measurement only, is called once per bounce traced
     with the rays' masks ``(alive, hit, kind)``: alive at the bounce's
     start, hit something, the winner's material kind (the picked leaf's);
     with volumes also ``windows=``, the volume windows the rays crossed
     (each draws its free flight), and ``vol=``, the rays whose winner is a
-    volume; with a sky map ``texels=``, a (H * W,) bool mask of the texels
-    the bounce's escaping rays looked up (None when none escaped)."""
+    volume; with triangles ``tri=``, the rays whose winner is a triangle;
+    with a sky map ``texels=``, a (H * W,) bool mask of the texels the
+    bounce's escaping rays looked up (None when none escaped)."""
     if (bg_kind == B.SKYMAP) != (sky is not None):
         raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
                          "up in `sky`, and only then")
+    if (tri is None) != (n_tm == 0):
+        raise ValueError("triangles (`tri`) come with their material slots "
+                         "(`n_tm`), and only then")
     fp = fparams.to(px.device)
     kinds = kinds.to(px.device)
+    tri = None if tri is None else tri.to(px.device)
     bg = None if sky is None else sky_map(sky.to(px.device))
-    opts = (max_depth, bg_kind, clay, mix, n_vol, iso, bg, observe)
+    opts = (max_depth, bg_kind, clay, mix, n_vol, iso, n_tm, tri, bg,
+            observe)
     return torch.cat([
         _radiance_tile(fp, kinds, key, ray_ids[i:i + TILE_RAYS],
                        px[i:i + TILE_RAYS], py[i:i + TILE_RAYS], *opts)
@@ -621,19 +908,24 @@ def max_blocks(device: torch.device) -> int:
 
 def check_scene_inputs(fn: str, fparams: torch.Tensor, kinds: torch.Tensor,
                        key: tuple[int, int], mix: bool = False,
-                       n_vol: int = 0) -> int:
+                       n_vol: int = 0, n_tm: int = 0) -> int:
     """Check what every kernel of csrc/ takes (CUDA tensors, the packed
-    constants and kinds of 1 to MAX_SPHERES spheres, of which the last
-    ``n_vol`` are volumes, a key); -> the sphere count."""
+    constants and kinds of 0 to MAX_SPHERES spheres, of which the last
+    ``n_vol`` are volumes, and of ``n_tm`` triangle material slots, at
+    least one of either; a key); -> the sphere count."""
     if fparams.device.type != "cuda":
         raise ValueError(f"{fn} needs CUDA tensors, got {fparams.device}")
-    n = kinds.shape[0]
-    if not 0 < n <= MAX_SPHERES or not 0 <= n_vol <= n:
-        raise ValueError(f"{n} spheres ({n_vol} volumes); the kernel takes "
-                         f"1 to {MAX_SPHERES}")
+    n = kinds.shape[0] - n_tm
+    if (not 0 <= n <= MAX_SPHERES or not 0 <= n_vol <= n
+            or not 0 <= n_tm <= MAX_TRI_MATS or n + n_tm == 0):
+        raise ValueError(f"{n} spheres ({n_vol} volumes) and {n_tm} "
+                         f"triangle materials; the kernel takes 0 to "
+                         f"{MAX_SPHERES} spheres and 0 to {MAX_TRI_MATS} "
+                         "triangle materials, at least one of either")
     _check(fparams, "fparams", torch.float32,
-           (_SPHERES + n * sphere_stride(mix, n_vol),), fparams.device)
-    _check(kinds, "kinds", torch.int32, (n,), fparams.device)
+           (_SPHERES + n * sphere_stride(mix, n_vol)
+            + n_tm * tri_stride(mix),), fparams.device)
+    _check(kinds, "kinds", torch.int32, (n + n_tm,), fparams.device)
     _check_key(key)
     return n
 
@@ -650,6 +942,22 @@ def sky_args(sky: Optional[torch.Tensor], device) -> list:
     return [ctypes.c_void_p(sky.data_ptr()), sky.shape[0], sky.shape[1]]
 
 
+def tri_args(tri: Optional[torch.Tensor], n_tm: int, device) -> list:
+    """The triangles' pointer and count and the material slots' count
+    (null, 0, 0 without triangles), checked."""
+    if (tri is None) != (n_tm == 0):
+        raise ValueError("triangles (`tri`) come with their material slots "
+                         "(`n_tm`), and only then")
+    if tri is None:
+        return [ctypes.c_void_p(0), 0, 0]
+    n_tri = tri.shape[0]
+    if not 0 < n_tri <= MAX_TRIS:
+        raise ValueError(f"{n_tri} triangles; the kernel takes 1 to "
+                         f"{MAX_TRIS}")
+    _check(tri, "tri", torch.float32, (n_tri, TRI_COLS), device)
+    return [ctypes.c_void_p(tri.data_ptr()), n_tri, n_tm]
+
+
 def ext_flags(mix: bool, n_vol: int, iso: bool) -> list:
     """The kernels' run-time flags of a scene: its new branches (any of
     mixes, volumes, the isotropic lobe), mixes, volume spheres."""
@@ -659,15 +967,17 @@ def ext_flags(mix: bool, n_vol: int, iso: bool) -> list:
 def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                   key: tuple[int, int], n_rays: int, spp: int, width: int, *,
                   max_depth: int, bg_kind: int, clay: bool, mix: bool = False,
-                  n_vol: int = 0, iso: bool = False,
+                  n_vol: int = 0, iso: bool = False, n_tm: int = 0,
+                  tri: Optional[torch.Tensor] = None,
                   sky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-ray radiance (n_rays, 3) from the CUDA kernel for rays
     0 .. n_rays - 1, where ray id = pixel * spp + sample and pixels run
     row-major over ``width``."""
-    global LAUNCHES, EXT_LAUNCHES, SKY_LAUNCHES
+    global LAUNCHES, EXT_LAUNCHES, SKY_LAUNCHES, TRI_LAUNCHES
     from . import _build
 
-    n = check_scene_inputs("radiance_cuda", fparams, kinds, key, mix, n_vol)
+    n = check_scene_inputs("radiance_cuda", fparams, kinds, key, mix, n_vol,
+                           n_tm)
     if not 0 <= n_rays < 2 ** 31 or spp < 1 or width < 1 or max_depth < 0:
         raise ValueError(f"bad launch: n_rays={n_rays} spp={spp} "
                          f"width={width} max_depth={max_depth}")
@@ -675,6 +985,7 @@ def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
         raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
                          "up in `sky`, and only then")
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=fparams.device)
+    tris = tri_args(tri, n_tm, fparams.device)
     if n_rays == 0:
         return out
     flags = ext_flags(mix, n_vol, iso)
@@ -685,14 +996,15 @@ def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
             ctypes.c_void_p(fparams.data_ptr()),
             ctypes.c_void_p(kinds.data_ptr()), n, key[0], key[1], n_rays,
             spp, width, max_depth, int(bg_kind), int(bool(clay)), *flags,
-            *sky_args(sky, fparams.device), ctypes.c_void_p(out.data_ptr()),
-            ctypes.c_void_p(stream))
+            *tris, *sky_args(sky, fparams.device),
+            ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"rtrt_radiance launch failed: CUDA error {err} "
                            f"({_build.error_string(err)})")
     LAUNCHES += 1
     EXT_LAUNCHES += flags[0]
     SKY_LAUNCHES += int(sky is not None)
+    TRI_LAUNCHES += int(tri is not None)
     return out
 
 
@@ -729,14 +1041,15 @@ def uniforms_cuda(key: tuple[int, int], ray_ids: torch.Tensor, stream: int,
 def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
              key: tuple[int, int], n_pixels: int, spp: int, width: int, *,
              max_depth: int, bg_kind: int, clay: bool, mix: bool = False,
-             n_vol: int = 0, iso: bool = False,
+             n_vol: int = 0, iso: bool = False, n_tm: int = 0,
+             tri: Optional[torch.Tensor] = None,
              sky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3) of pixels 0 .. n_pixels - 1:
     the kernel for CUDA tensors, the plain version for CPU tensors (which
     autograd differentiates).  ops/radiance_grad.radiance adds the card's
     gradient."""
     opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay, mix=mix,
-                n_vol=n_vol, iso=iso, sky=sky)
+                n_vol=n_vol, iso=iso, n_tm=n_tm, tri=tri, sky=sky)
     if select_engine(fparams.device) == "cuda":
         return radiance_cuda(fparams, kinds, key, n_pixels * spp, spp, width,
                              **opts)

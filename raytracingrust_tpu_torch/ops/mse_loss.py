@@ -17,13 +17,14 @@ PyTorch (the JAX ``mse`` primal).  The plain version is that reduction over
 gradient follows ``jnp.clip``: half at a sample exactly on 0 or ``clamp``.
 
 Gate: :func:`supports_fused_mse`.  ``LAUNCHES`` counts kernel launches,
-``EXT_LAUNCHES`` again those of its variant with mixes, volumes or the
-isotropic lobe.
+``EXT_LAUNCHES`` and ``TRI_LAUNCHES`` again those of its variants with
+mixes, volumes or the isotropic lobe, and with triangles.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -33,12 +34,15 @@ from . import megakernel as K
 
 LAUNCHES = 0
 EXT_LAUNCHES = 0
+TRI_LAUNCHES = 0
 
 
 def supports_fused_mse(scene: Scene) -> bool:
     """The kernel's envelope without a sky map (the JAX
     ``supports_fused_mse``: its fused kernel cannot gather the sky), at
-    depth <= megakernel.MAX_DEPTH."""
+    depth <= megakernel.MAX_DEPTH; triangles included (the JAX fit
+    dispatch sends triangle scenes elsewhere, render.select_engine says
+    why the port does not)."""
     return (K.supports(scene) and scene.background.kind != B.SKYMAP
             and scene.settings.max_ray_depth <= K.MAX_DEPTH)
 
@@ -54,13 +58,14 @@ def mse_loss_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                    key: tuple[int, int], target: torch.Tensor, spp: int,
                    width: int, *, max_depth: int, bg_kind: int, clay: bool,
                    clamp: float, mix: bool = False, n_vol: int = 0,
-                   iso: bool = False) -> torch.Tensor:
+                   iso: bool = False, n_tm: int = 0,
+                   tri: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The loss in PyTorch ops on any device, differentiable by autograd."""
     ray_ids, px, py = K.prep_rays(
         torch.arange(target.shape[0], device=target.device), spp, width)
     rad = K.radiance_plain(fparams, kinds, key, ray_ids, px, py,
                            max_depth=max_depth, bg_kind=bg_kind, clay=clay,
-                           mix=mix, n_vol=n_vol, iso=iso)
+                           mix=mix, n_vol=n_vol, iso=iso, n_tm=n_tm, tri=tri)
     return reduce_mse(rad, target, spp, clamp)
 
 
@@ -68,13 +73,15 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                   key: tuple[int, int], target: torch.Tensor, spp: int,
                   width: int, *, max_depth: int, bg_kind: int, clay: bool,
                   clamp: float, mix: bool = False, n_vol: int = 0,
-                  iso: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
+                  iso: bool = False, n_tm: int = 0,
+                  tri: Optional[torch.Tensor] = None
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
     """(loss, d loss / d fparams) from one launch of the fused kernel."""
-    global LAUNCHES, EXT_LAUNCHES
+    global LAUNCHES, EXT_LAUNCHES, TRI_LAUNCHES
     from . import _build
 
     n = K.check_scene_inputs("mse_loss_cuda", fparams, kinds, key, mix,
-                             n_vol)
+                             n_vol, n_tm)
     if bg_kind == B.SKYMAP:
         raise ValueError("the fused loss kernel takes no sky map (as the JAX "
                          "package's): its fit takes the forward and the "
@@ -86,6 +93,7 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
     if not 0 < n_pixels * spp < 2 ** 31 or spp < 1 or width < 1:
         raise ValueError(f"bad launch: n_pixels={n_pixels} spp={spp} "
                          f"width={width}")
+    tris = K.tri_args(tri, n_tm, dev)
     blocks = K.max_blocks(dev)
     partials = torch.empty((blocks, k + 1), dtype=torch.float32, device=dev)
     out = torch.empty((k + 1,), dtype=torch.float32, device=dev)
@@ -96,7 +104,7 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
             ctypes.c_void_p(fparams.data_ptr()),
             ctypes.c_void_p(kinds.data_ptr()), n, key[0], key[1], n_pixels,
             spp, width, max_depth, int(bg_kind), int(bool(clay)), *flags,
-            float(clamp), ctypes.c_void_p(target.data_ptr()),
+            *tris, float(clamp), ctypes.c_void_p(target.data_ptr()),
             ctypes.c_void_p(partials.data_ptr()), blocks,
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -105,6 +113,7 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                            f"({_build.error_string(err)})")
     LAUNCHES += 1
     EXT_LAUNCHES += flags[0]
+    TRI_LAUNCHES += int(tri is not None)
     return out[k], out[:k]
 
 
@@ -129,12 +138,13 @@ def mse_loss(fparams: torch.Tensor, kinds: torch.Tensor,
              key: tuple[int, int], target: torch.Tensor, spp: int,
              width: int, *, max_depth: int, bg_kind: int, clay: bool,
              clamp: float, mix: bool = False, n_vol: int = 0,
-             iso: bool = False) -> torch.Tensor:
+             iso: bool = False, n_tm: int = 0,
+             tri: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The frame's loss, differentiable in ``fparams``: on the card the
     fused kernel under autograd, the forward kernel plus a PyTorch
     reduction without it; on the CPU the plain version."""
     opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay, mix=mix,
-                n_vol=n_vol, iso=iso)
+                n_vol=n_vol, iso=iso, n_tm=n_tm, tri=tri)
     if K.select_engine(fparams.device) == "cuda":
         if fparams.requires_grad and torch.is_grad_enabled():
             return FusedMSE.apply(fparams, kinds, key, target, spp, width,

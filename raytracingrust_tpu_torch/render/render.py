@@ -47,15 +47,17 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
     """"env" (the record walk of #5, the replay and kernel #8) for a scene
     that uses HDRI importance sampling and the BVH gate admits, at any
     primitive count; else "brute" (kernel #1) for what the JAX package's
-    brute kernel takes but triangles: 1 to 128 spheres, constant-density
-    sphere volumes among them, single-level mixes, isotropic materials, a
-    uniform, gradient or sky-map background, at any depth, whether or not
-    the scene was built with its BVH; else "bvh" (kernel #5) for a scene
-    its gate admits, every scene with up to 4 mesh volumes built with its
-    BVH among them; else NotImplementedError naming the ROADMAP item that
-    ports the scene (brute triangles without the BVH: A5; a mesh volume,
-    nested mixes or a view without the BVH, more than 4 mesh volumes, or
-    one under importance sampling: the XLA integrator, A6).
+    brute kernel takes: 0 to 128 spheres, constant-density sphere volumes
+    among them, and up to 8,192 surface triangles when the scene was built
+    without its BVH, at least one primitive, single-level mixes, isotropic
+    materials, a uniform, gradient or sky-map background, at any depth (a
+    sphere scene whether or not it was built with its BVH); else "bvh"
+    (kernel #5) for a scene its gate admits, every scene with triangles
+    built with its BVH among them; else NotImplementedError naming the
+    ROADMAP item that ports the scene (without the BVH: more than 128
+    spheres or 8,192 triangles, a mesh volume, nested mixes or a view, the
+    XLA integrator, A6; more than 4 mesh volumes, or one under importance
+    sampling: A6 too).
 
     ``grad``: a gradient will be asked of the render.  The brute path's
     gradient kernels record at most ``megakernel.MAX_DEPTH`` bounces a ray,
@@ -70,12 +72,18 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
     limit to its BVH kernel; here they stay on #1, which runs any depth.
     It renders importance-sampled scenes of up to 256 primitives with its
     XLA integrator, which the port lacks; here they take the env path too,
-    and without their BVH they raise (ROADMAP A6, A10).  It renders sphere
-    scenes with triangles on its brute kernel when they were built without
-    their BVH; here they raise naming A5.  It renders the Normal and Random
-    views of a sky map with its XLA integrator; here #5 renders every view
-    (of a scene without its BVH they raise naming ROADMAP A6).  A view has
-    no gradient: with ``grad`` it raises ValueError."""
+    and without their BVH they raise (ROADMAP A6, A10).  It renders a
+    scene of more than 1,024 triangles built without its BVH with its XLA
+    integrator (``TPU_MAX_BRUTE_TRIS``: its brute kernel's matmul chunks
+    overflow the TPU's scoped memory); the port has no XLA integrator (A6)
+    and keeps such a scene on #1 up to ``megakernel.MAX_TRIS``.  Its
+    ``resolve_fit_engine`` never sends a triangle fit to the brute kernels
+    (Mosaic crashes compiling their VJP) but to its XLA integrator without
+    a BVH; here they take #3 and #4 up to depth 12, whose adjoint has no
+    such limit.  It renders the Normal and Random views of a sky map with
+    its XLA integrator; here #5 renders every view (of a scene without its
+    BVH they raise naming ROADMAP A6).  A view has no gradient: with
+    ``grad`` it raises ValueError."""
     if grad and scene.settings.mode in BK.VIEWS:
         raise ValueError(f"the {scene.settings.mode} view is an inspection "
                          "view, not a loss surface: it has no gradient (as "
@@ -92,7 +100,9 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
         return "env"
     brute = K.unsupported(scene)
     deep = grad and scene.settings.max_ray_depth > K.MAX_DEPTH
-    if brute is None and not deep:
+    # triangles take the brute kernels only without the BVH (as in JAX)
+    tri_bvh = len(scene.triangles) and scene.cbvh is not None
+    if brute is None and not deep and not tri_bvh:
         return "brute"
     bvh = BK.unsupported_bvh(scene)
     if bvh is None:
@@ -103,9 +113,8 @@ def select_engine(scene: Scene, grad: bool = False) -> str:
             "the scene's BVH need the XLA integrator, not ported yet "
             "(ROADMAP A6): build the scene with with_bvh=True (or "
             "enable_bvh_tree)")
-    small = (0 < len(scene.spheres) <= K.MAX_SPHERES
-             and not scene.num_mesh_volumes)
-    raise NotImplementedError(brute if small else bvh)
+    raise NotImplementedError(bvh if scene.cbvh is not None
+                              or scene.num_mesh_volumes else brute)
 
 
 def resolve_engine(scene: Scene, engine=None, grad: bool = False) -> str:
@@ -156,8 +165,10 @@ def pixel_radiance(scene: Scene, width: int, height: int,
                           debug=BK.VIEWS.get(s.mode), **opts)
     else:
         fparams = K.pack_fparams(scene, width, height).to(device)
-        kinds = K.sphere_kinds(scene).to(device)
+        kinds = K.brute_kinds(scene).to(device)
+        tri = K.pack_tri(scene)
         rad = radiance(fparams, kinds, key, width * height, spp, width,
+                       tri=None if tri is None else tri.to(device),
                        sky=None if sky is None else sky.image,
                        **K.scene_opts(scene))
     rad = K.clip_samples(rad, s.clamp_indirect)

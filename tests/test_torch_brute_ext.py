@@ -217,17 +217,13 @@ def _variants(mod):
 
 def test_gate_equals_jax_supports():
     """``unsupported`` is None exactly where JAX ``supports`` admits the
-    scene, for each feature alone (mix, isotropic, volume, sky map), a
-    nested mix, env-IS, a view and a mesh volume; triangles are the one
-    difference, refused naming ROADMAP A5 (still to come)."""
+    scene, for each feature alone (mix, isotropic, volume, sky map,
+    triangles), a nested mix, env-IS, a view and a mesh volume."""
     jv, tv = _variants(J), _variants(T)
     for name in jv:
         j, t = jv[name].build(with_bvh=False), tv[name].build(with_bvh=False)
         why = TK.unsupported(t)
-        if name == "triangle":
-            assert PK.supports(j) and "ROADMAP A5" in why
-        else:
-            assert (why is None) == PK.supports(j), (name, why)
+        assert (why is None) == PK.supports(j), (name, why)
     assert "ROADMAP A6" in TK.unsupported(tv["nested mix"].build(False))
 
 
@@ -235,10 +231,10 @@ def test_routes_equal_jax(monkeypatch):
     """The port's ``select_engine`` gives JAX ``select_engine``'s route
     (with the TPU it dispatches for) on every scene of the gate's list,
     with and without its BVH: "pallas" is "brute", "pallas_bvh" is "bvh";
-    where JAX falls back to its XLA integrator (or renders triangles on
-    its brute kernel without a BVH) the port raises naming ROADMAP A6 (A5),
-    and env-IS takes the port's "env" path with its BVH.  No A5 refusal
-    is left for a sphere scene inside the gate."""
+    where JAX falls back to its XLA integrator the port raises naming
+    ROADMAP A6, and env-IS takes the port's "env" path with its BVH.  A
+    triangle scene built without its BVH takes the brute kernels, as in
+    JAX."""
     monkeypatch.setattr(jax, "devices", lambda *a: [types.SimpleNamespace(
         platform="tpu")])
     names = {"pallas": "brute", "pallas_bvh": "bvh"}
@@ -250,10 +246,8 @@ def test_routes_equal_jax(monkeypatch):
             if name == "env-IS" and bvh:
                 assert select_engine(t) == "env"
                 continue
-            if want == "xla" or (name == "triangle" and not bvh):
-                with pytest.raises(NotImplementedError,
-                                   match="ROADMAP A5" if want == "pallas"
-                                   else "ROADMAP A6"):
+            if want == "xla":
+                with pytest.raises(NotImplementedError, match="ROADMAP A6"):
                     select_engine(t)
                 continue
             assert select_engine(t) == names[want], (name, bvh, want)

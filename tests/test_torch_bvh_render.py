@@ -210,16 +210,33 @@ def _refusal(make):
 def test_select_engine_and_refusals(tmp_path):
     """1 to 128 spheres without triangles take the brute kernel at any
     depth, single-level mixes, isotropic materials and sphere volumes
-    included (as in the JAX package); other scenes the BVH gate admits
-    take #5, mixes, isotropic materials and sphere volumes included; the
-    rest raise, naming the ROADMAP item that ports them or the JAX
-    package's limit."""
+    included (as in the JAX package); so does a scene with triangles built
+    without its BVH, a triangle-only one too; other scenes the BVH gate
+    admits take #5, mixes, isotropic materials and sphere volumes
+    included; the rest raise, naming the ROADMAP item that ports them or
+    the JAX package's limit: 129 spheres without the BVH need the XLA
+    integrator (A6)."""
     small = grid_builder(T, n=3, depth=40)
     assert select_engine(small.build()) == "brute"  # a deep sphere chain
     assert select_engine(grid_builder(T, n=6).build()) == "bvh"
     assert select_engine(mesh_builder(T).build()) == "bvh"
-    assert "with_bvh=True" in _refusal(
-        lambda: grid_builder(T, n=6).build(with_bvh=False))
+    assert select_engine(mesh_builder(T).build(with_bvh=False)) == "brute"
+    row = T.SceneBuilder()
+    lam = row.add_material(T.Lambertian((0.5, 0.5, 0.5)))
+    for i in range(129):
+        row.add_sphere((0.1 * i, 0, -3), 0.04, lam)
+    for many in (lambda: grid_builder(T, n=6).build(with_bvh=False),
+                 lambda: row.build(with_bvh=False)):
+        why = _refusal(many)
+        assert "ROADMAP A6" in why and "with_bvh=True" in why
+    assert select_engine(row.build(with_bvh=True)) == "bvh"
+    tri = T.SceneBuilder()
+    tri.add_mesh(T.models.mesh.Mesh.from_buffers(
+        np.array([[-1, -1, -3], [1, -1, -3], [0, 1, -3]], np.float32),
+        np.zeros((3, 3), np.float32), np.array([[0, 1, 2]], np.int32),
+        tri.add_material(T.Lambertian((0.5, 0.5, 0.5)))))
+    for grad in (False, True):
+        assert select_engine(tri.build(with_bvh=False), grad=grad) == "brute"
 
     def with_material(m, n=6):
         b = grid_builder(T, n=n)

@@ -708,12 +708,15 @@ def brute_ext_builder(mod, depth=3, spp=2, sky=False):
 
 
 def _brute_inputs(scene, w, h, device):
-    """The packed constants, kinds, options and sky of a brute scene."""
+    """The packed constants, kinds, options (with the triangles' rows) and
+    sky of a brute scene."""
     fp = TK.pack_fparams(scene, w, h).to(device)
-    kinds = TK.sphere_kinds(scene).to(device)
+    kinds = TK.brute_kinds(scene).to(device)
     sky = (scene.background.image.to(device)
            if scene.background.image is not None else None)
-    return fp, kinds, TK.scene_opts(scene), sky
+    tri = TK.pack_tri(scene)
+    return fp, kinds, {**TK.scene_opts(scene), "tri": None if tri is None
+                       else tri.to(device)}, sky
 
 
 _BRUTE_EXT = {
@@ -1153,3 +1156,185 @@ def test_mesh_volume_fit_on_card(cuda_device):
     assert (TB.RECORD_LAUNCHES, TB.MV_LAUNCHES, TF.FETCH_LAUNCHES,
             TF.TRANSPOSE_LAUNCHES) == tuple(c + 3 for c in counts)
     assert all(np.isfinite(history)) and history[-1] < history[0]
+
+
+# ------------------------------------------------ the brute kernels' kTri
+
+def brute_tri_builder(mod, name, depth=3, spp=2, sky=False):
+    """Triangle scenes built without their BVH, for either package:
+    "tri" is tests/test_pallas.py::_tri_builder (a Lambertian tetrahedron,
+    a metal triangle, a ground triangle and an emitter sphere), "tri_only"
+    the same without the sphere, "tri_mix" with a mix (Lambertian, metal)
+    in the metal triangle's place, "tri_grad" with a metal sphere beside
+    the emitter under a gradient background (a path's radiance then
+    depends on each triangle's t), "zoo" :func:`brute_ext_builder`'s mini
+    zoo (or under its 16x32 sky) with a triangle of its mix material, an
+    isotropic triangle beside its fog sphere and a glass one, "fan" the
+    600-triangle fan of test_pallas_triangle_chunking (two 512-triangle
+    chunks)."""
+    mesh = mod.models.mesh.Mesh
+
+    def add(b, verts, faces, mat):
+        v = np.asarray(verts, np.float32)
+        b.add_mesh(mesh.from_buffers(v, v, np.asarray(faces, np.int32),
+                                     mat))
+
+    if name == "zoo":
+        b = brute_ext_builder(mod, depth, spp, sky)
+        glass = b.add_material(mod.Dielectric(1.5))
+        add(b, [[-1.5, 0, -0.8], [-0.3, 0, -0.9], [-0.9, 1.2, -0.85]],
+            [[0, 1, 2]], 2)  # the mix
+        add(b, [[0.3, -0.2, 0.9], [0.9, -0.2, 0.7], [0.6, 0.7, 0.8]],
+            [[0, 1, 2]], 4)  # isotropic, beside the fog
+        add(b, [[-0.5, 0.5, 0.5], [0.5, 0.5, 0.5], [0, 0.9, 0.2]],
+            [[0, 1, 2]], glass)
+        return b
+    b = mod.SceneBuilder()
+    b.settings = mod.RenderSettings(samples_per_pixel=spp,
+                                    max_ray_depth=depth,
+                                    enable_bvh_tree=False)
+    if name == "fan":
+        n = 600
+        ang = np.linspace(0, 2 * np.pi, n + 1)
+        rim = np.stack([0.8 * np.cos(ang), 0.3 + 0.0 * ang,
+                        -1.0 + 0.8 * np.sin(ang)], -1)
+        b.camera = mod.Camera.create((0, 1.5, 1.5), (0, 0.2, -1.0),
+                                     (0, 1, 0), 60.0, 1.0)
+        faces = np.stack([np.zeros(n), np.arange(1, n + 1),
+                          np.arange(2, n + 2)], -1)
+        add(b, np.concatenate([[[0.0, 0.3, -1.0]], rim]), faces,
+            b.add_material(mod.Lambertian((0.6, 0.6, 0.2))))
+        return b
+    b.camera = mod.Camera.create((0, 0.6, 2.0), (0, 0.2, 0), (0, 1, 0),
+                                 60.0, 1.0)
+    if sky:
+        b.background = brute_ext_builder(mod, sky=True).background
+    elif name == "tri_grad":
+        b.background = mod.Background.gradient((0.5, 0.7, 1.0),
+                                               (1.0, 1.0, 1.0))
+    ml = b.add_material(mod.Lambertian((0.7, 0.4, 0.2)))
+    mm = b.add_material(mod.Metal((0.9, 0.9, 0.95), 0.05)
+                        if name != "tri_mix" else mod.MixMaterial(
+                            mod.Lambertian((0.2, 0.5, 0.8)),
+                            mod.Metal((0.9, 0.9, 0.95), 0.05), 0.4))
+    add(b, [[0, 0, 0], [0.6, 0, 0.1], [0.3, 0, -0.5], [0.3, 0.7, -0.1]],
+        [[0, 1, 3], [1, 2, 3], [2, 0, 3], [0, 2, 1]], ml)
+    add(b, [[-1.0, 0, -0.5], [-0.2, 0, -0.6], [-0.6, 0.8, -0.55]],
+        [[0, 1, 2]], mm)
+    add(b, [[-20, 0, -20], [20, 0, -20], [0, 0, 20]], [[0, 1, 2]], ml)
+    if name != "tri_only":
+        b.add_sphere((1.2, 1.5, 0.5), 0.5,
+                     b.add_material(mod.Emission((2.0, 1.8, 1.5))))
+    if name == "tri_grad":
+        b.add_sphere((0.9, 0.3, 0.1), 0.3,
+                     b.add_material(mod.Metal((0.8, 0.85, 0.9), 0.1)))
+    return b
+
+
+# each variant of the kernels' triangle branch: (builder args, kExt, kSky)
+_BRUTE_TRI = {
+    "tri": (("tri",), False, False),
+    "tri_only": (("tri_only",), False, False),
+    "ext-tri": (("zoo",), True, False),
+    "sky-tri": (("tri",), False, True),
+    "ext-sky-tri": (("zoo",), True, True),
+}
+
+
+def _brute_tri(name, depth):
+    args, _, sky = _BRUTE_TRI[name]
+    return brute_tri_builder(T, *args, depth=depth, sky=sky).build()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_BRUTE_TRI))
+def test_brute_tri_kernel_matches_plain_on_card(cuda_device, name):
+    """Kernel #1's kTri variants (alone, with kExt, kSky, both) bit for bit
+    equal to their plain version at depth 1 and 6 (as chip_smoke.py phase
+    14); each launch counts as its variants."""
+    w, h = 64, 48
+    _, ext, with_sky = _BRUTE_TRI[name]
+    for depth in (1, 6):
+        scene = _brute_tri(name, depth)
+        fp, kinds, opts, sky = _brute_inputs(scene, w, h, cuda_device)
+        key = trng.base_key(11)
+        spp = scene.settings.samples_per_pixel
+        counts = (TK.LAUNCHES, TK.EXT_LAUNCHES, TK.SKY_LAUNCHES,
+                  TK.TRI_LAUNCHES)
+        ker = TK.radiance_cuda(fp, kinds, key, w * h * spp, spp, w, sky=sky,
+                               **opts)
+        torch.cuda.synchronize()
+        assert (TK.LAUNCHES, TK.EXT_LAUNCHES, TK.SKY_LAUNCHES,
+                TK.TRI_LAUNCHES) == (counts[0] + 1, counts[1] + ext,
+                                     counts[2] + with_sky, counts[3] + 1)
+        ids, px, py = TK.prep_rays(torch.arange(w * h, device=cuda_device),
+                                   spp, w)
+        plain = TK.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
+                                  **opts)
+        assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_BRUTE_TRI))
+def test_brute_tri_gradients_match_plain_on_card(cuda_device, name):
+    """Kernel #3's kTri variants and, without a sky map, kernel #4's
+    against autograd through the plain version at depth 6: every entry
+    within rtol 2e-3 plus 2e-5 of the largest, the triangles' material
+    slots included."""
+    w, h = 48, 32
+    scene = _brute_tri(name, 6)
+    fp, kinds, opts, sky = _brute_inputs(scene, w, h, cuda_device)
+    key = trng.base_key(5)
+    spp = scene.settings.samples_per_pixel
+    gen = np.random.default_rng(0)
+    cts = torch.tensor(gen.standard_normal((w * h * spp, 3)),
+                       dtype=torch.float32, device=cuda_device)
+    before = (TR.TRI_LAUNCHES, TM.TRI_LAUNCHES)
+    got = TR.radiance_grad_cuda(fp, kinds, key, cts, spp, w, sky=sky, **opts)
+    want = TR.radiance_grad_plain(fp, kinds, key, cts, spp, w, sky=sky,
+                                  **opts)
+    for a, b in zip(*((got, want) if sky is not None else ([got], [want]))):
+        assert bool(torch.isfinite(a).all()) and b.abs().max() > 0
+        assert _close(a, b)
+    if sky is not None:
+        assert (TR.TRI_LAUNCHES, TM.TRI_LAUNCHES) == (before[0] + 1,
+                                                      before[1])
+        return
+    slots = (fp.shape[0] - opts["n_tm"] * TK.tri_stride(opts["mix"]))
+    assert want[slots:].abs().max() > 0  # the slots' materials
+    target = torch.tensor(gen.random((w * h, 3)), dtype=torch.float32,
+                          device=cuda_device)
+    clamp = scene.settings.clamp_indirect
+    loss, dfp = TM.mse_loss_cuda(fp, kinds, key, target, spp, w,
+                                 clamp=clamp, **opts)
+    assert (TR.TRI_LAUNCHES, TM.TRI_LAUNCHES) == (before[0] + 1,
+                                                  before[1] + 1)
+    fpg = fp.clone().requires_grad_(True)
+    p_loss = TM.mse_loss_plain(fpg, kinds, key, target, spp, w, clamp=clamp,
+                               **opts)
+    (p_dfp,) = torch.autograd.grad(p_loss, fpg)
+    assert abs(loss.item() - p_loss.item()) <= 1e-5 * p_loss.item()
+    assert _close(dfp, p_dfp)
+
+
+@pytest.mark.gpu
+def test_brute_tri_render_and_fit_on_card(cuda_device):
+    """A triangle scene built without its BVH renders on #1's kTri variant
+    and fits on #4's (make_loss under autograd), the loss falling; built
+    with its BVH it takes #5."""
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.render.render import select_engine
+
+    scene = brute_tri_builder(T, "zoo", depth=4).build()
+    assert select_engine(scene) == select_engine(scene, grad=True) == "brute"
+    before = (TK.TRI_LAUNCHES, TM.TRI_LAUNCHES, TB.LAUNCHES)
+    target = T.render_linear(TG.apply_params(scene, {
+        "albedo": scene.materials.albedo * 0.6}), 48, 32, seed=1,
+        device=cuda_device)
+    _, _, history = fit(scene, target, ["albedo", "emission"], 48, 32,
+                        steps=3, device=cuda_device, resample_every=0)
+    assert (TK.TRI_LAUNCHES, TM.TRI_LAUNCHES, TB.LAUNCHES) == (
+        before[0] + 1, before[1] + 3, before[2])
+    assert all(np.isfinite(history)) and history[-1] < history[0]
+    with_bvh = brute_tri_builder(T, "zoo", depth=4).build(with_bvh=True)
+    assert select_engine(with_bvh) == "bvh"
