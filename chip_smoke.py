@@ -29,9 +29,15 @@ non-zero exit, and prints no result:
    and 512x512 spp 8 depth 6.  Every entry of a gradient must lie within
    GRAD_RTOL of the plain version's or GRAD_ATOL of its largest entry, the
    loss within LOSS_RTOL; every parameter group the case can move must
-   have a nonzero gradient.  Then bench.py::run_parity's directional
-   finite-difference probe of the fused kernel's own loss at 64x48, and
-   the kernels' and plain versions' times at 512x512;
+   have a nonzero gradient.  Then the fused kernel's lane groups where
+   they can break: each of its four variants (benchmark.json's spheres,
+   the zoo's kExt, tri_brute's kTri, tri_zoo's kExt + kTri, written as in
+   phases 13 and 14) at depth 6 on a 61x37 frame, whose 2,257 pixels fill
+   no whole block, at spp 1, 5, 8, 16, 48 (groups across warps) and 130
+   (more than one sample a thread), loss and gradient against autograd
+   through the plain version as above.  Then bench.py::run_parity's
+   directional finite-difference probe of the fused kernel's own loss at
+   64x48, and the kernels' and plain versions' times at 512x512;
 6. the fit path: the CLI ``fit`` on scenes/benchmark.json at 512x512 spp 8
    depth 6 with bench.py's six parameters, against a target the port
    renders from perturbed albedos.  The fused kernel must launch once a
@@ -64,7 +70,8 @@ non-zero exit, and prints no result:
    GRAD_RTOL/GRAD_ATOL of autograd through the plain route, finite; a
    directional FD probe of ``make_loss`` on albedo, emission and
    bg_color_a within 5%.  Then the times, plain versions' times, the
-   library's ``index_select``/``index_add_`` times and bounds; the CLI
+   library's ``index_select`` time for #6 (#7 has none: no one call
+   scatters every table's winners) and bounds; the CLI
    ``fit`` of bvh_stress (albedo, emission; 6 steps) against a target the
    CLI rendered, whose loss must fall, with one launch of each of the
    three kernels a step; and the warm fit step of both shapes with its
@@ -320,10 +327,14 @@ OPS_ADJ_TRI = 30
 BYTES_TRI = 80  # a triangle's row (pack_tri)
 
 
-def _cuda_time_ms(fn, reps: int) -> float:
+def _cuda_time_ms(fn, reps: int, warm: bool = True) -> float:
+    """ms a call of ``fn``, the mean of ``reps`` after a warm-up call
+    (none with ``warm`` False: a plain version that ran at this shape just
+    before, whose seconds no first-call cost moves)."""
     import torch
 
-    fn()  # warm
+    if warm:
+        fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -444,6 +455,27 @@ class _Tally(_Count):
                       for k in (0, 1, 2, 4))
                 + scatter[5] * OPS_ADJ_VOL
                 + scatter[6] * (OPS_ADJ_TRI - OPS_ADJ_HIT))
+
+
+class _TallySum(_Count):
+    """:class:`_Tally`'s counts summed over ranges of rays, each range
+    traced on its own (:func:`_brute_plain_grads`): the forward counts and
+    the reverse sweep's FP32 operations, ``adj_ops``."""
+
+    def __init__(self):
+        super().__init__()
+        self.adj_ops = 0
+
+    def add(self, t: _Tally, bg_kind: int) -> None:
+        self.bounces += t.bounces
+        self.misses += t.misses
+        self.windows += t.windows
+        self.tri_hits += t.tri_hits
+        self.hits.update(t.hits)
+        if t.texels is not None:
+            self.texels = t.texels if self.texels is None else (
+                self.texels | t.texels)
+        self.adj_ops += t.adjoint_ops(bg_kind)
 
 
 def _sheet_obj(path: str, n_side: int) -> None:
@@ -680,8 +712,8 @@ def _forward_check(label, sc, key, n_pix: int, spp: int, width: int,
     """#5 against its plain version on the same rays: per-ray radiance bit
     for bit equal at depth 1 and at full depth on every ray (``opts`` may
     name a sky map).  Then #5's time, the plain version's (the full-depth
-    run), and with ``tally`` the work a second plain run's rays did and
-    #5's bound from it."""
+    run), and with ``tally`` the work that run's rays did (counted as it
+    runs, in its time) and #5's bound from it."""
     import torch
 
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
@@ -692,12 +724,15 @@ def _forward_check(label, sc, key, n_pix: int, spp: int, width: int,
                               width)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    count = collections.Counter() if tally else None
     for d in (1, opts["max_depth"]):
         at = {**opts, "max_depth": d}
         ker = BK.radiance_bvh_cuda(sc, key, n_rays, spp, width, **at)
         start.record()
         with torch.no_grad():
-            plain = BK.radiance_bvh_plain(sc, key, ids, px, py, **at)
+            plain = BK.radiance_bvh_plain(
+                sc, key, ids, px, py,
+                tally=count if d == opts["max_depth"] else None, **at)
         end.record()
         torch.cuda.synchronize()
         err = _bit_equal(f"{label}: #5's radiance at depth {d}", ker, plain)
@@ -707,9 +742,6 @@ def _forward_check(label, sc, key, n_pix: int, spp: int, width: int,
         sc, key, n_rays, spp, width, **opts), 5)
     if not tally:
         return dict(ms=ms, plain_ms=plain_ms, err=err)
-    count = collections.Counter()
-    with torch.no_grad():
-        BK.radiance_bvh_plain(sc, key, ids, px, py, tally=count, **opts)
     ops = _bvh_ops(sc, count, n_rays, opts["bg_kind"])
     return dict(ms=ms, plain_ms=plain_ms, err=err, tally=count, ops=ops,
                 bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays
@@ -735,7 +767,7 @@ def _record_check(label, sc, key, n_pix: int, spp: int, width: int,
     rays: both radiances equal the plain one bit for bit, and the codes
     the plain codes, on every ray and bounce.  -> (#5's radiance, the
     codes, the max abs difference (0.0), the plain walk's ms, and with
-    ``tally`` the work a second plain run's rays did)."""
+    ``tally`` the work its rays did, counted as it runs, in its time)."""
     import torch
 
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
@@ -749,10 +781,11 @@ def _record_check(label, sc, key, n_pix: int, spp: int, width: int,
                                       record=True, **opts)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    count = collections.Counter() if tally else None
     start.record()
     with torch.no_grad():
-        plain, plain_codes = BK.radiance_bvh_plain(sc, key, ids, px, py,
-                                                   record=True, **opts)
+        plain, plain_codes = BK.radiance_bvh_plain(
+            sc, key, ids, px, py, record=True, tally=count, **opts)
     end.record()
     torch.cuda.synchronize()
     err = max(_bit_equal(f"{label}: #5's radiance", ker, plain),
@@ -763,11 +796,6 @@ def _record_check(label, sc, key, n_pix: int, spp: int, width: int,
         raise AssertionError(f"{label}: record codes differ from the plain "
                              f"walk's on {int(bad.sum())} of {n_rays} rays")
     del rec, plain, plain_codes
-    count = None
-    if tally:
-        count = collections.Counter()
-        with torch.no_grad():
-            BK.radiance_bvh_plain(sc, key, ids, px, py, tally=count, **opts)
     return ker, codes, err, start.elapsed_time(end), count
 
 
@@ -775,9 +803,12 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
     """#6 against its plain version, bit for bit, and #7 against its plain
     version summed in float64, within FETCH_RTOL of the magnitudes each
     entry adds, on the winners of ``codes``.  Then their times, their
-    plain versions', the library's gather and scatter over the first
-    table's winners (``index_select``, ``index_add_``) and their bounds:
-    the tables, the codes and the rows they move, once."""
+    plain versions', the library's gather of the first table's rows
+    (``index_select``) and their bounds: the tables, the codes and the
+    rows they move, once.  #7 has no library time: no one PyTorch call
+    scatters every table's winners; the chain of calls that does (the
+    winners' compaction and an ``index_add_`` a table) is its plain
+    version."""
     import torch
 
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
@@ -828,31 +859,20 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
                 _cuda_time_ms(lambda: F.fetch_rows_transpose_plain(*targs),
                               2))
     # the library: the first table's rows (its slots count from 0 in the
-    # codes) and, unless raw, the material rows, gathered and scattered
+    # codes) and, unless raw, the material rows, gathered
     geo, mat = (sph_geo, sph_mat) if sph_geo is not None else (tri_geo,
                                                                tri_mat)
     flat = codes.reshape(-1)
     limit = tri_base if sph_geo is not None else BK.REC_SLOT + 1
     own = (flat >= 0) & ((flat & BK.REC_SLOT) < limit)
     slot = torch.where(own, flat & BK.REC_SLOT, 0).long()
-    hit_idx = own.nonzero().squeeze(1)
-    s_hit = slot[hit_idx]
-    g_all = g_rows.reshape(g_rows.shape[0], -1)
-    g_geo = g_all[:geo.shape[1], hit_idx].T.contiguous()
     if raw:  # the raw material id instead of the material rows
         lib = (_cuda_time_ms(lambda: (geo.index_select(0, slot),
-                                      mat.index_select(0, slot)), 10),
-               _cuda_time_ms(lambda: torch.zeros_like(geo).index_add_(
-                   0, s_hit, g_geo), 10))
+                                      mat.index_select(0, slot)), 10), None)
     else:
         mid = mat[slot].long()
-        m_hit = mid[hit_idx]
-        g_mat = g_all[-8:, hit_idx].T.contiguous()
         lib = (_cuda_time_ms(lambda: (geo.index_select(0, slot),
-                                      mats.index_select(0, mid)), 10),
-               _cuda_time_ms(lambda: (
-                   torch.zeros_like(geo).index_add_(0, s_hit, g_geo),
-                   torch.zeros_like(mats).index_add_(0, m_hit, g_mat)), 10))
+                                      mats.index_select(0, mid)), 10), None)
 
     n = codes.numel()
     valid = flat >= 0
@@ -1016,7 +1036,7 @@ def _print_fit_path(phase: str, label: str, size: str, r: dict, probe,
           f"{r['bound'][1]}); #6 {f['ms'][0]:.4f} ms (plain "
           f"{f['plain'][0]:.3f}, index_select {f['lib'][0]:.4f}, bound "
           f"{b6[0]:.5f} {b6[1]}); #7 {f['ms'][1]:.4f} ms (plain "
-          f"{f['plain'][1]:.3f}, index_add_ {f['lib'][1]:.4f}, bound "
+          f"{f['plain'][1]:.3f}, the chain of index_add_ a table, bound "
           f"{b7[0]:.5f} {b7[1]}); {r['hits']} hits of {n_codes} codes")
 
 
@@ -1077,7 +1097,9 @@ def _profile(run, steps: int) -> dict:
     kernels, the clamp, the mean, Adam's); the replay's halves and Adam by
     their ranges where a fit step names them (user annotations span their
     kernels on the device; #6 runs inside the replay's forward, #7 inside
-    its backward)."""
+    its backward).  The device events are read as the profiler recorded
+    them: ``key_averages`` first builds an event tree of every host op,
+    seconds of Python for the thousands of ops of a BVH fit step."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
 
@@ -1087,12 +1109,12 @@ def _profile(run, steps: int) -> dict:
         run(prof.step)
     part = collections.Counter()
     ranges = collections.Counter()
-    for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+    for evt in prof.profiler.kineto_results.events():
+        if evt.device_type() != torch.autograd.DeviceType.CUDA:
             continue
-        ms = getattr(evt, "self_device_time_total", 0.0) / 1e3 / steps
-        key = evt.key
-        if getattr(evt, "is_user_annotation", False):
+        ms = evt.duration_ns() / 1e6 / steps
+        key = evt.name()
+        if evt.is_user_annotation():
             ranges[key] += ms
             continue
         if "bvh_radiance_kernel" in key:
@@ -2552,18 +2574,19 @@ def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
 
 
 def _brute_plain_grads(fp, kinds, key, cts, target, spp: int, w: int,
-                       clamp: float, sky, opts: dict) -> tuple:
+                       clamp: float, sky, opts: dict, tally=None) -> tuple:
     """Autograd through the plain version over pixel ranges of about
     BRUTE_PLAIN_RAYS rays, summed: #3's gradient (dfparams, and dsky with
     a sky map) for the cotangents ``cts`` and, with ``target``, #4's loss
     and dfparams in its place (each range's squared errors over the whole
-    frame's pixel and channel count).  One graph of the frame would hold every bounce's
+    frame's pixel and channel count).  A :class:`_TallySum` ``tally`` gets
+    each range's work as it runs.  One graph of the frame would hold every bounce's
     per-sphere temporaries, 88 GB for the zoo at the fit's 3.84M rays."""
     import torch
 
     from raytracingrust_tpu_torch.ops import megakernel as K
 
-    n_pix = cts.shape[0] // spp
+    n_pix = cts.shape[0] // spp if target is None else target.shape[0]
     step = max(1, BRUTE_PLAIN_RAYS // spp)
     fpg = fp.detach().requires_grad_(True)
     skg = None if sky is None else sky.detach().requires_grad_(True)
@@ -2575,9 +2598,10 @@ def _brute_plain_grads(fp, kinds, key, cts, target, spp: int, w: int,
         p1 = min(n_pix, p0 + step)
         ids, px, py = K.prep_rays(torch.arange(p0, p1, device=fp.device),
                                   spp, w)
+        seen = None if tally is None else _Tally(opts["max_depth"])
         with torch.enable_grad():
             rad = K.radiance_plain(fpg, kinds, key, ids, px, py, sky=skg,
-                                   **opts)
+                                   observe=seen, **opts)
             if target is None:
                 grads = torch.autograd.grad(rad, leaves,
                                             cts[p0 * spp:p1 * spp],
@@ -2591,6 +2615,8 @@ def _brute_plain_grads(fp, kinds, key, cts, target, spp: int, w: int,
                 g4 += torch.autograd.grad(part, fpg)[0]
                 loss += part.detach().double()
         del rad
+        if seen is not None:
+            tally.add(seen, opts["bg_kind"])
     if target is not None:
         return loss.float(), g4
     return g3[0] if sky is None else tuple(g3)
@@ -2616,11 +2642,11 @@ def _brute_grad_check(label, scene, w: int, h: int, dev, key, gen,
     pixel ranges, :func:`_brute_plain_grads`), the texels' gradient
     included; each entry within GRAD_RTOL of the plain gradient's or
     GRAD_ATOL of its largest, finite, and each plain gradient finite and
-    nonzero.  Then the kernels' times, the plain versions', and their
-    bounds from a plain run's tally, all at that shape."""
+    nonzero.  Then the kernels' times, the plain versions' (#3's counting
+    its rays' work as it runs), and their bounds from that count, all at
+    that shape."""
     import torch
 
-    from raytracingrust_tpu_torch.ops import megakernel as K
     from raytracingrust_tpu_torch.ops import mse_loss as MS
     from raytracingrust_tpu_torch.ops import radiance_grad as RG
 
@@ -2641,19 +2667,20 @@ def _brute_grad_check(label, scene, w: int, h: int, dev, key, gen,
         return MS.mse_loss_cuda(fp, kinds, key, target, spp, w, clamp=clamp,
                                 **opts)
 
-    def plain(with_target: bool) -> tuple:
+    def plain(with_target: bool, tally=None) -> tuple:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         r = _brute_plain_grads(fp, kinds, key, cts,
                                target if with_target else None, spp, w,
-                               clamp, sky, opts)
+                               clamp, sky, opts, tally)
         torch.cuda.synchronize()
         return r, (time.perf_counter() - t0) * 1e3
 
     out = {"spp": spp}
     got = grad3()
     torch.cuda.reset_peak_memory_stats()
-    want, out["plain3_ms"] = plain(False)
+    tally = _TallySum()
+    want, out["plain3_ms"] = plain(False, tally)
     out["plain_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
     got, want = (got, want) if sky is not None else ((got,), (want,))
     out["err3"] = _held_grads(f"{label} #3", got, want)
@@ -2669,21 +2696,81 @@ def _brute_grad_check(label, scene, w: int, h: int, dev, key, gen,
         out["err4"] = _held_grads(f"{label} #4", (dfp,), (p_dfp,))
         out["ms4"] = _cuda_time_ms(loss4, 3)
     out["ms3"] = _cuda_time_ms(grad3, 3)
-    tally = _Tally(opts["max_depth"])
-    ids, px, py = K.prep_rays(torch.arange(w * h, device=dev), spp, w)
-    with torch.no_grad():
-        K.radiance_plain(fp, kinds, key, ids, px, py, sky=sky,
-                         observe=tally, **opts)
     n_sph, n_tri, scene_bytes = _brute_sizes(fp, kinds, opts)
     k_f = fp.numel()
     fwd = tally.forward_ops(n_rays, n_sph, n_tri=n_tri, **opts)
-    adj = tally.adjoint_ops(opts["bg_kind"])
+    adj = tally.adj_ops
     scene_bytes += 2 * tally.texel_bytes()
     out["bound3"] = _bound(fwd + adj, scene_bytes + 12 * n_rays + 4 * k_f)
     out["bound4"] = _bound(
         fwd + adj + n_rays * OPS_LOSS_RAY + w * h * OPS_LOSS_PIXEL,
         scene_bytes + 12 * w * h + 4 * (k_f + 1))
     return out
+
+
+# phase 5: the fused kernel's lane groups (csrc/mse_loss.cu) where they can
+# break: one sample a pixel, groups that leave lanes of a warp idle, fill a
+# warp, span warps, and take more than one sample a thread, on a frame
+# whose pixels fill no whole warp or block
+GROUP_FRAME = (61, 37)
+GROUP_SPP = (1, 5, 8, 16, 48, 130)
+GROUP_DEPTH = 6
+
+
+def fused_group_check(dev, card: str) -> float:
+    """#4's four variants (benchmark.json's spheres; the zoo, kExt;
+    tri_brute, kTri; tri_zoo, both) at GROUP_FRAME and GROUP_DEPTH for each
+    spp of GROUP_SPP: the loss within LOSS_RTOL and the gradient within
+    GRAD_RTOL/GRAD_ATOL of autograd through the plain version on the same
+    inputs, each launch counted as its variant.  -> the largest gradient
+    difference."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch.ops import mse_loss as MS
+    from raytracingrust_tpu_torch.utils import rng
+
+    tri = {label: path for label, path, *_ in tri_scenes()}
+    variants = (("spheres", BENCH, 0, 0), ("kExt", ZOO, 1, 0),
+                ("kTri", tri["tri_brute"], 0, 1),
+                ("kExt+kTri", tri["tri_zoo"], 1, 1))
+    w, h = GROUP_FRAME
+    key = rng.base_key(5)
+    gen = np.random.default_rng(5)
+    worst = 0.0
+    for label, path, ext, with_tri in variants:
+        t0 = time.perf_counter()
+        parts = []
+        for spp in GROUP_SPP:
+            scene = _load(path, spp=spp, depth=GROUP_DEPTH)
+            fp, kinds, opts, _ = _brute_inputs(scene, w, h, dev)
+            target = torch.tensor(gen.random((w * h, 3)),
+                                  dtype=torch.float32, device=dev)
+            clamp = scene.settings.clamp_indirect
+            before = (MS.LAUNCHES, MS.EXT_LAUNCHES, MS.TRI_LAUNCHES)
+            loss, dfp = MS.mse_loss_cuda(fp, kinds, key, target, spp, w,
+                                         clamp=clamp, **opts)
+            if (MS.LAUNCHES, MS.EXT_LAUNCHES, MS.TRI_LAUNCHES) != (
+                    before[0] + 1, before[1] + ext, before[2] + with_tri):
+                raise AssertionError(f"#4 {label}: not its variant's launch")
+            p_loss, p_dfp = _brute_plain_grads(fp, kinds, key, None, target,
+                                               spp, w, clamp, None, opts)
+            loss_err = abs(loss.item() - p_loss.item())
+            if loss_err > LOSS_RTOL * abs(p_loss.item()):
+                raise AssertionError(f"#4 {label} spp {spp} at {w}x{h}: loss "
+                                     f"{loss.item():.9e} vs plain "
+                                     f"{p_loss.item():.9e}")
+            err = _held_grads(f"#4 {label} spp {spp} at {w}x{h}", (dfp,),
+                              (p_dfp,))
+            worst = max(worst, err)
+            parts.append(f"spp {spp} loss diff {loss_err:.1e}, dfparams "
+                         f"{err:.2e}")
+        print(f"phase 5 #4 lane groups, {label} at {w}x{h} depth "
+              f"{GROUP_DEPTH} (within {LOSS_RTOL:g} and {GRAD_RTOL:g} rel + "
+              f"{GRAD_ATOL:g} of max of the plain version): "
+              + "; ".join(parts)
+              + f" ({time.perf_counter() - t0:.1f} s); {card}")
+    return worst
 
 
 def brute_phase(dev, card: str, zoo_bvh: dict) -> list:
@@ -2912,7 +2999,7 @@ def brute_phase(dev, card: str, zoo_bvh: dict) -> list:
 def _ptxas_variants() -> str:
     """Registers, stack and spills of each template variant of #1, #3 and
     #4, from the compiler's report (kExt, kSky, kTri as the template's
-    bools; #4 has kExt, kTri)."""
+    bools; #4 has kExt, kTri, kWarp)."""
     import re
 
     from raytracingrust_tpu_torch.ops import _build
@@ -3431,7 +3518,7 @@ def main() -> int:
         noise = seed_noise(sc, w, h)
         ker_fn, plain_fn = launchers(sc, w, h, 0)
         radiance_ms[path] = (_cuda_time_ms(ker_fn, reps[0]),
-                             _cuda_time_ms(plain_fn, reps[1]))
+                             _cuda_time_ms(plain_fn, reps[1], warm=False))
         fwd_bound[path] = forward_bound(sc, w, h, 0)
         print(f"phase 3 {label}: per-ray radiance bit for bit equal at "
               f"depth 1 and depth {depth} (seed noise {noise:.3e}); "
@@ -3596,6 +3683,7 @@ def main() -> int:
               f"abs diff {e4:.3e} (fused), {e3:.3e} (radiance grad), "
               f"allowed {GRAD_RTOL:g} rel + {GRAD_ATOL:g} of max; nonzero: "
               f"{', '.join(names)}")
+    grad_err["mse"] = max(grad_err["mse"], fused_group_check(dev, card))
 
     # bench.py::run_parity's directional FD probe, on the fused kernel's
     # own loss: AD through the Function vs central differences
@@ -3659,11 +3747,12 @@ def main() -> int:
         "grad": (_cuda_time_ms(lambda: RG.radiance_grad_cuda(
             fp, kinds, key, cts, spp, w, **opts), 10),
                  _cuda_time_ms(lambda: RG.radiance_grad_plain(
-                     fp, kinds, key, cts, spp, w, **opts), 1)),
+                     fp, kinds, key, cts, spp, w, **opts), 1, warm=False)),
         "mse": (_cuda_time_ms(lambda: MS.mse_loss_cuda(
             fp, kinds, key, target, spp, w, clamp=clamp, **opts), 10),
                 _cuda_time_ms(lambda: fused_plain(
-                    fp, kinds, key, target, spp, w, clamp, opts), 1)),
+                    fp, kinds, key, target, spp, w, clamp, opts), 1,
+                    warm=False)),
     }
     print(f"phase 5 {BENCH} 512x512 spp 8 depth 6: rays traced "
           f"{tally.bounces / n_rays:.3f} bounces each (hits by kind "

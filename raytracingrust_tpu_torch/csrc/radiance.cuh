@@ -1227,29 +1227,29 @@ inline int blocks_for(long long n) {
   return (int)((n + kThreads - 1) / kThreads);
 }
 
-// A template flag as a value: with_flags(ext, sky, tri, f) calls
-// f(Flag<ext>{}, Flag<sky>{}, Flag<tri>{}), so an entry names its kernel's
-// launch once and reads the variant as decltype(e)::value.
+// A template flag as a value: with_flags(a, b, c, f) calls
+// f(Flag<a>{}, Flag<b>{}, Flag<c>{}), so an entry names its kernel's
+// launch once and reads the variant as decltype(x)::value; what each flag
+// means is the caller's (#1 and #3 pass kExt, kSky, kTri).
 template <bool B>
 struct Flag {
   static constexpr bool value = B;
 };
 
 template <class F>
-inline auto with_flags(bool ext, bool sky, F f) {
-  if (ext)
-    return sky ? f(Flag<true>{}, Flag<true>{}) : f(Flag<true>{}, Flag<false>{});
-  return sky ? f(Flag<false>{}, Flag<true>{})
-             : f(Flag<false>{}, Flag<false>{});
+inline auto with_flags(bool a, bool b, F f) {
+  if (a)
+    return b ? f(Flag<true>{}, Flag<true>{}) : f(Flag<true>{}, Flag<false>{});
+  return b ? f(Flag<false>{}, Flag<true>{}) : f(Flag<false>{}, Flag<false>{});
 }
 
 template <class F>
-inline auto with_flags(bool ext, bool sky, bool tri, F f) {
-  if (tri)
-    return with_flags(ext, sky,
-                      [&](auto e, auto k) { return f(e, k, Flag<true>{}); });
-  return with_flags(ext, sky,
-                    [&](auto e, auto k) { return f(e, k, Flag<false>{}); });
+inline auto with_flags(bool a, bool b, bool c, F f) {
+  if (c)
+    return with_flags(a, b,
+                      [&](auto x, auto y) { return f(x, y, Flag<true>{}); });
+  return with_flags(a, b,
+                    [&](auto x, auto y) { return f(x, y, Flag<false>{}); });
 }
 
 }  // namespace rtrt

@@ -11,6 +11,21 @@ over pixels and channels, with ``target`` (H W, 3) a constant of the fit.
 Under autograd on the card one launch of csrc/mse_loss.cu gives the loss
 and ``d loss / d fparams``; the Function's forward returns the loss and
 keeps the gradient, and its backward scales that by the incoming scalar.
+
+The kernel runs one thread a sample: a pixel's spp samples (ray id =
+pixel * spp + s) sit on consecutive lanes, an unpadded group of
+min(spp, 128) lanes, whole pixels to a warp up to 32 samples and to a
+block of 128 threads above that; past 128 samples a thread takes every
+128th.  Each thread traces its sample once with the recording trace,
+the group forms the pixel's mean in a fixed order (warp shuffles up to 32
+samples, shared memory above), and each thread then runs the adjoint from
+its own tape, one grid-stride iteration later: it holds two tapes, and
+runs the last pixel's adjoint after this pixel's trace, so that no lane
+idles while its warp waits for the mean.  The block's sums of the
+gradient use shared atomics, as kernel #3's do, so their last bits vary
+between runs; the loss's pixel means do not.  What bounds it: the FP32
+work of one recording forward and one reverse sweep a sample and the
+latency of their chains.
 A call without grad runs the forward megakernel plus the same reduction in
 PyTorch (the JAX ``mse`` primal).  The plain version is that reduction over
 :func:`megakernel.radiance_plain`, differentiated by autograd.  The clip's

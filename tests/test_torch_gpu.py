@@ -1317,6 +1317,49 @@ def test_brute_tri_gradients_match_plain_on_card(cuda_device, name):
     assert _close(dfp, p_dfp)
 
 
+# each variant of the fused loss kernel: (scene, kExt, kTri)
+_FUSED_VARIANTS = {
+    "spheres": (lambda: _benchmark_like(gradient=True), 0, 0),
+    "ext": (lambda: brute_ext_builder(T, 6).build(), 1, 0),
+    "tri": (lambda: brute_tri_builder(T, "tri_grad", depth=6).build(), 0, 1),
+    "ext-tri": (lambda: brute_tri_builder(T, "zoo", depth=6).build(), 1, 1),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("spp", [1, 5, 8, 48])
+@pytest.mark.parametrize("name", list(_FUSED_VARIANTS))
+def test_fused_loss_lane_groups_match_plain_on_card(cuda_device, name, spp):
+    """Kernel #4's lane groups (one thread a sample, a pixel's samples on
+    consecutive lanes): one sample, a group leaving lanes of a warp idle,
+    a group of 8, a group spanning warps; on a 13x11 frame, whose 143
+    pixels fill no whole block, in each variant.  The loss within 1e-5
+    and the gradient within rtol 2e-3 plus 2e-5 of the largest of
+    autograd through the plain version."""
+    make, ext, tri = _FUSED_VARIANTS[name]
+    scene = make()
+    w, h = 13, 11
+    fp, kinds, opts, _ = _brute_inputs(scene, w, h, cuda_device)
+    opts["max_depth"] = 6
+    key = trng.base_key(9)
+    gen = np.random.default_rng(spp)
+    target = torch.tensor(gen.random((w * h, 3)), dtype=torch.float32,
+                          device=cuda_device)
+    clamp = scene.settings.clamp_indirect
+    before = (TM.LAUNCHES, TM.EXT_LAUNCHES, TM.TRI_LAUNCHES)
+    loss, dfp = TM.mse_loss_cuda(fp, kinds, key, target, spp, w,
+                                 clamp=clamp, **opts)
+    assert (TM.LAUNCHES, TM.EXT_LAUNCHES, TM.TRI_LAUNCHES) == (
+        before[0] + 1, before[1] + ext, before[2] + tri)
+    fpg = fp.clone().requires_grad_(True)
+    want = TM.mse_loss_plain(fpg, kinds, key, target, spp, w, clamp=clamp,
+                             **opts)
+    (want_dfp,) = torch.autograd.grad(want, fpg)
+    assert abs(loss.item() - want.item()) <= 1e-5 * abs(want.item())
+    assert bool(torch.isfinite(dfp).all()) and want_dfp.abs().max() > 0
+    assert _close(dfp, want_dfp)
+
+
 @pytest.mark.gpu
 def test_brute_tri_render_and_fit_on_card(cuda_device):
     """A triangle scene built without its BVH renders on #1's kTri variant
