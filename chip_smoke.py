@@ -142,18 +142,20 @@ non-zero exit, and prints no result:
    background, an icosphere of 2,048 triangles bounding a fog of an
    isotropic material, and a 12-triangle cube bounding a fog of a mix;
    written as JSON and OBJs to build/smoke/) at 1000x1000 with its own
-   spp 8 and depth 6: #5's mesh-volume variant (the dense crossing scan
-   of each fog's boundary) bit for bit equal to its plain version at
+   spp 8 and depth 6: #5's mesh-volume variant (the walks of each fog
+   boundary's own tree) bit for bit equal to its plain version at
    depth 1 and depth 6 on every ray, and the Normal and Random views on
    every ray, each timed with its bound from the plain run's count of
-   Moller-Trumbore tests; at the fit's frame 512x512, phase 8's list (the
+   the trees' node visits and Moller-Trumbore tests, and the variants'
+   registers and spills; at the fit's frame 512x512, phase 8's list (the
    record codes, #6 raw with the fogs' codes, #7 against its float64
    sums, the replay's forward, the gradient against the plain route)
    with an FD probe on the icosphere's phase albedo.  Then the CLI
    ``render`` (1000x1000), the two views and ``fit`` (512x512, albedo and
    emission, 6 steps; the loss must fall), each launching the mesh-volume
    variants and no other kernel of the path, and the warm render and fit
-   step with a ``torch.profiler`` breakdown and the peak memory;
+   step with a ``torch.profiler`` breakdown and the peak memory.
+   ``python3 chip_smoke.py 12`` runs the build and this phase alone;
 13. the brute kernels' mixes, sphere volumes, isotropic lobe and sky map
    (#1's, #3's and #4's ``kExt`` and ``kSky`` variants) on three shapes
    the dispatch sends to them: "zoo_brute" (scenes/material_zoo.json at
@@ -307,10 +309,15 @@ OPS_ISO = 45
 # the Normal view's hit (bvh_forward.cu bvh_view_kernel): the hit point,
 # the normal, the face, its length (5, sqrtf, the division), the colour
 OPS_VIEW_HIT = 40
-# csrc/bvh_walk.cuh mesh_volume_scan, counted from its source: per boundary
-# triangle a scan tests, triangle_raw (h, det, s, u, q, v, t: 43) with its
-# 5 compares and the floor and min compares; per window a ray crosses, the
-# window (4), the draw's float part, logf (~20) and the free flight (4)
+# csrc/bvh_walk.cuh mv_walk and mesh_volume_scan, counted from their
+# source: per node of a mesh volume's tree a walk visits, the three slabs
+# (6 differences, 6 products, 6 NaN tests, 6 min/max), entry and exit (4),
+# the slack (4) and the three comparisons with their two sums (5); per
+# boundary triangle a walk tests, triangle_raw (h, det, s, u, q, v, t: 43)
+# with its 5 compares and the floor and min compares; per window a ray
+# crosses, the window (4), the draw's float part, logf (~20) and the free
+# flight (4)
+OPS_MV_NODE = 37
 OPS_MV_TEST = 50
 OPS_MV_DRAW = 29
 # the brute kernels' kTri branch (csrc/radiance.cuh tri_hit), counted from
@@ -659,16 +666,19 @@ def _grad_check(label, got, want) -> float:
     return err
 
 
-def _scene_bytes(sc, trees=("spheres", "volumes", "triangles",
-                            "mesh_vols")) -> int:
-    """Bytes of a packed scene's tensors: head, tables, the trees' and the
-    mesh volumes' boundary rows."""
+def _scene_bytes(sc) -> int:
+    """Bytes of a packed scene's tensors that #5 reads: head, tables, the
+    trees', and the mesh volumes' tree, bounds, densities and materials
+    (not their dense rows, which only the replay reads)."""
     import torch
 
+    mv = sc.mesh_vols
     return sum(t.numel() * t.element_size() for t in (
         sc.head, sc.mats, sc.kinds, *(sc.mixes or ()),
-        *(v for name in trees if getattr(sc, name) is not None
-          for v in getattr(sc, name))) if isinstance(t, torch.Tensor))
+        *(v for tree in (sc.spheres, sc.volumes, sc.triangles)
+          if tree is not None for v in tree),
+        *(() if mv is None else (*mv.tree[:4], mv.bounds, mv.nid, mv.mat)))
+        if isinstance(t, torch.Tensor))
 
 
 def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
@@ -687,6 +697,7 @@ def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
            + tally["volume_tests"] * OPS_VOL_TEST
            + tally["volume_draws"] * OPS_VOL_DRAW
            + tally["triangle_tests"] * OPS_TRI_TEST
+           + tally["mv_nodes"] * OPS_MV_NODE
            + tally["mv_tests"] * OPS_MV_TEST
            + tally["mv_draws"] * OPS_MV_DRAW
            + sum(hits) * (OPS_HIT + (OPS_MIX_HIT if sc.mixes is not None
@@ -756,9 +767,10 @@ def _per_ray(tally, n_rays: int) -> str:
             f"{tally['volume_tests'] / n_rays:.3f} volume and "
             f"{tally['triangle_tests'] / n_rays:.1f} triangle tests, "
             f"{tally['volume_draws'] / n_rays:.3f} free flights"
-            + (f", {tally['mv_tests'] / n_rays:.1f} mesh-volume triangle "
-               f"tests, {tally['mv_draws'] / n_rays:.3f} mesh-volume "
-               f"windows" if tally["mv_tests"] else ""))
+            + (f", {tally['mv_nodes'] / n_rays:.1f} mesh-volume node "
+               f"visits, {tally['mv_tests'] / n_rays:.1f} mesh-volume "
+               f"triangle tests, {tally['mv_draws'] / n_rays:.3f} "
+               f"mesh-volume windows" if tally["mv_nodes"] else ""))
 
 
 def _record_check(label, sc, key, n_pix: int, spp: int, width: int,
@@ -2371,6 +2383,7 @@ def fog_phase(dev, card: str) -> list:
 
     views = _view_check("fog_sheet", sc, key, n * n, spp, n, opts["bg_kind"],
                         None)
+    print(f"phase 12 ptxas: {_ptxas_variants(('bvh_forward',))}")
     print(f"phase 12 views of fog_sheet {n}x{n} spp {spp}: Normal and "
           f"Random == plain bit for bit on all {n_rays} rays "
           f"({views['tally']['view_hits']} hits); "
@@ -2996,16 +3009,19 @@ def brute_phase(dev, card: str, zoo_bvh: dict) -> list:
     ]
 
 
-def _ptxas_variants() -> str:
-    """Registers, stack and spills of each template variant of #1, #3 and
-    #4, from the compiler's report (kExt, kSky, kTri as the template's
-    bools; #4 has kExt, kTri, kWarp)."""
+def _ptxas_variants(names=("megakernel", "radiance_grad",
+                           "mse_loss")) -> str:
+    """Registers, stack and spills of each template variant of the kernels
+    of the sources ``names``, from the compiler's report: #1, #3 and #4 by
+    default (kExt, kSky, kTri as the template's bools; #4 has kExt, kTri,
+    kWarp); #5's "bvh_forward" (kRecord, kExt, kSky, kMv; the views kSky,
+    kMv)."""
     import re
 
     from raytracingrust_tpu_torch.ops import _build
 
     out = []
-    for name in ("megakernel", "radiance_grad", "mse_loss"):
+    for name in names:
         log = _build.library_path(name=name).with_suffix(".log")
         fn = None
         for ln in (log.read_text().splitlines() if log.exists() else []):
@@ -3015,7 +3031,8 @@ def _ptxas_variants() -> str:
                 continue
             if fn is None:
                 continue
-            flags = re.search(r"(radiance_kernel|grad_kernel|mse_kernel)"
+            flags = re.search(r"(bvh_radiance_kernel|bvh_view_kernel|"
+                              r"radiance_kernel|grad_kernel|mse_kernel)"
                               r"IL?b([01])E((?:L?b[01]E)*)", fn)
             if "stack frame" in ln:
                 stack = ln.strip()
@@ -3367,8 +3384,8 @@ def tri_phase(dev, card: str) -> list:
 
 
 def main() -> int:
-    """Every phase; with the one argument "14", the build and phase 14
-    alone, with phase 14's report entries and no last line."""
+    """Every phase; with the one argument "12" or "14", the build and
+    that phase alone, with its report entries and no last line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3400,12 +3417,14 @@ def main() -> int:
     regs = " | ".join(f"{name}: {_ptxas(name)}" for name in _build.SOURCES)
     print(f"phase 1 build ({len(_build.SOURCES)} sources in parallel): "
           f"{build_s:.3f} s; {regs}")
-    if sys.argv[1:] == ["14"]:  # phase 14 alone, for working on it
+    alone = {"12": fog_phase, "14": tri_phase}
+    if len(sys.argv) == 2 and sys.argv[1] in alone:  # for working on it
         os.makedirs(OUT_DIR, exist_ok=True)
         if not os.path.exists(SKY):
             procedural_sky(SKY)
-        print(json.dumps({"kernels": tri_phase(dev, card)}))
-        print(f"phase 14 alone: {time.perf_counter() - t_run:.1f} s")
+        print(json.dumps({"kernels": alone[sys.argv[1]](dev, card)}))
+        print(f"phase {sys.argv[1]} alone: "
+              f"{time.perf_counter() - t_run:.1f} s")
         return 0
 
     # ---- 2. RNG bit for bit

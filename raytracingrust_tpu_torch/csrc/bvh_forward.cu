@@ -12,7 +12,7 @@
 // any depth).  Per ray: the jittered camera ray, then per bounce a
 // stackless walk of the solid-sphere chunk tree, then of the volume-sphere
 // tree, then of the surface-triangle tree, each starting from the nearest
-// hit of the walks before it, then the crossing scan of each mesh volume;
+// hit of the walks before it, then the walks of each mesh volume's tree;
 // the winner's mix resolved with the bounce's coins; then radiance.cuh's
 // lobes.  Output: per-ray RGB, (n_rays, 3) float32.
 //
@@ -26,18 +26,24 @@
 // launches the variant without them.
 //
 // Mesh volumes (template flag kMv, which implies kExt; pallas_megakernel.py
-// :1620-1671): after the trees, each volume's dense crossing scan over its
+// :1620-1671): after the trees, each volume's crossing scan of its
 // boundary triangles (bvh_walk.cuh mesh_volume_scan): the entry at any t,
 // since a ray may start inside the medium, which a walk whose slab test
 // floors t at T_MIN cannot find; then the exit; then the free flight.  The
-// scan is two passes over every boundary triangle a bounce, the second only
-// for rays that found an entry.  It is dense, as in the JAX kernel: one
-// thread a ray, the warp's rays on the same triangle at the same time, so
-// each of its three float4 loads is a broadcast from L1 (a boundary of a
-// few thousand triangles is a few hundred KB, which L1 and L2 hold).  A
-// scene without mesh volumes launches the variants without the scan, so it
-// keeps the code it ran.  What bounds the scan: FP32 work, about 50
-// operations a triangle test.
+// JAX kernel scans every boundary triangle twice a bounce (_mv_min_t); a
+// ray there pays for the whole boundary even when its line passes nowhere
+// near it.  Here each pass is a stackless walk of the volume's own tree
+// (bvh_walk.cuh mv_walk; ops/bvh.build_mv_trees, leaves of 4 triangles,
+// padded boxes), which looks at the whole line, at any sign, and tests a
+// leaf only when the line crosses its box within bounds fixed before the
+// walk: the entry pass skips a line that meets the root box only before
+// T_MIN and boxes that begin past the trees' nearest hit, the exit pass
+// boxes that end below its floor.  The least t is the dense scan's bit for
+// bit (the same candidates, the same arithmetic) wherever it can change
+// the hit.  A scene without mesh volumes launches the variants without the
+// scan, so it keeps the code it ran.  What bounds the scan: FP32 work,
+// about 37 operations a node visit and 50 a triangle test, and the
+// divergence of a warp's rays between the nodes they visit.
 //
 // A sky map (template flag kSky): a ray that escapes adds its throughput
 // times the sky's nearest texel, looked up here (radiance.cuh
@@ -443,8 +449,10 @@ void launch_view(const Args& a, int normal, int vol_col0,
 // of solid spheres and triangles.  `sky` (the (sky_h, sky_w, 3) texels,
 // bg_kind kSkyMap) selects the sky variant, which the record walk does not
 // take.  `view` 1 (Normal) or 2 (Random) launches the inspection view
-// instead, forward only.  The mesh volumes (mv_*, n_mv of them; their
-// codes from mv_base) select the variants with the crossing scan.
+// instead, forward only.  The mesh volumes (mv_*, n_mv of them: their
+// trees' nodes, links, leaf counts and rows, `mv_leaf` slots a leaf, each
+// volume's [first node, end); their codes from mv_base) select the
+// variants with the crossing scan.
 // Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int rtrt_bvh_radiance(
     const float* head, const float* mats, const int* kinds, int n_mats,
@@ -459,15 +467,16 @@ extern "C" int rtrt_bvh_radiance(
     uint32_t k0, uint32_t k1, int n_rays, int spp, int width, int max_depth,
     int bg_kind, int clay, float* out, int* rec, int rec_mask, int vol_base,
     int tri_base, const float* sky, int sky_h, int sky_w, int view,
-    const float* mv_geo, const int* mv_start, const int* mv_count,
-    const float* mv_nid, const int* mv_mat, int n_mv, int mv_base,
-    void* stream) {
+    const float* mv_nodes_f, const int* mv_nodes_i, const int* mv_len,
+    const float* mv_geo, const int* mv_bounds, const float* mv_nid,
+    const int* mv_mat, int n_mv, int mv_leaf, int mv_base, void* stream) {
   const bool has_sky = bg_kind == kSkyMap;
   const bool has_mv = n_mv > 0;
   if (n_mats < 1 || s_nodes < 0 || v_nodes < 0 || t_nodes < 0 ||
       (s_nodes + v_nodes + t_nodes < 1 && !has_mv) || leaf < 1 ||
       n_rays < 0 || n_mv < 0 || n_mv > 4 ||
-      (has_mv && (!mv_geo || !mv_start || !mv_count || !mv_nid || !mv_mat ||
+      (has_mv && (!mv_nodes_f || !mv_nodes_i || !mv_len || !mv_geo ||
+                  !mv_bounds || !mv_nid || !mv_mat || mv_leaf < 1 ||
                   mv_base < 0)) ||
       spp < 1 || width < 1 || n_vol < 0 || n_vol > 8 ||
       (v_nodes > 0 && (!v_nid || !v_ord)) ||
@@ -503,7 +512,9 @@ extern "C" int rtrt_bvh_radiance(
                rec ? rec_mask : 0,
                rec ? vol_base : 0,
                rec ? tri_base : 0,
-               MeshVols{mv_geo, mv_start, mv_count, mv_nid, mv_mat, n_mv},
+               MeshVols{Tree{mv_nodes_f, mv_nodes_i, mv_len, mv_geo, nullptr,
+                             nullptr, nullptr, 0},
+                        mv_bounds, mv_nid, mv_mat, mv_leaf, n_mv},
                vol_col0 + n_vol,
                rec ? mv_base : 0};
   const bool ext = v_nodes > 0 || mix_first || iso || has_mv;

@@ -5,13 +5,16 @@
 // _sphere_chunk_hit, _vol_chunk_hit, _tri_chunk_hit/_row_mt, _mv_min_t and
 // _merge_leaf_rows for one ray: a stackless walk over skip links, a
 // NaN-propagating slab test, and the leaf's primitives tested against the
-// ray's nearest hit so far; and the dense crossing scan of a mesh volume's
-// boundary.  The arithmetic is ops/bvh_kernel.py's plain version's,
+// ray's nearest hit so far; and the crossing scan of a mesh volume's
+// boundary, which the JAX kernel makes densely (_mv_min_t over every
+// boundary triangle) and which here walks the volume's own small tree
+// (mv_walk).  The arithmetic is ops/bvh_kernel.py's plain version's,
 // operation for operation: the sphere root by true division, the volume's
 // boundary window and free flight, the direct cross-product
 // Moller-Trumbore, and slab min/max that propagate NaN as torch.minimum
 // does (an axis-parallel ray's 0 * inf reads as a miss; fminf/fmaxf would
-// drop the NaN and read a hit).
+// drop the NaN and read a hit); in the mesh volumes' walk a NaN slab reads
+// as the whole line instead.
 
 #pragma once
 
@@ -144,47 +147,158 @@ __device__ __forceinline__ float triangle_t(const float* geo, int s,
   return INFINITY;
 }
 
-// The mesh volumes (ops/bvh_kernel.pack): their boundary triangles, 12
-// floats a slot as the triangle tree's, and per volume its first slot, its
-// triangle count, -1/density and raw material id.  n == 0: none.
+// The mesh volumes (ops/bvh_kernel.pack): every volume's boundary tree
+// one after another (ops/bvh.build_mv_trees: boxes already padded, links
+// and chunks global, triangles 12 floats a slot as the triangle tree's,
+// `leaf` slots a chunk), each volume's [first node, end), and per volume
+// -1/density and raw material id.  n == 0: none.
 struct MeshVols {
-  const float* geo;
-  const int* start;
-  const int* count;
+  Tree tree;  // nodes_f, nodes_i, chunk_len, geo; mat, nid, ord unused
+  const int* bounds;
   const float* nid;
   const int* mat;
+  int leaf;
   int n;
 };
 
-// The least raw t at or above `floor` of the n triangles from slot s0, or
-// inf (_mv_min_t): no T_MIN and no t_best, since a crossing exists at any
-// t.  A warp's rays read the same slot together, so each load is one
-// broadcast from L1.
-__device__ __forceinline__ float mv_min_t(const float* geo, int s0, int n,
-                                          const Ray& r, float floor) {
+// How far the walk widens a node's interval [entry, exit] before it
+// compares it with the bounds: kMvSlack of the larger of |entry| and
+// |exit| (ops/bvh_kernel.MV_SLACK).  A ray that grazes a triangle gets a
+// Moller-Trumbore t whose relative error grows as the ray turns parallel
+// to it, and that t may lie a little outside the box's interval; the slack
+// keeps such a triangle in the walk.
+constexpr float kMvSlack = 0.03125f;
+
+// One slab of a mesh volume's node box: the line's parameters at its two
+// planes, in order; a NaN end ((lo - o) * inf, a line parallel to the slab
+// that lies in one of its planes) reads as the whole line inside it.
+__device__ __forceinline__ void mv_slab(float lo, float hi, float o,
+                                        float inv, float& t_near,
+                                        float& t_far) {
+  const float a = (lo - o) * inv;
+  const float b = (hi - o) * inv;
+  if (a != a || b != b) {
+    t_near = -INFINITY;
+    t_far = INFINITY;
+  } else {
+    t_near = a < b ? a : b;
+    t_far = a < b ? b : a;
+  }
+}
+
+// How many crossings the entry walk keeps for the exit: a line crosses a
+// convex boundary twice and a concave one a few times more; one that
+// passes through an edge or a vertex crosses every triangle there
+// (ops/bvh_kernel.MV_KEEP).
+constexpr int kMvKeep = 4;
+
+// The least raw t at or above `floor` of volume v's boundary triangles
+// whose box the walk reaches, or inf, by a stackless walk of the volume's
+// tree.  A node's interval [entry, exit] is its box's along the ray's
+// whole line, at any sign, so a ray that starts inside the medium finds
+// the crossings behind it (the trees' walk floors entry at T_MIN and
+// cannot).  The walk descends into a node when entry <= exit and neither
+// entry - slack > `bound` nor exit + slack < `floor` (`root_floor` at the
+// volume's root), and tests a leaf's triangles with triangle_raw, as the
+// JAX kernel's dense _mv_min_t tests every triangle.  The decisions do not
+// depend on what the walk has found, so the plain version (ops/bvh_kernel
+// _mv_walk) makes them level by level.  With bound inf and root_floor ==
+// floor the answer is _mv_min_t's bit for bit: the minimum over the same
+// candidates, each t from the same arithmetic, since the padded boxes and
+// the slack never cut off a triangle the dense scan accepts.
+//
+// kKeep (the entry walk): the walk also keeps the first kMvKeep crossings
+// it finds and the least entry - slack of a box it skipped for `bound`
+// (no crossing in such a box lies below it), and sets `t2` to the least
+// kept crossing at or past the answer + T_MIN when that is the least of
+// all (every crossing kept, none skipped below it), else NaN: the exit
+// walk is then needed.
+template <bool kKeep>
+__device__ __forceinline__ float mv_walk(const MeshVols& mv, int v,
+                                         const Ray& r, float floor,
+                                         float root_floor, float bound,
+                                         float& t2) {
+  const Tree& tr = mv.tree;
+  const int first = __ldg(mv.bounds + 2 * v);
+  const int end = __ldg(mv.bounds + 2 * v + 1);
   float best = INFINITY;
-  for (int j = 0; j < n; ++j) {
-    float tt;
-    if (triangle_raw(geo, s0 + j, r, tt) && tt >= floor && tt < best)
-      best = tt;
+  float kept[kMvKeep];
+  int n_kept = 0;
+  float cut = INFINITY;
+  int node = first;
+  while (node < end) {
+    const float* box = tr.nodes_f + 6 * node;
+    float nx, fx, ny, fy, nz, fz;
+    mv_slab(__ldg(box + 0), __ldg(box + 3), r.ox, r.idx, nx, fx);
+    mv_slab(__ldg(box + 1), __ldg(box + 4), r.oy, r.idy, ny, fy);
+    mv_slab(__ldg(box + 2), __ldg(box + 5), r.oz, r.idz, nz, fz);
+    const float entry = fmaxf(fmaxf(nx, ny), nz);
+    const float exit_ = fminf(fminf(fx, fy), fz);
+    const float slack = kMvSlack * fmaxf(fabsf(entry), fabsf(exit_));
+    const float lo = node == first ? root_floor : floor;
+    const float near = entry - slack;
+    const int* links = tr.nodes_i + 3 * node;
+    const bool empty = !(entry <= exit_);
+    if (empty || near > bound || exit_ + slack < lo) {
+      if (kKeep && !empty && near > bound) cut = fminf(cut, near);
+      node = __ldg(links + 1);
+      continue;
+    }
+    const int chunk = __ldg(links + 2);
+    if (chunk >= 0) {
+      const int base = chunk * mv.leaf;
+      const int n = __ldg(tr.chunk_len + chunk);
+      for (int j = 0; j < n; ++j) {
+        float tt;
+        if (!(triangle_raw(tr.geo, base + j, r, tt) && tt >= floor)) continue;
+        if (tt < best) best = tt;
+        if (kKeep) {
+#pragma unroll
+          for (int k = 0; k < kMvKeep; ++k)  // registers, not a stack
+            if (k == n_kept) kept[k] = tt;
+          ++n_kept;
+        }
+      }
+    }
+    node = __ldg(links + 0);
+  }
+  if (kKeep) {
+    const float past = best + kTMin;
+    float t = INFINITY;
+#pragma unroll
+    for (int k = 0; k < kMvKeep; ++k)
+      if (k < n_kept && kept[k] >= past && kept[k] < t) t = kept[k];
+    t2 = n_kept <= kMvKeep && t <= cut ? t : NAN;
   }
   return best;
 }
 
 // Each mesh volume's candidate in index order (pallas_megakernel.py
 // :1620-1671): the entry t1, the least raw t at any sign; the exit t2, the
-// least t at or past t1 + T_MIN (scanned only when there is an entry); the
-// window [max(t1, T_MIN, 0), t2]; the free flight of uniform column
-// fl.col0 + v, drawn only for a valid window; it replaces (t_best, win)
-// when it ends inside the window and nearer than t_best.
+// least t at or past t1 + T_MIN (from the crossings the entry walk kept,
+// else by a second walk; none without an entry); the window
+// [max(t1, T_MIN, 0), t2]; the free flight of uniform column fl.col0 + v,
+// drawn only for a valid window; it replaces (t_best, win) when it ends
+// inside the window and nearer than t_best.  The entry walk skips what
+// cannot change that: a volume whose line crosses its root box only before
+// T_MIN (then t2 < T_MIN: no window), and boxes that begin past t_best (a
+// window that opens past t_best ends its free flight there too, -1/density
+// being <= 0); what it then finds is the least t when that t is at most
+// t_best, and otherwise a candidate that cannot win.
 __device__ __forceinline__ void mesh_volume_scan(const MeshVols& mv,
                                                  const Ray& r, float& t_best,
                                                  int& win, const Flight& fl) {
   for (int v = 0; v < mv.n; ++v) {
-    const int s0 = __ldg(mv.start + v), n = __ldg(mv.count + v);
-    const float t1 = mv_min_t(mv.geo, s0, n, r, -INFINITY);
+    const float nid = __ldg(mv.nid + v);
+    float t2;
+    const float t1 = mv_walk<true>(mv, v, r, -INFINITY, kTMin,
+                                   nid <= 0.0f ? t_best : INFINITY, t2);
     if (!(t1 < INFINITY)) continue;  // no entry: t2 would be inf too
-    const float t2 = mv_min_t(mv.geo, s0, n, r, t1 + kTMin);
+    if (t2 != t2) {
+      float unused;
+      t2 = mv_walk<false>(mv, v, r, t1 + kTMin, t1 + kTMin, INFINITY,
+                          unused);
+    }
     float h1 = max_nan(t1, kTMin);
     if (!(t2 < INFINITY && h1 < t2)) continue;
     h1 = max_nan(h1, 0.0f);
@@ -193,7 +307,7 @@ __device__ __forceinline__ void mesh_volume_scan(const MeshVols& mv,
     float u0, u1;
     uniform_pair(fl.k0, fl.k1, fl.ray, fl.stream, (uint32_t)c >> 1, u0, u1);
     const float u = (c & 1) ? u1 : u0;
-    const float hit_dist = __ldg(mv.nid + v) * logf(fmaxf(u, 1e-37f));
+    const float hit_dist = nid * logf(fmaxf(u, 1e-37f));
     const float ti = h1 + hit_dist / fl.ray_len;
     if (hit_dist <= dist_inside && ti < t_best) {
       t_best = ti;

@@ -162,11 +162,15 @@ class ChunkedBVH:
     global sphere rows, as the JAX ``vol_perm`` does, and the triangle
     tree's global triangle rows.
 
-    Mesh volumes are scanned densely, not walked: an entry crossing may lie
-    at a negative t (a ray inside the medium), which a walk whose slab test
+    Mesh volumes are not in those trees: an entry crossing may lie at a
+    negative t (a ray inside the medium), which a walk whose slab test
     floors t at T_MIN cannot find.  ``mv_perm`` holds each volume's global
     triangle rows, each volume padded with -1 to a multiple of
-    ``leaf_size``, and ``mv_spans`` each volume's (first chunk, chunks)."""
+    ``leaf_size``, and ``mv_spans`` each volume's (first chunk, chunks): the
+    JAX package's dense slots, which the replay scans.  ``mv_trees`` holds
+    one small tree per volume over the same triangles
+    (ops/bvh.build_mv_trees, padded boxes, leaves of ops/bvh.MV_LEAF),
+    which kernel #5 and its plain version walk at any t."""
 
     spheres: Optional[ChunkTree]
     triangles: Optional[ChunkTree]
@@ -174,6 +178,7 @@ class ChunkedBVH:
     mv_perm: np.ndarray = dataclasses.field(
         default_factory=lambda: np.zeros(0, np.int32))
     mv_spans: tuple = ()
+    mv_trees: tuple = ()
     leaf_size: int = 128
 
 

@@ -64,7 +64,7 @@ _SIGNATURES = {
                           + [_I32, _P, _P, _P, _I32, _I32, _U32, _U32, _I32,
                              _I32, _I32, _I32, _I32, _I32, _P, _P, _I32,
                              _I32, _I32, _P, _I32, _I32, _I32]
-                          + [_P] * 5 + [_I32, _I32]  # the mesh volumes
+                          + [_P] * 7 + [_I32] * 3  # the mesh volumes
                           + [_P], _I32),
     "rtrt_fetch_rows": ([_P, _I64] + [_P] * 4 + [_I32, _P, _P, _I32, _I32,
                                                   _P, _P, _I32, _P, _I32, _P],

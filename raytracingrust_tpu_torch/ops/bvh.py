@@ -9,6 +9,10 @@ centroid spread, stable sort by centroid, split at len/2.  Leaves hold up to
 so a walk needs no stack: a hit goes to ``hit_link``, a miss to
 ``miss_link``, and every link points forward; the walk ends at node K.
 The arrays equal the JAX package's, node for node and slot for slot.
+
+A mesh volume's boundary has a small tree of its own (:func:`build_mv_trees`,
+the port's: the JAX package scans the boundary densely), which kernel #5's
+crossing scan walks (csrc/bvh_walk.cuh ``mv_walk``).
 """
 
 from __future__ import annotations
@@ -16,6 +20,18 @@ from __future__ import annotations
 import numpy as np
 
 from ..utils import aabb
+
+# triangles a leaf of a mesh volume's tree holds.  A ray's line crosses a
+# closed boundary at a few places, and small leaves keep its tests near
+# them; a triangle test costs about as much as a node visit.  On an H100,
+# #5's forward and record launches took 6-7% less time with leaves of 4
+# than of 8 at a fog bounded by a 2,048-triangle icosphere, its views 2%
+# (scripts/profile_mv_scan.py --leaf; PERF.md)
+MV_LEAF = 4
+# a mesh volume's node boxes grow on each side by MV_PAD of the volume's
+# largest extent plus MV_PAD_COORD of its largest coordinate
+MV_PAD = 2.0 ** -10
+MV_PAD_COORD = 2.0 ** -20
 
 
 def primitive_bounds(spheres, triangles):
@@ -92,13 +108,51 @@ def build_chunked_topology(mins: np.ndarray, maxs: np.ndarray,
             perm.reshape(-1))
 
 
+def build_mv_trees(triangles, leaf_size: int = MV_LEAF) -> tuple:
+    """One tree per mesh volume over its boundary triangles (the rows whose
+    ``volume`` is its ordinal), in ordinal order: ChunkTrees whose ``perm``
+    holds global triangle rows.  A leaf's box is its triangles' vertex box
+    (v0, v0 + e1, v0 + e2 as the rows hold them); every node's box is then
+    grown on each side by MV_PAD of the volume's largest extent plus
+    MV_PAD_COORD of its largest coordinate, so a face of zero thickness
+    gets a slab, and the line of a ray that the Moller-Trumbore test puts
+    inside a triangle passes through its leaf's box despite rounding.  A
+    volume without triangles gets a tree of no node."""
+    from ..models.scene import ChunkTree
+
+    v0 = np.asarray(triangles.v0, np.float32).reshape(-1, 3)
+    v1 = v0 + np.asarray(triangles.e1, np.float32).reshape(-1, 3)
+    v2 = v0 + np.asarray(triangles.e2, np.float32).reshape(-1, 3)
+    lo = np.minimum(v0, np.minimum(v1, v2))
+    hi = np.maximum(v0, np.maximum(v1, v2))
+    vol = np.asarray(triangles.volume).reshape(-1)
+    trees = []
+    for v in range(int(vol.max()) + 1 if vol.size else 0):
+        ids = np.nonzero(vol == v)[0].astype(np.int64)
+        if ids.size == 0:
+            trees.append(ChunkTree(np.zeros((0, 6), np.float32),
+                                   np.zeros((0, 3), np.int32),
+                                   np.zeros(0, np.int32), leaf_size))
+            continue
+        nf, ni, perm = build_chunked_topology(lo[ids], hi[ids], leaf_size)
+        pad = np.float32(MV_PAD * float((nf[0, 3:] - nf[0, :3]).max())
+                         + MV_PAD_COORD * float(np.abs(nf[0]).max()))
+        nf = np.concatenate([nf[:, :3] - pad, nf[:, 3:] + pad], axis=1)
+        live = perm >= 0
+        perm = np.where(live, ids[np.maximum(perm, 0)], -1)
+        trees.append(ChunkTree(nf.astype(np.float32), ni,
+                               perm.astype(np.int32), leaf_size))
+    return tuple(trees)
+
+
 def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
     """-> ChunkedBVH: one tree over the solid spheres, one over the volume
     spheres (which sort last in the sphere arrays; its slots hold global
     sphere rows), one over the surface triangles (each None when it has no
-    primitives), and the mesh volumes' dense slots (``mv_perm``,
+    primitives), the mesh volumes' dense slots (``mv_perm``,
     ``mv_spans``): each volume's boundary triangles, in row order, padded
-    to a whole number of chunks.  None for an empty scene."""
+    to a whole number of chunks, and their trees (``mv_trees``,
+    :func:`build_mv_trees`).  None for an empty scene."""
     from ..models.scene import ChunkedBVH, ChunkTree
 
     mins, maxs = primitive_bounds(spheres, triangles)
@@ -136,4 +190,5 @@ def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):
                      np.arange(n_solid, ns, dtype=np.int64)),
         mv_perm=(np.concatenate(mv_parts) if mv_parts
                  else np.zeros(0, np.int32)),
-        mv_spans=tuple(mv_spans), leaf_size=leaf_size)
+        mv_spans=tuple(mv_spans), mv_trees=build_mv_trees(triangles),
+        leaf_size=leaf_size)

@@ -16,10 +16,16 @@ order; the winner's mix resolved to a leaf material
 candidate is the boundary window's entry plus an exponential free flight
 drawn from the volume's own uniform column (lib/volume.rs:35-73), and its
 hit shades with a dummy normal (1, 0, 0).  A volume sphere's window comes
-from its quadratic; a mesh volume's from a dense scan of its boundary
-triangles (``_mv_min_t``, pallas_megakernel.py:1620-1671): the entry t1 is
-the least raw Moller-Trumbore t at any sign (a ray may start inside), the
-exit the least t at or past t1 + T_MIN.
+from its quadratic; a mesh volume's from its boundary triangles
+(pallas_megakernel.py:1620-1671): the entry t1 is the least raw
+Moller-Trumbore t at any sign (a ray may start inside), the exit the least
+t at or past t1 + T_MIN.  The JAX kernel scans every boundary triangle for
+each (``_mv_min_t``); here a walk of the volume's own small tree
+(:func:`_mv_walk`, ops/bvh.build_mv_trees) tests only the leaves whose
+padded box the ray's line crosses within bounds fixed before it, and its
+first crossings give the exit unless a second walk is needed.  Wherever
+they can change the hit, t1 and t2 are the dense scan's bit for bit: a
+minimum over the same candidates, each t from the same arithmetic.
 
 The bounce's uniform columns (stream 1 + b) are the JAX layout: with any
 mix in the table, the four mix coins first, ``off = MAX_MIX_DEPTH``; then
@@ -69,10 +75,12 @@ as (K, 6) float32 and (K, 3) int32, each chunk's primitive count, and the
 primitives in permuted slot order with their raw material ids: spheres and
 volumes as (S, 4) [center, radius], volumes also with their -1/density and
 ordinal, triangles as (S, 12) [v0, e1, e2, flat normal]; the mesh volumes'
-boundary triangles as (S, 12) rows in ``mv_perm`` order with each volume's
-first slot, triangle count, -1/density and raw material id.  Under autograd
-the packing keeps the graph from the scene's leaves to the head, the
-material table and each tree's rows; the boundary triangles and the
+trees one after another as one tree (each volume's first node and end),
+their boundary triangles as (S, 12) rows in leaf order, and per volume its
+-1/density and raw material id (the replay also gets the rows in
+``mv_perm`` order, each volume's first slot and triangle count).  Under
+autograd the packing keeps the graph from the scene's leaves to the head,
+the material table and each tree's rows; the boundary triangles and the
 densities are constants, as in the JAX replay.  On a CPU tensor the wrapper runs the
 plain version; on a CUDA tensor it launches the kernel or raises.
 ``LAUNCHES`` counts launches of the kernel under a uniform or gradient
@@ -85,6 +93,7 @@ scan) count under those names and again under ``MV_LAUNCHES``.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -105,10 +114,23 @@ TRI_DET_EPS = 1e-8
 # pallas_megakernel.MAX_BVH_VOLUMES: each volume draws a uniform column of
 # its own a bounce
 MAX_BVH_VOLUMES = 8
-# pallas_megakernel.MAX_BVH_MESH_VOLUMES: each is a dense scan a bounce
+# pallas_megakernel.MAX_BVH_MESH_VOLUMES: each draws a uniform column of
+# its own a bounce
 MAX_BVH_MESH_VOLUMES = 4
+# the share of the larger of a node's |entry| and |exit| by which the
+# mesh volumes' walk widens its box's interval before comparing it with
+# its bounds in t (bvh_walk.cuh kMvSlack): a grazing ray's Moller-Trumbore
+# t may lie outside its box's interval by a relative error that grows as
+# the ray turns parallel to the triangle
+MV_SLACK = 2.0 ** -5
 # rays per step of the plain version: a leaf test holds (rays, leaf) floats
 TILE_RAYS = 1 << 18
+# (ray, leaf) pairs per step of the plain mesh-volume walk's leaf tests
+MV_PAIRS = 1 << 20
+# crossings the mesh volumes' entry walk keeps for the exit (bvh_walk.cuh
+# kMvKeep): a line crosses a convex boundary twice and a concave one a few
+# times more; one through an edge or a vertex crosses every triangle there
+MV_KEEP = 4
 
 # the record code: winner slot, then the bounce's decisions
 REC_SLOT = (1 << 27) - 1
@@ -160,10 +182,10 @@ def unsupported_bvh(scene: Scene) -> str | None:
                 f"at most {MAX_BVH_VOLUMES}, each drawing a uniform of its "
                 "own a bounce (as the JAX package)")
     if n_mv > MAX_BVH_MESH_VOLUMES:
-        return (f"{n_mv} mesh volumes: the BVH kernel scans at most "
-                f"{MAX_BVH_MESH_VOLUMES}, each densely a bounce (as the JAX "
-                "package); more need the XLA integrator, not ported yet "
-                "(ROADMAP A6)")
+        return (f"{n_mv} mesh volumes: the BVH kernel takes at most "
+                f"{MAX_BVH_MESH_VOLUMES}, each drawing a uniform of its own "
+                "a bounce (as the JAX package); more need the XLA "
+                "integrator, not ported yet (ROADMAP A6)")
     if n_mv and len(scene.cbvh.mv_spans) != n_mv:
         return "the scene's BVH lacks its mesh volumes' slots (mv_spans)"
     if n_mv and env_is_active(scene):
@@ -198,8 +220,10 @@ class Tree(NamedTuple):
 
 
 class MeshVols(NamedTuple):
-    """The mesh volumes' boundary triangles for the dense crossing scan:
-    the rows of ``ChunkedBVH.mv_perm``, constants (no gradient)."""
+    """The mesh volumes' boundary triangles, constants (no gradient): their
+    trees, which the crossing scan walks, and the rows of
+    ``ChunkedBVH.mv_perm``, which the replay's rescan and the tests' dense
+    ``_mv_min_t`` read."""
     geo: torch.Tensor    # (S, 12) float32 [v0, e1, e2, normal], 0 padding
     start: torch.Tensor  # (V,) int32 each volume's first slot
     count: torch.Tensor  # (V,) int32 its triangles
@@ -207,6 +231,10 @@ class MeshVols(NamedTuple):
     mat: torch.Tensor    # (V,) int32 raw phase material id
     spans: tuple         # ((first slot, triangles), ...) on the host
     leaf_size: int
+    # every volume's tree, one after another: links and chunks global
+    tree: Tree
+    bounds: torch.Tensor  # (V, 2) int32 [first node, end]
+    walks: tuple          # ((first node, end), ...) on the host
 
 
 class Mixes(NamedTuple):
@@ -302,18 +330,51 @@ def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
                 t.nodes_i, t.leaf_size, **extra)
 
 
+def _joined(trees: tuple) -> tuple:
+    """(one ChunkTree of every tree of ``trees`` one after another, their
+    (first node, end) pairs): each tree's links and chunks offset by the
+    nodes and chunks before it, so each walk ends at its own end."""
+    nodes_f, nodes_i, perms, walks = [], [], [], []
+    node0 = chunk0 = 0
+    for t in trees:
+        links = t.nodes_i.astype(np.int64)
+        links = np.stack([links[:, 0] + node0, links[:, 1] + node0,
+                          np.where(links[:, 2] >= 0, links[:, 2] + chunk0,
+                                   -1)], axis=1)
+        nodes_f.append(t.nodes_f)
+        nodes_i.append(links.astype(np.int32))
+        perms.append(t.perm)
+        walks.append((node0, node0 + t.n_nodes))
+        node0 += t.n_nodes
+        chunk0 += t.n_chunks
+    return ChunkTree(np.concatenate(nodes_f).reshape(-1, 6),
+                     np.concatenate(nodes_i).reshape(-1, 3),
+                     np.concatenate(perms), trees[0].leaf_size), tuple(walks)
+
+
 def _mesh_vols(scene: Scene, device) -> Optional[MeshVols]:
-    """The mesh volumes' scan constants, None without mesh volumes."""
+    """The mesh volumes' scan constants, None without mesh volumes.  A
+    scene whose BVH lacks the volumes' trees gets them built here, once:
+    they are kept in ``scene.cbvh``."""
     n_mv, cb = scene.num_mesh_volumes, scene.cbvh
     if not n_mv:
         return None
     if len(cb.mv_spans) != n_mv:
         raise ValueError("the scene's BVH lacks its mesh volumes' slots")
     tri = scene.triangles
+    if len(cb.mv_trees) != n_mv:
+        from .bvh import build_mv_trees
+
+        cb = scene.cbvh = dataclasses.replace(
+            cb, mv_trees=build_mv_trees(tri))
+        if len(cb.mv_trees) != n_mv:
+            raise ValueError(f"{n_mv} mesh volumes, but the triangles bound "
+                             f"{len(cb.mv_trees)}")
     perm = torch.as_tensor(cb.mv_perm, device=tri.v0.device).long()
     pad = perm < 0
     rows = torch.cat([tri.v0, tri.e1, tri.e2, tri.normal], 1).detach()
     geo = torch.where(pad[:, None], 0.0, rows[perm.clamp(min=0)])
+    joined, walks = _joined(cb.mv_trees)
     live = (cb.mv_perm >= 0).reshape(-1, cb.leaf_size).sum(axis=1)
     spans = tuple((c0 * cb.leaf_size, int(live[c0:c0 + nc].sum()))
                   for c0, nc in cb.mv_spans)
@@ -324,7 +385,9 @@ def _mesh_vols(scene: Scene, device) -> Optional[MeshVols]:
         torch.tensor([n for _, n in spans], dtype=torch.int32, device=device),
         mv.neg_inv_density.detach().to(torch.float32).contiguous().to(device),
         mv.material.to(torch.int32).contiguous().to(device), spans,
-        cb.leaf_size)
+        cb.leaf_size, _tree(joined, rows, tri.material, device),
+        torch.tensor(walks, dtype=torch.int32, device=device).reshape(-1, 2),
+        walks)
 
 
 def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
@@ -424,12 +487,13 @@ def _volume_leaf(tree, s, o, d, a, t_best, ray_len, u_vol):
 
 
 def _moller_trumbore(geo, o, d):
-    """(t, inside) of (R, L) rays and the triangles of rows ``geo`` (L, 12):
-    ``_row_mt``, the direct cross-product Moller-Trumbore, t at any sign;
-    ``inside``: the determinant away from 0 and the barycentrics in the
-    triangle."""
+    """(t, inside) of (R, L) rays and the triangles of rows ``geo``, (L, 12)
+    for every ray or (R, L, 12) a ray: ``_row_mt``, the direct
+    cross-product Moller-Trumbore, t at any sign; ``inside``: the
+    determinant away from 0 and the barycentrics in the triangle."""
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (
-        v[None, :] for v in geo[:, :9].unbind(-1))
+        v if geo.dim() == 3 else v[None, :]
+        for v in geo[..., :9].unbind(-1))
     ox, oy, oz = (v[:, None] for v in o)
     dx, dy, dz = (v[:, None] for v in d)
     hx = dy * e2z - dz * e2y  # h = d x e2
@@ -552,8 +616,9 @@ def _walk_all(sc: BvhScene, o, d, a, alive, u_vol, tally, any_hit=False):
 def _mv_min_t(mv: MeshVols, start: int, count: int, o, d, floor, tally):
     """(R,) the least raw Moller-Trumbore t at or above ``floor`` (R,) of
     the triangles of slots [start, start + count), else inf
-    (``_mv_min_t``), a chunk of leaf_size triangles at a time: no (R, T)
-    matrix."""
+    (``_mv_min_t``, the JAX kernel's dense scan), a chunk of leaf_size
+    triangles at a time: no (R, T) matrix.  The replay's rescan reads it,
+    and the tests hold :func:`_mv_walk` to it."""
     best = torch.full_like(floor, float("inf"))
     for c in range(start, start + count, mv.leaf_size):
         tt, inside = _moller_trumbore(
@@ -565,33 +630,127 @@ def _mv_min_t(mv: MeshVols, start: int, count: int, o, d, floor, tally):
     return best
 
 
+def _mv_walk(mv: MeshVols, v: int, o, d, inv_d, floor, root_floor, bound,
+             tally, keep: bool = False):
+    """(R,) the least raw Moller-Trumbore t at or above ``floor`` (R,) of
+    mesh volume ``v``'s boundary triangles in the leaves its tree's walk
+    reaches (bvh_walk.cuh ``mv_walk``), else inf.  A node's box gives the
+    interval [entry, exit] of the ray's line inside it, all three slabs at
+    any t, a slab whose end is NaN (a line in one of its planes) the whole
+    line; the walk goes into the node when entry <= exit and neither
+    entry - s > ``bound`` nor exit + s < ``floor`` (``root_floor`` at the
+    root), s = MV_SLACK * max(|entry|, |exit|), and tests a leaf's
+    triangles.  Those decisions do not depend on what was found, so the
+    walk here goes a level of the tree at a time, over every (ray, node)
+    pair: the nodes and leaves the kernel's stackless walk visits, in
+    another order.  With ``bound`` inf and ``root_floor`` equal to
+    ``floor``: :func:`_mv_min_t`'s answer.  ``keep`` (the entry walk):
+    -> (that, t2), t2 the least crossing found at or past it + T_MIN when
+    the walk found at most MV_KEEP crossings and no box it skipped for
+    ``bound`` begins (entry - s) below t2, else NaN: the kernel's kept
+    crossings.  The tally counts node visits ("mv_nodes") and triangle
+    tests ("mv_tests")."""
+    tree = mv.tree
+    first, end = mv.walks[v]
+    inf = float("inf")
+    best = torch.full_like(floor, inf)
+    if end <= first or floor.numel() == 0:
+        return (best, best.clone()) if keep else best
+    o3, d3, inv3 = (torch.stack(x, 1) for x in (o, d, inv_d))
+    links = tree.nodes_i.long()
+    n_len = tree.chunk_len.long()
+    lane = torch.arange(tree.leaf_size, device=floor.device)
+    ray = torch.arange(floor.numel(), device=floor.device)
+    node = torch.full_like(ray, first)
+    lo = root_floor
+    cut, kept_ray, kept_t = torch.full_like(floor, inf), [], []
+    while ray.numel():
+        box = tree.nodes_f[node]
+        o_r, inv_r = o3[ray], inv3[ray]
+        a = (box[:, :3] - o_r) * inv_r
+        b = (box[:, 3:] - o_r) * inv_r
+        nan = torch.isnan(a) | torch.isnan(b)
+        entry = torch.where(nan, -inf, torch.minimum(a, b)).amax(1)
+        exit_ = torch.where(nan, inf, torch.maximum(a, b)).amin(1)
+        slack = MV_SLACK * torch.maximum(entry.abs(), exit_.abs())
+        near = entry - slack
+        past = near > bound[ray]
+        overlap = entry <= exit_
+        go_in = overlap & ~past & ~(exit_ + slack < lo[ray])
+        if keep:  # a skipped box holds no crossing below its near end
+            at = (overlap & past).nonzero().squeeze(1)
+            cut.scatter_reduce_(0, ray[at], near[at], "amin")
+        chunk = links[node, 2]
+        if tally is not None:
+            tally["mv_nodes"] += ray.numel()
+        leaf = (go_in & (chunk >= 0)).nonzero().squeeze(1)
+        for i in range(0, leaf.numel(), MV_PAIRS):  # bounded temporaries
+            c, r = chunk[leaf[i:i + MV_PAIRS]], ray[leaf[i:i + MV_PAIRS]]
+            n = n_len[c]
+            tt, inside = _moller_trumbore(
+                tree.geo[c[:, None] * tree.leaf_size + lane],
+                o3[r].unbind(1), d3[r].unbind(1))
+            ok = (lane < n[:, None]) & inside & (tt >= floor[r, None])
+            best.scatter_reduce_(0, r, torch.where(ok, tt, inf).amin(1),
+                                 "amin")
+            if keep:
+                kept_ray.append(r[:, None].expand_as(ok)[ok])
+                kept_t.append(tt[ok])
+            if tally is not None:
+                tally["mv_tests"] += int(n.sum())
+        inner = (go_in & (chunk < 0)).nonzero().squeeze(1)
+        kids = links[node[inner], 0]  # the first child; then its skip link
+        ray = torch.cat([ray[inner], ray[inner]])
+        node = torch.cat([kids, links[kids, 1]])
+        lo = floor
+    if not keep:
+        return best
+    k_ray = torch.cat(kept_ray) if kept_ray else ray
+    k_t = torch.cat(kept_t) if kept_t else floor[:0]
+    count = torch.bincount(k_ray, minlength=floor.numel())
+    at = k_t >= (best + T_MIN)[k_ray]
+    t2 = torch.full_like(floor, inf).scatter_reduce_(0, k_ray[at], k_t[at],
+                                                     "amin")
+    return best, torch.where((count <= MV_KEEP) & (t2 <= cut), t2,
+                             float("nan"))
+
+
 def _mesh_volume_scan(sc: BvhScene, o, d, a, alive, u_vol, t_best, tally):
     """Each alive ray's crossing scan of every mesh volume in index order
-    (pallas_megakernel.py:1620-1671): the entry t1 over the volume's
-    triangles at any t, the exit t2 at or past t1 + T_MIN (scanned only for
-    the rays that have an entry), the window [max(t1, T_MIN, 0), t2], and
-    the free flight of column ``n_vol + v`` of ``u_vol``, which wins when it
-    ends inside the window and nearer than ``t_best``.  ``t_best`` changes
-    in place; -> (R,) the winning volume, -1 where none."""
+    (pallas_megakernel.py:1620-1671): the entry t1, the least t at any sign
+    of the volume's triangles, the exit t2 at or past t1 + T_MIN, both by
+    :func:`_mv_walk`: the entry walk's kept crossings give t2, else a
+    second walk (none without an entry); the window [max(t1, T_MIN, 0),
+    t2], and the free flight of column ``n_vol + v`` of ``u_vol``, which
+    wins when it ends inside the window and nearer than ``t_best``.  The
+    entry walk skips, as the kernel's, a line that crosses the root box
+    only before T_MIN (no window) and, with -1/density <= 0, boxes that
+    begin past ``t_best`` (a window that opens there cannot win).
+    ``t_best`` changes in place; -> (R,) the winning volume, -1 where
+    none."""
     mv = sc.mesh_vols
     win = torch.full(a.shape, -1, dtype=torch.long, device=a.device)
     at = alive.nonzero().squeeze(1)
     if at.numel() == 0:
         return win
     o_a, d_a = [v[at] for v in o], [v[at] for v in d]
+    inv_a = [1.0 / v for v in d_a]
     ray_len = torch.sqrt(a[at])
     tb, w = t_best[at], win[at]
     inf = float("inf")
-    for v, (start, count) in enumerate(mv.spans):
-        t1 = _mv_min_t(mv, start, count, o_a, d_a,
-                       torch.full_like(tb, -inf), tally)
-        t2 = torch.full_like(tb, inf)
-        enter = (t1 < inf).nonzero().squeeze(1)
-        if enter.numel():
-            t2[enter] = _mv_min_t(mv, start, count,
-                                  [x[enter] for x in o_a],
-                                  [x[enter] for x in d_a],
-                                  t1[enter] + T_MIN, tally)
+    nid = mv.nid.tolist()
+    for v in range(len(mv.spans)):
+        t1, t2 = _mv_walk(mv, v, o_a, d_a, inv_a, torch.full_like(tb, -inf),
+                          torch.full_like(tb, T_MIN),
+                          tb if nid[v] <= 0.0 else torch.full_like(tb, inf),
+                          tally, keep=True)
+        again = ((t1 < inf) & torch.isnan(t2)).nonzero().squeeze(1)
+        if again.numel():
+            floor = t1[again] + T_MIN
+            t2[again] = _mv_walk(mv, v, *([x[again] for x in y]
+                                           for y in (o_a, d_a, inv_a)),
+                                 floor, floor, torch.full_like(floor, inf),
+                                 tally)
         h1 = torch.clamp(t1, min=T_MIN)
         valid = (t1 < inf) & (t2 < inf) & (h1 < t2)
         h1 = torch.clamp(h1, min=0.0)
@@ -858,30 +1017,29 @@ def _leaf_size(sc: BvhScene) -> int:
 
 
 def _mv_args(sc: BvhScene) -> list:
-    """The mesh volumes' (rows, first slots, counts, -1/densities, material
-    ids) pointers and count, after checking them; null pointers and 0
-    without mesh volumes."""
+    """The mesh volumes' tree (nodes, links, leaf counts, rows), each
+    volume's (first node, end), -1/densities and material ids as pointers,
+    then their count and the tree's leaf size, after checking them; null
+    pointers and 0 without mesh volumes."""
     mv = sc.mesh_vols
     if mv is None:
-        return [ctypes.c_void_p(0)] * 5 + [0]
+        return [ctypes.c_void_p(0)] * 7 + [0, 0]
     n = len(mv.spans)
     if not 0 < n <= MAX_BVH_MESH_VOLUMES:
-        raise ValueError(f"{n} mesh volumes; the kernel scans at most "
+        raise ValueError(f"{n} mesh volumes; the kernel takes at most "
                          f"{MAX_BVH_MESH_VOLUMES}")
     dev = sc.device
-    K._check(mv.geo, "mesh volume rows", torch.float32,
-             (mv.geo.shape[0], 12), dev)
-    if mv.geo.data_ptr() % 16:
-        raise ValueError("mesh volume rows must be 16-byte aligned")
-    for name, v, dtype in (("start", mv.start, torch.int32),
-                           ("count", mv.count, torch.int32),
-                           ("nid", mv.nid, torch.float32),
+    ptrs = _tree_args(mv.tree, 12)[:4]
+    k = mv.tree.nodes_f.shape[0]
+    if len(mv.walks) != n or any(not 0 <= a <= b <= k for a, b in mv.walks):
+        raise ValueError(f"mesh volume walks {mv.walks} outside the {k} "
+                         "nodes")
+    K._check(mv.bounds, "mesh volume bounds", torch.int32, (n, 2), dev)
+    for name, v, dtype in (("nid", mv.nid, torch.float32),
                            ("mat", mv.mat, torch.int32)):
         K._check(v, f"mesh volume {name}", dtype, (n,), dev)
-    if any(s < 0 or c < 0 or s + c > mv.geo.shape[0] for s, c in mv.spans):
-        raise ValueError(f"mesh volume spans {mv.spans} outside the "
-                         f"{mv.geo.shape[0]} rows")
-    return [ctypes.c_void_p(v.data_ptr()) for v in mv[:5]] + [n]
+    return ptrs + [ctypes.c_void_p(v.data_ptr()) for v in (
+        mv.bounds, mv.nid, mv.mat)] + [n, mv.tree.leaf_size]
 
 
 def _sky_args(sky: Optional[B.Background], dev) -> list:

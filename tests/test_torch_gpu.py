@@ -1047,14 +1047,19 @@ def _cube(center, half, material):
     return Mesh.from_buffers(v, v, f, material)
 
 
-def _fog(depth=6, spp=2, subdiv=3):
+def _fog(depth=6, spp=2, subdiv=3, inside=False):
     """A small fog_sheet (chip_smoke.py phase 12): the 128-triangle sheet
     with its metal and emissive spheres, an icosphere fog of an isotropic
     material and a cube fog whose material is a mix, under a gradient
     background (so the geometry rows, which #7 scatters into, move the
-    radiance)."""
+    radiance).  ``inside``: the camera at the icosphere's centre, looking
+    at the sheet, so every primary ray starts inside the fog and finds its
+    entry crossing behind its origin."""
     b = _sheet_builder(8, depth, spp)
     b.background = T.Background.gradient((0.5, 0.7, 1.0), (1.0, 1.0, 1.0))
+    if inside:
+        b.camera = T.Camera.create((-0.3, 0.8, 0.2), (0.5, 0, -0.5),
+                                   (0, 1, 0), 70.0, 1.0)
     iso = b.add_material(T.Isotropic((0.8, 0.8, 0.9)))
     mix = b.add_material(T.MixMaterial(T.Isotropic((0.9, 0.4, 0.3)),
                                        T.Lambertian((0.2, 0.6, 0.3)), 0.5))
@@ -1065,18 +1070,20 @@ def _fog(depth=6, spp=2, subdiv=3):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [1, 6])
-def test_mesh_volume_kernels_match_plain_on_card(cuda_device, depth):
+@pytest.mark.parametrize("depth,inside", [(1, False), (6, False), (6, True)],
+                         ids=["1", "6", "inside"])
+def test_mesh_volume_kernels_match_plain_on_card(cuda_device, depth, inside):
     """On a small fog_sheet at 64x48 spp 2: #5's mesh-volume variant and
     its record variant equal their plain versions bit for bit (radiance
     and codes, fog hits among them), the Normal and Random views too; #6
     equals its plain version, #7 the float64 sums within rtol 1e-5 of each
     entry plus 1e-6 of the largest; at depth 6 the gradient through the
     kernels agrees with the plain route within rtol 2e-3 plus 2e-5 of the
-    largest.  Every launch counts under MV_LAUNCHES."""
+    largest.  Every launch counts under MV_LAUNCHES.  ``inside``: the
+    camera inside the icosphere, every primary entry behind its origin."""
     from raytracingrust_tpu_torch.ops import fetch as TF
 
-    scene = _fog(depth)
+    scene = _fog(depth, inside=inside)
     w, h = 64, 48
     sc, key, spp, opts = _record_inputs(scene, w, h, 9, cuda_device)
     assert sc.n_mv == 2 and sc.mixes is not None
@@ -1094,6 +1101,8 @@ def test_mesh_volume_kernels_match_plain_on_card(cuda_device, depth):
     assert torch.equal(codes, want)
     fog = (codes >= 0) & ((codes & TB.REC_SLOT) >= sc.mv_base)
     assert bool(fog.any())
+    if inside:  # most primary rays scatter in the fog around the camera
+        assert float(fog[0].float().mean()) > 0.3
     for view in ("normal", "random"):
         v_opts = dict(opts, max_depth=1)
         got = TB.radiance_bvh_cuda(sc, key, n, spp, w, debug=view, **v_opts)
