@@ -3470,13 +3470,11 @@ def main() -> int:
                 lambda: K.radiance_plain(fp, kinds, k, ray_ids, px, py,
                                          observe=observe, **opts))
 
-    def forward_bound(scene, w, h, seed):
+    def forward_bound(scene, w, h, count):
         """Kernel #1's least time for this frame: the forward chain over the
-        bounces its rays traced, or the scene read once and 12 bytes of
-        output a ray written once."""
-        count = _Count()
-        with torch.no_grad():
-            launchers(scene, w, h, seed, observe=count)[1]()
+        bounces its rays traced (``count``, a :class:`_Count` the plain
+        version ran with), or the scene read once and 12 bytes of output a
+        ray written once."""
         n_rays = w * h * scene.settings.samples_per_pixel
         n_sph = K.sphere_kinds(scene).shape[0]
         return _bound(count.forward_ops(n_rays, n_sph, scene.background.kind),
@@ -3524,23 +3522,24 @@ def main() -> int:
     print("phase 3 kernel vs plain at 64x48 spp 4: per-ray radiance bit "
           "for bit equal at depth 1 and at depth 6: " + ", ".join(parts))
 
-    # the same comparison at the main path's shapes, with times
+    # the same comparison at the main path's shapes, with times; the plain
+    # version's timed run counts its work for the bound
     max_err = 0.0
     radiance_ms = {}  # path -> (kernel ms, plain ms)
     fwd_bound = {}  # path -> (bound ms, what bounds it)
-    for path, w, h, spp, depth, reps in ((BENCH, 512, 512, 8, 6, (20, 3)),
-                                         (CORNELL, 1000, 1000, 64, 8, (5, 1))):
+    for path, w, h, spp, depth, reps in ((BENCH, 512, 512, 8, 6, 20),
+                                         (CORNELL, 1000, 1000, 64, 8, 5)):
         sc = scene_of(path, spp, depth)
         label = f"{path} {w}x{h} spp {spp} depth {depth}"
         check_exact(depth1(sc), w, h, label + " (at depth 1)")
         max_err = max(max_err, check_exact(sc, w, h, label))
-        noise = seed_noise(sc, w, h)
-        ker_fn, plain_fn = launchers(sc, w, h, 0)
-        radiance_ms[path] = (_cuda_time_ms(ker_fn, reps[0]),
-                             _cuda_time_ms(plain_fn, reps[1], warm=False))
-        fwd_bound[path] = forward_bound(sc, w, h, 0)
+        count = _Count()
+        ker_fn, plain_fn = launchers(sc, w, h, 0, observe=count)
+        radiance_ms[path] = (_cuda_time_ms(ker_fn, reps),
+                             _cuda_time_ms(plain_fn, 1, warm=False))
+        fwd_bound[path] = forward_bound(sc, w, h, count)
         print(f"phase 3 {label}: per-ray radiance bit for bit equal at "
-              f"depth 1 and depth {depth} (seed noise {noise:.3e}); "
+              f"depth 1 and depth {depth}; "
               f"radiance kernel {radiance_ms[path][0]:.4f} ms, plain "
               f"{radiance_ms[path][1]:.3f} ms, bound "
               f"{fwd_bound[path][0]:.5f} ms ({fwd_bound[path][1]})")

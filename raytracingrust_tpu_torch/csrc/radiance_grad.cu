@@ -6,7 +6,7 @@
 // and takes jax.vjp of _radiance_math against per-ray radiance cotangents.
 // Here: one thread per ray (grid-stride over the rays) reads the ray's
 // cotangent (3 floats), replays the ray with a recording trace and runs the
-// hand-derived adjoint of radiance.cuh; the result is
+// hand-derived adjoint of radiance.cuh (the loop below); the result is
 // dfparams = sum over rays of cts[ray] . d radiance[ray] / d fparams,
 // (20 + stride N,) float32, and under a sky map the texels' gradient.  Rays
 // whose cotangent is zero are skipped (their term is exactly 0).  Depth is
@@ -32,13 +32,37 @@
 // sphere entries go to the block's shared sums with shared-memory atomics.
 // At the end each block writes its sums as one row of `partials`, and a
 // second kernel adds the rows in a fixed order.  Shared atomics add in no
-// fixed order, so the result varies in its last bits between runs.
+// fixed order, so the result varies in its last bits between runs.  (Summing
+// a warp's lanes that add to the same row with shuffles first was faster on
+// the H100 at the sphere-only shapes, slower at the triangle zoo under a sky,
+// the largest: not kept.)
+//
+// The loop, as mse_loss.cu's: each thread holds two tapes.  Iteration i
+// traces ray i into tapes[cur], then runs the adjoint of the thread's last
+// traced ray (its cotangent kept in registers) from tapes[cur ^ 1]; one
+// iteration past the thread's last ray runs the last adjoint.  A ray whose
+// cotangent is zero is neither traced nor held: `cur` stays, and the
+// pending flag clears once the last ray's adjoint has run, so no adjoint
+// reads a stale tape or cotangent.  The trip count is the warp's: a vote
+// (__any_sync) ends the loop once no lane of the warp has a ray left, and
+// reconverges the warp every iteration.  Without it the lanes of a warp
+// drift apart over the iterations, and the kernel took 1.2-1.8 times as
+// long on the H100 (mse_loss.cu's shuffles reconverge its warps every
+// iteration too); without the vote a second tape took 5-15% longer than
+// one, with it one tape measured 0-4% faster.  The loop body holds no
+// barrier; every thread reaches write_partials' barrier once.  The frame
+// is the two tapes, 1,008 bytes of local memory a thread; __launch_bounds__
+// asks for kMinBlocks blocks an SM (at most 128 registers a thread: 94-115,
+// no spill), which GradShared<true, true>'s 40 KB of shared memory a block
+// allows (4 x 40 KB of the SM's 227 KB).
 //
 // What bounds it on this card: the per-ray FP32 work of two passes over the
 // chain (the recording forward and the reverse sweep, which recomputes each
-// bounce against its winner only) and the tape's local-memory traffic (40
-// bytes a bounce, written once and read once, mostly from L1).  Device
-// memory traffic is 12 bytes of cotangent per ray.
+// bounce against its winner only), the tape's local-memory traffic (40
+// bytes a bounce, written once and read once, mostly from L1), and the
+// latency of their dependent chains at 4 blocks of 128 threads an SM; the
+// lanes of a warp diverge where their paths do.  Device memory traffic is
+// 12 bytes of cotangent per ray.
 
 #include <cuda_runtime.h>
 
@@ -48,8 +72,13 @@ namespace {
 
 using namespace rtrt;
 
+constexpr unsigned kFull = 0xffffffffu;
+// at least 4 blocks an SM: at most 128 registers a thread, which every
+// instance needs without a spill
+constexpr int kMinBlocks = 4;
+
 template <bool kExt, bool kSky, bool kTri>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 grad_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
             Rows rows, uint32_t k0, uint32_t k1, int n_rays, int spp,
             int width, int max_depth, int bg_kind, int clay, Sky sky,
@@ -61,22 +90,47 @@ grad_kernel(const float* __restrict__ fparams, const int* __restrict__ kinds,
 #pragma unroll
   for (int k = 0; k < kHead; ++k) head[k] = 0.0f;
 
+  Tape tapes[2];
+  int cur = 0;
+  bool pending = false;  // tapes[cur ^ 1] holds a ray whose adjoint is due
+  uint32_t p_ray = 0;
+  float p_gr = 0.0f, p_gg = 0.0f, p_gb = 0.0f;  // its cotangent
   const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long ray = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-       ray < n_rays; ray += stride) {
-    const float gr = cts[3 * ray], gg = cts[3 * ray + 1],
-                gb = cts[3 * ray + 2];
-    if (gr == 0.0f && gg == 0.0f && gb == 0.0f) continue;
-    const int pixel = (int)ray / spp;
-    const float px = (float)(pixel % width), py = (float)(pixel / width);
-    Tape tape;
-    float r, g, b;
-    trace<true, kExt, kSky, kTri>(sh.f, sh.kind_of, rows, k0, k1,
-                                  (uint32_t)ray, px, py, max_depth, bg_kind,
-                                  clay, sky, r, g, b, &tape);
-    adjoint<kExt, kSky, kTri>(sh.f, sh.kind_of, rows, k0, k1, (uint32_t)ray,
-                              px, py, bg_kind, clay, sky, tape, gr, gg, gb,
-                              head, sh.gs, gsky);
+  for (long long ray = (long long)blockIdx.x * blockDim.x + threadIdx.x;;
+       ray += stride) {
+    const bool more = ray < n_rays;
+    float gr = 0.0f, gg = 0.0f, gb = 0.0f;
+    if (more) {
+      gr = cts[3 * ray];
+      gg = cts[3 * ray + 1];
+      gb = cts[3 * ray + 2];
+    }
+    const bool live = gr != 0.0f || gg != 0.0f || gb != 0.0f;
+    if (live) {
+      const int pixel = (int)ray / spp;
+      float r, g, b;
+      trace<true, kExt, kSky, kTri>(sh.f, sh.kind_of, rows, k0, k1,
+                                    (uint32_t)ray, (float)(pixel % width),
+                                    (float)(pixel / width), max_depth,
+                                    bg_kind, clay, sky, r, g, b, &tapes[cur]);
+    }
+    if (pending) {
+      const int pixel = (int)p_ray / spp;
+      adjoint<kExt, kSky, kTri>(sh.f, sh.kind_of, rows, k0, k1, p_ray,
+                                (float)(pixel % width),
+                                (float)(pixel / width), bg_kind, clay, sky,
+                                tapes[cur ^ 1], p_gr, p_gg, p_gb, head, sh.gs,
+                                gsky);
+    }
+    pending = live;
+    if (live) {
+      p_ray = (uint32_t)ray;
+      p_gr = gr;
+      p_gg = gg;
+      p_gb = gb;
+      cur ^= 1;
+    }
+    if (!__any_sync(kFull, more)) break;  // every lane of the warp votes
   }
   write_partials(sh, head, 0.0f, rows, scene_floats(rows), partials);
 }

@@ -7,6 +7,7 @@ import os
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 import numpy as np
 

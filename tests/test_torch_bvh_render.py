@@ -14,6 +14,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 import numpy as np
 

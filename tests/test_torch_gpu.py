@@ -1390,3 +1390,84 @@ def test_brute_tri_render_and_fit_on_card(cuda_device):
     assert all(np.isfinite(history)) and history[-1] < history[0]
     with_bvh = brute_tri_builder(T, "zoo", depth=4).build(with_bvh=True)
     assert select_engine(with_bvh) == "bvh"
+
+
+# each grad_kernel<kExt, kSky, kTri> instance: (scene at a depth, kExt,
+# kSky, kTri)
+_GRAD_VARIANTS = {
+    "spheres": (lambda d: _with_depth(_benchmark_like(gradient=True), d),
+                0, 0, 0),
+    "ext": (lambda d: brute_ext_builder(T, d).build(), 1, 0, 0),
+    "sky": (_solid_sky, 0, 1, 0),
+    "ext-sky": (lambda d: brute_ext_builder(T, d, sky=True).build(), 1, 1,
+                0),
+    "tri": (lambda d: brute_tri_builder(T, "tri_grad", depth=d).build(), 0,
+            0, 1),
+    "ext-tri": (lambda d: brute_tri_builder(T, "zoo", depth=d).build(), 1,
+                0, 1),
+    "sky-tri": (lambda d: brute_tri_builder(T, "tri", depth=d,
+                                            sky=True).build(), 0, 1, 1),
+    "ext-sky-tri": (lambda d: brute_tri_builder(T, "zoo", depth=d,
+                                                sky=True).build(), 1, 1, 1),
+}
+
+
+def _with_depth(scene, depth):
+    return dataclasses.replace(scene, settings=dataclasses.replace(
+        scene.settings, max_ray_depth=depth))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_GRAD_VARIANTS))
+def test_radiance_grad_pipeline_edges_on_card(cuda_device, name):
+    """Kernel #3's loop (a thread traces its next ray, then runs the last
+    one's adjoint from its other tape; the warp votes to go on) at its
+    edges, in each of its eight instances: a 13x11 frame of 3 samples (429 rays, no multiple of 128) at
+    depth 1 and 12; a frame on which every thread takes 3-4 rays, with
+    standard normal cotangents, with every cotangent zero (the gradient
+    exactly 0), and with every other ray of each thread zero, so that a
+    pending adjoint runs after a skipped ray.  Each launch counts as its
+    variant; each gradient within rtol 2e-3 plus 2e-5 of the largest entry
+    of autograd through the plain version, the texels' included."""
+    make, ext, with_sky, tri = _GRAD_VARIANTS[name]
+    # the kernel's threads (blocks of 128), its grid stride over the rays
+    stride = TK.max_blocks(cuda_device) * 128
+    big_h = -(-7 * stride // (2 * 128 * 8))  # 128 wide, spp 8: 3.5 rays each
+    cases = [("ragged", 13, 11, 3, 1, "normal"),
+             ("ragged", 13, 11, 3, 12, "normal"),
+             ("loops", 128, big_h, 8, 6, "normal"),
+             ("loops", 128, big_h, 8, 6, "zero"),
+             ("loops", 128, big_h, 8, 6, "alternate")]
+    for label, w, h, spp, depth, pattern in cases:
+        scene = make(depth)
+        fp, kinds, opts, sky = _brute_inputs(scene, w, h, cuda_device)
+        key = trng.base_key(7)
+        n_rays = w * h * spp
+        gen = np.random.default_rng(depth)
+        cts = torch.tensor(gen.standard_normal((n_rays, 3)),
+                           dtype=torch.float32, device=cuda_device)
+        r = torch.arange(n_rays, device=cuda_device)
+        if pattern == "zero":
+            cts.zero_()
+        elif pattern == "alternate":  # a thread's rays r, r + stride, ...
+            cts[(r // stride + r) % 2 == 1] = 0.0
+        before = (TR.LAUNCHES, TR.EXT_LAUNCHES, TR.SKY_LAUNCHES,
+                  TR.TRI_LAUNCHES)
+        got = TR.radiance_grad_cuda(fp, kinds, key, cts, spp, w, sky=sky,
+                                    **opts)
+        torch.cuda.synchronize()
+        assert (TR.LAUNCHES, TR.EXT_LAUNCHES, TR.SKY_LAUNCHES,
+                TR.TRI_LAUNCHES) == (before[0] + 1, before[1] + ext,
+                                     before[2] + with_sky, before[3] + tri)
+        got = (got,) if sky is None else got
+        if pattern == "zero":
+            assert all(bool((g == 0).all()) for g in got), (label, pattern)
+            continue
+        want = TR.radiance_grad_plain(fp, kinds, key, cts, spp, w, sky=sky,
+                                      **opts)
+        want = (want,) if sky is None else want
+        for a, b in zip(got, want):
+            assert bool(torch.isfinite(a).all()), (label, depth, pattern)
+            assert _close(a, b), (label, depth, pattern,
+                                  (a - b).abs().max().item())
+        assert any(b.abs().max() > 0 for b in want), (label, depth)

@@ -21,6 +21,7 @@ import json
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 import jax
 import jax.numpy as jnp

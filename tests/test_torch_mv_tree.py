@@ -22,6 +22,7 @@ import dataclasses
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 import numpy as np
 

@@ -5,6 +5,7 @@ bit (raytracingrust_tpu_torch/utils/rng.py vs raytracingrust_tpu/utils/rng.py).
 import pytest
 
 torch = pytest.importorskip("torch")
+torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 import jax.numpy as jnp
 import numpy as np
