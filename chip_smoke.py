@@ -188,9 +188,13 @@ non-zero exit, and prints no result:
    spp 32 depth 8; its fit at 600x400 spp 16, #4) and "tri_zoo_sky" (that
    under phase 9's sky, importance sampling off, 600x400 spp 16; its fit
    #1 + #3).  The checks, times, CLI runs, an L1 loss of tri_brute
-   (#1, then #3) and the warm renders and fit steps as phase 13's; then
-   the route comparison: tri_brute built with its BVH on #5 (its kernel,
-   warm render and fit step on the record walk and the replay).
+   (#1, then #3) and the warm renders and fit steps as phase 13's; each
+   plain run also replays the triangle loop's clusters
+   (``megakernel.tri_closest_culled``, which must find the dense test's
+   winners on every ray and bounce) and counts their work for the
+   ``kTri`` bounds, the dense loop's bound printed beside; then the route
+   comparison: tri_brute built with its BVH on #5 (its kernel, warm
+   render and fit step on the record walk and the replay).
    ``python3 chip_smoke.py 14`` runs the build and this phase alone.
 
 The line before the last is the kernel report as JSON: each kernel's
@@ -332,6 +336,21 @@ OPS_TRI_W = 9
 OPS_TRI_BRUTE = 30
 OPS_ADJ_TRI = 30
 BYTES_TRI = 80  # a triangle's row (pack_tri)
+# the triangle loop's clusters (csrc/radiance.cuh tri_ray, cluster_thr,
+# tri_hit), counted from their source: per ray and bounce 1 / d with its
+# overflow test (3 x 6), |o|inf, |d|inf (4), d's power of 2 and its halves
+# (6); per cluster record a lane
+# reads, the three slabs (2 differences, 2 products, 2 NaN tests, a
+# compare and 2 selects each: 27), entry and exit (4), their slack (8) and
+# the three skip compares (5), the origin's compare and thr (4); per row
+# whose determinant a threshold needs (cluster_rows), the half-precision
+# determinant (a product and two multiply-adds, 5) and its compare, two
+# rows an instruction at twice the FP32 rate: 3; per row tested, tri_hit
+# (OPS_TRI_BRUTE)
+OPS_TRI_RAY = 28
+OPS_BOX = 48
+OPS_TRI_DET = 3
+BYTES_BOX = 256  # a cluster's record (pack_tri_boxes)
 
 
 def _cuda_time_ms(fn, reps: int, warm: bool = True) -> float:
@@ -365,36 +384,70 @@ class _Count:
     passes to ``radiance_plain(..., observe=count)`` once a bounce: rays
     entering each bounce, hits by the winner's kind (the picked mix
     leaf's), misses; with volumes the windows crossed; under a sky map
-    the texels looked up.  Sums only, so a frame of many tiles adds up."""
+    the texels looked up.  Sums only, so a frame of many tiles adds up.
+    With ``cull``, a triangle scene's (rows, cluster records), it replays
+    each bounce's triangle test as the kernels' clusters make it
+    (``megakernel.tri_closest_culled``), fails where its winners are not
+    the plain version's, and sums the work in ``cull_work``."""
 
-    def __init__(self):
+    def __init__(self, cull=None):
         self.bounces = self.misses = self.windows = self.tri_hits = 0
         self.hits = collections.Counter()
         self.texels = None
+        self.cull = cull
+        self.cull_work = collections.Counter()
 
     def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None,
-                 tri=None):
+                 tri=None, tri_rays=None):
         self.bounces += int(alive.sum())
         self.misses += int((alive & ~hit).sum())
         self.windows += windows
         if tri is not None:
             self.tri_hits += int((alive & tri).sum())
+        if tri_rays is not None and self.cull is not None:
+            self._replay(alive, *tri_rays)
         for k in range(5):
             self.hits[k] += int((alive & hit & (kind == k)).sum())
         if texels is not None:
             self.texels = texels if self.texels is None else (
                 self.texels | texels)
 
+    def _replay(self, alive, o, d, bound, index) -> None:
+        from raytracingrust_tpu_torch.ops import megakernel as K
+
+        at = alive.nonzero().squeeze(1)
+        work = {}
+        _, got = K.tri_closest_culled(*self.cull, [v[at] for v in o],
+                                      [v[at] for v in d], bound[at],
+                                      tally=work)
+        bad = int((got != index[at]).sum())
+        if bad:
+            raise AssertionError(f"the culled triangle test's plain twin "
+                                 f"found other winners than the dense test "
+                                 f"on {bad} rays")
+        self.cull_work.update(work)
+
     def texel_bytes(self) -> int:
         """The bytes of the sky's texels looked up, each once."""
         return 0 if self.texels is None else 12 * int(self.texels.sum())
 
+    def tri_ops(self, n_tri: int, dense: bool = False) -> int:
+        """FP32 operations of the triangle loops over these rays: the
+        clusters' work that the replay counted, or with ``dense`` (or
+        without a replay) every triangle tested at every bounce."""
+        w = self.cull_work
+        if dense or not w:
+            return self.bounces * (OPS_TRI_W + n_tri * OPS_TRI_BRUTE)
+        return (self.bounces * (OPS_TRI_W + OPS_TRI_RAY)
+                + w["boxes"] * OPS_BOX + w["dets"] * OPS_TRI_DET
+                + w["tests"] * OPS_TRI_BRUTE)
+
     def forward_ops(self, n_rays: int, n_spheres: int, bg_kind: int,
                     mix: bool = False, n_vol: int = 0, n_tri: int = 0,
-                    **_) -> int:
+                    dense: bool = False, **_) -> int:
         """FP32 operations of the forward chain over these rays (the
         options as ``megakernel.scene_opts`` gives them; ``n_tri``
-        triangles)."""
+        triangles, their loops' work as :meth:`tri_ops` counts it)."""
         lobe = {**OPS_LOBE, 4: OPS_ISO}
         hits = sum(self.hits.values())
         return (n_rays * OPS_RAY
@@ -405,8 +458,7 @@ class _Count:
                 + (self.bounces * (OPS_RAY_LEN + n_vol * OPS_VOL_WINDOW)
                    + self.windows * OPS_VOL_DRAW if n_vol else 0)
                 + (hits * OPS_MIX_PICK if mix else 0)
-                + (self.bounces * (OPS_TRI_W + n_tri * OPS_TRI_BRUTE)
-                   if n_tri else 0))
+                + (self.tri_ops(n_tri, dense) if n_tri else 0))
 
 
 class _Tally(_Count):
@@ -414,17 +466,18 @@ class _Tally(_Count):
     ended within the depth and their scattering bounces by kind.  A
     Full-mode scene of one tile of rays."""
 
-    def __init__(self, max_depth: int):
-        super().__init__()
+    def __init__(self, max_depth: int, cull=None):
+        super().__init__(cull)
         self.max_depth = max_depth
         self.calls = 0
         self.prev = None  # rays that hit a scattering kind at the last call
 
     def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None,
-                 tri=None):
+                 tri=None, tri_rays=None):
         import torch
 
-        super().__call__(alive, hit, kind, windows, vol, texels, tri)
+        super().__call__(alive, hit, kind, windows, vol, texels, tri,
+                         tri_rays)
         if self.prev is None:
             self.ended = torch.zeros_like(alive)
             self.absorbed = torch.zeros_like(alive)
@@ -479,6 +532,7 @@ class _TallySum(_Count):
         self.windows += t.windows
         self.tri_hits += t.tri_hits
         self.hits.update(t.hits)
+        self.cull_work.update(t.cull_work)
         if t.texels is not None:
             self.texels = t.texels if self.texels is None else (
                 self.texels | t.texels)
@@ -2532,19 +2586,27 @@ def _brute_inputs(scene, w: int, h: int, dev) -> tuple:
 
     sky = (scene.background.image.to(dev).contiguous()
            if scene.background.kind == B.SKYMAP else None)
-    tri = K.pack_tri(scene)
+    tri, boxes = K.pack_tri(scene), K.pack_tri_boxes(scene)
     return (K.pack_fparams(scene, w, h).to(dev),
             K.brute_kinds(scene).to(dev),
             {**K.scene_opts(scene),
-             "tri": None if tri is None else tri.to(dev)}, sky)
+             "tri": None if tri is None else tri.to(dev),
+             "tri_boxes": None if boxes is None else boxes.to(dev)}, sky)
 
 
 def _brute_sizes(fp, kinds, opts) -> tuple:
     """(spheres, triangles, the bytes of the scene's inputs) of
     :func:`_brute_inputs`' tensors."""
     n_tri = 0 if opts["tri"] is None else opts["tri"].shape[0]
+    n_box = 0 if opts["tri"] is None else opts["tri_boxes"].shape[0]
     return (kinds.shape[0] - opts["n_tm"], n_tri,
-            4 * fp.numel() + 4 * kinds.numel() + BYTES_TRI * n_tri)
+            4 * fp.numel() + 4 * kinds.numel() + BYTES_TRI * n_tri
+            + BYTES_BOX * n_box)
+
+
+def _cull_of(opts: dict):
+    """A brute scene's (triangle rows, cluster records), or None."""
+    return None if opts["tri"] is None else (opts["tri"], opts["tri_boxes"])
 
 
 def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
@@ -2562,7 +2624,7 @@ def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
     ids, px, py = K.prep_rays(torch.arange(w * h, device=dev), spp, w)
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    count = _Count()
+    count = _Count(_cull_of(opts))
     for d in (1, opts["max_depth"]):
         at = {**opts, "max_depth": d}
         ker = K.radiance_cuda(fp, kinds, key, n_rays, spp, w, sky=sky, **at)
@@ -2581,9 +2643,11 @@ def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
         fp, kinds, key, n_rays, spp, w, sky=sky, **opts), 5)
     n_sph, n_tri, scene_bytes = _brute_sizes(fp, kinds, opts)
     ops = count.forward_ops(n_rays, n_sph, n_tri=n_tri, **opts)
+    dense = count.forward_ops(n_rays, n_sph, n_tri=n_tri, dense=True, **opts)
+    n_bytes = scene_bytes + 12 * n_rays + count.texel_bytes()
     return dict(ms=ms, plain_ms=plain_ms, err=err, count=count, ops=ops,
-                mean=mean, bound=_bound(ops, scene_bytes + 12 * n_rays
-                                        + count.texel_bytes()))
+                mean=mean, bound=_bound(ops, n_bytes),
+                bound_dense=_bound(dense, n_bytes))
 
 
 def _brute_plain_grads(fp, kinds, key, cts, target, spp: int, w: int,
@@ -2611,7 +2675,8 @@ def _brute_plain_grads(fp, kinds, key, cts, target, spp: int, w: int,
         p1 = min(n_pix, p0 + step)
         ids, px, py = K.prep_rays(torch.arange(p0, p1, device=fp.device),
                                   spp, w)
-        seen = None if tally is None else _Tally(opts["max_depth"])
+        seen = (None if tally is None
+                else _Tally(opts["max_depth"], _cull_of(opts)))
         with torch.enable_grad():
             rad = K.radiance_plain(fpg, kinds, key, ids, px, py, sky=skg,
                                    observe=seen, **opts)
@@ -2711,13 +2776,16 @@ def _brute_grad_check(label, scene, w: int, h: int, dev, key, gen,
     out["ms3"] = _cuda_time_ms(grad3, 3)
     n_sph, n_tri, scene_bytes = _brute_sizes(fp, kinds, opts)
     k_f = fp.numel()
-    fwd = tally.forward_ops(n_rays, n_sph, n_tri=n_tri, **opts)
     adj = tally.adj_ops
     scene_bytes += 2 * tally.texel_bytes()
-    out["bound3"] = _bound(fwd + adj, scene_bytes + 12 * n_rays + 4 * k_f)
-    out["bound4"] = _bound(
-        fwd + adj + n_rays * OPS_LOSS_RAY + w * h * OPS_LOSS_PIXEL,
-        scene_bytes + 12 * w * h + 4 * (k_f + 1))
+    loss_ops = n_rays * OPS_LOSS_RAY + w * h * OPS_LOSS_PIXEL
+    for tag, dense in (("", False), ("_dense", True)):
+        fwd = tally.forward_ops(n_rays, n_sph, n_tri=n_tri, dense=dense,
+                                **opts)
+        out["bound3" + tag] = _bound(fwd + adj,
+                                     scene_bytes + 12 * n_rays + 4 * k_f)
+        out["bound4" + tag] = _bound(fwd + adj + loss_ops,
+                                     scene_bytes + 12 * w * h + 4 * (k_f + 1))
     return out
 
 
@@ -3133,6 +3201,13 @@ def tri_scenes() -> list:
             ("tri_zoo_sky", zoo_sky, (fw, fh), ZOO_FIT)]
 
 
+def _per(work, n: int) -> str:
+    """The clusters' work (``megakernel.tri_closest_culled``'s tally) per
+    ray and bounce."""
+    return ", ".join(f"{k} {work[k] / max(n, 1):.2f}"
+                     for k in ("boxes", "dets", "tests"))
+
+
 def tri_phase(dev, card: str) -> list:
     """Phase 14; -> the report entries of #1's, #3's and #4's triangle
     variants (kTri, with kExt and kSky)."""
@@ -3172,9 +3247,12 @@ def tri_phase(dev, card: str) -> list:
               f"{rw * rh * r_spp} rays; per ray "
               f"{c.bounces / (rw * rh * r_spp):.3f} bounces, triangle hits "
               f"{c.tri_hits}, hits by kind {[c.hits[k] for k in range(5)]}, "
-              f"misses {c.misses}; #1 {f['ms']:.4f} ms, plain "
+              f"misses {c.misses}; the clusters' plain twin == the dense "
+              f"test on every ray and bounce, per ray and bounce "
+              f"{_per(c.cull_work, c.bounces)}; #1 {f['ms']:.4f} ms, plain "
               f"{f['plain_ms']:.1f} ms, bound {f['bound'][0]:.5f} ms "
-              f"({f['bound'][1]}; {f['ops']:.4g} FP32 operations); {card}")
+              f"({f['bound'][1]}; {f['ops']:.4g} FP32 operations; the "
+              f"dense loop's {f['bound_dense'][0]:.5f} ms); {card}")
         fit_scene = _load(path, spp=f_spp)
         g = _brute_grad_check(label, fit_scene, fw, fh, dev, key, gen,
                               fused=scene.background.kind != 2)
@@ -3183,7 +3261,8 @@ def tri_phase(dev, card: str) -> list:
                   if "texels" in g else "")
         fused = (f"; #4 max abs diff {g['err4']:.3e}, {g['ms4']:.3f} ms "
                  f"(plain autograd {g['plain4_ms']:.1f} ms), bound "
-                 f"{g['bound4'][0]:.5f} ms ({g['bound4'][1]})"
+                 f"{g['bound4'][0]:.5f} ms ({g['bound4'][1]}; dense "
+                 f"{g['bound4_dense'][0]:.5f} ms)"
                  if "err4" in g else "")
         print(f"phase 14 {label} gradients at {fw}x{fh} spp {g['spp']} "
               f"(autograd of the plain version over ranges of "
@@ -3192,7 +3271,8 @@ def tri_phase(dev, card: str) -> list:
               f"diff {g['err3']:.3e}{texels} (allowed {GRAD_RTOL:g} rel + "
               f"{GRAD_ATOL:g} of max), finite; #3 {g['ms3']:.3f} ms (plain "
               f"autograd {g['plain3_ms']:.1f} ms), bound "
-              f"{g['bound3'][0]:.5f} ms ({g['bound3'][1]}){fused}; {card}")
+              f"{g['bound3'][0]:.5f} ms ({g['bound3'][1]}; dense "
+              f"{g['bound3_dense'][0]:.5f} ms){fused}; {card}")
 
     # FD probes: the sheet's albedos (make_loss: #4), the zoo's icosphere
     # mix leaves and mirror (#4), the sky's texel of largest gradient (#1,

@@ -34,17 +34,27 @@
 // Triangles (kTri): the TPU kernel tests each ray against chunks of 512
 // triangles as one matmul of its features [d, o x d, o, 1] by a (16, 4 TB)
 // coefficient matrix, then gathers the winner's shading rows by a one-hot
-// matmul.  Here one thread loops over every triangle: its 80-byte row
-// (coefficients, flat normal, material slot) comes from device memory
-// through the read-only path, as 5 float4 loads that every lane of a warp
-// makes at the same address (a broadcast; 1,024 triangles are 80 KB, which
-// L1 holds); the determinant and t first, u and v only for a t below the
-// best so far.  Each sum is the chain of fused multiply-adds that XLA's
-// dot computes, so t agrees bit for bit with the TPU kernel's on the CPU.
-// The slots' material rows (few: one per material) are staged in shared
-// memory with the spheres'.  What bounds it: FP32 work, about 12
-// operations a triangle a bounce (up to 40 for a near one).
-//
+// matmul.  Here one thread walks the triangles in clusters of 32
+// consecutive rows (radiance.cuh cluster_thr, cluster_rows;
+// ops/megakernel.py pack_tri_boxes).  A cluster's 256-byte record, read
+// through the read-only path (8,192 triangles make 256 records, 64 KB,
+// which L1 holds), holds a padded box and the rows' normals in half
+// precision.  Where the ray's line misses the box, or meets it only past
+// the best t so far or before T_MIN, a row can pass only if the ray nearly
+// grazes it, so the lane takes the rows' determinants in half precision,
+// two rows in three HFMA2s and a compare against a margin that covers
+// their rounding, and tests only the few below the threshold; where the
+// line meets the box, every row.  A tested row's 80-byte row comes as 5
+// float4 loads (a broadcast where the warp's lanes test the same row): the
+// determinant first, t next, u and v only for a t below the best so far.
+// Each sum is the chain of fused multiply-adds that XLA's dot computes, so
+// t agrees bit for bit with the TPU kernel's on the CPU, and the rows are
+// visited in index order, so the winner and its tie rule are the dense
+// loop's.  The slots' material rows (few: one per material) are staged in
+// shared memory with the spheres'.  What bounds it: FP32 work, about 50
+// operations a cluster, 3 a row whose determinant a lane takes, and 12 to
+// 40 a row it tests.
+
 // Build (see ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
 //        -shared -Xcompiler -fPIC
@@ -115,23 +125,27 @@ uniforms_kernel(const int* __restrict__ ids, int n_ids, uint32_t k0,
 
 // rtrt_radiance: `ext` selects the kExt variant (mixes, volumes or the
 // isotropic lobe), `mix` and `n_vol` the scene's rows; triangles pass their
-// (n_tri, 20) rows and the count of their material slots, whose rows end
-// fparams and whose kinds end `kinds` (the kTri variant); a sky map
+// (n_tri, 20) rows, the count of their material slots, whose rows end
+// fparams and whose kinds end `kinds`, and their n_box cluster records
+// (n_box, 16) (the kTri variant); a sky map
 // (bg_kind kSkyMap) passes its (sky_h, sky_w, 3) texels.
 extern "C" int rtrt_radiance(const float* fparams, const int* kinds,
                              int n_spheres, uint32_t k0, uint32_t k1,
                              int n_rays, int spp, int width, int max_depth,
                              int bg_kind, int clay, int ext, int mix,
                              int n_vol, const float* tri, int n_tri,
-                             int n_tm, const float* sky_img, int sky_h,
+                             int n_tm, const float* box, int n_box,
+                             const float* sky_img, int sky_h,
                              int sky_w, float* out, void* stream) {
   const bool sky_map = bg_kind == kSkyMap;
-  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm) || n_rays < 0 ||
+  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm, box, n_box) ||
+      n_rays < 0 ||
       spp < 1 || width < 1 || sky_map != (sky_img != nullptr) ||
       (sky_map && (sky_h < 1 || sky_w < 1)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
-  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm);
+  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm, box,
+                              n_box);
   const Sky sky{sky_img, sky_h, sky_w};
   return with_flags(ext, sky_map, n_tri > 0, [&](auto e, auto k, auto t) {
     radiance_kernel<decltype(e)::value, decltype(k)::value,

@@ -278,15 +278,17 @@ extern "C" int rtrt_mse_loss(const float* fparams, const int* kinds,
                              int n_pixels, int spp, int width, int max_depth,
                              int bg_kind, int clay, int ext, int mix,
                              int n_vol, const float* tri, int n_tri,
-                             int n_tm, float clamp, const float* target,
+                             int n_tm, const float* box, int n_box,
+                             float clamp, const float* target,
                              float* partials, int max_blocks, float* out,
                              void* stream) {
-  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm) ||
+  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm, box, n_box) ||
       n_pixels < 1 || spp < 1 ||
       width < 1 || max_depth < 0 || max_depth > kMaxTape || max_blocks < 1 ||
       bg_kind == kSkyMap || (long long)n_pixels * spp >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
-  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm);
+  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm, box,
+                              n_box);
   const int n_out = scene_floats(rows) + 1;
   const int per_block = pixels_per_block(spp);
   const long long need = ((long long)n_pixels + per_block - 1) / per_block;

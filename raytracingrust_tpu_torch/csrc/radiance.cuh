@@ -38,6 +38,7 @@
 
 #pragma once
 
+#include <cuda_fp16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -82,6 +83,13 @@ constexpr int kTriStrideMix = 17;
 constexpr int kRowFactor = kFactor - kLeafA;
 constexpr int kRowLeafB = kLeafB - kLeafA;
 constexpr float kTriDetEps = 1e-8f;  // pallas_megakernel.TRI_DET_EPS
+// ... in clusters of kTriCluster consecutive rows, each with a record of
+// kBoxCols floats (ops/megakernel.py TRI_CLUSTER, BOX_COLS,
+// pack_tri_boxes): its padded box lo xyz, mb | hi xyz, coef | the box of
+// its rows' n, lo xyz, omax | hi xyz, sc (see cluster_thr) | the rows' n
+// times sc in half precision, two rows a word, x, then y, then z
+constexpr int kTriCluster = 32;
+constexpr int kBoxCols = 16 + 3 * kTriCluster / 2;
 
 enum Kind {
   kLambertian = 0,
@@ -176,6 +184,8 @@ struct Rows {
   int n, stride, mix, n_vol;
   const float* tri;
   int n_tri, n_tm;
+  const float* box;  // the triangles' cluster records, n_box of them
+  int n_box;
 };
 
 // Floats of one triangle material slot's row.
@@ -444,32 +454,46 @@ __device__ __forceinline__ float4 ldg4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
 
-// The determinant a = -n . d and num_t = n . o - v0 . n of triangle row g:
-// _tri_intersect's matmul as XLA's float32 dot computes it on the CPU, a
-// fused multiply-add a feature, in feature order (d, w, o, 1), each rounded
-// once.  __fmaf_rn is fused whatever --fmad says.
+// The determinant a = -n . d of triangle row g and its num_t = n . o -
+// v0 . n: _tri_intersect's matmul as XLA's float32 dot computes it on the
+// CPU, a fused multiply-add a feature, in feature order (d, w, o, 1), each
+// rounded once.  __fmaf_rn is fused whatever --fmad says.
+__device__ __forceinline__ float tri_det(const float* g, float dx, float dy,
+                                         float dz) {
+  const float4 q0 = ldg4(g);  // n, (v0 x e2).x
+  return __fmaf_rn(-q0.z, dz, __fmaf_rn(-q0.y, dy, __fmul_rn(-q0.x, dx)));
+}
+
+__device__ __forceinline__ float tri_num_t(const float* g, float ox, float oy,
+                                           float oz) {
+  const float4 q0 = ldg4(g);
+  const float4 q3 = ldg4(g + 12);  // e1, v0 . n
+  return __fadd_rn(
+      __fmaf_rn(q0.z, oz, __fmaf_rn(q0.y, oy, __fmul_rn(q0.x, ox))), -q3.w);
+}
+
 __device__ __forceinline__ void tri_det_t(const float* g, float ox, float oy,
                                           float oz, float dx, float dy,
                                           float dz, float& a, float& num_t) {
-  const float4 q0 = ldg4(g);       // n, (v0 x e2).x
-  const float4 q3 = ldg4(g + 12);  // e1, v0 . n
-  a = __fmaf_rn(-q0.z, dz, __fmaf_rn(-q0.y, dy, __fmul_rn(-q0.x, dx)));
-  num_t = __fadd_rn(
-      __fmaf_rn(q0.z, oz, __fmaf_rn(q0.y, oy, __fmul_rn(q0.x, ox))), -q3.w);
+  a = tri_det(g, dx, dy, dz);
+  num_t = tri_num_t(g, ox, oy, oz);
 }
 
 // _tri_intersect's test of triangle row g against the ray (o, d) with
 // w = o x d: a hit needs |a| > kTriDetEps, u, v >= 0, u + v <= 1 and
 // t > T_MIN, with f = 1 / a, u = f num_u, v = f num_v, t = f num_t.  True,
 // with `t`, when it hits below `bound` (so a tie keeps the earlier winner);
-// num_u and num_v are computed only for such a t.
+// num_u and num_v are computed only for such a t.  A triangle whose |a| is
+// at least `thr` is not tested (cluster_thr: none such can pass); thr =
+// +inf tests every one, as |a| = inf gives f = 0 and t = 0 or NaN, no hit.
 __device__ __forceinline__ bool tri_hit(const float* g, float ox, float oy,
                                         float oz, float dx, float dy,
                                         float dz, float wx, float wy,
-                                        float wz, float bound, float& t) {
-  float a, num_t;
-  tri_det_t(g, ox, oy, oz, dx, dy, dz, a, num_t);
-  if (!(fabsf(a) > kTriDetEps)) return false;
+                                        float wz, float thr, float bound,
+                                        float& t) {
+  const float a = tri_det(g, dx, dy, dz);
+  if (!(fabsf(a) > kTriDetEps) || fabsf(a) >= thr) return false;
+  const float num_t = tri_num_t(g, ox, oy, oz);
   const float f = 1.0f / a;
   t = f * num_t;
   if (!(t > kTMin && t < bound)) return false;
@@ -497,6 +521,189 @@ __device__ __forceinline__ bool tri_hit(const float* g, float ox, float oy,
   return v >= 0.0f && u + v <= 1.0f;
 }
 
+// ------------------------------------------------- triangle clusters (kTri)
+//
+// The triangle loop visits the rows in clusters of kTriCluster consecutive
+// rows, in index order, and tests with tri_hit each row of a cluster that
+// cluster_thr and cluster_rows cannot show to fail tri_hit below the
+// current best t.  The rows it skips would each have failed, so the
+// winner, its t and the tie rule (the lowest t, then the lowest index, by
+// tri_hit's strict t < bound in index order) are the dense loop's, bit for
+// bit.
+//
+// Why a skip is safe.  Let a_c, nt_c, nu_c, nv_c be tri_hit's rounded sums
+// for one row and a*, nt*, nu*, nv* the exact ones of its triangle (v0, e1,
+// e2 as the scene holds them, n* = e1 x e2), which satisfy the identity
+// a* (o - v0) + nt* d - nu* e1 - nv* e2 = 0.  With E = computed - exact,
+//   o + (nt_c / a_c) d = v0 + (nu_c / a_c) e1 + (nv_c / a_c) e2 + W / a_c,
+//   W = Ea (o - v0) + Et d - Eu e1 - Ev e2.
+// A row that passes has u_c, v_c >= 0 and u_c + v_c <= 1, so the point v0 +
+// (nu_c / a_c) e1 + (nv_c / a_c) e2 lies within 5u ext of the triangle
+// (u = 2^-24; ext, the cluster's extent), and its t_c = (nt_c / a_c)(1 +
+// 2.0001u) puts P = o + t_c d (a real point) within
+//   (1 + 2u) |W|inf / |a_c| + 2.0001u (mb + |o|inf + pad) + 5u ext
+// of it in each coordinate (mb: the largest |coordinate| of the padded box,
+// which bounds |v0|inf and the point's).  Counting every rounding of
+// pack_tri (n, v0 x e2, v0 x e1, v0 . n), of w = o x d and of the sums
+// (gamma_k = k u (1 + ...) over the terms' magnitudes, infinity norms):
+//   |W|inf <= 162.05 u |e1|inf |e2|inf |d|inf (|o|inf + |v0|inf).
+// 1. Rounding in num_t, num_u, num_v: the box grows by `pad` on every side
+//    (pack_tri_boxes: a share of the cluster's extent, or more for small
+//    rows far from the origin, plus 2^-20 of its largest coordinate); half
+//    of it takes the static terms for every ray whose |o|inf <= omax, the
+//    other half W / a_c for every row with |a_c|
+//    >= thr = coef |d|inf (|o|inf + mb), coef = 2^-15 max |e1||e2| / pad,
+//    1.58x the bound's need, which covers thr's own rounding.  Such a row
+//    that passes has P inside the padded box, so t_c lies in the box's
+//    interval along the ray's whole line, at any sign.
+// 2. Grazing rays: |W| / |a_c| grows as |a_c| shrinks, and a row with |a_c|
+//    < thr has no such bound: it is tested with tri_hit (its t may lie
+//    anywhere).  Where the box says skip, a lane tests the rows below thr
+//    (cluster_rows finds them), and for an origin past omax every row.
+// 3. The interval: the slabs' ends (lo - o) * (1 / d) carry 3 roundings,
+//    so the entry shrinks and the exit grows by 2^-20 of themselves and
+//    2^-126; a slab that is NaN (an end (lo - o) * inf with o on its plane,
+//    or 1 / d that overflows for d != 0) is the whole line; d = 0 gives
+//    ends of -inf and +inf where o lies between the planes (the whole line)
+//    and +-inf on both where it does not (no point: the interval is empty,
+//    at +-inf).  An origin inside the box gives an entry below 0 and an
+//    exit above it: the line's interval, never skipped for it.  The box
+//    says skip when the interval is empty, begins at or beyond the best t
+//    (tri_hit needs t < bound), or ends at or below T_MIN (tri_hit needs
+//    t > T_MIN).  Any NaN reads as "test".
+struct TriRay {
+  float ix, iy, iz;    // 1 / d, NaN where it overflows for d != 0
+  float o_max, d_max;  // |o|inf, |d|inf
+  float sd;            // the power of 2 that puts |d|inf in [0.5, 1)
+  __half2 hx, hy, hz;  // d sd rounded to half precision, twice
+};
+
+__device__ __forceinline__ float box_inv(float d) {
+  const float inv = 1.0f / d;
+  return (d != 0.0f && isinf(inv)) ? __int_as_float(0x7fc00000) : inv;
+}
+
+__device__ __forceinline__ TriRay tri_ray(float ox, float oy, float oz,
+                                          float dx, float dy, float dz) {
+  const float d_max = fmaxf(fmaxf(fabsf(dx), fabsf(dy)), fabsf(dz));
+  int e;
+  frexpf(d_max, &e);
+  const float sd = ldexpf(1.0f, -e);
+  return TriRay{box_inv(dx), box_inv(dy), box_inv(dz),
+                fmaxf(fmaxf(fabsf(ox), fabsf(oy)), fabsf(oz)), d_max, sd,
+                __float2half2_rn(dx * sd), __float2half2_rn(dy * sd),
+                __float2half2_rn(dz * sd)};
+}
+
+// One slab: the line's parameters at the box's two planes, in order; a NaN
+// end reads as the whole line.
+__device__ __forceinline__ void box_slab(float lo, float hi, float o,
+                                         float inv, float& t_near,
+                                         float& t_far) {
+  const float a = (lo - o) * inv;
+  const float b = (hi - o) * inv;
+  if (a != a || b != b) {
+    t_near = -INFINITY;
+    t_far = INFINITY;
+  } else {
+    t_near = a < b ? a : b;
+    t_far = a < b ? b : a;
+  }
+}
+
+constexpr float kBoxShrink = 1.0f - 0x1p-20f;
+constexpr float kBoxGrow = 1.0f + 0x1p-20f;
+constexpr float kBoxTiny = 0x1p-126f;
+
+// The rows of cluster record `bx` that a ray (o, d) must test below
+// t_best: +inf, every one; else those with |a_c| < the returned threshold
+// (the argument above).
+__device__ __forceinline__ float cluster_thr(const float* bx, float ox,
+                                             float oy, float oz,
+                                             const TriRay& r, float t_best) {
+  const float4 lo = ldg4(bx), hi = ldg4(bx + 4);
+  float nx, fx, ny, fy, nz, fz;
+  box_slab(lo.x, hi.x, ox, r.ix, nx, fx);
+  box_slab(lo.y, hi.y, oy, r.iy, ny, fy);
+  box_slab(lo.z, hi.z, oz, r.iz, nz, fz);
+  const float entry = fmaxf(fmaxf(nx, ny), nz);
+  const float exit_ = fminf(fminf(fx, fy), fz);
+  const float near = entry * (entry > 0.0f ? kBoxShrink : kBoxGrow) -
+                     kBoxTiny;
+  const float far = exit_ * (exit_ > 0.0f ? kBoxGrow : kBoxShrink) + kBoxTiny;
+  if (!(near > far || near >= t_best || far <= kTMin)) return INFINITY;
+  if (!(r.o_max <= __ldg(bx + 11))) return INFINITY;  // omax
+  return hi.w * (r.d_max * (r.o_max + lo.w));
+}
+
+// Which of the cluster's n rows a lane tests under cluster_thr's `thr`: a
+// bit a row.  For a threshold, a row is tested unless its determinant in
+// half precision, -(n sc) . (d sd), two rows an instruction (HFMA2),
+// clears thr sc sd by a margin: the halves' roundings (each input's and
+// each sum's, 2^-11 of itself, or 2^-25 below 2^-14) stay within 5.01
+// 2^-11 of sum |n_k sc d_k sd| plus 9 2^-25, and the float sum's within
+// 3.01 2^-24 of it, so a row that clears thr sc sd + 2^-7 m + 2^-21 (m =
+// sum |d_k sd| max |n_k sc| >= that sum; rounded up, to half precision
+// upward) has |a_c| >= thr, and tri_hit would refuse it.  A NaN tests.
+__device__ __forceinline__ __half2 as_half2(uint32_t u) {
+  return *reinterpret_cast<const __half2*>(&u);
+}
+
+__device__ __forceinline__ uint32_t half_bits(__half2 a, __half2 bound) {
+  const __half2 ge = __hge2(__habs2(a), bound);  // 1.0 or 0.0 a half
+  const uint32_t u = *reinterpret_cast<const uint32_t*>(&ge);
+  return ((u >> 10) & 1u) | ((u >> 25) & 2u);
+}
+
+constexpr float kHalfMargin = 0x1p-7f;
+constexpr float kHalfFloor = 0x1p-21f;
+
+// a bit a row of a cluster, the lowest first
+typedef uint32_t RowMask;
+static_assert(kTriCluster <= 8 * (int)sizeof(RowMask) && kTriCluster % 8 == 0,
+              "a bit a row, 8 rows a load");
+constexpr RowMask kEveryRow =
+    RowMask(~RowMask(0)) >> (8 * sizeof(RowMask) - kTriCluster);
+__device__ __forceinline__ int row_ffs(RowMask m) { return __ffs(m); }
+
+__device__ __forceinline__ RowMask cluster_rows(const float* bx,
+                                                const TriRay& r, float thr,
+                                                int n) {
+  const RowMask all =
+      n >= kTriCluster ? kEveryRow : (RowMask(1) << n) - RowMask(1);
+  const float4 nlo = ldg4(bx + 8), nhi = ldg4(bx + 12);
+  const float scale = nhi.w * r.sd;
+  if (!(thr < INFINITY && scale >= 0x1p-126f && scale <= 0x1p126f))
+    return all;
+  const float m =
+      (fabsf(__low2float(r.hx)) * fmaxf(fabsf(nlo.x), fabsf(nhi.x)) +
+       fabsf(__low2float(r.hy)) * fmaxf(fabsf(nlo.y), fabsf(nhi.y)) +
+       fabsf(__low2float(r.hz)) * fmaxf(fabsf(nlo.z), fabsf(nhi.z))) *
+      (nhi.w * kBoxGrow);
+  const float bound =
+      (thr * scale + (m * kHalfMargin + kHalfFloor)) * kBoxGrow;
+  const __half2 b2 = __half2half2(__float2half_ru(bound));
+  constexpr int kQuads = kTriCluster / 8;  // 4 words, 8 rows, a load
+  const uint4* hn = reinterpret_cast<const uint4*>(bx + 16);
+  RowMask clear = 0u;
+#pragma unroll
+  for (int q = 0; q < kQuads; ++q) {
+    const uint4 wx = __ldg(hn + q), wy = __ldg(hn + kQuads + q),
+                wz = __ldg(hn + 2 * kQuads + q);
+    const uint32_t xs[4] = {wx.x, wx.y, wx.z, wx.w};
+    const uint32_t ys[4] = {wy.x, wy.y, wy.z, wy.w};
+    const uint32_t zs[4] = {wz.x, wz.y, wz.z, wz.w};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const __half2 a = __hfma2(
+          as_half2(zs[k]), r.hz,
+          __hfma2(as_half2(ys[k]), r.hy, __hmul2(as_half2(xs[k]), r.hx)));
+      clear |= RowMask(half_bits(a, b2)) << (8 * q + 2 * k);
+    }
+  }
+  return ~clear & all;
+}
+
 // One ray's radiance.  With kRecord the bounces go to `tape` (the caller
 // keeps max_depth <= kMaxTape); without it `tape` is unused, and the
 // arithmetic is the same either way.  A thread stops at its own ray's end: a
@@ -510,11 +717,14 @@ __device__ __forceinline__ bool tri_hit(const float* g, float ox, float oy,
 // ordinal, accepted inside the window; its hit shades with the normal
 // (1, 0, 0) (lib/volume.rs:35-73); the isotropic lobe draws u_r, column
 // off + 3.  kSky: an escaping ray adds its throughput times the sky's
-// texel.  kTri: after the spheres every triangle is tested (tri_hit), and
-// the closest replaces the sphere winner only with a strictly lower t (the
-// lowest t, and among equal t the lowest index, as _tri_intersect's chunk
-// minimum); its hit shades with the flat normal and its material slot's
-// row, leaf A or under a mix the leaf its coin picks.
+// texel.  kTri: after the spheres the triangles are tested (tri_hit) in
+// clusters of consecutive rows, each row skipped where cluster_thr and
+// cluster_rows show that it cannot pass, and the closest replaces the
+// sphere winner
+// only with a strictly lower t (the lowest t, and among equal t the lowest
+// index, as _tri_intersect's chunk minimum); its hit shades with the flat
+// normal and its material slot's row, leaf A or under a mix the leaf its
+// coin picks.
 template <bool kRecord, bool kExt = false, bool kSky = false,
           bool kTri = false>
 __device__ __forceinline__ void trace(const float* f, const int* kind_of,
@@ -598,12 +808,21 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
       const float wx = oy * dz - oz * dy;
       const float wy = oz * dx - ox * dz;
       const float wz = ox * dy - oy * dx;
-      for (int j = 0; j < rows.n_tri; ++j) {
-        float tt;
-        if (tri_hit(rows.tri + (size_t)j * kTriCols, ox, oy, oz, dx, dy, dz,
-                    wx, wy, wz, t_best, tt)) {
-          t_best = tt;
-          tri_best = j;
+      const TriRay tr = tri_ray(ox, oy, oz, dx, dy, dz);
+      for (int c = 0; c < rows.n_box; ++c) {
+        const float* bx = rows.box + (size_t)c * kBoxCols;
+        const float thr = cluster_thr(bx, ox, oy, oz, tr, t_best);
+        const int j0 = c * kTriCluster;
+        // its rows in index order, so a tie keeps the earlier winner
+        for (RowMask m = cluster_rows(bx, tr, thr, rows.n_tri - j0); m;
+             m &= m - 1u) {
+          const int j = j0 + row_ffs(m) - 1;
+          float tt;
+          if (tri_hit(rows.tri + (size_t)j * kTriCols, ox, oy, oz, dx, dy,
+                      dz, wx, wy, wz, thr, t_best, tt)) {
+            t_best = tt;
+            tri_best = j;
+          }
         }
       }
     }
@@ -1193,21 +1412,25 @@ inline int row_stride(int mix, int n_vol) {
 
 // The run-time flags of a launch are consistent: the extended variant for
 // mixes and volumes, volumes among the spheres, triangles (16-byte aligned
-// rows) with their material slots and only then, at least one primitive.
+// rows) with their material slots and their cluster records (16-byte
+// aligned, one per kTriCluster rows) and only then, at least one primitive.
 inline bool rows_ok(int n_spheres, int ext, int mix, int n_vol,
-                    const float* tri, int n_tri, int n_tm) {
+                    const float* tri, int n_tri, int n_tm, const float* box,
+                    int n_box) {
   return n_spheres >= 0 && n_spheres <= kMaxSpheres && n_vol >= 0 &&
          n_vol <= n_spheres && (ext || (!mix && n_vol == 0)) && n_tri >= 0 &&
          n_tri <= kMaxTris && n_tm >= 0 && n_tm <= kMaxTriMats &&
          (n_tri > 0) == (n_tm > 0) && (n_tri > 0) == (tri != nullptr) &&
-         ((uintptr_t)tri & 15) == 0 && n_spheres + n_tri > 0;
+         ((uintptr_t)tri & 15) == 0 && (n_tri > 0) == (box != nullptr) &&
+         n_box == (n_tri + kTriCluster - 1) / kTriCluster &&
+         ((uintptr_t)box & 15) == 0 && n_spheres + n_tri > 0;
 }
 
 // A launch's rows.
 inline Rows make_rows(int n_spheres, int mix, int n_vol, const float* tri,
-                      int n_tri, int n_tm) {
+                      int n_tri, int n_tm, const float* box, int n_box) {
   return Rows{n_spheres, row_stride(mix, n_vol), mix, n_vol, tri, n_tri,
-              n_tm};
+              n_tm, box, n_box};
 }
 
 // out[k] = sum over the n_blocks rows of partials[., k], in row order;

@@ -150,18 +150,21 @@ extern "C" int rtrt_radiance_grad(const float* fparams, const int* kinds,
                                   int max_depth, int bg_kind, int clay,
                                   int ext, int mix, int n_vol,
                                   const float* tri, int n_tri, int n_tm,
+                                  const float* box, int n_box,
                                   const float* sky_img, int sky_h, int sky_w,
                                   float* gsky, const float* cts,
                                   float* partials, int max_blocks, float* out,
                                   void* stream) {
   const bool sky_map = bg_kind == kSkyMap;
-  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm) || n_rays < 1 ||
+  if (!rows_ok(n_spheres, ext, mix, n_vol, tri, n_tri, n_tm, box, n_box) ||
+      n_rays < 1 ||
       spp < 1 ||
       width < 1 || max_depth < 0 || max_depth > kMaxTape || max_blocks < 1 ||
       sky_map != (sky_img != nullptr) || sky_map != (gsky != nullptr) ||
       (sky_map && (sky_h < 1 || sky_w < 1)))
     return (int)cudaErrorInvalidValue;
-  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm);
+  const Rows rows = make_rows(n_spheres, mix, n_vol, tri, n_tri, n_tm, box,
+                              n_box);
   const Sky sky{sky_img, sky_h, sky_w};
   const int n_out = scene_floats(rows);
   const int blocks = blocks_for(n_rays) < max_blocks ? blocks_for(n_rays)

@@ -19,7 +19,8 @@ from typing import Iterable
 import torch
 
 from ..models.scene import Scene
-from ..ops.megakernel import brute_kinds, pack_fparams, pack_tri, scene_opts
+from ..ops.megakernel import (brute_kinds, pack_fparams, pack_tri,
+                               pack_tri_boxes, scene_opts)
 from ..ops.mse_loss import mse_loss, supports_fused_mse
 from ..render.render import render_linear, resolve_device, resolve_engine
 from ..utils import rng
@@ -101,12 +102,13 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
         kinds = brute_kinds(scene)
         flat = target.reshape(-1, 3).contiguous()
         opts = scene_opts(scene)
-        tri = pack_tri(scene)
+        tri, boxes = pack_tri(scene), pack_tri_boxes(scene)
 
         def loss(params: dict, key=None):
             return mse_loss(pack_fparams(scene_of(params), width, height),
                             kinds, key_of(key), flat, s.samples_per_pixel,
-                            width, clamp=s.clamp_indirect, tri=tri, **opts)
+                            width, clamp=s.clamp_indirect, tri=tri,
+                            tri_boxes=boxes, **opts)
 
         return loss
 

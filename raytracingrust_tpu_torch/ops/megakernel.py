@@ -63,7 +63,9 @@ that all kernels share.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import math
 from typing import Optional
 
 import numpy as np
@@ -92,6 +94,30 @@ TRI_RAYS = 1 << 16
 TRI_COLS = 20
 _TN, _TU_D, _TU_W, _TV_D, _TV_W, _TV0N, _TNRM, _TSLOT = (0, 3, 6, 9, 12, 15,
                                                          16, 19)
+# the kernels walk the triangles in clusters of TRI_CLUSTER consecutive
+# rows (csrc/radiance.cuh kTriCluster, cluster_thr), each with a record of
+# BOX_COLS floats (:func:`pack_tri_boxes`): a box grown on every side by a
+# pad, BOX_GRAZE, the coefficient of the determinant below which a row is
+# tested even where the box says no, and the rows' normals in half
+# precision.  The pad is BOX_PAD of the cluster's largest extent, or
+# BOX_PAD_FLAT of its largest coordinate times its rows' median ratio of
+# |e1|inf |e2|inf to |n|inf where that is larger (it keeps the threshold
+# of a typical row within a few tenths of a degree of its plane), at most
+# the extent, plus BOX_PAD_COORD of the largest coordinate and
+# BOX_PAD_MIN.  On an H100 clusters of 32 took less time than 16 or 64,
+# and a pad of BOX_PAD of the extent alone as much at the height field but
+# 4-8% more at the icosphere (PERF.md, scripts/profile_brute_tri.py)
+TRI_CLUSTER = 32
+BOX_COLS = 16 + 3 * TRI_CLUSTER // 2
+BOX_PAD = 2.0 ** -6
+BOX_PAD_FLAT = 2.0 ** -7
+BOX_PAD_COORD = 2.0 ** -20
+BOX_PAD_MIN = 2.0 ** -60
+BOX_GRAZE = 2.0 ** -15
+# the kernel's float32 constants of cluster_thr
+_BOX_SHRINK = float(np.float32(1.0 - 2.0 ** -20))
+_BOX_GROW = float(np.float32(1.0 + 2.0 ** -20))
+_BOX_TINY = 2.0 ** -126
 _TRI_STRIDE = 8
 _TRI_STRIDE_MIX = 17
 _CAM = 0
@@ -312,6 +338,78 @@ def pack_tri(scene: Scene) -> Optional[torch.Tensor]:
         n, vec.cross(tris.v0, tris.e2), tris.e2, vec.cross(tris.v0, tris.e1),
         tris.e1, vec.dot(tris.v0, n)[:, None], tris.normal, slot[:, None],
     ], dim=1).to(torch.float32).contiguous()
+
+
+def _round_out(x: np.ndarray, down: bool) -> np.ndarray:
+    """float64 -> the nearest float32 at or below (``down``) or above."""
+    f = x.astype(np.float32)
+    off = f > x if down else f < x
+    return np.where(off, np.nextafter(f, np.float32(-np.inf if down
+                                                    else np.inf)), f)
+
+
+def pack_tri_boxes(scene: Scene) -> Optional[torch.Tensor]:
+    """The triangles' cluster records -> (ceil(T / TRI_CLUSTER), BOX_COLS)
+    float32 on the scene's device, None without triangles.  Cluster c holds
+    rows c * TRI_CLUSTER onward (the last may hold fewer): lo xyz, mb | hi
+    xyz, coef | the least of its rows' n (pack_tri's) xyz, omax | the
+    largest xyz, sc | the rows' n times sc in half precision, rounded to
+    nearest: TRI_CLUSTER / 2 words of x (rows 2k and 2k + 1 in word k, the
+    lower half first; 0 past the last row), then as many of y and of z.
+
+    The box is the rows' vertex box (v0, v0 + e1, v0 + e2 as the scene
+    holds them, summed exactly), grown on every side by the cluster's pad
+    (the constants above) and rounded outward to float32; mb is the padded
+    box's largest |coordinate|; coef = BOX_GRAZE max |e1|inf |e2|inf / pad,
+    rounded up (a row whose |a| is at least coef |d|inf (|o|inf + mb)
+    puts every hit it passes inside the box); omax, rounded down, the
+    largest |o|inf for which the other roundings take at most half the pad
+    (csrc/radiance.cuh cluster_thr).  sc is the power of 2 that puts the
+    largest |n| component in [0.5, 1) (1 when all are 0); the box of the
+    rows' n bounds the half-precision determinants' rounding
+    (cluster_rows)."""
+    tris = scene.triangles
+    if not len(tris):
+        return None
+    u = 2.0 ** -24
+    v0, e1, e2 = (np.asarray(x.detach().cpu(), np.float64)
+                  for x in (tris.v0, tris.e1, tris.e2))
+    verts = np.stack([v0, v0 + e1, v0 + e2], axis=1)  # (T, 3, 3)
+    n_row = pack_tri(scene)[:, _TN:_TN + 3].detach().cpu().numpy()
+    scale = np.abs(e1).max(axis=1) * np.abs(e2).max(axis=1)
+    n_inf = np.abs(n_row).max(axis=1).astype(np.float64)
+    rows = []
+    for c0 in range(0, len(tris), TRI_CLUSTER):
+        sl = slice(c0, c0 + TRI_CLUSTER)
+        lo = verts[sl].min(axis=(0, 1))
+        hi = verts[sl].max(axis=(0, 1))
+        ext = float((hi - lo).max())
+        coord = float(np.abs(np.concatenate([lo, hi])).max())
+        flat = n_inf[sl] > 0
+        ratio = (float(np.median(scale[sl][flat] / n_inf[sl][flat]))
+                 if flat.any() else 0.0)
+        pad = (max(BOX_PAD * ext, min(BOX_PAD_FLAT * coord * ratio, ext))
+               + BOX_PAD_COORD * coord + BOX_PAD_MIN)
+        lo32 = _round_out(lo - pad, down=True)
+        hi32 = _round_out(hi + pad, down=False)
+        mb = np.float32(np.abs(np.concatenate([lo32, hi32])).max())
+        coef = _round_out(np.float64(BOX_GRAZE * scale[sl].max() / pad),
+                          down=False)
+        k = 2.0001 * u
+        omax = _round_out(np.float64(max(
+            0.0, (pad / 2 - 5 * u * ext - k * (float(mb) + pad)) / k)),
+            down=True)
+        n_c = n_row[sl]
+        big = float(np.abs(n_c).max())
+        sc = np.float32(2.0 ** -np.frexp(big)[1] if big > 0 else 1.0)
+        halves = np.zeros((TRI_CLUSTER, 3), np.float16)
+        halves[:n_c.shape[0]] = (n_c * sc).astype(np.float16)
+        words = halves.T.reshape(-1).view(np.float32)  # x pairs, y, z
+        rows.append(np.concatenate([
+            np.concatenate([lo32, [mb], hi32, [coef], n_c.min(axis=0),
+                            [omax], n_c.max(axis=0), [sc]]
+                           ).astype(np.float32), words]))
+    return torch.from_numpy(np.stack(rows)).to(tris.v0.device)
 
 
 def prep_rays(pixel_ids: torch.Tensor, spp: int, width: int):
@@ -659,6 +757,149 @@ def tri_closest(tri: torch.Tensor, o, d, bound=None):
     return t_best, best
 
 
+def _tri_ray(o, d) -> tuple:
+    """csrc/radiance.cuh tri_ray: 1 / d (NaN where it overflows for d !=
+    0), |o|inf, |d|inf, each (R,) float32."""
+    inv = []
+    for dk in d:
+        i = 1.0 / dk
+        inv.append(torch.where((dk != 0) & torch.isinf(i),
+                               torch.full_like(i, float("nan")), i))
+    o_max = torch.fmax(torch.fmax(o[0].abs(), o[1].abs()), o[2].abs())
+    d_max = torch.fmax(torch.fmax(d[0].abs(), d[1].abs()), d[2].abs())
+    return inv, o_max, d_max
+
+
+def _cluster_thr(bx: torch.Tensor, o, ray, t_best) -> torch.Tensor:
+    """csrc/radiance.cuh cluster_thr of record ``bx`` (BOX_COLS,) for every
+    ray, op for op in float32: inf where the ray tests every row of the
+    cluster, else the determinant below which a row is tested."""
+    inv, o_max, d_max = ray
+    b = bx.tolist()
+    near, far = [], []
+    for k in range(3):
+        t0 = (b[k] - o[k]) * inv[k]
+        t1 = (b[4 + k] - o[k]) * inv[k]
+        nan = torch.isnan(t0) | torch.isnan(t1)
+        near.append(torch.where(nan, -math.inf, torch.where(t0 < t1, t0, t1)))
+        far.append(torch.where(nan, math.inf, torch.where(t0 < t1, t1, t0)))
+    entry = torch.fmax(torch.fmax(near[0], near[1]), near[2])
+    exit_ = torch.fmin(torch.fmin(far[0], far[1]), far[2])
+    lo_t = torch.where(entry > 0, entry * _BOX_SHRINK,
+                       entry * _BOX_GROW) - _BOX_TINY
+    hi_t = torch.where(exit_ > 0, exit_ * _BOX_GROW,
+                       exit_ * _BOX_SHRINK) + _BOX_TINY
+    skip = (lo_t > hi_t) | (lo_t >= t_best) | (hi_t <= T_MIN)
+    thr = b[7] * (d_max * (o_max + b[3]))
+    return torch.where(skip & (o_max <= b[11]), thr, math.inf)
+
+
+@torch.no_grad()
+def tri_closest_culled(tri: torch.Tensor, boxes: torch.Tensor, o, d,
+                       bound=None, tally: Optional[dict] = None):
+    """:func:`tri_closest`'s answer the kernels' way (csrc/radiance.cuh
+    trace, kTri): the clusters of TRI_CLUSTER rows (``boxes``,
+    :func:`pack_tri_boxes`) in index order, each ray's decision for a
+    cluster made as :func:`_cluster_thr` makes it against its best t so
+    far: tri_closest's test (its determinant, t, u and v, each sum as
+    :func:`_fma_sum` gives it) of every row of the cluster where the ray's
+    line meets its box, else of each row whose determinant is below the
+    threshold (found among the candidates of a float64 product); the
+    lowest t below the best so far, and among equal t the lowest index,
+    wins.  Equal to tri_closest's (t, index) on every ray
+    (tests/test_torch_tri_cull.py).  ``tally``, for
+    measurement, gets the work a kernel's lanes do added to its keys:
+    "boxes" (cluster records read), "dets" (rows whose determinant only a
+    threshold needs: the kernels take it in half precision), "tests" (rows
+    tested with tri_closest's arithmetic)."""
+    o = [v.detach() for v in o]
+    d = [v.detach() for v in d]
+    n_rays, n_tri = o[0].shape[0], tri.shape[0]
+    t_best = (torch.full((n_rays,), math.inf, device=tri.device)
+              if bound is None else bound.detach().clone())
+    best = torch.full((n_rays,), -1, dtype=torch.long, device=tri.device)
+    ray = _tri_ray(o, d)
+    feat = [v.double() for v in _features(o, d)]
+    d64 = feat[:3]
+    d_rows = torch.stack(d64, dim=1)
+    cols = tri.detach().double().t()
+    n_col = cols[_TN:_TN + 3].t()
+    work = collections.Counter()
+
+    def det(ray_at, row):
+        return _fma_sum([(-n_col[row, k], d64[k][ray_at]) for k in range(3)])
+
+    def pairs(ray_at, row, a):
+        # tri_closest's test of each (ray, row) pair with its determinant
+        # a (|a| > TRI_DET_EPS); a ray's rows, tested in index order, keep
+        # the lowest t below its best and among equal t the lowest index
+        g = [col[row] for col in cols]
+        f = [v[ray_at] for v in feat]
+        nt = (_fma_sum([(g[_TN + k], f[6 + k]) for k in range(3)])
+              + (-g[_TV0N]).float())
+        t = 1.0 / a * nt
+        keep = ((t > T_MIN) & (t < t_best[ray_at])).nonzero().squeeze(1)
+        if not keep.numel():
+            return
+        ray_at, row, a, t = ray_at[keep], row[keep], a[keep], t[keep]
+        g = [v[keep] for v in g]
+        f = [v[keep] for v in f]
+        nu = _fma_sum([(g[_TU_D + k], f[k]) for k in range(3)]
+                      + [(g[_TU_W + k], f[3 + k]) for k in range(3)])
+        nv = _fma_sum([(-g[_TV_D + k], f[k]) for k in range(3)]
+                      + [(-g[_TV_W + k], f[3 + k]) for k in range(3)])
+        u, v = 1.0 / a * nu, 1.0 / a * nv
+        ok = (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0)
+        ray_at, row, t = ray_at[ok], row[ok], t[ok]
+        t_min = torch.full_like(t_best, math.inf).scatter_reduce(
+            0, ray_at, t, "amin")
+        first = torch.full_like(best, n_tri).scatter_reduce(
+            0, ray_at, torch.where(t == t_min[ray_at], row, n_tri), "amin")
+        won = first < n_tri
+        t_best[won] = t_min[won]
+        best[won] = first[won]
+
+    step = (1 << 27) // TRI_CLUSTER  # rays x rows of a step: 128M
+    for c in range(boxes.shape[0]):
+        j0, j1 = c * TRI_CLUSTER, min((c + 1) * TRI_CLUSTER, n_tri)
+        rows = torch.arange(j0, j1, device=tri.device)
+        thr = _cluster_thr(boxes[c], o, ray, t_best)
+        # every row of the cluster, for the rays whose line meets its box
+        at = (~(thr < math.inf)).nonzero().squeeze(1)  # inf or NaN
+        work["boxes"] += n_rays
+        work["tests"] += (j1 - j0) * at.numel()
+        ray_at = at.repeat_interleave(j1 - j0)
+        row = rows.repeat(at.numel())
+        a = det(ray_at, row)
+        hit = (a.abs() > TRI_DET_EPS).nonzero().squeeze(1)
+        found = [(ray_at[hit], row[hit], a[hit])]
+        # the rows below a threshold, for the others
+        at = (thr < math.inf).nonzero().squeeze(1)
+        work["dets"] += (j1 - j0) * at.numel()
+        for r0 in range(0, at.numel(), step):
+            rs = at[r0:r0 + step]
+            # the float32 sum lies within 4 u of sum |n_k d_k| of the
+            # float64 product, so every row below the threshold is a
+            # candidate; its exact determinant decides
+            dr = d_rows[rs]
+            a64 = (dr @ n_col[j0:j1].t()).abs_()
+            near = torch.addmm(thr[rs, None].double(), dr.abs(),
+                               n_col[j0:j1].t().abs(), alpha=2.0 ** -21)
+            i, j = (a64 < near).nonzero(as_tuple=True)
+            a = det(rs[i], j0 + j)
+            flag = ((a.abs() > TRI_DET_EPS)
+                    & ~(a.abs() >= thr[rs[i]])).nonzero().squeeze(1)
+            work["tests"] += flag.numel()
+            found.append((rs[i[flag]], j0 + j[flag], a[flag]))
+        ray_at, row, a = (torch.cat(v) for v in zip(*found))
+        if ray_at.numel():
+            pairs(ray_at, row, a)
+    if tally is not None:
+        for k, v in work.items():
+            tally[k] = tally.get(k, 0) + v
+    return t_best, best
+
+
 def tri_t(row: torch.Tensor, o, d) -> torch.Tensor:
     """t of each ray against the triangle of its ``row`` (its pack_tri
     row), as :func:`tri_closest` computes it and differentiable in ``o``
@@ -762,7 +1003,8 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
         if tri is not None:
             # the closest triangle replaces the sphere winner only with a
             # strictly lower t; its t again, differentiable, for the winners
-            tbest = tri_closest(tri, o, d, t_best)[1]
+            t_sph = t_best
+            tbest = tri_closest(tri, o, d, t_sph)[1]
             tri_win = tbest >= 0
             trow = tri[tbest.clamp(min=0)]
             t_best = torch.where(tri_win, tri_t(trow, o, d), t_best)
@@ -812,7 +1054,8 @@ def _radiance_tile(fp, kinds, key, ray_ids, px, py, max_depth, bg_kind,
             if n_vol:
                 extra.update(windows=windows, vol=hit & vol)
             if tri is not None:
-                extra.update(tri=hit & tri_win)
+                extra.update(tri=hit & tri_win,
+                             tri_rays=(o, d, t_sph, tbest))
             observe(alive, hit, kind, **extra)
         o, d, thr, rad, alive = bounce_tail(
             fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n_,
@@ -827,7 +1070,7 @@ def radiance_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                    n_vol: int = 0, iso: bool = False, n_tm: int = 0,
                    tri: Optional[torch.Tensor] = None,
                    sky: Optional[torch.Tensor] = None,
-                   observe=None) -> torch.Tensor:
+                   observe=None, tri_boxes=None) -> torch.Tensor:
     """Per-ray radiance (R, 3) float32, in tensor ops on any device, and
     differentiable in ``fparams`` (and ``sky``) by autograd.
 
@@ -845,14 +1088,20 @@ def radiance_plain(fparams: torch.Tensor, kinds: torch.Tensor,
     JAX ``_env_finish``).  Frames larger than ``TILE_RAYS`` run tile by
     tile.  A triangle's t has a gradient in the ray (through a and num_t);
     its vertices and its flat normal are constants here, as in the kernels.
+    Every triangle is tested (:func:`tri_closest`): ``tri_boxes``, the
+    kernels' cluster records, is taken so one set of options serves both,
+    and not read.
 
     ``observe``, for measurement only, is called once per bounce traced
     with the rays' masks ``(alive, hit, kind)``: alive at the bounce's
     start, hit something, the winner's material kind (the picked leaf's);
     with volumes also ``windows=``, the volume windows the rays crossed
     (each draws its free flight), and ``vol=``, the rays whose winner is a
-    volume; with triangles ``tri=``, the rays whose winner is a triangle;
-    with a sky map ``texels=``, a (H * W,) bool mask of the texels the
+    volume; with triangles ``tri=``, the rays whose winner is a triangle,
+    and ``tri_rays=(o, d, bound, index)``, the bounce's rays, the t the
+    spheres leave to the triangle test and its answer (which a count of
+    the kernels' clusters can replay, :func:`tri_closest_culled`); with a
+    sky map ``texels=``, a (H * W,) bool mask of the texels the
     bounce's escaping rays looked up (None when none escaped)."""
     if (bg_kind == B.SKYMAP) != (sky is not None):
         raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
@@ -942,20 +1191,26 @@ def sky_args(sky: Optional[torch.Tensor], device) -> list:
     return [ctypes.c_void_p(sky.data_ptr()), sky.shape[0], sky.shape[1]]
 
 
-def tri_args(tri: Optional[torch.Tensor], n_tm: int, device) -> list:
-    """The triangles' pointer and count and the material slots' count
-    (null, 0, 0 without triangles), checked."""
-    if (tri is None) != (n_tm == 0):
+def tri_args(tri: Optional[torch.Tensor], boxes: Optional[torch.Tensor],
+             n_tm: int, device) -> list:
+    """The triangles' pointer and count, the material slots' count and the
+    cluster records' pointer and count (null, 0, 0, null, 0 without
+    triangles), checked."""
+    if (tri is None) != (n_tm == 0) or (tri is None) != (boxes is None):
         raise ValueError("triangles (`tri`) come with their material slots "
-                         "(`n_tm`), and only then")
+                         "(`n_tm`) and their cluster records (`tri_boxes`, "
+                         "pack_tri_boxes), and only then")
     if tri is None:
-        return [ctypes.c_void_p(0), 0, 0]
+        return [ctypes.c_void_p(0), 0, 0, ctypes.c_void_p(0), 0]
     n_tri = tri.shape[0]
     if not 0 < n_tri <= MAX_TRIS:
         raise ValueError(f"{n_tri} triangles; the kernel takes 1 to "
                          f"{MAX_TRIS}")
     _check(tri, "tri", torch.float32, (n_tri, TRI_COLS), device)
-    return [ctypes.c_void_p(tri.data_ptr()), n_tri, n_tm]
+    n_box = -(-n_tri // TRI_CLUSTER)
+    _check(boxes, "tri_boxes", torch.float32, (n_box, BOX_COLS), device)
+    return [ctypes.c_void_p(tri.data_ptr()), n_tri, n_tm,
+            ctypes.c_void_p(boxes.data_ptr()), n_box]
 
 
 def ext_flags(mix: bool, n_vol: int, iso: bool) -> list:
@@ -969,10 +1224,12 @@ def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                   max_depth: int, bg_kind: int, clay: bool, mix: bool = False,
                   n_vol: int = 0, iso: bool = False, n_tm: int = 0,
                   tri: Optional[torch.Tensor] = None,
+                  tri_boxes: Optional[torch.Tensor] = None,
                   sky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-ray radiance (n_rays, 3) from the CUDA kernel for rays
     0 .. n_rays - 1, where ray id = pixel * spp + sample and pixels run
-    row-major over ``width``."""
+    row-major over ``width``; triangles (``tri``) come with their cluster
+    records (``tri_boxes``, :func:`pack_tri_boxes`)."""
     global LAUNCHES, EXT_LAUNCHES, SKY_LAUNCHES, TRI_LAUNCHES
     from . import _build
 
@@ -985,7 +1242,7 @@ def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
         raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
                          "up in `sky`, and only then")
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=fparams.device)
-    tris = tri_args(tri, n_tm, fparams.device)
+    tris = tri_args(tri, tri_boxes, n_tm, fparams.device)
     if n_rays == 0:
         return out
     flags = ext_flags(mix, n_vol, iso)
@@ -1043,16 +1300,18 @@ def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
              max_depth: int, bg_kind: int, clay: bool, mix: bool = False,
              n_vol: int = 0, iso: bool = False, n_tm: int = 0,
              tri: Optional[torch.Tensor] = None,
+             tri_boxes: Optional[torch.Tensor] = None,
              sky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3) of pixels 0 .. n_pixels - 1:
     the kernel for CUDA tensors, the plain version for CPU tensors (which
-    autograd differentiates).  ops/radiance_grad.radiance adds the card's
+    autograd differentiates; it tests every triangle, so it does not read
+    ``tri_boxes``).  ops/radiance_grad.radiance adds the card's
     gradient."""
     opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay, mix=mix,
                 n_vol=n_vol, iso=iso, n_tm=n_tm, tri=tri, sky=sky)
     if select_engine(fparams.device) == "cuda":
         return radiance_cuda(fparams, kinds, key, n_pixels * spp, spp, width,
-                             **opts)
+                             tri_boxes=tri_boxes, **opts)
     ray_ids, px, py = prep_rays(torch.arange(n_pixels), spp, width)
     return radiance_plain(fparams, kinds, key, ray_ids, px, py, **opts)
 

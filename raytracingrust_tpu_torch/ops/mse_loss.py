@@ -74,8 +74,10 @@ def mse_loss_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                    width: int, *, max_depth: int, bg_kind: int, clay: bool,
                    clamp: float, mix: bool = False, n_vol: int = 0,
                    iso: bool = False, n_tm: int = 0,
-                   tri: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The loss in PyTorch ops on any device, differentiable by autograd."""
+                   tri: Optional[torch.Tensor] = None,
+                   tri_boxes=None) -> torch.Tensor:
+    """The loss in PyTorch ops on any device, differentiable by autograd
+    (every triangle tested: ``tri_boxes`` is not read)."""
     ray_ids, px, py = K.prep_rays(
         torch.arange(target.shape[0], device=target.device), spp, width)
     rad = K.radiance_plain(fparams, kinds, key, ray_ids, px, py,
@@ -89,9 +91,12 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                   width: int, *, max_depth: int, bg_kind: int, clay: bool,
                   clamp: float, mix: bool = False, n_vol: int = 0,
                   iso: bool = False, n_tm: int = 0,
-                  tri: Optional[torch.Tensor] = None
+                  tri: Optional[torch.Tensor] = None,
+                  tri_boxes: Optional[torch.Tensor] = None
                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """(loss, d loss / d fparams) from one launch of the fused kernel."""
+    """(loss, d loss / d fparams) from one launch of the fused kernel;
+    triangles come with their cluster records (``tri_boxes``,
+    :func:`megakernel.pack_tri_boxes`)."""
     global LAUNCHES, EXT_LAUNCHES, TRI_LAUNCHES
     from . import _build
 
@@ -108,7 +113,7 @@ def mse_loss_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
     if not 0 < n_pixels * spp < 2 ** 31 or spp < 1 or width < 1:
         raise ValueError(f"bad launch: n_pixels={n_pixels} spp={spp} "
                          f"width={width}")
-    tris = K.tri_args(tri, n_tm, dev)
+    tris = K.tri_args(tri, tri_boxes, n_tm, dev)
     blocks = K.max_blocks(dev)
     partials = torch.empty((blocks, k + 1), dtype=torch.float32, device=dev)
     out = torch.empty((k + 1,), dtype=torch.float32, device=dev)
@@ -154,12 +159,14 @@ def mse_loss(fparams: torch.Tensor, kinds: torch.Tensor,
              width: int, *, max_depth: int, bg_kind: int, clay: bool,
              clamp: float, mix: bool = False, n_vol: int = 0,
              iso: bool = False, n_tm: int = 0,
-             tri: Optional[torch.Tensor] = None) -> torch.Tensor:
+             tri: Optional[torch.Tensor] = None,
+             tri_boxes: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The frame's loss, differentiable in ``fparams``: on the card the
     fused kernel under autograd, the forward kernel plus a PyTorch
     reduction without it; on the CPU the plain version."""
     opts = dict(max_depth=max_depth, bg_kind=bg_kind, clay=clay, mix=mix,
-                n_vol=n_vol, iso=iso, n_tm=n_tm, tri=tri)
+                n_vol=n_vol, iso=iso, n_tm=n_tm, tri=tri,
+                tri_boxes=tri_boxes)
     if K.select_engine(fparams.device) == "cuda":
         if fparams.requires_grad and torch.is_grad_enabled():
             return FusedMSE.apply(fparams, kinds, key, target, spp, width,

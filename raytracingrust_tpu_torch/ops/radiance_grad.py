@@ -45,9 +45,10 @@ def radiance_grad_plain(fparams: torch.Tensor, kinds: torch.Tensor,
                         clay: bool, mix: bool = False, n_vol: int = 0,
                         iso: bool = False, n_tm: int = 0,
                         tri: Optional[torch.Tensor] = None,
-                        sky: Optional[torch.Tensor] = None):
+                        sky: Optional[torch.Tensor] = None, tri_boxes=None):
     """The gradient by autograd through the plain forward, on any device:
-    dfparams, or (dfparams, dsky) with a sky map."""
+    dfparams, or (dfparams, dsky) with a sky map.  ``tri_boxes`` is not
+    read (the plain forward tests every triangle)."""
     fp = fparams.detach().requires_grad_(True)
     sk = None if sky is None else sky.detach().requires_grad_(True)
     ray_ids, px, py = K.prep_rays(
@@ -70,9 +71,12 @@ def radiance_grad_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
                        clay: bool, mix: bool = False, n_vol: int = 0,
                        iso: bool = False, n_tm: int = 0,
                        tri: Optional[torch.Tensor] = None,
+                       tri_boxes: Optional[torch.Tensor] = None,
                        sky: Optional[torch.Tensor] = None):
-    """The gradient from the CUDA kernel; ``cts`` is (n_pixels * spp, 3).
-    -> dfparams, or (dfparams, dsky) with a sky map."""
+    """The gradient from the CUDA kernel; ``cts`` is (n_pixels * spp, 3);
+    triangles come with their cluster records (``tri_boxes``,
+    :func:`megakernel.pack_tri_boxes`).  -> dfparams, or (dfparams, dsky)
+    with a sky map."""
     global LAUNCHES, EXT_LAUNCHES, SKY_LAUNCHES, TRI_LAUNCHES
     from . import _build
 
@@ -89,7 +93,7 @@ def radiance_grad_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
         raise ValueError("a sky map background (bg_kind SKYMAP) is looked "
                          "up in `sky`, and only then")
     sky_args = K.sky_args(sky, dev)
-    tris = K.tri_args(tri, n_tm, dev)
+    tris = K.tri_args(tri, tri_boxes, n_tm, dev)
     gsky = None if sky is None else torch.zeros_like(sky)
     blocks = K.max_blocks(dev)
     partials = torch.empty((blocks, k), dtype=torch.float32, device=dev)
@@ -124,22 +128,24 @@ class Radiance(torch.autograd.Function):
     gather moved into both)."""
 
     @staticmethod
-    def forward(ctx, fparams, kinds, tri, sky, key, n_pixels, spp, width,
-                opts):
+    def forward(ctx, fparams, kinds, tri, tri_boxes, sky, key, n_pixels,
+                spp, width, opts):
         K.check_depth(opts["max_depth"])
-        ctx.save_for_backward(fparams, kinds, tri, sky)
+        ctx.save_for_backward(fparams, kinds, tri, tri_boxes, sky)
         ctx.args = (key, spp, width, opts)
         return K.radiance_cuda(fparams, kinds, key, n_pixels * spp, spp,
-                               width, tri=tri, sky=sky, **opts)
+                               width, tri=tri, tri_boxes=tri_boxes, sky=sky,
+                               **opts)
 
     @staticmethod
     def backward(ctx, grad):
-        fparams, kinds, tri, sky = ctx.saved_tensors
+        fparams, kinds, tri, tri_boxes, sky = ctx.saved_tensors
         key, spp, width, opts = ctx.args
         g = radiance_grad_cuda(fparams, kinds, key, grad.contiguous(), spp,
-                               width, tri=tri, sky=sky, **opts)
+                               width, tri=tri, tri_boxes=tri_boxes, sky=sky,
+                               **opts)
         dfp, dsky = (g, None) if sky is None else g
-        return (dfp, None, None, dsky) + (None,) * 5
+        return (dfp, None, None, None, dsky) + (None,) * 5
 
 
 def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
@@ -147,6 +153,7 @@ def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
              max_depth: int, bg_kind: int, clay: bool, mix: bool = False,
              n_vol: int = 0, iso: bool = False, n_tm: int = 0,
              tri: Optional[torch.Tensor] = None,
+             tri_boxes: Optional[torch.Tensor] = None,
              sky: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Per-ray radiance (n_pixels * spp, 3), differentiable in ``fparams``
     (and ``sky``) on both devices: on the card under autograd,
@@ -158,7 +165,7 @@ def radiance(fparams: torch.Tensor, kinds: torch.Tensor,
     wants = fparams.requires_grad or (sky is not None and sky.requires_grad)
     if (fparams.device.type == "cuda" and wants
             and torch.is_grad_enabled()):
-        return Radiance.apply(fparams, kinds, tri, sky, key, n_pixels, spp,
-                              width, opts)
+        return Radiance.apply(fparams, kinds, tri, tri_boxes, sky, key,
+                              n_pixels, spp, width, opts)
     return K.radiance(fparams, kinds, key, n_pixels, spp, width, tri=tri,
-                      sky=sky, **opts)
+                      tri_boxes=tri_boxes, sky=sky, **opts)

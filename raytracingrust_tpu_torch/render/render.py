@@ -166,9 +166,10 @@ def pixel_radiance(scene: Scene, width: int, height: int,
     else:
         fparams = K.pack_fparams(scene, width, height).to(device)
         kinds = K.brute_kinds(scene).to(device)
-        tri = K.pack_tri(scene)
+        tri, boxes = K.pack_tri(scene), K.pack_tri_boxes(scene)
         rad = radiance(fparams, kinds, key, width * height, spp, width,
                        tri=None if tri is None else tri.to(device),
+                       tri_boxes=None if boxes is None else boxes.to(device),
                        sky=None if sky is None else sky.image,
                        **K.scene_opts(scene))
     rad = K.clip_samples(rad, s.clamp_indirect)

@@ -708,15 +708,17 @@ def brute_ext_builder(mod, depth=3, spp=2, sky=False):
 
 
 def _brute_inputs(scene, w, h, device):
-    """The packed constants, kinds, options (with the triangles' rows) and
-    sky of a brute scene."""
+    """The packed constants, kinds, options (with the triangles' rows and
+    cluster records) and sky of a brute scene."""
     fp = TK.pack_fparams(scene, w, h).to(device)
     kinds = TK.brute_kinds(scene).to(device)
     sky = (scene.background.image.to(device)
            if scene.background.image is not None else None)
-    tri = TK.pack_tri(scene)
-    return fp, kinds, {**TK.scene_opts(scene), "tri": None if tri is None
-                       else tri.to(device)}, sky
+    tri, boxes = TK.pack_tri(scene), TK.pack_tri_boxes(scene)
+    return fp, kinds, {**TK.scene_opts(scene),
+                       "tri": None if tri is None else tri.to(device),
+                       "tri_boxes": None if boxes is None
+                       else boxes.to(device)}, sky
 
 
 _BRUTE_EXT = {
@@ -1247,11 +1249,21 @@ _BRUTE_TRI = {
     "ext-tri": (("zoo",), True, False),
     "sky-tri": (("tri",), False, True),
     "ext-sky-tri": (("zoo",), True, True),
+    # scenes that press on the clusters of the triangle loop
+    # (tests/test_torch_tri_cull.py::cull_builder)
+    "graze": (None, False, False),
+    "ragged": (None, False, False),
+    "single": (None, False, False),
+    "max": (None, False, False),
 }
 
 
 def _brute_tri(name, depth):
     args, _, sky = _BRUTE_TRI[name]
+    if args is None:
+        from test_torch_tri_cull import cull_builder
+
+        return cull_builder(name, depth=depth).build()
     return brute_tri_builder(T, *args, depth=depth, sky=sky).build()
 
 
@@ -1260,7 +1272,9 @@ def _brute_tri(name, depth):
 def test_brute_tri_kernel_matches_plain_on_card(cuda_device, name):
     """Kernel #1's kTri variants (alone, with kExt, kSky, both) bit for bit
     equal to their plain version at depth 1 and 6 (as chip_smoke.py phase
-    14); each launch counts as its variants."""
+    14), on the scenes of the triangle clusters too (grazing rays along a
+    flat sheet, a ragged last cluster with zero-area rows, one triangle,
+    8,192); each launch counts as its variants."""
     w, h = 64, 48
     _, ext, with_sky = _BRUTE_TRI[name]
     for depth in (1, 6):
@@ -1287,9 +1301,9 @@ def test_brute_tri_kernel_matches_plain_on_card(cuda_device, name):
 @pytest.mark.parametrize("name", list(_BRUTE_TRI))
 def test_brute_tri_gradients_match_plain_on_card(cuda_device, name):
     """Kernel #3's kTri variants and, without a sky map, kernel #4's
-    against autograd through the plain version at depth 6: every entry
-    within rtol 2e-3 plus 2e-5 of the largest, the triangles' material
-    slots included."""
+    against autograd through the plain version at depth 6, on the scenes
+    of the triangle clusters too: every entry within rtol 2e-3 plus 2e-5
+    of the largest, the triangles' material slots included."""
     w, h = 48, 32
     scene = _brute_tri(name, 6)
     fp, kinds, opts, sky = _brute_inputs(scene, w, h, cuda_device)
