@@ -301,6 +301,14 @@ OPS_BVH_BOUNCE = 12
 OPS_NODE = 25
 OPS_SPHERE_TEST = 30
 OPS_TRI_TEST = 55
+# csrc/bvh_walk.cuh sub_walk, counted from its source: per node of a
+# chunk's small tree a walk visits, the planes less the origin (6), the
+# cone pad (5 maxima and the product), the three slabs (sub_slab: the pad
+# and the product at each end, 2 NaN tests and their or, the order's
+# compare and 2 selects: 10 each), entry and exit (4) and the three bounds'
+# compares (3); the slots it tests cost OPS_SPHERE_TEST or OPS_TRI_TEST
+# each, as in the dense loop
+OPS_SUBNODE = 49
 # csrc/bvh_walk.cuh volume_t, counted from its source: the quadratic and
 # the window per volume candidate; a window a ray crosses adds the draw's
 # float part, logf (~20) and the free flight; with mixes each hit resolves
@@ -727,30 +735,43 @@ def _scene_bytes(sc) -> int:
     import torch
 
     mv = sc.mesh_vols
+    subs = [t.sub for t in (sc.spheres, sc.triangles)
+            if t is not None and t.sub is not None]
     return sum(t.numel() * t.element_size() for t in (
         sc.head, sc.mats, sc.kinds, *(sc.mixes or ()),
         *(v for tree in (sc.spheres, sc.volumes, sc.triangles)
           if tree is not None for v in tree),
+        *(v for sub in subs for v in (sub.words, sub.order)),
         *(() if mv is None else (*mv.tree[:4], mv.bounds, mv.nid, mv.mat)))
-        if isinstance(t, torch.Tensor))
+        if isinstance(t, torch.Tensor)) + sum(  # the boxes, 32 bytes each
+            32 * sub.words.numel() for sub in subs)
 
 
 def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
-             record: bool = False, view=None) -> int:
+             record: bool = False, view=None, dense: bool = False) -> int:
     """FP32 operations of #5, or with ``record`` of its record variant, or
     of its ``view`` ("normal", "random"), over the rays a plain run
-    tallied."""
+    tallied: inside the chunks of the sphere and triangle trees, the small
+    trees' walk that the plain run's twin made (``_walk_all``'s tally),
+    or with ``dense`` every slot of each chunk entered, as the dense leaf
+    test makes it.  Fails where the twin's t or winner differed from the
+    dense walk's."""
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
 
+    if tally["sub_mismatch"]:
+        raise AssertionError(f"the small trees' twin differs from the dense "
+                             f"walk on {tally['sub_mismatch']} ray bounces")
     hits = [tally[f"hits_{k}"] for k in range(5)]
     lobe = {**OPS_LOBE, 4: OPS_ISO}
+    sub = "" if dense else "_sub"
     ops = (n_rays * OPS_RAY
            + tally["bounces"] * (OPS_BVH_BOUNCE + (1 if sc.iso else 0))
            + tally["nodes"] * OPS_NODE
-           + tally["sphere_tests"] * OPS_SPHERE_TEST
+           + (0 if dense else tally["sub_nodes"] * OPS_SUBNODE)
+           + tally["sphere_tests" + sub] * OPS_SPHERE_TEST
            + tally["volume_tests"] * OPS_VOL_TEST
            + tally["volume_draws"] * OPS_VOL_DRAW
-           + tally["triangle_tests"] * OPS_TRI_TEST
+           + tally["triangle_tests" + sub] * OPS_TRI_TEST
            + tally["mv_nodes"] * OPS_MV_NODE
            + tally["mv_tests"] * OPS_MV_TEST
            + tally["mv_draws"] * OPS_MV_DRAW
@@ -764,6 +785,16 @@ def _bvh_ops(sc, tally, n_rays: int, bg_kind: int,
             (OPS_LOBE[1] if sc.rec_mask & BK.REC_METAL_OK else 0)
             + (OPS_LOBE[2] if sc.rec_mask & BK.REC_REFLECT else 0))
     return ops
+
+
+def _bvh_bounds(sc, tally, n_rays: int, bg_kind: int, n_bytes: int,
+                **kw) -> tuple:
+    """(#5's FP32 operations, its bound with the small trees, the bound of
+    the dense leaf test, which every slot of a chunk entered costs) over
+    the rays a plain run tallied; ``kw`` as :func:`_bvh_ops`'s."""
+    ops = _bvh_ops(sc, tally, n_rays, bg_kind, **kw)
+    return ops, _bound(ops, n_bytes), _bound(
+        _bvh_ops(sc, tally, n_rays, bg_kind, dense=True, **kw), n_bytes)
 
 
 def _texel_bytes(tally) -> int:
@@ -807,10 +838,11 @@ def _forward_check(label, sc, key, n_pix: int, spp: int, width: int,
         sc, key, n_rays, spp, width, **opts), 5)
     if not tally:
         return dict(ms=ms, plain_ms=plain_ms, err=err)
-    ops = _bvh_ops(sc, count, n_rays, opts["bg_kind"])
+    ops, bound, dense = _bvh_bounds(
+        sc, count, n_rays, opts["bg_kind"],
+        _scene_bytes(sc) + 12 * n_rays + _texel_bytes(count))
     return dict(ms=ms, plain_ms=plain_ms, err=err, tally=count, ops=ops,
-                bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays
-                             + _texel_bytes(count)))
+                bound=bound, dense=dense)
 
 
 def _per_ray(tally, n_rays: int) -> str:
@@ -819,7 +851,10 @@ def _per_ray(tally, n_rays: int) -> str:
             f"{tally['nodes'] / n_rays:.2f} node visits, "
             f"{tally['sphere_tests'] / n_rays:.1f} sphere, "
             f"{tally['volume_tests'] / n_rays:.3f} volume and "
-            f"{tally['triangle_tests'] / n_rays:.1f} triangle tests, "
+            f"{tally['triangle_tests'] / n_rays:.1f} triangle tests (dense "
+            f"leaves; in the small trees {tally['sub_nodes'] / n_rays:.2f} "
+            f"node visits, {tally['sphere_tests_sub'] / n_rays:.1f} sphere "
+            f"and {tally['triangle_tests_sub'] / n_rays:.1f} triangle tests), "
             f"{tally['volume_draws'] / n_rays:.3f} free flights"
             + (f", {tally['mv_nodes'] / n_rays:.1f} mesh-volume node "
                f"visits, {tally['mv_tests'] / n_rays:.1f} mesh-volume "
@@ -1072,12 +1107,13 @@ def _fit_path(label, scene, sc, key, width: int, height: int, opts: dict,
                        gen, probe_rows, engine="bvh")
     ms = _cuda_time_ms(lambda: BK.radiance_bvh_cuda(
         sc, key, n_rays, spp, width, record=True, **rec_opts), 5)
-    ops = _bvh_ops(sc, tally, n_rays, rec_opts["bg_kind"], record=True)
+    _, bound, dense = _bvh_bounds(
+        sc, tally, n_rays, rec_opts["bg_kind"],
+        _scene_bytes(sc) + 12 * n_rays + 4 * codes.numel(), record=True)
     return dict(codes=codes, hits=int((codes >= 0).sum()), err=err,
                 fetch=fetch, rep_err=rep_err, g_err=g_err, peak_gb=peak_gb,
                 ad=ad, fd=fd, ms=ms, plain_ms=plain_ms, tally=tally,
-                bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays
-                             + 4 * codes.numel()))
+                bound=bound, dense=dense)
 
 
 def _print_fit_path(phase: str, label: str, size: str, r: dict, probe,
@@ -1099,7 +1135,8 @@ def _print_fit_path(phase: str, label: str, size: str, r: dict, probe,
           f"{r['ad']:.6e}, FD {r['fd']:.6e}")
     print(f"{phase} {label} times: record #5 {r['ms']:.4f} ms (plain "
           f"{r['plain_ms']:.1f} ms, bound {r['bound'][0]:.5f} ms "
-          f"{r['bound'][1]}); #6 {f['ms'][0]:.4f} ms (plain "
+          f"{r['bound'][1]}, dense leaves {r['dense'][0]:.5f}); #6 "
+          f"{f['ms'][0]:.4f} ms (plain "
           f"{f['plain'][0]:.3f}, index_select {f['lib'][0]:.4f}, bound "
           f"{b6[0]:.5f} {b6[1]}); #7 {f['ms'][1]:.4f} ms (plain "
           f"{f['plain'][1]:.3f}, the chain of index_add_ a table, bound "
@@ -1305,7 +1342,8 @@ def bvh_phase(dev, card: str) -> dict:
               f"and depth {depth} on all {n_rays} rays; per ray "
               f"{_per_ray(r['tally'], n_rays)}; kernel {r['ms']:.4f} ms, "
               f"plain {r['plain_ms']:.2f} ms, bound {r['bound'][0]:.5f} ms "
-              f"({r['bound'][1]}; {r['ops']:.4g} FP32 operations)")
+              f"({r['bound'][1]}; {r['ops']:.4g} FP32 operations; dense "
+              f"leaves {r['dense'][0]:.5f} ms)")
 
     # the main path, through the CLI entry
     _reset_launches()
@@ -1560,6 +1598,12 @@ def _env_route_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
                 route_ms=route_ms, n_rays=n_pix * spp)
 
 
+# #8's time a render in PERF.md's kernel table (H100 80GB HBM3, 700 W),
+# which the walk of the small trees, #5's alone, leaves as it was
+OCC_ROW_MS = {"sky_bvh_stress": "3.912-3.949", "sky_sheet64": "6.531-6.587",
+              "sky_zoo": "0.753-0.894"}
+
+
 def _print_env_route(phase: str, label: str, size: str, r: dict,
                      card: str) -> None:
     """The phase lines of :func:`_env_route_check`'s numbers."""
@@ -1572,7 +1616,8 @@ def _print_env_route(phase: str, label: str, size: str, r: dict,
           f"env radiance through record #5, #6 and #8 == the plain route "
           f"bit for bit (max abs diff {r['err']:.1e}) on all {r['n_rays']} "
           f"rays")
-    print(f"{phase} {label} #8: {r['ms']:.4f} ms a render over its "
+    print(f"{phase} {label} #8: {r['ms']:.4f} ms a render (its row: "
+          f"{OCC_ROW_MS.get(label, 'none')} ms) over its "
           f"{len(r['ms_launch'])} launches ("
           + ", ".join(f"{x:.4f}" for x in r["ms_launch"]) + " ms; "
           f"{r['per_launch']} shadow rays); plain {r['plain_ms']:.2f} ms; "
@@ -1815,7 +1860,7 @@ def zoo_phase(dev, card: str) -> tuple:
           f"{[fwd['tally'][f'hits_{k}'] for k in range(5)]}; #5 "
           f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.1f} ms, bound "
           f"{fwd['bound'][0]:.5f} ms ({fwd['bound'][1]}; {fwd['ops']:.4g} "
-          f"FP32 operations)")
+          f"FP32 operations; dense leaves {fwd['dense'][0]:.5f} ms)")
     del sc
 
     # ---- the fit path at the fit shape
@@ -2061,13 +2106,14 @@ def _view_check(label, sc, key, n_pix: int, spp: int, width: int,
         torch.cuda.synchronize()
         err = _bit_equal(f"{label}: #5's {view} view", ker, plain)
         del ker, plain
-        ops = _bvh_ops(sc, tally, n_rays, bg_kind, view=view)
+        ops, bound, dense = _bvh_bounds(
+            sc, tally, n_rays, bg_kind,
+            _scene_bytes(sc) + 12 * n_rays + _texel_bytes(tally), view=view)
         out[view] = dict(
             err=err, plain_ms=start.elapsed_time(end), ops=ops,
             ms=_cuda_time_ms(lambda: BK.radiance_bvh_cuda(
                 sc, key, n_rays, spp, width, debug=view, **opts), 5),
-            bound=_bound(ops, _scene_bytes(sc) + 12 * n_rays
-                         + _texel_bytes(tally)))
+            bound=bound, dense=dense)
     out["tally"] = tally
     return out
 
@@ -2142,7 +2188,8 @@ def sky_phase(dev, card: str) -> list:
         work = (f"per ray {_per_ray(r['tally'], n * n * spp)}, "
                 f"{int(r['tally']['sky_texels'].sum())} texels looked up; "
                 f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}; "
-                f"{r['ops']:.4g} FP32 operations); ")
+                f"{r['ops']:.4g} FP32 operations; dense leaves "
+                f"{r['dense'][0]:.5f} ms); ")
         print(f"phase 11 {label} {n}x{n} spp {spp} depth {depth} "
               f"({len(scene.spheres)} spheres, {len(scene.triangles)} "
               f"triangles; sky {tuple(sky.image.shape)}, importance "
@@ -2199,7 +2246,8 @@ def sky_phase(dev, card: str) -> list:
               f"{_per_ray(t, n * n * VIEW_SPP)}; "
               + "; ".join(f"{v} {r[v]['ms']:.4f} ms (plain "
                           f"{r[v]['plain_ms']:.1f} ms, bound "
-                          f"{r[v]['bound'][0]:.5f} ms {r[v]['bound'][1]})"
+                          f"{r[v]['bound'][0]:.5f} ms {r[v]['bound'][1]}, "
+                          f"dense leaves {r[v]['dense'][0]:.5f})"
                           for v in ("normal", "random")))
         del sc
 
@@ -2433,7 +2481,7 @@ def fog_phase(dev, card: str) -> list:
           f"hits by kind {[t[f'hits_{k}'] for k in range(5)]}; #5 "
           f"{fwd['ms']:.4f} ms, plain {fwd['plain_ms']:.1f} ms, bound "
           f"{fwd['bound'][0]:.5f} ms ({fwd['bound'][1]}; {fwd['ops']:.4g} "
-          f"FP32 operations); {card}")
+          f"FP32 operations; dense leaves {fwd['dense'][0]:.5f} ms); {card}")
 
     views = _view_check("fog_sheet", sc, key, n * n, spp, n, opts["bg_kind"],
                         None)
@@ -2443,7 +2491,8 @@ def fog_phase(dev, card: str) -> list:
           f"({views['tally']['view_hits']} hits); "
           + "; ".join(f"{v} {views[v]['ms']:.4f} ms (plain "
                       f"{views[v]['plain_ms']:.1f} ms, bound "
-                      f"{views[v]['bound'][0]:.5f} ms {views[v]['bound'][1]})"
+                      f"{views[v]['bound'][0]:.5f} ms {views[v]['bound'][1]}, "
+                      f"dense leaves {views[v]['dense'][0]:.5f})"
                       for v in ("normal", "random")))
     del sc
 
@@ -3464,7 +3513,7 @@ def tri_phase(dev, card: str) -> list:
 
 
 def main() -> int:
-    """Every phase; with the one argument "12" or "14", the build and
+    """Every phase; with the one argument "7", "12" or "14", the build and
     that phase alone, with its report entries and no last line."""
     import torch
 
@@ -3497,7 +3546,8 @@ def main() -> int:
     regs = " | ".join(f"{name}: {_ptxas(name)}" for name in _build.SOURCES)
     print(f"phase 1 build ({len(_build.SOURCES)} sources in parallel): "
           f"{build_s:.3f} s; {regs}")
-    alone = {"12": fog_phase, "14": tri_phase}
+    alone = {"7": lambda dev, card: [bvh_phase(dev, card)],
+             "12": fog_phase, "14": tri_phase}
     if len(sys.argv) == 2 and sys.argv[1] in alone:  # for working on it
         os.makedirs(OUT_DIR, exist_ok=True)
         if not os.path.exists(SKY):

@@ -76,20 +76,32 @@
 // moves one node cursor for a block of 2,048 rays and intersects a leaf's
 // 128 primitives as matrices; here each ray walks the tree on its own (the
 // skip links need no stack), tests a leaf only when its own slab test hits
-// the leaf's box, and tests only the chunk's real primitives (padding can
-// never win).  Nodes and primitives are read from device memory through the
-// read-only path; neighbouring rays walk mostly the same nodes, so a warp's
-// loads are mostly one broadcast.  The walk is bvh_walk.cuh's, shared with
-// the occlusion kernel (#8); the arithmetic is ops/bvh_kernel.py's plain
-// version's, operation for operation: the sphere root and normal by true
-// division (not the brute kernel's reciprocal), the free flight by logf
-// (torch.log's on the card), the direct cross-product Moller-Trumbore, and
-// slab min/max that propagate NaN as torch.minimum does.
+// the leaf's box, and inside a chunk of the sphere or triangle tree walks
+// the chunk's own small tree (bvh_walk.cuh sub_walk; ops/bvh.py
+// build_sub_trees, leaves of SUB_LEAF slots, boxes from the rows each
+// launch reads, padded by a share of the chunk and a cone that grows with
+// the origin's distance), testing only the slots of the small leaves its
+// line reaches.  The chunk trees, their slots and the record codes are the
+// JAX tree's; a chunk's winner is still its nearest candidate, the lowest
+// slot among equals, bit for bit the dense leaf test's.  Nodes and
+// primitives are read from device memory through the read-only path;
+// neighbouring rays walk mostly the same nodes, so a warp's loads are
+// mostly one broadcast.  The walk is bvh_walk.cuh's, shared with the
+// occlusion kernel (#8, which keeps the dense leaf test); the arithmetic is
+// ops/bvh_kernel.py's plain version's, operation for operation: the sphere
+// root and normal by true division (not the brute kernel's reciprocal), the
+// free flight by logf (torch.log's on the card), the direct cross-product
+// Moller-Trumbore, and slab min/max that propagate NaN as torch.minimum
+// does.
 //
 // What bounds it on this card: FP32 work per node visit and primitive test
 // (a volume candidate whose window a ray crosses adds a Threefry draw and a
 // logf), and divergence between the rays of a warp once bounces scatter
 // them; the scene (nodes and primitives, a few hundred KB) stays in L2.
+// The dense leaf test costs every slot of a chunk a ray enters (74 at
+// bvh_stress, 128 at grid8k); the small trees trade most of those tests for
+// a few node visits, whose lanes a warp runs together, and collect a leaf
+// per lane before the lanes test theirs together.
 //
 // Build (see ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -213,9 +225,12 @@ __device__ __forceinline__ bool start_ray(const float* __restrict__ head,
 // kExt: the scene has volumes, mixes or an isotropic material (a
 // compile-time flag, so scenes without them run the code they always ran).
 // kSky: the background is a sky map, looked up on a miss.  kMv: the scene
-// has mesh volumes, whose free flights draw from column mv_col0 + v.
+// has mesh volumes, whose free flights draw from column mv_col0 + v.  At
+// least 8 blocks an SM, so at most 64 registers: left to itself ptxas gave
+// the base and record instances 56 and spilled, the kMv ones 70-71; capped
+// at 64 they run 0-3% faster (scripts/profile_bvh_walk.py, variant lb0).
 template <bool kRecord, bool kExt, bool kSky, bool kMv>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 8)
 bvh_radiance_kernel(const float* __restrict__ head,
                     const float* __restrict__ mats,
                     const int* __restrict__ kinds, Tree sph, Tree vol,
@@ -224,7 +239,7 @@ bvh_radiance_kernel(const float* __restrict__ head,
                     int max_depth, int bg_kind, int clay, Sky sky,
                     float* __restrict__ out, int* __restrict__ rec,
                     int rec_mask, int vol_base, int tri_base, MeshVols mv,
-                    int mv_col0, int mv_base) {
+                    int mv_col0, int mv_base, SubTree s_sub, SubTree t_sub) {
   __shared__ float f[kHead];
   int ray;
   Ray r;
@@ -249,12 +264,14 @@ bvh_radiance_kernel(const float* __restrict__ head,
 
     float t_best = INFINITY;
     int w_sph = -1, w_vol = -1, w_tri = -1, w_mv = -1;
-    walk<kSphereTree>(sph, leaf, r, t_best, w_sph);
+    walk<kSphereTree, false, true>(sph, leaf, r, t_best, w_sph, Flight{},
+                                   s_sub);
     if (kExt && vol.n_nodes)
       walk<kVolumeTree>(vol, leaf, r, t_best, w_vol,
                         Flight{k0, k1, (uint32_t)ray, stream, off + 4,
                                sqrtf(r.a)});
-    walk<kTriangleTree>(tri, leaf, r, t_best, w_tri);
+    walk<kTriangleTree, false, true>(tri, leaf, r, t_best, w_tri, Flight{},
+                                     t_sub);
     if (kMv)
       mesh_volume_scan(mv, r, t_best, w_mv,
                        Flight{k0, k1, (uint32_t)ray, stream, mv_col0,
@@ -349,8 +366,8 @@ __global__ void __launch_bounds__(kThreads)
 bvh_view_kernel(const float* __restrict__ head, Tree sph, Tree vol, Tree tri,
                 int leaf, uint32_t k0, uint32_t k1, int n_rays, int spp,
                 int width, int max_depth, int bg_kind, Sky sky, int normal,
-                int vol_col0, MeshVols mv, int mv_col0,
-                float* __restrict__ out) {
+                int vol_col0, MeshVols mv, int mv_col0, SubTree s_sub,
+                SubTree t_sub, float* __restrict__ out) {
   __shared__ float f[kHead];
   int ray;
   Ray r;
@@ -363,12 +380,14 @@ bvh_view_kernel(const float* __restrict__ head, Tree sph, Tree vol, Tree tri,
     r.idz = 1.0f / r.dz;
     float t_best = INFINITY;
     int w_sph = -1, w_vol = -1, w_tri = -1, w_mv = -1;
-    walk<kSphereTree>(sph, leaf, r, t_best, w_sph);
+    walk<kSphereTree, false, true>(sph, leaf, r, t_best, w_sph, Flight{},
+                                   s_sub);
     if (vol.n_nodes)
       walk<kVolumeTree>(vol, leaf, r, t_best, w_vol,
                         Flight{k0, k1, (uint32_t)ray, 1u, vol_col0,
                                sqrtf(r.a)});
-    walk<kTriangleTree>(tri, leaf, r, t_best, w_tri);
+    walk<kTriangleTree, false, true>(tri, leaf, r, t_best, w_tri, Flight{},
+                                     t_sub);
     if (kMv)
       mesh_volume_scan(mv, r, t_best, w_mv,
                        Flight{k0, k1, (uint32_t)ray, 1u, mv_col0,
@@ -417,6 +436,7 @@ struct Args {
   int rec_mask, vol_base, tri_base;
   MeshVols mv;
   int mv_col0, mv_base;
+  SubTree s_sub, t_sub;
 };
 
 template <bool kRecord, bool kExt, bool kSky, bool kMv>
@@ -426,7 +446,7 @@ void launch(const Args& a, cudaStream_t stream) {
           a.head, a.mats, a.kinds, a.sph, a.vol, a.tri, a.leaf, a.mx, a.k0,
           a.k1, a.n_rays, a.spp, a.width, a.max_depth, a.bg_kind, a.clay,
           a.sky, a.out, a.rec, a.rec_mask, a.vol_base, a.tri_base, a.mv,
-          a.mv_col0, a.mv_base);
+          a.mv_col0, a.mv_base, a.s_sub, a.t_sub);
 }
 
 template <bool kSky, bool kMv>
@@ -435,7 +455,7 @@ void launch_view(const Args& a, int normal, int vol_col0,
   bvh_view_kernel<kSky, kMv><<<blocks_for(a.n_rays), kThreads, 0, stream>>>(
       a.head, a.sph, a.vol, a.tri, a.leaf, a.k0, a.k1, a.n_rays, a.spp,
       a.width, a.max_depth, a.bg_kind, a.sky, normal, vol_col0, a.mv,
-      a.mv_col0, a.out);
+      a.mv_col0, a.s_sub, a.t_sub, a.out);
 }
 
 }  // namespace
@@ -452,7 +472,10 @@ void launch_view(const Args& a, int normal, int vol_col0,
 // instead, forward only.  The mesh volumes (mv_*, n_mv of them: their
 // trees' nodes, links, leaf counts and rows, `mv_leaf` slots a leaf, each
 // volume's [first node, end); their codes from mv_base) select the
-// variants with the crossing scan.
+// variants with the crossing scan.  The small trees of the sphere and the
+// triangle tree (s_sub_*, t_sub_*: padded boxes, words and leaf order, see
+// bvh_walk.cuh SubTree; `sub_stride` nodes a chunk) are required for each
+// tree that has nodes.
 // Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int rtrt_bvh_radiance(
     const float* head, const float* mats, const int* kinds, int n_mats,
@@ -469,7 +492,11 @@ extern "C" int rtrt_bvh_radiance(
     int tri_base, const float* sky, int sky_h, int sky_w, int view,
     const float* mv_nodes_f, const int* mv_nodes_i, const int* mv_len,
     const float* mv_geo, const int* mv_bounds, const float* mv_nid,
-    const int* mv_mat, int n_mv, int mv_leaf, int mv_base, void* stream) {
+    const int* mv_mat, int n_mv, int mv_leaf, int mv_base,
+    const float* s_sub_boxes, const int* s_sub_words,
+    const unsigned char* s_sub_order, const float* t_sub_boxes,
+    const int* t_sub_words, const unsigned char* t_sub_order, int sub_stride,
+    void* stream) {
   const bool has_sky = bg_kind == kSkyMap;
   const bool has_mv = n_mv > 0;
   if (n_mats < 1 || s_nodes < 0 || v_nodes < 0 || t_nodes < 0 ||
@@ -483,7 +510,9 @@ extern "C" int rtrt_bvh_radiance(
       (mix_first && (!mix_second || !mix_factor)) || bg_kind < kUniform ||
       bg_kind > kSkyMap || has_sky != (sky != nullptr) ||
       (has_sky && (sky_h < 1 || sky_w < 1)) || view < 0 || view > 2 ||
-      (rec && (has_sky || view)))
+      (rec && (has_sky || view)) || sub_stride < 1 || sub_stride > 255 ||
+      (s_nodes > 0 && (!s_sub_boxes || !s_sub_words || !s_sub_order)) ||
+      (t_nodes > 0 && (!t_sub_boxes || !t_sub_words || !t_sub_order)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const int vol_col0 = (mix_first ? 4 : 0) + 4;  // after the lobe's columns
@@ -516,7 +545,11 @@ extern "C" int rtrt_bvh_radiance(
                              nullptr, nullptr, 0},
                         mv_bounds, mv_nid, mv_mat, mv_leaf, n_mv},
                vol_col0 + n_vol,
-               rec ? mv_base : 0};
+               rec ? mv_base : 0,
+               SubTree{reinterpret_cast<const float4*>(s_sub_boxes),
+                       s_sub_words, s_sub_order, sub_stride},
+               SubTree{reinterpret_cast<const float4*>(t_sub_boxes),
+                       t_sub_words, t_sub_order, sub_stride}};
   const bool ext = v_nodes > 0 || mix_first || iso || has_mv;
   const cudaStream_t st = (cudaStream_t)stream;
   if (view) {

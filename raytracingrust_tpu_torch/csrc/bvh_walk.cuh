@@ -8,7 +8,9 @@
 // ray's nearest hit so far; and the crossing scan of a mesh volume's
 // boundary, which the JAX kernel makes densely (_mv_min_t over every
 // boundary triangle) and which here walks the volume's own small tree
-// (mv_walk).  The arithmetic is ops/bvh_kernel.py's plain version's,
+// (mv_walk).  Inside a chunk of the sphere or triangle tree #5 walks the
+// chunk's own small tree (sub_walk), where the JAX kernel and #8 test every
+// slot of the chunk.  The arithmetic is ops/bvh_kernel.py's plain version's,
 // operation for operation: the sphere root by true division, the volume's
 // boundary window and free flight, the direct cross-product
 // Moller-Trumbore, and slab min/max that propagate NaN as torch.minimum
@@ -316,16 +318,173 @@ __device__ __forceinline__ void mesh_volume_scan(const MeshVols& mv,
   }
 }
 
+// One slab of a small-tree node's box grown by the cone pad e: the line's
+// parameters at its planes, lo - o = a and hi - o = b, moved out by e, in
+// order; a NaN end reads as the whole line.
+__device__ __forceinline__ void sub_slab(float a, float b, float e, float inv,
+                                         float& t_near, float& t_far) {
+  a = (a - e) * inv;
+  b = (b + e) * inv;
+  if (a != a || b != b) {
+    t_near = -INFINITY;
+    t_far = INFINITY;
+  } else {
+    t_near = a < b ? a : b;
+    t_far = a < b ? b : a;
+  }
+}
+
+// The small trees inside the chunks of a sphere or triangle tree
+// (ops/bvh.build_sub_trees, ops/bvh_kernel.sub_boxes): per chunk `stride`
+// nodes in DFS order, each a padded box as two float4 [min xyz, 0] and
+// [max xyz, 0] computed from the rows the launch reads, and a word: its
+// skip link (local to the chunk; its first child is the next node) in bits
+// 0-7, its first member in the chunk's leaf order in bits 8-15, and for a
+// leaf its member count from bit 16 (0: an inner node); the chunk's slots in
+// leaf order, chunk-local.  boxes == nullptr: no small trees.
+struct SubTree {
+  const float4* boxes;
+  const int* words;
+  const unsigned char* order;
+  int stride;
+};
+
+// The cone pad of sub_walk (ops/bvh_kernel.SUB_CONE), as a share of the
+// farthest plane of a node's box from the ray's origin.
+constexpr float kSubCone = 0x1p-8f;
+
+// A chunk of at most kSubDense slots takes the dense loop in #5 too
+// (ops/bvh_kernel.SUB_DENSE): its lanes test the same slots in lockstep,
+// each a broadcast load, which beats a walk that skips few of them.
+constexpr int kSubDense = 64;
+
+// The least (t, slot) among the slots of chunk `chunk` that the dense leaf
+// test accepts against `tb` (the walk's bound when it entered the chunk),
+// into (c_best, c_win); slots tested only in the leaves of the chunk's
+// small tree whose box the ray's line reaches.  A leaf's slots are tested
+// in leaf order, not slot order, so a candidate replaces the best so far
+// when nearer, or as near with a lower slot: whatever the order, the
+// result is the dense loop's nearest, lowest slot among equals.
+//
+// The walk.  Each node's box grows by e = kSubCone * m on each side, m the
+// largest of |plane - o| over its six planes (fmaxf: a NaN plane, whose
+// slab reads as the whole line, does not count), and its interval along
+// the ray's whole line is taken slab by slab, a slab with a NaN end
+// ((plane - o) * inf: a line parallel to it and in one of its planes) as
+// the whole line, so that a NaN never drops a box.  The walk goes into
+// the node when entry <= exit, entry <= tb and exit >= T_MIN.  Those
+// decisions read nothing the walk finds, so the plain twin
+// (ops/bvh_kernel._sub_leaf) makes them a level at a time, op for op.
+// Leaves are collected while the lanes of a warp traverse, and tested when
+// the lanes have one each (the while-while loop of Aila and Laine), so a
+// warp's lanes test their leaves together.
+//
+// Why no candidate of the dense test is cut off.  Let the dense test
+// accept slot s at t_c in [T_MIN, tb] (a triangle: (T_MIN, tb]), and let
+// p = o + t_c d in exact arithmetic.  If p lies in the node's box grown by
+// e' < e, every slab's interval, rounded, holds t_c (each end is (plane -
+// o -+ e) / d_i to a relative 2^-22 after the two roundings of plane - o
+// -+ e, a shift of the plane by less than 2^-21 (m + e), far below
+// e - e'), so entry <= t_c <= exit, entry <= tb and exit >= T_MIN: the
+// node is entered.  The boxes hold every member's sphere (center -+ |r|)
+// or triangle (its three vertices), rounded outward by the pad's 2^-20 of
+// the chunk's largest coordinate.  It remains to bound how far p lies from
+// the primitive, in units of m of any box that holds it:
+// - A sphere.  With w = o - c (rounded), the direct quadratic
+//   a t^2 + 2 hb t + cq, rounded in hb, cq and disc = hb^2 - a cq, has its
+//   computed root t_c as an exact root of a quadratic whose coefficients
+//   differ from the exact ones by at most 29 u (|w|^2 + r^2) in the
+//   constant term (u = 2^-24; hb and a by 3 u relative, cq by
+//   4 u (|w|^2 + r^2), disc by 17 u a (|w|^2 + r^2), the root's sqrt, sum
+//   and division by 3 u).  So |p - c|^2 <= r^2 + 29 u (|w|^2 + r^2), and
+//   p is within sqrt(29 u) sqrt(|w|^2 + r^2) <= sqrt(87 u) m < 2^-8.7 m of
+//   the sphere (each |w_i| + r is at most m).  This is the grazing and
+//   tangent case: a computed disc >= 0 where the true one is below 0, its
+//   error growing with |w|^2 (the cancellation in cq = |w|^2 - r^2), which
+//   the sqrt turns into a distance.  A pad fixed by the box could not hold
+//   it for a far origin, nor a slack on t for a line parallel to an axis
+//   (its slab in that axis is all or nothing): hence a pad that grows with
+//   the origin's distance, each node's own (a chunk's root box may hold a
+//   ground sphere of radius 1,000, which a pad from the root would spread
+//   over every small box).
+// - A ray that starts on a sphere's surface (after a bounce, t near
+//   T_MIN), or inside it: the same bound; the far root -hb + sq cancels,
+//   an absolute error of 3 u (|hb| + sq) / a in t, which moves p by less
+//   than 2^-21 m along the ray.
+// - A triangle.  Moller-Trumbore solves o + t d = v0 + u e1 + v e2 by
+//   Cramer's rule; a grazing ray (det near 0) has t, u and v far from
+//   their exact values, but the error lies along the system's near-null
+//   direction, t and (u, v) moving together so that o + t d and
+//   v0 + u e1 + v e2 both slide along d: p stays within a few ulps of
+//   |o - v0|, over the sine of the triangle's smallest angle, of the point
+//   v0 + u_c e1 + v_c e2, which the accepted u_c, v_c put inside the
+//   triangle: below e for any angle above about 2^-12 rad.
+// So p lies in every box on the way to s's leaf, grown by less than e.
+template <int kKind>
+__device__ __forceinline__ void sub_walk(const Tree& tree,
+                                         const SubTree& sub, int chunk,
+                                         int leaf, const Ray& r, float tb,
+                                         float& c_best, int& c_win) {
+  const int base = chunk * leaf;
+  const float4* box = sub.boxes + 2 * chunk * sub.stride;
+  const int* words = sub.words + chunk * sub.stride;
+  const int end = __ldg(words) & 0xff;  // the root's skip link
+  int node = 0;
+  while (node < end) {
+    int found = 0;  // the word of a leaf to test
+    while (node < end) {
+      const float4 lo = __ldg(box + 2 * node), hi = __ldg(box + 2 * node + 1);
+      const int word = __ldg(words + node);
+      const float ax = lo.x - r.ox, ay = lo.y - r.oy, az = lo.z - r.oz;
+      const float bx = hi.x - r.ox, by = hi.y - r.oy, bz = hi.z - r.oz;
+      const float e = fmaxf(fmaxf(fmaxf(fabsf(ax), fabsf(bx)),
+                                  fmaxf(fabsf(ay), fabsf(by))),
+                            fmaxf(fabsf(az), fabsf(bz))) *
+                      kSubCone;
+      float nx, fx, ny, fy, nz, fz;
+      sub_slab(ax, bx, e, r.idx, nx, fx);
+      sub_slab(ay, by, e, r.idy, ny, fy);
+      sub_slab(az, bz, e, r.idz, nz, fz);
+      const float entry = fmaxf(fmaxf(nx, ny), nz);
+      const float exit_ = fminf(fminf(fx, fy), fz);
+      if (!(entry <= exit_ && entry <= tb && exit_ >= kTMin)) {
+        node = word & 0xff;
+        continue;
+      }
+      ++node;  // the first child, or past a leaf
+      if (word >> 16) {
+        found = word;
+        break;
+      }
+    }
+    const int start = (found >> 8) & 0xff;
+    const int count = found >> 16;
+    for (int j = 0; j < count; ++j) {
+      const int s = base + __ldg(sub.order + base + start + j);
+      const float ti = kKind == kSphereTree
+                           ? sphere_t(tree.geo, s, r, tb)
+                           : triangle_t(tree.geo, s, r, tb);
+      if (ti < c_best || (ti == c_best && s < c_win)) {
+        c_best = ti;
+        c_win = s;
+      }
+    }
+  }
+}
+
 // The ray's stackless walk of one tree (_traverse_tree for one ray).  A
 // leaf's winner is its nearest candidate, the lowest slot among equals; it
 // replaces (t_best, win) only when strictly nearer (_merge_leaf_rows).
 // kAnyHit: the walk ends at the first candidate nearer than t_best, the
 // lowest slot of the first leaf that has one (the shadow-ray test).  `fl`
-// is read by a volume tree's walk only.
-template <int kKind, bool kAnyHit = false>
+// is read by a volume tree's walk only.  kSub (#5's sphere and triangle
+// trees): inside a chunk of more than kSubDense slots the small tree's walk
+// (sub_walk) in place of the dense loop over its slots.
+template <int kKind, bool kAnyHit = false, bool kSub = false>
 __device__ __forceinline__ void walk(const Tree& tree, int leaf,
                                      const Ray& r, float& t_best, int& win,
-                                     const Flight& fl = Flight{}) {
+                                     const Flight& fl = Flight{},
+                                     const SubTree& sub = SubTree{}) {
   int node = 0;
   while (node < tree.n_nodes) {
     const float* box = tree.nodes_f + 6 * node;
@@ -349,10 +508,16 @@ __device__ __forceinline__ void walk(const Tree& tree, int leaf,
     const int chunk = __ldg(links + 2);
     if (chunk >= 0) {
       const int base = chunk * leaf;
-      const int n = __ldg(tree.chunk_len + chunk);
+      int n = __ldg(tree.chunk_len + chunk);
       const float tb = t_best;  // the whole leaf tests against its entry t
       float c_best = INFINITY;
       int c_win = -1;
+      if constexpr (kSub) {
+        if (n > kSubDense) {
+          sub_walk<kKind>(tree, sub, chunk, leaf, r, tb, c_best, c_win);
+          n = 0;  // no dense loop
+        }
+      }
       for (int j = 0; j < n; ++j) {
         const float ti =
             kKind == kSphereTree   ? sphere_t(tree.geo, base + j, r, tb)

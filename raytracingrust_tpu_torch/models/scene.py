@@ -170,7 +170,10 @@ class ChunkedBVH:
     JAX package's dense slots, which the replay scans.  ``mv_trees`` holds
     one small tree per volume over the same triangles
     (ops/bvh.build_mv_trees, padded boxes, leaves of ops/bvh.MV_LEAF),
-    which kernel #5 and its plain version walk at any t."""
+    which kernel #5 and its plain version walk at any t.  ``sub_trees``
+    holds the small trees inside the chunks of the sphere and the triangle
+    tree (ops/bvh.build_sub_trees, each None for an absent tree; () when
+    not built), which #5 walks inside a chunk."""
 
     spheres: Optional[ChunkTree]
     triangles: Optional[ChunkTree]
@@ -180,6 +183,7 @@ class ChunkedBVH:
     mv_spans: tuple = ()
     mv_trees: tuple = ()
     leaf_size: int = 128
+    sub_trees: tuple = ()
 
 
 def _tensors_to(obj, device):
@@ -302,8 +306,9 @@ class SceneBuilder:
             with_bvh = self.settings.enable_bvh_tree
         cbvh = None
         if with_bvh:
-            from ..ops.bvh import build_chunked_bvh
-            cbvh = build_chunked_bvh(spheres, triangles)
+            from ..ops.bvh import build_chunked_bvh, with_sub_trees
+            cbvh = with_sub_trees(build_chunked_bvh(spheres, triangles),
+                                  spheres, triangles)
         return Scene(self.camera, self.background, spheres,
                      build_table(self.materials), self.settings, triangles,
                      cbvh, mesh_volumes)

@@ -65,6 +65,7 @@ _SIGNATURES = {
                              _I32, _I32, _I32, _I32, _I32, _P, _P, _I32,
                              _I32, _I32, _P, _I32, _I32, _I32]
                           + [_P] * 7 + [_I32] * 3  # the mesh volumes
+                          + [_P] * 6 + [_I32]  # the small trees
                           + [_P], _I32),
     "rtrt_fetch_rows": ([_P, _I64] + [_P] * 4 + [_I32, _P, _P, _I32, _I32,
                                                   _P, _P, _I32, _P, _I32, _P],

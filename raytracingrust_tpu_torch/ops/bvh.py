@@ -12,10 +12,15 @@ The arrays equal the JAX package's, node for node and slot for slot.
 
 A mesh volume's boundary has a small tree of its own (:func:`build_mv_trees`,
 the port's: the JAX package scans the boundary densely), which kernel #5's
-crossing scan walks (csrc/bvh_walk.cuh ``mv_walk``).
+crossing scan walks (csrc/bvh_walk.cuh ``mv_walk``).  So has each chunk of
+the sphere and triangle trees (:func:`build_sub_trees`, the port's too: the
+JAX kernel tests every slot of a chunk whose box a ray hits), which #5's
+walk descends inside a chunk (csrc/bvh_walk.cuh ``sub_walk``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 
@@ -32,6 +37,13 @@ MV_LEAF = 4
 # largest extent plus MV_PAD_COORD of its largest coordinate
 MV_PAD = 2.0 ** -10
 MV_PAD_COORD = 2.0 ** -20
+# slots a leaf of a chunk's small tree holds (csrc/bvh_walk.cuh sub_walk).
+# A ray's line passes near a few of a chunk's 128 primitives; small leaves
+# keep its tests near them, at the cost of a node visit (about a sphere
+# test) a level.  On an H100 #5 ran 0-7% faster with leaves of 4 than of 8
+# at five of seven scenes (1-2% slower at the other two), and 15-36% faster
+# than with leaves of 16 (scripts/profile_bvh_walk.py; PERF.md)
+SUB_LEAF = 4
 
 
 def primitive_bounds(spheres, triangles):
@@ -143,6 +155,96 @@ def build_mv_trees(triangles, leaf_size: int = MV_LEAF) -> tuple:
         trees.append(ChunkTree(nf.astype(np.float32), ni,
                                perm.astype(np.int32), leaf_size))
     return tuple(trees)
+
+
+@dataclasses.dataclass(frozen=True)
+class SubTrees:
+    """One small tree inside each chunk of a chunk tree, over the chunk's
+    own slots: the chunk tree's median split continued down to leaves of
+    ``sub_leaf`` slots, each chunk's nodes in DFS order at ``stride``
+    entries a chunk.  A node's members are a run of the chunk's slots in
+    leaf order (``order``), so each node is (first, count) in that run; the
+    first child of an inner node is the next node, and a node's skip link
+    (``miss``, local to its chunk) points one past its subtree.  Boxes are
+    not kept: they are computed from the rows each launch reads
+    (ops/bvh_kernel.sub_boxes).  Host numpy arrays."""
+
+    miss: np.ndarray   # (n_chunks * stride,) int32 skip link, 0 if unused
+    first: np.ndarray  # (n_chunks * stride,) int32 first member in ``order``
+    count: np.ndarray  # (n_chunks * stride,) int32 members, 0 if unused
+    leaf: np.ndarray   # (n_chunks * stride,) bool a leaf
+    order: np.ndarray  # (n_chunks * leaf_size,) int32 chunk-local slots
+    stride: int
+    sub_leaf: int
+
+    @property
+    def n_chunks(self) -> int:
+        return self.miss.shape[0] // self.stride
+
+
+def sub_stride(leaf_size: int, sub_leaf: int) -> int:
+    """Nodes a chunk's small tree may need: halving a chunk of at most
+    ``leaf_size`` slots gives at most the next power of two of
+    leaf_size / sub_leaf leaves."""
+    leaves = 1
+    while leaves * sub_leaf < leaf_size:
+        leaves *= 2
+    return 2 * leaves - 1
+
+
+def build_sub_trees(tree, mins: np.ndarray, maxs: np.ndarray,
+                    sub_leaf: int = SUB_LEAF) -> SubTrees:
+    """A small tree inside each chunk of the ChunkTree ``tree``, over the
+    chunk's live slots, by :func:`build_chunked_topology` (the same median
+    split on the same primitive boxes ``mins``/``maxs``, indexed by the ids
+    in ``tree.perm``) with leaves of at most ``sub_leaf`` slots.  The chunk
+    tree, its slots and their order stay as they are."""
+    leaf_size = tree.leaf_size
+    if leaf_size > 256:
+        raise ValueError(f"chunks of {leaf_size} slots: the small trees "
+                         "index a chunk's slots in 8 bits")
+    stride = sub_stride(leaf_size, sub_leaf)
+    n = tree.n_chunks * stride
+    miss, first, count = (np.zeros(n, np.int32) for _ in range(3))
+    leaf = np.zeros(n, bool)
+    order = np.zeros(tree.perm.shape[0], np.int32)
+    perm = tree.perm.reshape(-1, leaf_size)
+    for c in range(tree.n_chunks):
+        ids = perm[c][perm[c] >= 0]
+        _, ni, sub_perm = build_chunked_topology(mins[ids], maxs[ids],
+                                                 sub_leaf)
+        k = ni.shape[0]
+        if k > stride:
+            raise AssertionError(f"chunk {c}: {k} small nodes > {stride}")
+        runs = sub_perm.reshape(-1, sub_leaf)
+        runs = [r[r >= 0] for r in runs]
+        starts = np.cumsum([0] + [len(r) for r in runs])
+        order[c * leaf_size:c * leaf_size + len(ids)] = np.concatenate(runs)
+        at = slice(c * stride, c * stride + k)
+        miss[at] = ni[:, 1]
+        leaf[at] = ni[:, 2] >= 0
+        # a node's members: from its subtree's first leaf to its last
+        chunks = ni[:, 2]
+        for j in range(k):
+            below = chunks[j:ni[j, 1]]
+            below = below[below >= 0]
+            first[c * stride + j] = starts[below[0]]
+            count[c * stride + j] = starts[below[-1] + 1] - starts[below[0]]
+    return SubTrees(miss, first, count, leaf, order, stride, sub_leaf)
+
+
+def with_sub_trees(cbvh, spheres, triangles):
+    """``cbvh`` with the small trees of its sphere and triangle trees
+    (``ChunkedBVH.sub_trees``, None for an absent tree), on the primitive
+    boxes the chunk trees were built from."""
+    if cbvh is None:
+        return None
+    mins, maxs = primitive_bounds(spheres, triangles)
+    ns = len(spheres)
+    subs = tuple(None if t is None else build_sub_trees(t, lo, hi)
+                 for t, lo, hi in ((cbvh.spheres, mins[:ns], maxs[:ns]),
+                                   (cbvh.triangles, mins[ns:], maxs[ns:])))
+    return dataclasses.replace(cbvh, sub_trees=subs)
 
 
 def build_chunked_bvh(spheres, triangles, leaf_size: int = 128):

@@ -51,6 +51,14 @@ The walk is per ray, not per packet: a ray tests a leaf only when its own
 slab test hits the leaf's box.  The TPU kernel moves one cursor for 2,048
 rays and tests a leaf when any of them hits it; the nearest hit is the same
 except where a ray's box test and its primitive test disagree at rounding.
+Inside a chunk of the sphere or triangle tree the kernel walks a small
+tree over the chunk's slots (ops/bvh.build_sub_trees; boxes from the rows
+each launch reads, :func:`sub_boxes`) and tests only the slots of the
+small leaves the ray's line reaches (a chunk of at most SUB_DENSE slots
+takes the dense test): the chunk's winner is the dense leaf test's bit for
+bit.  The plain version keeps the dense leaf test; :func:`_sub_leaf` is
+the kernel's twin inside a chunk, which the tests and the tallies
+(``_walk_all``, :func:`_twin_check`) run beside it.
 
 A sky map (``sky``, bg_kind SKYMAP) adds, on a miss, the throughput
 times the sky's nearest texel (``Background.sample``; the JAX
@@ -92,6 +100,7 @@ scan) count under those names and again under ``MV_LAUNCHES``.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import dataclasses
 from typing import NamedTuple, Optional
@@ -127,10 +136,26 @@ MV_SLACK = 2.0 ** -5
 TILE_RAYS = 1 << 18
 # (ray, leaf) pairs per step of the plain mesh-volume walk's leaf tests
 MV_PAIRS = 1 << 20
+# (ray, chunk) entries per step of the small trees' twin (_twin_check)
+SUB_ENTRIES = 1 << 21
 # crossings the mesh volumes' entry walk keeps for the exit (bvh_walk.cuh
 # kMvKeep): a line crosses a convex boundary twice and a concave one a few
 # times more; one through an edge or a vertex crosses every triangle there
 MV_KEEP = 4
+# a chunk's small-tree boxes grow on each side by SUB_PAD of the chunk's
+# largest extent plus SUB_PAD_COORD of its largest coordinate (the mesh
+# volumes' pad, ops/bvh.MV_PAD), and, for each ray, by SUB_CONE of the
+# farthest of the box's planes from its origin (bvh_walk.cuh kSubCone;
+# sub_walk's comment argues the size)
+SUB_PAD = 2.0 ** -10
+SUB_PAD_COORD = 2.0 ** -20
+SUB_CONE = 2.0 ** -8
+# a chunk of at most this many slots takes the dense leaf test in #5 too
+# (bvh_walk.cuh kSubDense): a warp's lanes test the same slots together,
+# which beats a walk that saves few tests (on an H100 the zoo's chunk of 47
+# spheres ran 31% slower walked, bvh_stress's of 74 2.3x faster;
+# scripts/profile_bvh_walk.py, PERF.md)
+SUB_DENSE = 64
 
 # the record code: winner slot, then the bounce's decisions
 REC_SLOT = (1 << 27) - 1
@@ -205,6 +230,17 @@ def unsupported_bvh(scene: Scene) -> str | None:
 
 # ------------------------------------------------------------- packing
 
+class SubTree(NamedTuple):
+    """A chunk tree's small trees (ops/bvh.SubTrees) on the device, without
+    their boxes (:func:`sub_boxes` computes those from the rows)."""
+    words: torch.Tensor      # (n_chunks * stride,) int32 the kernel's word:
+    # skip link | first member << 8 | members << 16 (0 for an inner node)
+    order: torch.Tensor      # (n_chunks * leaf,) uint8 chunk-local slots
+    pair_node: torch.Tensor  # (P,) int64 each (node, member) pair's node
+    pair_slot: torch.Tensor  # (P,) int64 and its member's global slot
+    stride: int
+
+
 class Tree(NamedTuple):
     nodes_f: torch.Tensor  # (K, 6) float32
     nodes_i: torch.Tensor  # (K, 3) int32 [hit_link, miss_link, chunk]
@@ -217,6 +253,8 @@ class Tree(NamedTuple):
     # sphere row minus the solid spheres), which picks its uniform column
     nid: Optional[torch.Tensor] = None      # (n_chunks * leaf,) float32
     ordinal: Optional[torch.Tensor] = None  # (n_chunks * leaf,) int32
+    # sphere and triangle trees: the small tree inside each chunk
+    sub: Optional[SubTree] = None
 
 
 class MeshVols(NamedTuple):
@@ -307,8 +345,60 @@ class BvhScene(NamedTuple):
             volumes=swap(self.volumes, vol_geo))
 
 
+def _sub_tree(s, leaf_size: int, device) -> SubTree:
+    """The small trees ``s`` (ops/bvh.SubTrees) as the kernel reads them,
+    and each node's members as (node, global slot) pairs for
+    :func:`sub_boxes`."""
+    n = s.miss.shape[0]
+    word = (s.miss | (s.first << 8)
+            | (np.where(s.leaf, s.count, 0) << 16)).astype(np.int32)
+    node = np.repeat(np.arange(n), s.count)
+    at = np.arange(node.shape[0]) - np.repeat(np.cumsum(s.count) - s.count,
+                                              s.count)
+    chunk = node // s.stride
+    slot = chunk * leaf_size + s.order[chunk * leaf_size + s.first[node]
+                                       + at]
+    return SubTree(torch.as_tensor(word).to(device),
+                   torch.as_tensor(s.order.astype(np.uint8)).to(device),
+                   torch.as_tensor(node).to(device),
+                   torch.as_tensor(slot.astype(np.int64)).to(device),
+                   s.stride)
+
+
+def sub_boxes(tree: Tree) -> torch.Tensor:
+    """(n_chunks * stride, 8) float32 [min xyz, 0, max xyz, 0]: the padded
+    box of every node of ``tree``'s small trees, from the rows ``tree.geo``
+    holds now (a fit moves them; the chunk boxes stay as built).  A
+    sphere's box is center -+ |radius|; a triangle's that of v0, v0 + e1,
+    v0 + e2 as the row holds them; a node's the union of its members'; then
+    every box of a chunk grows on each side by SUB_PAD of the chunk's
+    largest extent plus SUB_PAD_COORD of its largest coordinate (the root's
+    box).  A node no chunk uses gets an empty box (inf, -inf)."""
+    sub = tree.sub
+    g = tree.geo.detach()
+    if g.shape[1] == 4:
+        r = g[:, 3:4].abs()
+        lo, hi = g[:, :3] - r, g[:, :3] + r
+    else:
+        v1, v2 = g[:, 0:3] + g[:, 3:6], g[:, 0:3] + g[:, 6:9]
+        lo = torch.minimum(g[:, 0:3], torch.minimum(v1, v2))
+        hi = torch.maximum(g[:, 0:3], torch.maximum(v1, v2))
+    n = sub.words.shape[0]
+    at = sub.pair_node[:, None].expand(-1, 3)
+    lo = torch.full((n, 3), float("inf"), device=g.device).scatter_reduce_(
+        0, at, lo[sub.pair_slot], "amin")
+    hi = torch.full((n, 3), -float("inf"), device=g.device).scatter_reduce_(
+        0, at, hi[sub.pair_slot], "amax")
+    root_lo, root_hi = lo[::sub.stride], hi[::sub.stride]
+    pad = ((root_hi - root_lo).amax(1) * SUB_PAD
+           + torch.maximum(root_lo.abs(), root_hi.abs()).amax(1)
+           * SUB_PAD_COORD).repeat_interleave(sub.stride)[:, None]
+    zero = torch.zeros_like(pad)
+    return torch.cat([lo - pad, zero, hi + pad, zero], 1).contiguous()
+
+
 def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
-          device, nid=None, n_solid=0) -> Optional[Tree]:
+          device, nid=None, n_solid=0, sub=None) -> Optional[Tree]:
     if t is None:
         return None
     perm = torch.as_tensor(t.perm, device=rows.device).long()
@@ -322,6 +412,8 @@ def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
                 torch.float32).contiguous().to(device),
             ordinal=torch.where(pad, 0, idx - n_solid).to(
                 torch.int32).to(device))
+    if sub is not None:
+        extra["sub"] = _sub_tree(sub, t.leaf_size, device)
     return Tree(torch.as_tensor(t.nodes_f).to(device),
                 torch.as_tensor(t.nodes_i).to(device),
                 torch.as_tensor(t.chunk_len).to(device),
@@ -411,13 +503,19 @@ def pack(scene: Scene, width: int, height: int, device) -> BvhScene:
             mats.mix_factor.to(torch.float32))))
     n_vol = sph.num_volumes
     centers = torch.cat([sph.center, sph.radius[:, None]], 1)
+    if not cb.sub_trees:  # a BVH built without them: built once, kept
+        from .bvh import with_sub_trees
+
+        cb = scene.cbvh = with_sub_trees(cb, sph, tri)
     return BvhScene(
         K.pack_head(scene, width, height).contiguous().to(device),
         table.contiguous().to(device),
         mats.kind.to(torch.int32).contiguous().to(device),
-        _tree(cb.spheres, centers, sph.material, device),
+        _tree(cb.spheres, centers, sph.material, device,
+              sub=cb.sub_trees[0]),
         _tree(cb.triangles, torch.cat([tri.v0, tri.e1, tri.e2, tri.normal],
-                                      1), tri.material, device),
+                                      1), tri.material, device,
+              sub=cb.sub_trees[1]),
         rec_mask,
         _tree(cb.volumes, centers, sph.material, device,
               nid=sph.neg_inv_density, n_solid=len(sph) - n_vol),
@@ -431,9 +529,11 @@ def _dot3(ax, ay, az, bx, by, bz):
 
 
 def _quadratic(geo, o, d, a):
-    """The direct (o - c) quadratic of (R, L) rays and spheres: (disc >= 0,
-    near root, far root, radius row), with true division."""
-    cx, cy, cz, r = (v[None, :] for v in geo.unbind(-1))
+    """The direct (o - c) quadratic of (R, L) rays and spheres, the rows
+    ``geo`` (L, 4) for every ray or (R, L, 4) a ray: (disc >= 0, near root,
+    far root, radius row), with true division."""
+    cx, cy, cz, r = (v if geo.dim() == 3 else v[None, :]
+                     for v in geo.unbind(-1))
     ox, oy, oz = (v[:, None] for v in o)
     dx, dy, dz = (v[:, None] for v in d)
     a = a[:, None]
@@ -446,7 +546,8 @@ def _quadratic(geo, o, d, a):
 
 
 def _sphere_leaf(tree, s, o, d, a, t_best):
-    """Candidate distances (R, L) of the spheres of slots ``s``
+    """Candidate distances (R, L) of the spheres of slots ``s`` ((L,) for
+    every ray or (R, L) a ray)
     (``_sphere_chunk_hit`` op for op: the near root if in [T_MIN, t_best],
     else the far root; radius 0 never hits)."""
     ok, t1, t2, r = _quadratic(tree.geo[s], o, d, a)
@@ -513,15 +614,91 @@ def _moller_trumbore(geo, o, d):
 
 
 def _triangle_leaf(tree, s, o, d, a, t_best):
-    """Candidate distances (R, L) of the triangles of slots ``s``, with t
-    in (T_MIN, t_best]."""
+    """Candidate distances (R, L) of the triangles of slots ``s`` ((L,) for
+    every ray or (R, L) a ray), with t in (T_MIN, t_best]."""
     tt, inside = _moller_trumbore(tree.geo[s], o, d)
     valid = inside & (tt > T_MIN) & (tt <= t_best[:, None])
     return torch.where(valid, tt, float("inf"))
 
 
+def _sub_leaf(tree: Tree, leaf, boxes, chunk, o, d, inv_d, a, tb, tally,
+              name):
+    """The plain twin of the kernel's walk inside a chunk (bvh_walk.cuh
+    ``sub_walk``) for rays (o, d, 1 / d, a, their bound ``tb``), each in
+    the chunk of ``chunk`` (R,) that its walk entered: -> (R,) each one's
+    nearest candidate t in that chunk, inf if none, and (R,) its slot, the
+    lowest among equal t (the slot count if none).
+
+    A node's box grows by e on each side, the cone pad, SUB_CONE of the
+    farthest of its planes from the ray's origin (NaN planes not counted),
+    and its interval is taken slab by slab at any t, a slab with a NaN end
+    the whole line; the ray goes into the node when the interval is not
+    empty and meets [T_MIN, tb].  Those are the kernel's operations in
+    float32, and they do not depend on what the walk finds, so the walk
+    here goes a level of the small trees at a time over every (ray, node)
+    pair: the nodes the kernel's stackless walk visits, in another order.  The
+    leaves entered are tested with ``leaf``'s arithmetic (_sphere_leaf or
+    _triangle_leaf) against ``tb``; the least (t, slot) over them is the
+    dense test's "nearest, lowest slot among equals" wherever the pads hold
+    every candidate the dense test accepts (sub_walk's comment argues
+    that they do).  The tally counts the rays ("sub_chunks"), their node
+    visits ("sub_nodes") and the slots they test (``name``)."""
+    sub = tree.sub
+    n0, base = chunk * sub.stride, chunk * tree.leaf_size
+    inf = float("inf")
+    o3, inv3 = torch.stack(o, 1), torch.stack(inv_d, 1)
+    words = sub.words.long()
+    ray = torch.arange(tb.shape[0], device=tb.device)
+    node = n0.clone()  # global node indices
+    hit_ray, hit_word = [], []
+    if tally is not None:
+        tally["sub_chunks"] += ray.numel()
+    while ray.numel():
+        box, w = boxes[node], words[node]
+        near, far = box[:, :3] - o3[ray], box[:, 4:7] - o3[ray]
+        m = torch.fmax(near.abs(), far.abs())
+        e = (torch.fmax(torch.fmax(m[:, 0], m[:, 1]), m[:, 2])
+             * SUB_CONE)[:, None]
+        near = (near - e) * inv3[ray]
+        far = (far + e) * inv3[ray]
+        nan = torch.isnan(near) | torch.isnan(far)
+        entry = torch.where(nan, -inf, torch.minimum(near, far)).amax(1)
+        exit_ = torch.where(nan, inf, torch.maximum(near, far)).amin(1)
+        go = (entry <= exit_) & (entry <= tb[ray]) & (exit_ >= T_MIN)
+        if tally is not None:
+            tally["sub_nodes"] += ray.numel()
+        is_leaf = (w >> 16) > 0
+        hit_ray.append(ray[go & is_leaf])
+        hit_word.append(w[go & is_leaf])
+        inner = go & ~is_leaf
+        ray, kid = ray[inner], node[inner] + 1  # the first child
+        node = torch.cat([kid, n0[ray] + (words[kid] & 0xFF)])  # its skip
+        ray = torch.cat([ray, ray])
+    big = tree.geo.shape[0]  # no slot
+    t_min = torch.full_like(tb, inf)
+    first = torch.full(tb.shape, big, device=tb.device)
+    ray, w = torch.cat(hit_ray), torch.cat(hit_word)
+    if ray.numel() == 0:
+        return t_min, first
+    start, count = (w >> 8) & 0xFF, w >> 16
+    lane = torch.arange(int(count.max()), device=tb.device)
+    at = torch.minimum(start[:, None] + lane, (start + count - 1)[:, None])
+    slot = base[ray][:, None] + sub.order[base[ray][:, None] + at].long()
+    ti = leaf(tree, slot, [v[ray] for v in o], [v[ray] for v in d], a[ray],
+              tb[ray])
+    valid = lane < count[:, None]
+    ti = torch.where(valid, ti, inf)
+    t_min.scatter_reduce_(0, ray, ti.amin(1), "amin")
+    lowest = torch.where(valid & (ti == t_min[ray][:, None]), slot,
+                         big).amin(1)
+    first.scatter_reduce_(0, ray, lowest, "amin")
+    if tally is not None:
+        tally[name] += int(count.sum())
+    return t_min, first
+
+
 def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
-          name, any_hit=False, extra=()):
+          name, any_hit=False, extra=(), entries=None):
     """Each alive ray's stackless walk of one tree, vectorized: the rays
     whose cursor is at node k take its slab test (``_traverse_tree``'s:
     NaN-propagating min/max, so an axis-parallel NaN reads as a miss), test
@@ -534,7 +711,9 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
     ``t_best`` (a volume leaf's ray lengths and uniforms).  ``any_hit``: a
     ray leaves the walk at the first leaf that has a candidate nearer than
     its ``t_best``, and the tally counts its tests up to the first such
-    slot (the occlusion kernel's walk)."""
+    slot (the occlusion kernel's walk).  ``entries``: a list that
+    receives, for each leaf the walk tests, (its rays, the chunk, their
+    bound, the leaf's nearest t, its slot), for :func:`_twin_check`."""
     k_nodes = tree.links.shape[0]
     cursor = torch.where(alive, 0, k_nodes)
     nf = tree.nodes_f
@@ -575,6 +754,8 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
         better = t_min < tb
         t_best[rays] = torch.where(better, t_min, tb)
         win[rays] = torch.where(better, base + first, win[rays])
+        if entries is not None:
+            entries.append((rays, chunk, tb, t_min, base + first))
         if tally is not None:  # any-hit: tests up to its first candidate
             tested = torch.full_like(t_min, n, dtype=torch.long)
             if any_hit:
@@ -595,7 +776,13 @@ def _walk_all(sc: BvhScene, o, d, a, alive, u_vol, tally, any_hit=False):
     """Every tree's walk in the JAX order (spheres, volumes, triangles),
     each from the nearest hit of the walks before it; -> (t_best, winning
     slot of each tree, -1 where it has none).  ``any_hit``: the occlusion
-    test's walk, where a ray occluded by one tree walks no other."""
+    test's walk, where a ray occluded by one tree walks no other.  With a
+    tally, every leaf of a tree with small trees is also walked by the twin
+    of #5's walk (:func:`_twin_check`) from the same bound, for the work
+    the kernel does: "sub_chunks", "sub_nodes", and its tests as
+    "sphere_tests_sub" and "triangle_tests_sub"; "sub_mismatch" counts the
+    leaves where it finds another t or winner than the dense walk (none,
+    if the pads hold)."""
     inv_d = [1.0 / v for v in d]
     t_best = torch.full_like(a, float("inf"))
     wins = []
@@ -607,10 +794,51 @@ def _walk_all(sc: BvhScene, o, d, a, alive, u_vol, tally, any_hit=False):
         win = torch.full(a.shape, -1, dtype=torch.long, device=a.device)
         if tree is not None:
             live = alive & ~(t_best < float("inf")) if any_hit else alive
+            twin = (tally is not None and tree.sub is not None
+                    and not any_hit)
+            entries = [] if twin else None
             _walk(tree, leaf, o, d, inv_d, a, live, t_best, win, tally,
-                  name, any_hit=any_hit, extra=extra)
+                  name, any_hit=any_hit, extra=extra, entries=entries)
+            if entries:
+                _twin_check(tree, leaf, o, d, inv_d, a, entries, tally, name)
         wins.append(win)
     return t_best, wins
+
+
+def _twin_check(tree: Tree, leaf, o, d, inv_d, a, entries, tally, name):
+    """The twin of #5's walk inside the chunks (:func:`_sub_leaf`) on every
+    leaf of more than SUB_DENSE slots that the dense walk tested
+    (``_walk``'s ``entries``), from the same bound, up to SUB_ENTRIES
+    (ray, chunk) entries at a time: its work goes to the tally
+    ("sub_chunks", "sub_nodes", ``name`` + "_sub", where a smaller leaf,
+    which #5 tests densely too, counts its dense tests), and
+    "sub_mismatch" counts the leaves where its nearest t or its slot differ
+    from the dense test's.  Equal at every leaf from the same bound,
+    the twin's walk and the dense walk end with the same t and winner."""
+    n = tree.chunk_len.tolist()
+    boxes, work, batch, size = sub_boxes(tree), collections.Counter(), [], 0
+    for i, e in enumerate(entries):
+        if n[e[1]] <= SUB_DENSE:
+            work[name] += n[e[1]] * e[0].numel()
+        else:
+            batch.append(e)
+            size += e[0].numel()
+        if batch and (size >= SUB_ENTRIES or i == len(entries) - 1):
+            rays = torch.cat([e[0] for e in batch])
+            chunk = torch.cat([torch.full_like(e[0], e[1]) for e in batch])
+            tb, t_min, first = (torch.cat([e[k] for e in batch])
+                                for k in (2, 3, 4))
+            got_t, got_first = _sub_leaf(
+                tree, leaf, boxes, chunk,
+                *([v[rays] for v in x] for x in (o, d, inv_d)), a[rays], tb,
+                work, name)
+            work["sub_mismatch"] += int(
+                ((got_t.view(torch.int32) != t_min.view(torch.int32))
+                 | ((t_min < float("inf")) & (got_first != first))).sum())
+            batch, size = [], 0
+    for key in ("sub_chunks", "sub_nodes", "sub_mismatch"):
+        tally[key] += work[key]
+    tally[name + "_sub"] += work[name]
 
 
 def _mv_min_t(mv: MeshVols, start: int, count: int, o, d, floor, tally):
@@ -1042,6 +1270,37 @@ def _mv_args(sc: BvhScene) -> list:
         mv.bounds, mv.nid, mv.mat)] + [n, mv.tree.leaf_size]
 
 
+def _sub_args(sc: BvhScene) -> tuple:
+    """(the small trees of the sphere and the triangle tree as pointers:
+    boxes from the rows the launch reads, words, leaf order, null for an
+    absent tree; their stride; the boxes, which the caller keeps alive
+    until the launch is queued), after checking them."""
+    args, strides, boxes_kept = [], set(), []
+    for t in (sc.spheres, sc.triangles):
+        if t is None:
+            args += [ctypes.c_void_p(0)] * 3
+            continue
+        if t.sub is None:
+            raise ValueError("#5 walks the small trees inside the chunks: "
+                             "pack the scene with ops/bvh_kernel.pack")
+        n = t.chunk_len.shape[0] * t.sub.stride
+        boxes = sub_boxes(t)
+        dev = t.geo.device
+        K._check(boxes, "small-tree boxes", torch.float32, (n, 8), dev)
+        K._check(t.sub.words, "small-tree words", torch.int32, (n,), dev)
+        K._check(t.sub.order, "small-tree order", torch.uint8,
+                 (t.geo.shape[0],), dev)
+        if boxes.data_ptr() % 16:
+            raise ValueError("small-tree boxes must be 16-byte aligned")
+        args += [ctypes.c_void_p(v.data_ptr())
+                 for v in (boxes, t.sub.words, t.sub.order)]
+        strides.add(t.sub.stride)
+        boxes_kept.append(boxes)
+    if len(strides) > 1:
+        raise ValueError(f"small trees of strides {strides}")
+    return args, (strides.pop() if strides else 1), boxes_kept
+
+
 def _sky_args(sky: Optional[B.Background], dev) -> list:
     """The sky map's (texels pointer, height, width), after checking them;
     a null pointer without one."""
@@ -1086,6 +1345,7 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
     leaf = _leaf_size(sc)
     args = (_tree_args(sc.spheres, 4) + _tree_args(sc.volumes, 4, True)
             + _tree_args(sc.triangles, 12))
+    subs, stride, _boxes = _sub_args(sc)
     view = {None: 0, "normal": 1, "random": 2}[debug]
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=dev)
     codes = (torch.empty((max_depth, n_rays), dtype=torch.int32, device=dev)
@@ -1103,8 +1363,8 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
             ctypes.c_void_p(out.data_ptr()),
             ctypes.c_void_p(codes.data_ptr() if record else 0),
             0 if clay else sc.rec_mask, sc.vol_base, sc.tri_base,
-            *_sky_args(sky, dev), view, *_mv_args(sc), sc.mv_base,
-            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+            *_sky_args(sky, dev), view, *_mv_args(sc), sc.mv_base, *subs,
+            stride, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_bvh_radiance launch failed: CUDA error "
                            f"{err} ({_build.error_string(err)})")

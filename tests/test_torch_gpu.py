@@ -244,6 +244,70 @@ def _stress(mode="Full"):
     return b.build()
 
 
+def _cloud_builder(depth=4, spp=2):
+    """tests/test_torch_bvh_subtree.py's 420 random spheres (4 chunks,
+    coincident twins, radius 0, a few large), Lambertian, mirror, glass
+    and emitters, seen from outside: grazing and tangent rays, bounces
+    that start on a surface or inside glass, ties between twins."""
+    from test_torch_bvh_subtree import _spheres
+
+    b = T.SceneBuilder()
+    b.camera = T.Camera.create((1.0, 2.0, 11.0), (0, 0, 0), (0, 1, 0), 40.0,
+                               1.2)
+    b.settings = T.RenderSettings(samples_per_pixel=spp, max_ray_depth=depth)
+    b.background = T.Background.gradient((0.5, 0.7, 1.0), (1.0, 1.0, 1.0))
+    mats = [b.add_material(m) for m in (
+        T.Lambertian((0.7, 0.5, 0.4)), T.Metal((0.9, 0.9, 0.9), 0.0),
+        T.Dielectric(1.5), T.Emission((3.0, 2.8, 2.5)))]
+    for i, (c, r) in enumerate(zip(*_spheres(420))):
+        b.add_sphere(tuple(float(x) for x in c), float(r), mats[i % 4])
+    return b
+
+
+def _cloud(depth=4, spp=2):
+    return _cloud_builder(depth, spp).build(with_bvh=True)
+
+
+def _moved():
+    """:func:`_cloud` with its spheres moved after the build, as a fit moves
+    them: the chunk boxes stay as built, the small trees' boxes follow
+    the rows."""
+    scene = _cloud()
+    shift = np.random.default_rng(4).uniform(-0.4, 0.4, (420, 3))
+    shift[::29] *= 7.5
+    return dataclasses.replace(scene, spheres=dataclasses.replace(
+        scene.spheres, center=scene.spheres.center + torch.tensor(
+            shift, dtype=torch.float32)))
+
+
+def _field(depth=4, spp=2):
+    """tests/test_torch_tri_cull.py's height field (16 x 12 quads) and an
+    icosphere, built with their BVH, a mirror sphere and an emitter, under
+    a camera low over the field: grazing rays, bounces from triangles."""
+    from test_torch_tri_cull import icosphere, sheet
+
+    b = T.SceneBuilder()
+    b.camera = T.Camera.create((0.0, -0.3, 0.8), (0.0, -0.5, -2.5),
+                               (0, 1, 0), 60.0, 1.2)
+    b.settings = T.RenderSettings(samples_per_pixel=spp, max_ray_depth=depth)
+    lam = b.add_material(T.Lambertian((0.6, 0.55, 0.5)))
+    metal = b.add_material(T.Metal((0.85, 0.85, 0.9), 0.0))
+    v, f = sheet(16, 12)
+    b.add_mesh(Mesh.from_buffers(v, v, f[:200], lam))
+    b.add_mesh(Mesh.from_buffers(v, v, f[200:], metal))
+    v, f = icosphere((0.3, -0.2, -1.6), 0.4, 1)
+    b.add_mesh(Mesh.from_buffers(v, v, f, lam))
+    b.add_sphere((-0.6, 0.2, -1.2), 0.3, metal)
+    b.add_sphere((0.0, 1.2, -1.5), 0.4,
+                 b.add_material(T.Emission((3.0, 2.8, 2.5))))
+    return b.build(with_bvh=True)
+
+
+# scenes that press on #5's small trees (tests/test_torch_bvh_subtree.py)
+_SUB_SCENES = [_cloud, _field, _moved]
+_SUB_IDS = ["cloud", "field", "moved"]
+
+
 def _bvh_both(scene, w, h, seed, device):
     """(kernel, plain) per-ray radiance of the same rays on the card."""
     s = scene.settings
@@ -260,8 +324,9 @@ def _bvh_both(scene, w, h, seed, device):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("make", [
-    _stress, lambda: _stress("Clay"), _sheet, lambda: _sheet(mode="Clay")],
-    ids=["stress", "stress-clay", "sheet", "sheet-clay"])
+    _stress, lambda: _stress("Clay"), _sheet, lambda: _sheet(mode="Clay"),
+    *_SUB_SCENES],
+    ids=["stress", "stress-clay", "sheet", "sheet-clay", *_SUB_IDS])
 def test_bvh_kernel_matches_plain_on_card(cuda_device, make):
     """Kernel #5's per-ray radiance bit for bit equal to its plain version
     at depth 1 and at full depth (as chip_smoke.py phase 7)."""
@@ -303,8 +368,9 @@ def _fetch_args(sc, codes):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("make", [
-    _stress, lambda: _stress("Clay"), _sheet, lambda: _sheet(mode="Clay")],
-    ids=["stress", "stress-clay", "sheet", "sheet-clay"])
+    _stress, lambda: _stress("Clay"), _sheet, lambda: _sheet(mode="Clay"),
+    *_SUB_SCENES],
+    ids=["stress", "stress-clay", "sheet", "sheet-clay", *_SUB_IDS])
 def test_bvh_record_kernel_matches_on_card(cuda_device, make):
     """The record variant's radiance equals #5's bit for bit, and its codes
     equal the plain record walk's on every ray and bounce."""
@@ -553,10 +619,25 @@ def _zoo(spp=2, depth=8):
     return b.build()
 
 
+def _cloud_zoo(depth=4, spp=2):
+    """:func:`_cloud`'s spheres with the zoo's kinds: a fog sphere of an
+    isotropic material and a mix."""
+    b = _cloud_builder(depth, spp)
+    iso = b.add_material(T.Isotropic((0.8, 0.8, 0.9)))
+    mix = b.add_material(T.MixMaterial(T.Metal((0.9, 0.8, 0.7), 0.1),
+                                       T.Lambertian((0.2, 0.6, 0.3)), 0.5))
+    b.add_volume(b.add_sphere((0.5, 0.5, 1.0), 1.2, iso), 0.8)
+    b.add_sphere((-1.0, -0.5, 2.0), 0.5, mix)
+    return b.build(with_bvh=True)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth", [1, 8])
-def test_zoo_kernels_match_plain_on_card(cuda_device, depth):
-    """On the zoo at 96x64: #5's radiance and the record variant's codes
+@pytest.mark.parametrize("depth,make", [(1, _zoo), (8, _zoo),
+                                        (4, _cloud_zoo)],
+                         ids=["1", "8", "cloud"])
+def test_zoo_kernels_match_plain_on_card(cuda_device, depth, make):
+    """On the zoo at 96x64 (and on 420 spheres with the zoo's kinds, #5's
+    small trees): #5's radiance and the record variant's codes
     equal their plain versions bit for bit (the volume tree's free flight,
     the mix rounds and the isotropic lobe included); #6 in raw mode equals
     its plain version; #7 agrees with the float64 sums of the same
@@ -567,7 +648,7 @@ def test_zoo_kernels_match_plain_on_card(cuda_device, depth):
     largest."""
     from raytracingrust_tpu_torch.ops import fetch as TF
 
-    scene = _zoo(depth=depth)
+    scene = make(depth=depth)
     w, h = 96, 64
     sc, key, spp, opts = _record_inputs(scene, w, h, 7, cuda_device)
     assert sc.volumes is not None and sc.mixes is not None and sc.iso
@@ -910,8 +991,9 @@ def _variant_both(scene, w, h, seed, device):
 @pytest.mark.gpu
 @pytest.mark.parametrize("make", [
     lambda: _sky(_stress()), lambda: _sky(_sheet()),
-    lambda: _sky(_stress("Clay")), lambda: _sky(_zoo(depth=4))],
-    ids=["stress", "sheet", "stress-clay", "zoo"])
+    lambda: _sky(_stress("Clay")), lambda: _sky(_zoo(depth=4)),
+    lambda: _sky(_cloud()), lambda: _sky(_field())],
+    ids=["stress", "sheet", "stress-clay", "zoo", "cloud", "field"])
 def test_bvh_sky_kernel_matches_plain_on_card(cuda_device, make):
     """#5's sky-map variant (the texel looked up in the kernel) bit for bit
     equal to its plain version (``Background.sample`` on the card) at
@@ -929,8 +1011,9 @@ def test_bvh_sky_kernel_matches_plain_on_card(cuda_device, make):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("mode", ["Normal", "Random"])
-@pytest.mark.parametrize("make", [_stress, lambda: _sky(_sheet()), _zoo],
-                         ids=["stress", "sky-sheet", "zoo"])
+@pytest.mark.parametrize("make", [_stress, lambda: _sky(_sheet()), _zoo,
+                                  *_SUB_SCENES],
+                         ids=["stress", "sky-sheet", "zoo", *_SUB_IDS])
 def test_bvh_view_kernel_matches_plain_on_card(cuda_device, make, mode):
     """#5's views (one intersection, the fog's free flight from bounce
     stream 1) bit for bit equal to their plain version on a gradient
@@ -1049,15 +1132,23 @@ def _cube(center, half, material):
     return Mesh.from_buffers(v, v, f, material)
 
 
-def _fog(depth=6, spp=2, subdiv=3, inside=False):
+def _fog(depth=6, spp=2, subdiv=3, inside=False, cloud=False):
     """A small fog_sheet (chip_smoke.py phase 12): the 128-triangle sheet
     with its metal and emissive spheres, an icosphere fog of an isotropic
     material and a cube fog whose material is a mix, under a gradient
     background (so the geometry rows, which #7 scatters into, move the
     radiance).  ``inside``: the camera at the icosphere's centre, looking
     at the sheet, so every primary ray starts inside the fog and finds its
-    entry crossing behind its origin."""
+    entry crossing behind its origin.  ``cloud``: with :func:`_cloud`'s
+    spheres around (#5's small trees in the sphere and triangle trees)."""
     b = _sheet_builder(8, depth, spp)
+    if cloud:
+        from test_torch_bvh_subtree import _spheres
+
+        m = b.add_material(T.Metal((0.9, 0.9, 0.9), 0.0))
+        for c, r in zip(*_spheres(420)):
+            b.add_sphere(tuple(float(x) for x in c * 0.5 + (0, 0.5, -2)),
+                         float(r) * 0.5, m)
     b.background = T.Background.gradient((0.5, 0.7, 1.0), (1.0, 1.0, 1.0))
     if inside:
         b.camera = T.Camera.create((-0.3, 0.8, 0.2), (0.5, 0, -0.5),
@@ -1072,9 +1163,11 @@ def _fog(depth=6, spp=2, subdiv=3, inside=False):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("depth,inside", [(1, False), (6, False), (6, True)],
-                         ids=["1", "6", "inside"])
-def test_mesh_volume_kernels_match_plain_on_card(cuda_device, depth, inside):
+@pytest.mark.parametrize("depth,inside,cloud", [
+    (1, False, False), (6, False, False), (6, True, False),
+    (6, False, True)], ids=["1", "6", "inside", "cloud"])
+def test_mesh_volume_kernels_match_plain_on_card(cuda_device, depth, inside,
+                                                 cloud):
     """On a small fog_sheet at 64x48 spp 2: #5's mesh-volume variant and
     its record variant equal their plain versions bit for bit (radiance
     and codes, fog hits among them), the Normal and Random views too; #6
@@ -1082,10 +1175,12 @@ def test_mesh_volume_kernels_match_plain_on_card(cuda_device, depth, inside):
     entry plus 1e-6 of the largest; at depth 6 the gradient through the
     kernels agrees with the plain route within rtol 2e-3 plus 2e-5 of the
     largest.  Every launch counts under MV_LAUNCHES.  ``inside``: the
-    camera inside the icosphere, every primary entry behind its origin."""
+    camera inside the icosphere, every primary entry behind its origin.
+    ``cloud``: 420 spheres around the fogs, the sheet's and the spheres'
+    walks through #5's small trees."""
     from raytracingrust_tpu_torch.ops import fetch as TF
 
-    scene = _fog(depth, inside=inside)
+    scene = _fog(depth, inside=inside, cloud=cloud)
     w, h = 64, 48
     sc, key, spp, opts = _record_inputs(scene, w, h, 9, cuda_device)
     assert sc.n_mv == 2 and sc.mixes is not None
