@@ -65,14 +65,16 @@ non-zero exit, and prints no result:
    radiance equals #5's and its codes the plain record walk's, bit for
    bit on every ray and bounce; #6 equals its plain version bit for bit;
    #7 lies within FETCH_RTOL of the magnitudes it adds from its plain
-   version summed in float64; the replay's forward within REPLAY_ATOL of
-   #5's radiance; the packed tensors' gradient through the kernels within
-   GRAD_RTOL/GRAD_ATOL of autograd through the plain route, finite; a
-   directional FD probe of ``make_loss`` on albedo, emission and
-   bg_color_a within 5%.  Then the times, plain versions' times, the
-   library's ``index_select`` time for #6 (#7 has none: no one call
-   scatters every table's winners) and bounds; the CLI
-   ``fit`` of bvh_stress (albedo, emission; 6 steps) against a target the
+   version summed in float64, and three launches of it give the same
+   bits (its plan's path printed, its time beside the one before its
+   redesign, its kernels' registers); the replay's forward within
+   REPLAY_ATOL of #5's radiance; the packed tensors' gradient through
+   the kernels within GRAD_RTOL/GRAD_ATOL of autograd through the plain
+   route, finite; a directional FD probe of ``make_loss`` on albedo,
+   emission and bg_color_a within 5%.  Then the times, plain versions'
+   times, the library's ``index_select`` time for #6 (#7 has none: no
+   one call scatters every table's winners) and bounds; the CLI ``fit``
+   of bvh_stress (albedo, emission; 6 steps) against a target the
    CLI rendered, whose loss must fall, with one launch of each of the
    three kernels a step; and the warm fit step of both shapes with its
    peak memory and a ``torch.profiler`` breakdown into the record kernel,
@@ -618,6 +620,35 @@ def _ptxas(name: str) -> str:
         if "registers" in ln or "spill" in ln)
 
 
+# the kernels of #7 (csrc/fetch_rows.cu), its three launches
+_KERNELS_7 = ("transpose_compact_kernel", "transpose_kernel",
+              "transpose_reduce_kernel")
+
+
+def _ptxas_fetch() -> str:
+    """Registers, stack and spills of each kernel of fetch_rows.cu (#6;
+    #7's compaction, its instances, <geometry fields, raw, shared>, and
+    its reduction), from the compiler's report."""
+    import re
+
+    from raytracingrust_tpu_torch.ops import _build
+
+    log = _build.library_path(name="fetch_rows").with_suffix(".log")
+    out, fn, stack = [], None, ""
+    for ln in (log.read_text().splitlines() if log.exists() else []):
+        m = re.search(r"Function properties for \S*?(fetch_kernel|"
+                      + "|".join(_KERNELS_7) + r")(I\S*?EE)?", ln)
+        if m:
+            args = re.findall(r"L[ib](\d+)E", m.group(2) or "")
+            fn = m.group(1) + (f"<{','.join(args)}>" if args else "")
+        elif "stack frame" in ln:
+            stack = ln.strip()
+        elif "registers" in ln and fn:
+            out.append(f"{fn}: {ln.split(':', 1)[1].strip()}; {stack}")
+            fn = None
+    return " | ".join(out)
+
+
 def _reset_launches() -> None:
     """Sets every kernel's launch count to 0."""
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
@@ -940,10 +971,19 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
     g64 = g_rows.double()
     exact = F.fetch_rows_transpose_plain(codes, g64, *targs[2:])
     scale = F.fetch_rows_transpose_plain(codes, g64.abs(), *targs[2:])
+    # three launches, the same bits: #7 groups its sums by its inputs alone
+    runs = [F.fetch_rows_transpose_cuda(*targs) for _ in range(3)]
+    torch.cuda.synchronize()
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            if a is not None and not torch.equal(a.view(torch.int32),
+                                                 b.view(torch.int32)):
+                raise AssertionError(
+                    f"{label}: #7's launches differ in "
+                    f"{int((a != b).sum())} of {a.numel()} sums")
     err7 = p_err = 0.0
     for got, plain, want, mag in zip(
-            F.fetch_rows_transpose_cuda(*targs),
-            F.fetch_rows_transpose_plain(*targs), exact, scale):
+            runs[0], F.fetch_rows_transpose_plain(*targs), exact, scale):
         if want is None:
             continue
         e = (got.double() - want).abs()
@@ -952,7 +992,10 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
                                  f"by up to {e.max().item():.3e}")
         err7 = max(err7, e.max().item())
         p_err = max(p_err, (plain.double() - want).abs().max().item())
-    del g64, exact, scale
+    del g64, exact, scale, runs
+    plan = F.transpose_plan(F.table_floats(
+        sizes[1] if sph_mat is not None else 0,
+        sizes[2] if tri_mat is not None else 0, sizes[0], raw))
 
     ms = (_cuda_time_ms(lambda: F.fetch_rows_cuda(*args), 10),
           _cuda_time_ms(lambda: F.fetch_rows_transpose_cuda(*targs), 10))
@@ -993,7 +1036,18 @@ def _fetch_check(label, sc, codes, seed: int) -> dict:
         # codes and the winners' cotangents in, one add each
         _bound(2 * moved, 4 * n + 4 * moved + 4 * hits + table_bytes))
     return dict(err=(0.0, err7), plain_err=p_err, fields=rows.shape[0],
-                ms=ms, plain=plain_ms, lib=lib, bounds=bounds)
+                ms=ms, plain=plain_ms, lib=lib, bounds=bounds,
+                path=_plan_text(plan))
+
+
+def _plan_text(plan: dict) -> str:
+    """#7's plan (ops/fetch.transpose_plan) in words."""
+    rows, n_floats = plan["partials"]
+    where = ("shared memory, summed a block" if plan["shared"]
+             else "global memory")
+    return (f"{plan['path']} path: {plan['blocks']} blocks of "
+            f"{plan['warps']} warps, a copy of the {n_floats}-float table "
+            f"a warp in {where}, {rows} rows of partials")
 
 
 def _bvh_grad_check(label, sc, key, n_pix: int, spp: int, width: int,
@@ -1140,7 +1194,10 @@ def _print_fit_path(phase: str, label: str, size: str, r: dict, probe,
           f"{f['plain'][0]:.3f}, index_select {f['lib'][0]:.4f}, bound "
           f"{b6[0]:.5f} {b6[1]}); #7 {f['ms'][1]:.4f} ms (plain "
           f"{f['plain'][1]:.3f}, the chain of index_add_ a table, bound "
-          f"{b7[0]:.5f} {b7[1]}); {r['hits']} hits of {n_codes} codes")
+          f"{b7[0]:.5f} {b7[1]}; three launches bit-identical; "
+          f"{f['path']}; before its redesign "
+          f"{PREV_7_MS.get(label, 'not timed at this shape')} ms); "
+          f"{r['hits']} hits of {n_codes} codes")
 
 
 def _fit_entries(r: dict, launches: dict, suffix: str = "") -> list:
@@ -1225,7 +1282,7 @@ def _profile(run, steps: int) -> dict:
             part["record #5" if record else "#5"] += ms
         elif "fetch_kernel" in key:
             part["#6"] += ms
-        elif "transpose_kernel" in key:
+        elif any(k in key for k in _KERNELS_7):
             part["#7"] += ms
         elif "occlusion_kernel" in key:
             part["#8"] += ms
@@ -1379,6 +1436,10 @@ CLI_FIT_PARAMS = "albedo,emission"
 CLI_FIT_STEPS = 6
 # #7 vs its plain version in float64: of the sum of the magnitudes added
 FETCH_RTOL = 1e-5
+# #7 a launch before its redesign (float32 atomics; PERF.md section 6,
+# NVIDIA H100 80GB HBM3, 700 W), printed beside its time at each shape
+PREV_7_MS = {"bvh_stress": "0.1867-0.1915", "sheet64": "0.2945",
+             "zoo": "3.338-3.456", "fog_sheet": "0.3278-0.3377"}
 REPLAY_ATOL = 1e-4  # the replay's forward vs the kernel's radiance
 FD_EPS = 1e-3
 
@@ -1398,6 +1459,7 @@ def bvh_fit_phase(dev, card: str) -> list:
     key = rng.base_key(11)
     gen = np.random.default_rng(0)
     probe = ["albedo", "emission", "bg_color_a"]
+    print(f"phase 8 ptxas #6, #7: {_ptxas_fetch()}")
     out = {}
     for label, w, h, names in FIT_SHAPES:
         scene = SceneBuilder.from_file(paths[label]).build()

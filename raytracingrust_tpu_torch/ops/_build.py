@@ -70,9 +70,10 @@ _SIGNATURES = {
     "rtrt_fetch_rows": ([_P, _I64] + [_P] * 4 + [_I32, _P, _P, _I32, _I32,
                                                   _P, _P, _I32, _P, _I32, _P],
                         _I32),
-    "rtrt_fetch_rows_transpose": ([_P, _I64, _P, _P, _I32, _P, _I32, _I32,
-                                   _I32, _P, _P, _P, _I32, _P, _I32, _P],
-                                  _I32),
+    "rtrt_fetch_rows_transpose": ([_P, _I64, _P, _P, _I32, _I32, _P, _I32,
+                                   _I32, _I32, _I32, _P, _I32]
+                                  + [_I32] * 4  # the plan
+                                  + [_P] * 7, _I32),
     "rtrt_occlusion": ([_P] * 5 + [_I32] + [_P] * 7 + [_I32] + [_P] * 5
                        + [_I32, _I32, _I32, _P, _U32, _U32, _U32, _P, _P,
                           _I32, _P, _P], _I32),

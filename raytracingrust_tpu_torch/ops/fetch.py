@@ -22,7 +22,8 @@ volume comes from a per-volume table too (``_pack_fparams``), not from a
 chunk.  The transpose scatter-adds row cotangents
 into the geometry rows by slot and into the material table by material
 id.  On the TPU the pair was one-hot matrix products over wide tables; here
-it is a gather and an atomic scatter-add.
+it is a gather and a scatter-add whose sums are grouped by the inputs
+alone (:func:`transpose_plan`), the same bits on every run and card.
 
 The sphere-like table holds the solid spheres' slots and then the volume
 spheres' (ops/bvh_kernel.fetch_inputs), as the codes number them.  In raw
@@ -52,6 +53,22 @@ MAT_FIELDS = 8
 
 FETCH_LAUNCHES = 0
 TRANSPOSE_LAUNCHES = 0
+
+# #7's plan (csrc/fetch_rows.cu takes it as given): the dynamic shared
+# memory a block may take on the card (sm_90's opt-in maximum, 227 KB);
+# the segments of the codes the hits are compacted in; the small path's
+# blocks and its warps a block, each holding a copy of the table in shared
+# memory; the large path's warps a block, each with a copy of the table in
+# global memory, and the bytes those copies may take, within the fewest
+# and the most copies
+SMEM_BYTES = 227 * 1024
+SEGMENTS = 264
+RANGES = 528
+SMALL_WARPS = 8
+LARGE_WARPS = 4
+COPY_BYTES = 192 << 20
+MIN_COPIES = 16
+MAX_COPIES = 1056
 
 
 def geo_fields(tri_geo: Optional[torch.Tensor]) -> int:
@@ -133,6 +150,42 @@ def fetch_rows_transpose_plain(codes, g_rows, tri_base, sph_mat, tri_mat,
                          device=flat.device).index_add_(
         0, mid[hit], g_rows[g:, hit].T)
     return out[0], out[1], d_mats
+
+
+def table_floats(n_sph: int, n_tri: int, n_mats: int, raw: bool) -> int:
+    """The floats of #7's flat table: the sphere-like rows, the triangle
+    rows and, unless raw, the material rows."""
+    return 4 * n_sph + 12 * n_tri + (0 if raw else MAT_FIELDS * n_mats)
+
+
+def transpose_plan(n_floats: int) -> dict:
+    """#7's launch for a flat table of ``n_floats``, a function of that
+    size alone, never of the card: the sums group the same way on every
+    run and every card.  -> ``path``: "small" where SMALL_WARPS copies of
+    the table fit a block's shared memory, each warp summing into its own
+    (``shared``), else "large": LARGE_WARPS warps a block, each summing
+    into its own copy in global memory, as many copies as COPY_BYTES
+    holds within MIN_COPIES and MAX_COPIES; ``warps`` and ``blocks``;
+    ``segments``, the compaction's blocks, each a fixed share of the
+    codes; ``smem``, the dynamic shared memory of a block of the sums
+    (its copies where shared, and two tables of the segments: the
+    kernel's ``transpose_smem``); and the shape of the ``partials``
+    scratch, a row a block's copies (small) or a copy (large)."""
+    if n_floats < 4 or n_floats % 4:
+        raise ValueError(f"#7's table has {n_floats} floats")
+    segment_bytes = 16 * ((2 * SEGMENTS + 4) // 4)  # from a float4
+    if SMALL_WARPS * 4 * n_floats + segment_bytes <= SMEM_BYTES:
+        path, shared, warps = "small", True, SMALL_WARPS
+        blocks = rows = RANGES
+    else:
+        copies = max(MIN_COPIES, min(MAX_COPIES, COPY_BYTES // (4 * n_floats)))
+        rows = copies // LARGE_WARPS * LARGE_WARPS
+        path, shared, warps, blocks = ("large", False, LARGE_WARPS,
+                                       rows // LARGE_WARPS)
+    return dict(path=path, shared=shared, warps=warps, blocks=blocks,
+                segments=SEGMENTS,
+                smem=(4 * warps * n_floats if shared else 0) + segment_bytes,
+                partials=(rows, n_floats))
 
 
 def _ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
@@ -219,9 +272,9 @@ def fetch_rows_cuda(codes, kinds, tri_base, sph_mat, tri_mat, mats, sph_geo,
 def fetch_rows_transpose_cuda(codes, g_rows, tri_base, sph_mat, tri_mat,
                               n_mats, n_sph, n_tri, raw=False, mv_base=None,
                               mv_mat=None):
-    """Kernel #7: as :func:`fetch_rows_transpose_plain`, on the card.  The
-    sums are float32 atomics, so their order, and the last bits, vary from
-    run to run."""
+    """Kernel #7: as :func:`fetch_rows_transpose_plain`, on the card, in
+    three launches with :func:`transpose_plan`'s grouping: the same
+    inputs give the same bits."""
     global TRANSPOSE_LAUNCHES
     from . import _build
 
@@ -232,17 +285,27 @@ def fetch_rows_transpose_cuda(codes, g_rows, tri_base, sph_mat, tri_mat,
              (g + (0 if raw else MAT_FIELDS), *codes.shape), dev)
     if n_mats < 1:
         raise ValueError(f"{n_mats} materials")
-    out = [None if mat is None else torch.zeros((n, w), dtype=torch.float32,
+    n_sph = 0 if sph_mat is None else n_sph
+    n_tri = 0 if tri_mat is None else n_tri
+    plan = transpose_plan(table_floats(n_sph, n_tri, n_mats, raw))
+    out = [None if mat is None else torch.empty((n, w), dtype=torch.float32,
                                                 device=dev)
            for mat, n, w in ((sph_mat, n_sph, 4), (tri_mat, n_tri, 12))]
-    d_mats = None if raw else torch.zeros((n_mats, MAT_FIELDS),
+    d_mats = None if raw else torch.empty((n_mats, MAT_FIELDS),
                                           dtype=torch.float32, device=dev)
+    # scratch: the hits' (index, code) pairs, each segment's count, and
+    # the copies' sums
+    hits = torch.empty((codes.numel(), 2), dtype=torch.int32, device=dev)
+    counts = torch.empty(plan["segments"], dtype=torch.int32, device=dev)
+    partials = torch.empty(plan["partials"], dtype=torch.float32, device=dev)
     lib = _build.load("fetch_rows")
     with torch.cuda.device(dev):
         err = lib.rtrt_fetch_rows_transpose(
             _ptr(codes), codes.numel(), _ptr(sph_mat), _ptr(tri_mat),
-            tri_base, _ptr(g_rows), g, int(bool(raw)), n_mats, _ptr(out[0]),
-            _ptr(out[1]), _ptr(d_mats), *_mv_args(mv_base, mv_mat),
+            tri_base, n_tri, _ptr(g_rows), g, int(bool(raw)), n_mats,
+            *_mv_args(mv_base, mv_mat), plan["segments"], plan["warps"],
+            plan["blocks"], int(plan["shared"]), _ptr(hits), _ptr(counts),
+            _ptr(partials), _ptr(out[0]), _ptr(out[1]), _ptr(d_mats),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_fetch_rows_transpose launch failed: CUDA "

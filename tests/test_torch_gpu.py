@@ -25,6 +25,7 @@ from raytracingrust_tpu_torch.ops import megakernel as TK
 from raytracingrust_tpu_torch.ops import mse_loss as TM
 from raytracingrust_tpu_torch.ops import radiance_grad as TR
 from raytracingrust_tpu_torch.utils import rng as trng
+from test_torch_fetch_plan import EDGE_SPHERES, case_args, transpose_case
 
 CORNELL = os.path.join(os.path.dirname(__file__), "..", "scenes",
                        "cornell_spheres.json")
@@ -395,8 +396,8 @@ def test_bvh_record_kernel_matches_on_card(cuda_device, make):
 @pytest.mark.parametrize("make", [_stress, _sheet], ids=["stress", "sheet"])
 def test_fetch_pair_matches_plain_on_card(cuda_device, make):
     """#6 equals its plain version bit for bit; #7 agrees with index_add_
-    within rtol 1e-5 of each entry plus 1e-6 of the largest (float32
-    atomics in another order)."""
+    within rtol 1e-5 of each entry plus 1e-6 of the largest (float32 sums
+    in another order)."""
     from raytracingrust_tpu_torch.ops import fetch as TF
 
     scene = make()
@@ -422,6 +423,73 @@ def test_fetch_pair_matches_plain_on_card(cuda_device, make):
             continue
         tol = 1e-5 * want.abs() + 1e-6 * want.abs().max()
         assert bool(((got - want).abs() <= tol).all())
+
+
+# label -> tests/test_torch_fetch_plan.transpose_case's arguments and the
+# path of #7's plan
+TRANSPOSE_CASES = {
+    "contention_1": (dict(n_sph=47, n_tri=0, n_mats=48, hot=[0]), "small"),
+    "contention_1_raw": (dict(n_sph=47, n_tri=0, n_mats=48, hot=[0],
+                              raw=True), "small"),
+    "contention_3": (dict(n_sph=47, n_tri=0, n_mats=48, hot=[3, 17, 46]),
+                     "small"),
+    "contention_3_raw": (dict(n_sph=47, n_tri=0, n_mats=48, hot=[3, 17, 46],
+                              raw=True), "small"),
+    "contention_large": (dict(n_sph=47, n_tri=0, n_mats=2000, hot=[5]),
+                         "large"),
+    "stress": (dict(n_sph=1189, n_tri=0, n_mats=4), "small"),
+    "stress_packed": (dict(n_sph=2048, n_tri=0, n_mats=4), "large"),
+    "sheet": (dict(n_sph=2, n_tri=8192, n_mats=4), "large"),
+    "fog_sheet": (dict(n_sph=2, n_tri=8192, n_mats=6, n_mv=2), "large"),
+    "fog_small": (dict(n_sph=3, n_tri=200, n_mats=6, n_mv=2), "small"),
+    "mats2000": (dict(n_sph=47, n_tri=0, n_mats=2000), "large"),
+    "below": (dict(n_sph=EDGE_SPHERES, n_tri=0, n_mats=1, raw=True),
+              "small"),
+    "above": (dict(n_sph=EDGE_SPHERES + 1, n_tri=0, n_mats=1, raw=True),
+              "large"),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("label", list(TRANSPOSE_CASES))
+def test_transpose_is_bit_identical_and_within_float64_sums_on_card(
+        cuda_device, label):
+    """#7 on 2M seeded codes: three launches give the same bits, and each
+    entry lies within 1e-5 of its summed magnitudes plus 1e-6 of the
+    largest of the float64 plain sums.  The cases: every hit on 1 or 3
+    rows of a 47-slot table, raw and not, and on one slot beside 2,000
+    materials (the large path); bvh_stress's 1,189 spheres, as
+    a table of their own and as the BVH packs them (2,048 slots, the large
+    path); the sheet's 8,192 triangles, with mesh volumes too; mesh
+    volumes over a small table; 2,000 materials; a raw sphere table one
+    slot below and one above the small/large threshold."""
+    from raytracingrust_tpu_torch.ops import fetch as TF
+
+    kw, path = TRANSPOSE_CASES[label]
+    case = transpose_case(**kw, n=2_000_000, seed=len(label))
+    args = case_args(case, cuda_device)
+    n_floats = TF.table_floats(kw["n_sph"], kw["n_tri"], kw["n_mats"],
+                               kw.get("raw", False))
+    assert TF.transpose_plan(n_floats)["path"] == path
+    before = TF.TRANSPOSE_LAUNCHES
+    runs = [TF.fetch_rows_transpose_cuda(*args) for _ in range(3)]
+    torch.cuda.synchronize()
+    assert TF.TRANSPOSE_LAUNCHES == before + 3
+    for run in runs[1:]:
+        for a, b in zip(run, runs[0]):
+            assert (a is None) == (b is None)
+            if a is not None:
+                assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    g64 = args[1].double()
+    exact = TF.fetch_rows_transpose_plain(args[0], g64, *args[2:])
+    mag = TF.fetch_rows_transpose_plain(args[0], g64.abs(), *args[2:])
+    for got, want, m in zip(runs[0], exact, mag):
+        assert (got is None) == (want is None)
+        if want is None:
+            continue
+        tol = 1e-5 * m + 1e-6 * m.max()
+        assert bool(((got.double() - want).abs() <= tol).all())
+    assert runs[0][0].abs().sum() > 0
 
 
 @pytest.mark.gpu
