@@ -398,10 +398,15 @@ class _Count:
     With ``cull``, a triangle scene's (rows, cluster records), it replays
     each bounce's triangle test as the kernels' clusters make it
     (``megakernel.tri_closest_culled``), fails where its winners are not
-    the plain version's, and sums the work in ``cull_work``."""
+    the plain version's, and sums the work in ``cull_work``.  Its
+    ``lane_efficiency`` is the share of lanes busy in warps of 32
+    consecutive ray ids that each run to their longest path, the layout of
+    one thread a ray: the bounces over 32 lanes times the bounces a warp
+    runs (a tile's rays in order, TILE_RAYS a multiple of 32)."""
 
     def __init__(self, cull=None):
         self.bounces = self.misses = self.windows = self.tri_hits = 0
+        self.warp_slots = 0
         self.hits = collections.Counter()
         self.texels = None
         self.cull = cull
@@ -409,7 +414,13 @@ class _Count:
 
     def __call__(self, alive, hit, kind, windows=0, vol=None, texels=None,
                  tri=None, tri_rays=None):
+        import torch
+
         self.bounces += int(alive.sum())
+        pad = torch.zeros((-alive.shape[0]) % 32, dtype=torch.bool,
+                          device=alive.device)
+        self.warp_slots += 32 * int(
+            torch.cat([alive, pad]).view(-1, 32).any(dim=1).sum())
         self.misses += int((alive & ~hit).sum())
         self.windows += windows
         if tri is not None:
@@ -436,6 +447,10 @@ class _Count:
                                  f"found other winners than the dense test "
                                  f"on {bad} rays")
         self.cull_work.update(work)
+
+    @property
+    def lane_efficiency(self) -> float:
+        return self.bounces / max(1, self.warp_slots)
 
     def texel_bytes(self) -> int:
         """The bytes of the sky's texels looked up, each once."""
@@ -2722,7 +2737,8 @@ def _cull_of(opts: dict):
 
 def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
     """#1 against its plain version on every ray of the frame: per-ray
-    radiance bit for bit at depth 1 and at full depth; #1's time, the
+    radiance bit for bit at depth 1 and at full depth, and the same bits
+    in two more launches at full depth; #1's time, the
     plain version's (full depth, counting its rays' work as it runs), the
     work of the plain run's rays and #1's bound from it."""
     import torch
@@ -2747,6 +2763,9 @@ def _brute_forward_check(label, scene, w: int, h: int, dev, key) -> dict:
         end.record()
         torch.cuda.synchronize()
         err = _bit_equal(f"{label}: #1's radiance at depth {d}", ker, plain)
+    for _ in range(2):  # the same bits launch after launch
+        _bit_equal(f"{label}: #1 launched again", K.radiance_cuda(
+            fp, kinds, key, n_rays, spp, w, sky=sky, **opts), ker)
     plain_ms = start.elapsed_time(end)
     mean = ker.mean().item()
     del ker, plain
@@ -3005,7 +3024,9 @@ def brute_phase(dev, card: str, zoo_bvh: dict) -> list:
               f"{c.bounces / (rw * rh * r_spp):.3f} bounces, hits by kind "
               f"{[c.hits[k] for k in range(5)]}, misses {c.misses}, volume "
               f"windows {c.windows}, texels looked up "
-              f"{c.texel_bytes() // 12}; #1 {f['ms']:.4f} ms, plain "
+              f"{c.texel_bytes() // 12}; the plain run's lane "
+              f"efficiency {c.lane_efficiency:.4f}; #1 {f['ms']:.4f} ms, "
+              f"three launches bit-identical, plain "
               f"{f['plain_ms']:.1f} ms, bound {f['bound'][0]:.5f} ms "
               f"({f['bound'][1]}; {f['ops']:.4g} FP32 operations); {card}")
         fit_scene = _load(path, spp=f_spp)
@@ -3360,7 +3381,9 @@ def tri_phase(dev, card: str) -> list:
               f"{c.tri_hits}, hits by kind {[c.hits[k] for k in range(5)]}, "
               f"misses {c.misses}; the clusters' plain twin == the dense "
               f"test on every ray and bounce, per ray and bounce "
-              f"{_per(c.cull_work, c.bounces)}; #1 {f['ms']:.4f} ms, plain "
+              f"{_per(c.cull_work, c.bounces)}; the plain run's lane "
+              f"efficiency {c.lane_efficiency:.4f}; #1 {f['ms']:.4f} ms, "
+              f"three launches bit-identical, plain "
               f"{f['plain_ms']:.1f} ms, bound {f['bound'][0]:.5f} ms "
               f"({f['bound'][1]}; {f['ops']:.4g} FP32 operations; the "
               f"dense loop's {f['bound_dense'][0]:.5f} ms); {card}")
@@ -3727,11 +3750,17 @@ def main() -> int:
         max_err = max(max_err, check_exact(sc, w, h, label))
         count = _Count()
         ker_fn, plain_fn = launchers(sc, w, h, 0, observe=count)
+        first = ker_fn()
+        for _ in range(2):  # the same bits launch after launch
+            _bit_equal(f"{label}: #1 launched again", ker_fn(), first)
+        del first
         radiance_ms[path] = (_cuda_time_ms(ker_fn, reps),
                              _cuda_time_ms(plain_fn, 1, warm=False))
         fwd_bound[path] = forward_bound(sc, w, h, count)
         print(f"phase 3 {label}: per-ray radiance bit for bit equal at "
-              f"depth 1 and depth {depth}; "
+              f"depth 1 and depth {depth}, three launches bit-identical; "
+              f"the plain run's lane efficiency "
+              f"{count.lane_efficiency:.4f}; "
               f"radiance kernel {radiance_ms[path][0]:.4f} ms, plain "
               f"{radiance_ms[path][1]:.3f} ms, bound "
               f"{fwd_bound[path][0]:.5f} ms ({fwd_bound[path][1]})")

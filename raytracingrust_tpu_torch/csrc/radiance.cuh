@@ -1,7 +1,7 @@
 // Device code shared by the kernels of csrc/: the Threefry draw, the camera
 // ray, the background and the material lobes (every intersect stage), the
-// forward bounce chain of the brute sphere kernel, its hand-derived adjoint,
-// and the per-block gradient sums.
+// brute kernels' forward bounce (bounce) and the chain of them (trace), its
+// hand-derived adjoint, and the per-block gradient sums.
 //
 //   megakernel.cu     radiance_kernel   forward, per-ray RGB
 //   radiance_grad.cu  grad_kernel       d(sum cts . radiance)/d(fparams)
@@ -704,11 +704,60 @@ __device__ __forceinline__ RowMask cluster_rows(const float* bx,
   return ~clear & all;
 }
 
-// One ray's radiance.  With kRecord the bounces go to `tape` (the caller
-// keeps max_depth <= kMaxTape); without it `tape` is unused, and the
-// arithmetic is the same either way.  A thread stops at its own ray's end: a
-// finished ray's state never changes, so this equals the TPU kernel's
-// all-lanes chain.
+// ------------------------------------------------------------ the bounce
+
+// Sphere i's geometry as the sphere test reads it: cx, cy, cz and r * r
+// (rounded once, as the test rounded it), from its packed row.
+__device__ __forceinline__ float4 sphere_geo(const float* f, int i,
+                                             int stride) {
+  const float* sp = f + kSpheres + i * stride;
+  return make_float4(sp[0], sp[1], sp[2], sp[3] * sp[3]);
+}
+
+// Every sphere's sphere_geo, one float4 a sphere in shared memory, so a
+// warp reads a sphere with one 16-byte broadcast load.  Every thread of
+// the block calls this before the block's barrier.
+__device__ __forceinline__ void stage_geo(float4* geo, const float* fparams,
+                                          const Rows& rows) {
+  for (int i = threadIdx.x; i < rows.n; i += blockDim.x)
+    geo[i] = sphere_geo(fparams, i, rows.stride);
+}
+
+// One path between bounces: the ray entering the next bounce, the
+// throughput it carries and the radiance gathered so far.
+struct Path {
+  float ox, oy, oz, dx, dy, dz;
+  float tr, tg, tb;
+  float rr, rg, rb;
+};
+
+// The path of ray `rid` at pixel (px, py): its jittered camera ray,
+// throughput 1, radiance 0.
+__device__ __forceinline__ void start_path(const float* f, uint32_t k0,
+                                           uint32_t k1, uint32_t rid,
+                                           float px, float py, Path& p) {
+  camera_ray(f, k0, k1, rid, px, py, p.ox, p.oy, p.oz, p.dx, p.dy, p.dz);
+  p.tr = p.tg = p.tb = 1.0f;
+  p.rr = p.rg = p.rb = 0.0f;
+}
+
+// Bounce b of ray `rid`: the closest hit of the path's ray, its lobe and
+// the throughput and radiance update.  True when the path goes on (p holds
+// the next ray); false when it ended here, by a miss (the background added)
+// or an absorbing or emitting hit.  `code` gets the bounce's Bounce::code
+// (kMiss on a miss).  trace loops over it for #3 and #4; megakernel.cu's
+// persistent lanes call it a bounce at a time.
+//
+// The solid spheres are tested first, then (kExt) the volume spheres, the
+// last n_vol rows: index order, so a tie keeps the lower index.  A sphere
+// whose discriminant is not >= 0 (a miss, or NaN) takes no root.  kGeo:
+// the spheres' geometry from `geo` (stage_geo's float4s), else from their
+// rows in `f`.  On an NVIDIA H100 80GB HBM3 at 700 W (PERF.md) the
+// float4s made #1 faster (the zoo's 47 spheres by 7-13%) and #3 and #4
+// slower (benchmark's 5 spheres by 2-7%); drawing the uniforms only once
+// the hit is known, only for the lobes that read them, made cornell 2.3%
+// and the zoo 0.3% slower (PERF.md has every shape), so they are drawn
+// here, at the top, as trace always drew them.
 //
 // kExt: the bounce's columns shift by MAX_MIX_DEPTH = 4 with mixes (coin 0
 // is the mix coin: u >= factor picks leaf A); a volume sphere's candidate
@@ -720,11 +769,190 @@ __device__ __forceinline__ RowMask cluster_rows(const float* bx,
 // texel.  kTri: after the spheres the triangles are tested (tri_hit) in
 // clusters of consecutive rows, each row skipped where cluster_thr and
 // cluster_rows show that it cannot pass, and the closest replaces the
-// sphere winner
-// only with a strictly lower t (the lowest t, and among equal t the lowest
-// index, as _tri_intersect's chunk minimum); its hit shades with the flat
-// normal and its material slot's row, leaf A or under a mix the leaf its
-// coin picks.
+// sphere winner only with a strictly lower t (the lowest t, and among
+// equal t the lowest index, as _tri_intersect's chunk minimum); its hit
+// shades with the flat normal and its material slot's row, leaf A or under
+// a mix the leaf its coin picks.
+template <bool kExt, bool kSky, bool kTri, bool kGeo>
+__device__ __forceinline__ bool bounce(const float* f, const float4* geo,
+                                       const int* kind_of, const Rows& rows,
+                                       uint32_t k0, uint32_t k1, uint32_t rid,
+                                       int b, int bg_kind, int clay,
+                                       const Sky& sky, Path& p, int& code) {
+  const int stride = kExt ? rows.stride : kStride;
+  const int n_solid = kExt ? rows.n - rows.n_vol : rows.n;
+  // the cipher word pair of [u1, u2]: columns off, off + 1
+  const uint32_t jl = (kExt && rows.mix) ? 2u : 0u;
+  // bounce stream 1 + b: columns [u1, u2, coin, u_r] from off
+  const uint32_t stream = 1u + (uint32_t)b;
+  float u1, u2, u_coin, u_r;
+  uniform_pair(k0, k1, rid, stream, jl, u1, u2);
+  uniform_pair(k0, k1, rid, stream, jl + 1u, u_coin, u_r);
+  const float ox = p.ox, oy = p.oy, oz = p.oz;
+  const float dx = p.dx, dy = p.dy, dz = p.dz;
+  const float a = dot3(dx, dy, dz, dx, dy, dz);
+  const float inv_a = 1.0f / a;
+
+  // closest hit, direct quadratic; a tie keeps the lower index
+  float t_best = INFINITY;
+  int best = -1;
+  bool root2 = false;
+  for (int i = 0; i < n_solid; ++i) {
+    const float4 s = kGeo ? geo[i] : sphere_geo(f, i, stride);
+    const float ocx = ox - s.x, ocy = oy - s.y, ocz = oz - s.z;
+    const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
+    const float cq = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - s.w;
+    const float disc = half_b * half_b - a * cq;
+    if (!(disc >= 0.0f)) continue;
+    const float sq = sqrtf(disc);
+    const float t1 = (-half_b - sq) * inv_a;
+    const float t2 = (-half_b + sq) * inv_a;
+    const bool t1ok = t1 >= kTMin && t1 <= t_best;
+    const bool t2ok = t2 >= kTMin && t2 <= t_best;
+    const float ti = t1ok ? t1 : (t2ok ? t2 : INFINITY);
+    if (ti < t_best) {
+      t_best = ti;
+      best = i;
+      root2 = !t1ok;
+    }
+  }
+  if (kExt && rows.n_vol) {  // the volumes: window, then free flight
+    const float ray_len = sqrtf(a);
+    for (int i = n_solid; i < rows.n; ++i) {
+      const float4 s = kGeo ? geo[i] : sphere_geo(f, i, stride);
+      const float ocx = ox - s.x, ocy = oy - s.y, ocz = oz - s.z;
+      const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
+      const float cq = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - s.w;
+      const float disc = half_b * half_b - a * cq;
+      if (!(disc >= 0.0f)) continue;
+      const float sq = sqrtf(disc);
+      const float t1 = (-half_b - sq) * inv_a;
+      const float t2 = (-half_b + sq) * inv_a;
+      float h1 = fmaxf(t1, kTMin);
+      const float h2 = t2 >= t1 + kTMin ? t2 : INFINITY;
+      if (h1 < h2) {
+        h1 = fmaxf(h1, 0.0f);
+        const float dist_inside = (h2 - h1) * ray_len;
+        const float u_v = uniform_col(k0, k1, rid, stream,
+                                      2u * jl + 4u + (uint32_t)(i - n_solid));
+        const float hit_dist =
+            f[kSpheres + i * stride + stride - 1] * logf(fmaxf(u_v, 1e-37f));
+        const float ti = h1 + hit_dist / ray_len;
+        if (hit_dist <= dist_inside && ti < t_best) {
+          t_best = ti;
+          best = i;
+          root2 = false;
+        }
+      }
+    }
+  }
+  int tri_best = -1;
+  if (kTri) {
+    const float wx = oy * dz - oz * dy;
+    const float wy = oz * dx - ox * dz;
+    const float wz = ox * dy - oy * dx;
+    const TriRay tr = tri_ray(ox, oy, oz, dx, dy, dz);
+    for (int c = 0; c < rows.n_box; ++c) {
+      const float* bx = rows.box + (size_t)c * kBoxCols;
+      const float thr = cluster_thr(bx, ox, oy, oz, tr, t_best);
+      const int j0 = c * kTriCluster;
+      // its rows in index order, so a tie keeps the earlier winner
+      for (RowMask m = cluster_rows(bx, tr, thr, rows.n_tri - j0); m;
+           m &= m - 1u) {
+        const int j = j0 + row_ffs(m) - 1;
+        float tt;
+        if (tri_hit(rows.tri + (size_t)j * kTriCols, ox, oy, oz, dx, dy, dz,
+                    wx, wy, wz, thr, t_best, tt)) {
+          t_best = tt;
+          tri_best = j;
+        }
+      }
+    }
+  }
+
+  if (best < 0 && tri_best < 0) {  // miss: the background ends the path
+    float bg_r, bg_g, bg_b;
+    if (kSky)
+      sky_radiance(sky, dx, dy, dz, bg_r, bg_g, bg_b);
+    else
+      background(f, bg_kind, dx, dy, dz, bg_r, bg_g, bg_b);
+    p.rr = p.rr + p.tr * bg_r;
+    p.rg = p.rg + p.tg * bg_g;
+    p.rb = p.rb + p.tb * bg_b;
+    code = kMiss;
+    return false;
+  }
+
+  const float ptx = ox + t_best * dx;
+  const float pty = oy + t_best * dy;
+  const float ptz = oz + t_best * dz;
+  float nx, ny, nz;
+  const float* row;  // the winner's material row: leaf A, factor, leaf B
+  int kinds;
+  if (kTri && tri_best >= 0) {  // the flat normal, the slot's row
+    const float* g = rows.tri + (size_t)tri_best * kTriCols;
+    const float4 q4 = ldg4(g + kTriNrm);
+    nx = q4.x;
+    ny = q4.y;
+    nz = q4.z;
+    const int slot = (int)q4.w;
+    row = f + kSpheres + rows.n * stride + slot * tri_stride(rows);
+    code = tri_best | kTriHit;
+    kinds = kind_of[rows.n + slot];
+  } else {
+    const float* sp = f + kSpheres + best * stride;
+    const bool vol = kExt && best >= n_solid;
+    const float inv_r = 1.0f / sp[3];
+    nx = vol ? 1.0f : (ptx - sp[0]) * inv_r;
+    ny = vol ? 0.0f : (pty - sp[1]) * inv_r;
+    nz = vol ? 0.0f : (ptz - sp[2]) * inv_r;
+    row = sp + kLeafA;
+    code = best | (root2 ? kRoot2 : 0) | (vol ? kVolume : 0);
+    kinds = kind_of[best];
+  }
+  const bool front = dot3(dx, dy, dz, nx, ny, nz) < 0.0f;
+  const float sgn = front ? 1.0f : -1.0f;
+  nx = nx * sgn;
+  ny = ny * sgn;
+  nz = nz * sgn;
+  code |= front ? kFront : 0;
+  const float* mat = row;
+  if (kExt && rows.mix &&
+      !(uniform_col(k0, k1, rid, stream, 0u) >= row[kRowFactor])) {
+    mat = row + kRowLeafB;
+    code |= kPickB;
+  }
+  const int kind = kExt ? kind_at(kinds, code) : kinds;
+
+  float at_r, at_g, at_b, ndx, ndy, ndz;
+  bool scatters;
+  scatter<kExt>(mat, kind, clay, front, a, dx, dy, dz, nx, ny, nz, u1, u2,
+                u_coin, at_r, at_g, at_b, ndx, ndy, ndz, scatters, code, u_r);
+
+  if (!scatters) {  // absorbed or emitted: the path ends
+    p.rr = p.rr + p.tr * at_r;
+    p.rg = p.rg + p.tg * at_g;
+    p.rb = p.rb + p.tb * at_b;
+    return false;
+  }
+  p.tr = p.tr * at_r;
+  p.tg = p.tg * at_g;
+  p.tb = p.tb * at_b;
+  p.ox = ptx;
+  p.oy = pty;
+  p.oz = ptz;
+  p.dx = ndx;
+  p.dy = ndy;
+  p.dz = ndz;
+  return true;
+}
+
+// One ray's radiance: its camera ray, then bounce after bounce until the
+// path ends or max_depth bounces.  With kRecord the bounces go to `tape`
+// (the caller keeps max_depth <= kMaxTape); without it `tape` is unused,
+// and the arithmetic is the same either way.  A thread stops at its own
+// ray's end: a finished ray's state never changes, so this equals the TPU
+// kernel's all-lanes chain.
 template <bool kRecord, bool kExt = false, bool kSky = false,
           bool kTri = false>
 __device__ __forceinline__ void trace(const float* f, const int* kind_of,
@@ -734,177 +962,31 @@ __device__ __forceinline__ void trace(const float* f, const int* kind_of,
                                       int clay, const Sky& sky, float& rad_r,
                                       float& rad_g, float& rad_b,
                                       Tape* tape) {
-  const int stride = kExt ? rows.stride : kStride;
-  const int n_solid = kExt ? rows.n - rows.n_vol : rows.n;
-  // the cipher word pair of [u1, u2]: columns off, off + 1
-  const uint32_t jl = (kExt && rows.mix) ? 2u : 0u;
-  float ox, oy, oz, dx, dy, dz;
-  camera_ray(f, k0, k1, rid, px, py, ox, oy, oz, dx, dy, dz);
-  float thr_r = 1.0f, thr_g = 1.0f, thr_b = 1.0f;
-  rad_r = 0.0f;
-  rad_g = 0.0f;
-  rad_b = 0.0f;
+  Path p;
+  start_path(f, k0, k1, rid, px, py, p);
   if (kRecord) {
     tape->n = 0;
     tape->ended = false;
   }
-
   for (int b = 0; b < max_depth; ++b) {
-    // bounce stream 1 + b: columns [u1, u2, coin, u_r] from off
-    const uint32_t stream = 1u + (uint32_t)b;
-    float u1, u2, u_coin, u_r;
-    uniform_pair(k0, k1, rid, stream, jl, u1, u2);
-    uniform_pair(k0, k1, rid, stream, jl + 1u, u_coin, u_r);
-    const float a = dot3(dx, dy, dz, dx, dy, dz);
-    const float inv_a = 1.0f / a;
-    const float ray_len = (kExt && rows.n_vol) ? sqrtf(a) : 0.0f;
     if (kRecord) {
-      tape->b[b] = Bounce{ox, oy, oz, dx, dy, dz, thr_r, thr_g, thr_b, kMiss};
+      tape->b[b] = Bounce{p.ox, p.oy, p.oz, p.dx, p.dy, p.dz,
+                          p.tr, p.tg, p.tb, kMiss};
       tape->n = b + 1;
     }
-
-    // closest hit, direct quadratic; a tie keeps the lower index
-    float t_best = INFINITY;
-    int best = -1;
-    bool root2 = false;
-    for (int i = 0; i < rows.n; ++i) {
-      const float* sp = f + kSpheres + i * stride;
-      const float ocx = ox - sp[0], ocy = oy - sp[1], ocz = oz - sp[2];
-      const float half_b = dot3(ocx, ocy, ocz, dx, dy, dz);
-      const float cq = dot3(ocx, ocy, ocz, ocx, ocy, ocz) - sp[3] * sp[3];
-      const float disc = half_b * half_b - a * cq;
-      const float sq = sqrtf(fmaxf(disc, 0.0f));
-      const float t1 = (-half_b - sq) * inv_a;
-      const float t2 = (-half_b + sq) * inv_a;
-      if (kExt && i >= n_solid) {  // a volume: window, then free flight
-        float h1 = fmaxf(t1, kTMin);
-        const float h2 = t2 >= t1 + kTMin ? t2 : INFINITY;
-        if (disc >= 0.0f && h1 < h2) {
-          h1 = fmaxf(h1, 0.0f);
-          const float dist_inside = (h2 - h1) * ray_len;
-          const float u_v = uniform_col(k0, k1, rid, stream,
-                                        2u * jl + 4u + (uint32_t)(i - n_solid));
-          const float hit_dist = sp[stride - 1] * logf(fmaxf(u_v, 1e-37f));
-          const float ti = h1 + hit_dist / ray_len;
-          if (hit_dist <= dist_inside && ti < t_best) {
-            t_best = ti;
-            best = i;
-            root2 = false;
-          }
-        }
-        continue;
-      }
-      const bool t1ok = t1 >= kTMin && t1 <= t_best;
-      const bool t2ok = t2 >= kTMin && t2 <= t_best;
-      const float ti = t1ok ? t1 : (t2ok ? t2 : INFINITY);
-      if (disc >= 0.0f && ti < t_best) {
-        t_best = ti;
-        best = i;
-        root2 = !t1ok;
-      }
-    }
-    int tri_best = -1;
-    if (kTri) {
-      const float wx = oy * dz - oz * dy;
-      const float wy = oz * dx - ox * dz;
-      const float wz = ox * dy - oy * dx;
-      const TriRay tr = tri_ray(ox, oy, oz, dx, dy, dz);
-      for (int c = 0; c < rows.n_box; ++c) {
-        const float* bx = rows.box + (size_t)c * kBoxCols;
-        const float thr = cluster_thr(bx, ox, oy, oz, tr, t_best);
-        const int j0 = c * kTriCluster;
-        // its rows in index order, so a tie keeps the earlier winner
-        for (RowMask m = cluster_rows(bx, tr, thr, rows.n_tri - j0); m;
-             m &= m - 1u) {
-          const int j = j0 + row_ffs(m) - 1;
-          float tt;
-          if (tri_hit(rows.tri + (size_t)j * kTriCols, ox, oy, oz, dx, dy,
-                      dz, wx, wy, wz, thr, t_best, tt)) {
-            t_best = tt;
-            tri_best = j;
-          }
-        }
-      }
-    }
-
-    if (best < 0 && tri_best < 0) {  // miss: the background ends the path
-      float bg_r, bg_g, bg_b;
-      if (kSky)
-        sky_radiance(sky, dx, dy, dz, bg_r, bg_g, bg_b);
-      else
-        background(f, bg_kind, dx, dy, dz, bg_r, bg_g, bg_b);
-      rad_r = rad_r + thr_r * bg_r;
-      rad_g = rad_g + thr_g * bg_g;
-      rad_b = rad_b + thr_b * bg_b;
-      if (kRecord) tape->ended = true;
-      break;
-    }
-
-    const float ptx = ox + t_best * dx;
-    const float pty = oy + t_best * dy;
-    const float ptz = oz + t_best * dz;
-    float nx, ny, nz;
-    const float* row;  // the winner's material row: leaf A, factor, leaf B
-    int code, kinds;
-    if (kTri && tri_best >= 0) {  // the flat normal, the slot's row
-      const float* g = rows.tri + (size_t)tri_best * kTriCols;
-      const float4 q4 = ldg4(g + kTriNrm);
-      nx = q4.x;
-      ny = q4.y;
-      nz = q4.z;
-      const int slot = (int)q4.w;
-      row = f + kSpheres + rows.n * stride + slot * tri_stride(rows);
-      code = tri_best | kTriHit;
-      kinds = kind_of[rows.n + slot];
-    } else {
-      const float* sp = f + kSpheres + best * stride;
-      const bool vol = kExt && best >= n_solid;
-      const float inv_r = 1.0f / sp[3];
-      nx = vol ? 1.0f : (ptx - sp[0]) * inv_r;
-      ny = vol ? 0.0f : (pty - sp[1]) * inv_r;
-      nz = vol ? 0.0f : (ptz - sp[2]) * inv_r;
-      row = sp + kLeafA;
-      code = best | (root2 ? kRoot2 : 0) | (vol ? kVolume : 0);
-      kinds = kind_of[best];
-    }
-    const bool front = dot3(dx, dy, dz, nx, ny, nz) < 0.0f;
-    const float sgn = front ? 1.0f : -1.0f;
-    nx = nx * sgn;
-    ny = ny * sgn;
-    nz = nz * sgn;
-    code |= front ? kFront : 0;
-    const float* mat = row;
-    if (kExt && rows.mix &&
-        !(uniform_col(k0, k1, rid, stream, 0u) >= row[kRowFactor])) {
-      mat = row + kRowLeafB;
-      code |= kPickB;
-    }
-    const int kind = kExt ? kind_at(kinds, code) : kinds;
-
-    float at_r, at_g, at_b, ndx, ndy, ndz;
-    bool scatters;
-    scatter<kExt>(mat, kind, clay, front, a, dx, dy, dz, nx, ny, nz, u1, u2,
-                  u_coin, at_r, at_g, at_b, ndx, ndy, ndz, scatters, code,
-                  u_r);
+    int code;
+    const bool on = bounce<kExt, kSky, kTri, false>(
+        f, nullptr, kind_of, rows, k0, k1, rid, b, bg_kind, clay, sky, p,
+        code);
     if (kRecord) tape->b[b].code = code;
-
-    if (!scatters) {  // absorbed or emitted: the path ends
-      rad_r = rad_r + thr_r * at_r;
-      rad_g = rad_g + thr_g * at_g;
-      rad_b = rad_b + thr_b * at_b;
+    if (!on) {
       if (kRecord) tape->ended = true;
       break;
     }
-    thr_r = thr_r * at_r;
-    thr_g = thr_g * at_g;
-    thr_b = thr_b * at_b;
-    ox = ptx;
-    oy = pty;
-    oz = ptz;
-    dx = ndx;
-    dy = ndy;
-    dz = ndz;
   }
+  rad_r = p.rr;
+  rad_g = p.rg;
+  rad_b = p.rb;
 }
 
 // ---------------------------------------------------------------- adjoint

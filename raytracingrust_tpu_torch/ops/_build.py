@@ -46,7 +46,7 @@ _SIGNATURES = {
     "rtrt_radiance": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
                        _I32, _I32, _I32, _I32, _I32]
                       + [_P, _I32, _I32, _P, _I32]  # the triangles
-                      + [_P, _I32, _I32, _P, _P], _I32),
+                      + [_P, _I32, _I32, _P, _P, _P], _I32),
     "rtrt_uniforms": ([_P, _I32, _U32, _U32, _U32, _I32, _P, _P], _I32),
     "rtrt_radiance_grad": ([_P, _P, _I32, _U32, _U32, _I32, _I32, _I32, _I32,
                             _I32, _I32, _I32, _I32, _I32]

@@ -1246,6 +1246,9 @@ def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
     if n_rays == 0:
         return out
     flags = ext_flags(mix, n_vol, iso)
+    # the launch's ray counter, which the entry zeroes on the stream: a
+    # word of its own, so launches on other streams do not share it
+    counter = torch.empty((1,), dtype=torch.int32, device=fparams.device)
     lib = _build.load()
     with torch.cuda.device(fparams.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -1254,6 +1257,7 @@ def radiance_cuda(fparams: torch.Tensor, kinds: torch.Tensor,
             ctypes.c_void_p(kinds.data_ptr()), n, key[0], key[1], n_rays,
             spp, width, max_depth, int(bg_kind), int(bool(clay)), *flags,
             *tris, *sky_args(sky, fparams.device),
+            ctypes.c_void_p(counter.data_ptr()),
             ctypes.c_void_p(out.data_ptr()), ctypes.c_void_p(stream))
     if err:
         raise RuntimeError(f"rtrt_radiance launch failed: CUDA error {err} "

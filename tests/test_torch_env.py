@@ -13,6 +13,7 @@ slow) run once, in module-scoped fixtures.
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -295,23 +296,34 @@ def _with(scene, albedo, sky, mod):
 def jax_refs():
     """The JAX hybrid (interpret mode) at 10x10 spp 8: at depth 3 the image
     and the gradient of sum(image^2) in material 0's albedo and the sky's
-    texels, in one jitted VJP; at depth 1 the image."""
-    j, _ = pair(spp=8, depth=3)
+    texels, in one jitted VJP; at depth 1 the image (material 0's albedo
+    and the sky set to their own values).  Both are lowered first, then
+    compiled together on threads at XLA's backend optimisation level 0
+    (the same IEEE operations, less LLVM work)."""
+    def image_of(j):
+        def image(albedo, sky):
+            return j_render(_with(j, albedo, sky, J), W, H, seed=0,
+                            engine="pallas_bvh")
+        return image
 
-    def image(albedo, sky):
-        return j_render(_with(j, albedo, sky, J), W, H, seed=0,
-                        engine="pallas_bvh")
+    def image_and_grads_of(j):
+        def image_and_grads(albedo, sky):
+            img, vjp = jax.vjp(image_of(j), albedo, sky)
+            return img, vjp(2.0 * img)
+        return image_and_grads
 
-    def image_and_grads(albedo, sky):
-        img, vjp = jax.vjp(image, albedo, sky)
-        return img, vjp(2.0 * img)
-
-    img, (g_a, g_s) = jax.jit(image_and_grads)(j.materials.albedo[0],
-                                               j.background.image)
-    j1, _ = pair(spp=8, depth=1)
+    jobs = {}
+    for depth, fn in ((3, image_and_grads_of), (1, image_of)):
+        j, _ = pair(spp=8, depth=depth)
+        args = (j.materials.albedo[0], j.background.image)
+        jobs[depth] = (jax.jit(fn(j)).lower(*args), args)
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        compiled = dict(zip(jobs, ex.map(
+            lambda job: job[0].compile(compiler_options={
+                "xla_backend_optimization_level": 0}), jobs.values())))
+    img, (g_a, g_s) = compiled[3](*jobs[3][1])
     return {3: np.asarray(img), "albedo": np.asarray(g_a),
-            "sky": np.asarray(g_s),
-            1: np.asarray(j_render(j1, W, H, seed=0, engine="pallas_bvh"))}
+            "sky": np.asarray(g_s), 1: np.asarray(compiled[1](*jobs[1][1]))}
 
 
 def test_env_render_matches_jax(jax_refs):

@@ -5,6 +5,7 @@ version), ``fit`` and the CLI ``fit``, against the JAX package's
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -51,18 +52,39 @@ def _target():
 
 # depth 3, not bench.py's 6: the JAX fused kernel's interpret-mode compile
 # takes ~35 s at depth 6 and ~15 s at depth 3
-@pytest.mark.parametrize("spp,depth", [(5, 1), (4, 1), (5, 3), (4, 3)])
-def test_make_loss_matches_jax_fused(spp, depth):
+FUSED_CASES = [(5, 1), (4, 1), (5, 3), (4, 3)]
+
+
+@pytest.fixture(scope="module")
+def fused_refs():
+    """jax.value_and_grad of the JAX fused kernel's loss (interpret mode)
+    with bench.py's six parameters, for each (spp, depth) of FUSED_CASES:
+    all lowered first, then compiled together on threads at XLA's backend
+    optimisation level 0 (the same IEEE operations, less LLVM work)."""
+    target = _target()
+    jobs = {}
+    for spp, depth in FUSED_CASES:
+        j, _ = _bench_pair(spp, depth)
+        params = JG.extract_params(j, BENCH_PARAMS)
+        jobs[spp, depth] = (jax.jit(jax.value_and_grad(JG.make_loss(
+            j, target, W, H, engine="pallas"))).lower(params), params)
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        compiled = dict(zip(jobs, ex.map(
+            lambda job: job[0].compile(compiler_options={
+                "xla_backend_optimization_level": 0}), jobs.values())))
+    return {k: compiled[k](params) for k, (_, params) in jobs.items()}
+
+
+@pytest.mark.parametrize("spp,depth", FUSED_CASES)
+def test_make_loss_matches_jax_fused(fused_refs, spp, depth):
     """Port make_loss against jax.value_and_grad of the JAX fused kernel
     (interpret mode), with bench.py's six parameters.  At depth 1 the
     radiance is bit for bit equal, so only the sums' order differs; deeper,
     a few sin/cos-ulp path flips remain, and the bounds are the JAX
     package's own fused-vs-two-pass ones (tests/test_pallas.py)."""
-    j, t = _bench_pair(spp, depth)
+    _, t = _bench_pair(spp, depth)
     target = _target()
-    want_v, want_g = jax.jit(jax.value_and_grad(
-        JG.make_loss(j, target, W, H, engine="pallas")))(
-            JG.extract_params(j, BENCH_PARAMS))
+    want_v, want_g = fused_refs[spp, depth]
     got_v, got_g = TG.render_and_grad(t, target, BENCH_PARAMS, W, H,
                                       device="cpu")
     if depth == 1:

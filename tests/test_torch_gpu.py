@@ -1648,3 +1648,103 @@ def test_radiance_grad_pipeline_edges_on_card(cuda_device, name):
             assert _close(a, b), (label, depth, pattern,
                                   (a - b).abs().max().item())
         assert any(b.abs().max() > 0 for b in want), (label, depth)
+
+
+# ------------------------------------------ #1's persistent, refilled lanes
+
+def _forward_pair(scene, n_rays, spp, width, key, device):
+    """(#1, plain) per-ray radiance of rays 0 .. n_rays - 1 of ``scene``
+    (ray id = pixel * spp + sample, pixels row-major over ``width``)."""
+    n_pix = -(-n_rays // spp)
+    fp, kinds, opts, sky = _brute_inputs(scene, width, _rows(n_pix, width),
+                                         device)
+    ker = TK.radiance_cuda(fp, kinds, key, n_rays, spp, width, sky=sky,
+                           **opts)
+    torch.cuda.synchronize()
+    ids, px, py = TK.prep_rays(torch.arange(n_pix, device=device), spp,
+                               width)
+    plain = TK.radiance_plain(fp, kinds, key, ids[:n_rays], px[:n_rays],
+                              py[:n_rays], sky=sky, **opts)
+    return ker, plain
+
+
+def _rows(n_pix, width):
+    """The frame's height: the rows ``n_pix`` pixels fill (at least 2)."""
+    return max(2, -(-n_pix // width))
+
+
+def _lanes(device):
+    """The most lanes #1's persistent grid can hold on this card (blocks of
+    128 threads; at most 16 blocks an SM)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count \
+        * 16 * 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(_GRAD_VARIANTS))
+def test_forward_lanes_match_plain_on_card(cuda_device, name):
+    """Kernel #1 (a persistent grid whose warps claim new rays as their
+    lanes' paths end) bit for bit equal to its plain version in each of
+    its eight variants: ragged launches of 1, 31, 33 and 129 rays (a block
+    plus one), spp 1 and 7, depth 1 and 8, and a launch of more rays than
+    the grid has lanes, so that lanes take many rays each; each launch
+    counts as its variant."""
+    make, ext, with_sky, tri = _GRAD_VARIANTS[name]
+    key = trng.base_key(18)
+    cases = [(n, spp, depth) for n in (1, 31, 33, 129) for spp in (1, 7)
+             for depth in (1, 8)]
+    cases.append((3 * _lanes(cuda_device) + 77, 7, 8))
+    for n_rays, spp, depth in cases:
+        scene = make(depth)
+        counts = (TK.LAUNCHES, TK.EXT_LAUNCHES, TK.SKY_LAUNCHES,
+                  TK.TRI_LAUNCHES)
+        ker, plain = _forward_pair(scene, n_rays, spp, 37, key, cuda_device)
+        assert (TK.LAUNCHES, TK.EXT_LAUNCHES, TK.SKY_LAUNCHES,
+                TK.TRI_LAUNCHES) == (counts[0] + 1, counts[1] + ext,
+                                     counts[2] + with_sky, counts[3] + tri)
+        assert ker.shape == (n_rays, 3)
+        assert torch.equal(ker.view(torch.int32), plain.view(torch.int32)), (
+            n_rays, spp, depth)
+
+
+@pytest.mark.gpu
+def test_forward_counter_resets_between_launches_on_card(cuda_device):
+    """Two launches of #1 back to back on one stream, each of more rays
+    than the grid has lanes, give the same bits (the entry zeroes the ray
+    counter before each), and those of the plain version."""
+    scene = brute_ext_builder(T, 8).build()
+    n_rays = 2 * _lanes(cuda_device) + 5
+    fp, kinds, opts, sky = _brute_inputs(
+        scene, 61, _rows(-(-n_rays // 3), 61), cuda_device)
+    key = trng.base_key(3)
+    runs = [TK.radiance_cuda(fp, kinds, key, n_rays, 3, 61, sky=sky, **opts)
+            for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(runs[0].view(torch.int32), runs[1].view(torch.int32))
+    _, plain = _forward_pair(scene, n_rays, 3, 61, key, cuda_device)
+    assert torch.equal(runs[1].view(torch.int32), plain.view(torch.int32))
+
+
+@pytest.mark.gpu
+def test_forward_launches_on_two_streams_on_card(cuda_device):
+    """Launches of #1 on two streams at once, each with its own counter,
+    each equal bit for bit to its plain version."""
+    scenes = (brute_ext_builder(T, 8).build(), _cornell())
+    n_rays = 2 * _lanes(cuda_device) + 9
+    inputs = [_brute_inputs(sc, 64, _rows(-(-n_rays // 4), 64),
+                            cuda_device) for sc in scenes]
+    keys = (trng.base_key(4), trng.base_key(5))
+    streams = (torch.cuda.Stream(), torch.cuda.Stream())
+    torch.cuda.synchronize()
+    outs = []
+    for (fp, kinds, opts, sky), key, s in zip(inputs, keys, streams):
+        with torch.cuda.stream(s):
+            outs.append(TK.radiance_cuda(fp, kinds, key, n_rays, 4, 64,
+                                         sky=sky, **opts))
+    torch.cuda.synchronize()
+    for (fp, kinds, opts, sky), key, ker in zip(inputs, keys, outs):
+        ids, px, py = TK.prep_rays(torch.arange(-(-n_rays // 4),
+                                                device=cuda_device), 4, 64)
+        plain = TK.radiance_plain(fp, kinds, key, ids[:n_rays], px[:n_rays],
+                                  py[:n_rays], sky=sky, **opts)
+        assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))

@@ -10,6 +10,7 @@ once per module.
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -79,14 +80,12 @@ def test_extract_apply_round_trip():
 # ~7 s a bounce (~95 s at depth 6), so both run at depth 2, one scattering
 # bounce and the bounce after it; depth 6 is held on the card
 # (tests/test_torch_gpu.py, chip_smoke.py), kernels against autograd
-@pytest.fixture(scope="module", params=[("uniform", 2), ("gradient", 2)],
-                ids=["uniform-d2", "gradient-d2"])
-def radiance_vjp(request):
-    """JAX's jax.vjp of _radiance_cvjp (the two-pass kernel pair) on
-    numpy-seeded per-ray cotangents, at benchmark 16x12 spp 4.
-    Cotangents are zeroed on rays whose forward radiance differs from the
-    port's by more than 1e-5 (sin/cos-ulp path flips)."""
-    bg, depth = request.param
+VJP_CASES = [("uniform", 2), ("gradient", 2)]
+
+
+def _vjp_job(bg, depth):
+    """One case of :func:`radiance_vjps`: its scenes and inputs, the
+    port's forward radiance, and JAX's jitted forward-and-vjp, lowered."""
     j, t = _bench_pair(4, depth, bg == "gradient")
     spp = 4
     ray_ids, px, py, rows, n = PK._prep_rays(
@@ -104,7 +103,6 @@ def radiance_vjp(request):
                                  bg_kind=t.background.kind,
                                  clay=False).numpy()
 
-    @jax.jit
     def fwd_vjp(f, c):
         outs, vjp = jax.vjp(lambda f: fn(f, words, ray_ids, px, py), f)
         return outs, vjp(c)[0]
@@ -114,16 +112,47 @@ def radiance_vjp(request):
         v[:n] = col
         return jnp.asarray(v.reshape(rows, PK.BLOCK_COLS))
 
-    # the forward alone first, to find the flipped rays
-    outs, _ = fwd_vjp(jnp.asarray(fp), tuple(blocks(cts[:, c] * 0)
-                                             for c in range(3)))
-    jax_rad = np.stack([np.asarray(o).reshape(-1)[:n] for o in outs], -1)
-    flipped = (np.abs(jax_rad - port_rad) > 1e-5).any(axis=1)
-    cts[flipped] = 0.0
-    _, want = fwd_vjp(jnp.asarray(fp), tuple(blocks(cts[:, c])
-                                             for c in range(3)))
-    return dict(t=t, fp=fp, cts=cts, want=np.asarray(want),
-                flipped=int(flipped.sum()), n=n, spp=spp, depth=depth)
+    zero = tuple(blocks(cts[:, c] * 0) for c in range(3))
+    lowered = jax.jit(fwd_vjp).lower(jnp.asarray(fp), zero)
+    return dict(t=t, fp=fp, cts=cts, port_rad=port_rad, n=n, spp=spp,
+                depth=depth, blocks=blocks, zero=zero, lowered=lowered)
+
+
+@pytest.fixture(scope="module")
+def radiance_vjps():
+    """JAX's jax.vjp of _radiance_cvjp (the two-pass kernel pair) on
+    numpy-seeded per-ray cotangents, at benchmark 16x12 spp 4, for each
+    case of VJP_CASES: both lowered first, then compiled together on
+    threads at XLA's backend optimisation level 0 (the same IEEE
+    operations, less LLVM work).  Cotangents are zeroed on rays whose
+    forward radiance differs from the port's by more than 1e-5
+    (sin/cos-ulp path flips)."""
+    jobs = {case: _vjp_job(*case) for case in VJP_CASES}
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        compiled = dict(zip(jobs, ex.map(
+            lambda job: job["lowered"].compile(compiler_options={
+                "xla_backend_optimization_level": 0}), jobs.values())))
+    out = {}
+    for case, r in jobs.items():
+        run, n, fp = compiled[case], r["n"], jnp.asarray(r["fp"])
+        # the forward alone first, to find the flipped rays
+        outs, _ = run(fp, r["zero"])
+        jax_rad = np.stack([np.asarray(o).reshape(-1)[:n] for o in outs], -1)
+        flipped = (np.abs(jax_rad - r["port_rad"]) > 1e-5).any(axis=1)
+        cts = r["cts"]
+        cts[flipped] = 0.0
+        _, want = run(fp, tuple(r["blocks"](cts[:, c]) for c in range(3)))
+        out[case] = dict(t=r["t"], fp=r["fp"], cts=cts, want=np.asarray(want),
+                         flipped=int(flipped.sum()), n=n, spp=r["spp"],
+                         depth=r["depth"])
+    return out
+
+
+@pytest.fixture(scope="module", params=VJP_CASES,
+                ids=["uniform-d2", "gradient-d2"])
+def radiance_vjp(request, radiance_vjps):
+    """One case of :func:`radiance_vjps`."""
+    return radiance_vjps[request.param]
 
 
 def test_radiance_grad_matches_jax(radiance_vjp):
