@@ -1534,7 +1534,8 @@ def bvh_fit_phase(dev, card: str) -> list:
 # phase 9: the HDRI importance-sampling path
 SKY = os.path.join(OUT_DIR, "sky2k.exr")
 # csrc/occlusion.cu, counted from its source: per shadow ray a = d.d and
-# the three reciprocals; node visits and leaf tests as #5's
+# the three reciprocals; node visits, the small trees' node visits and leaf
+# tests as #5's
 OPS_OCC_RAY = 8
 BYTES_OCC_RAY = 25  # origin and direction in, one byte out
 BYTES_OCC_VOL_RAY = 29  # with volumes #8 also reads each ray's id
@@ -1605,15 +1606,37 @@ def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
     return rad, rays
 
 
+def _occ_ops(sc, tally, n_shadow: int, dense: bool = False) -> int:
+    """FP32 operations of #8 over the shadow rays a plain run tallied:
+    inside the chunks of the sphere and triangle trees the small trees'
+    any-hit walk that the plain run's twin made, up to each ray's first
+    candidate, or with ``dense`` the dense leaf test's tests up to it.
+    Fails where the twin's answer differed from the dense walk's."""
+    if tally["sub_mismatch"]:
+        raise AssertionError(f"the small trees' any-hit twin differs from "
+                             f"the dense walk at {tally['sub_mismatch']} "
+                             f"leaves")
+    sub = "" if dense else "_sub"
+    return (n_shadow * (OPS_OCC_RAY + (1 if sc.volumes is not None else 0))
+            + tally["nodes"] * OPS_NODE
+            + (0 if dense else tally["sub_nodes"] * OPS_SUBNODE)
+            + tally["sphere_tests" + sub] * OPS_SPHERE_TEST
+            + tally["volume_tests"] * OPS_VOL_TEST
+            + tally["volume_draws"] * OPS_VOL_DRAW
+            + tally["triangle_tests" + sub] * OPS_TRI_TEST)
+
+
 def _env_route_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
                      depth: int) -> dict:
     """The env path at ``sc``'s frame: #8 against its plain version on
     every shadow ray of every bounce of the plain route's replay, some
     blocked and some not (with volumes, counting those the solid trees
-    leave open); #8's time a render over its launches, its plain
-    version's and its bound from the plain version's tally; the env
-    radiance through the kernels against the plain route, bit for bit,
-    finite."""
+    leave open); #8's time a render over its launches (over the small
+    trees' boxes, computed once, whose own time is apart), its plain
+    version's (the run that tallies its work, the small trees' twin in
+    its time, as #5's) and its bound from that tally of the small trees'
+    any-hit walk; the env radiance through the kernels against the plain
+    route, bit for bit, finite."""
     import torch
 
     from raytracingrust_tpu_torch.ops import bvh_kernel as BK
@@ -1630,9 +1653,15 @@ def _env_route_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
     tally = collections.Counter()
     n_shadow = n_blocked = n_fog = 0
     ms, plain_ms, per_launch = [], 0.0, []
+    boxes = BK.scene_sub_boxes(sc)  # once a render, as env_radiance
+    boxes_ms = _cuda_time_ms(lambda: BK.scene_sub_boxes(sc), 3)
     for o, d, ids, stream in rays:
-        got = OC.occluded_cuda(sc, o, d, ids, key, stream)
+        got = OC.occluded_cuda(sc, o, d, ids, key, stream, boxes=boxes)
+        start.record()
         want = OC.occluded_plain(sc, o, d, ids, key, stream, tally=tally)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(end)
         if not torch.equal(got, want):
             raise AssertionError(
                 f"{label}: #8 differs from its plain version on "
@@ -1642,26 +1671,26 @@ def _env_route_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
         if sc.volumes is not None:
             n_fog += int((got & ~OC.occluded_plain(solid, o, d)).sum())
         per_launch.append(got.numel())
-        ms.append(_cuda_time_ms(
-            lambda: OC.occluded_cuda(sc, o, d, ids, key, stream), 5))
-        plain_ms += _cuda_time_ms(lambda: OC.occluded_plain(
-            sc, o, d, ids, key, stream), 1)
+        ms.append(_cuda_time_ms(lambda: OC.occluded_cuda(
+            sc, o, d, ids, key, stream, boxes=boxes), 5))
     if not rays or not 0 < n_blocked < n_shadow:
         raise AssertionError(f"{label}: {n_shadow} shadow rays, {n_blocked} "
                              f"blocked")
     vol = sc.volumes is not None
-    ops = (n_shadow * (OPS_OCC_RAY + (1 if vol else 0))
-           + tally["nodes"] * OPS_NODE
-           + tally["sphere_tests"] * OPS_SPHERE_TEST
-           + tally["volume_tests"] * OPS_VOL_TEST
-           + tally["volume_draws"] * OPS_VOL_DRAW
-           + tally["triangle_tests"] * OPS_TRI_TEST)
+    subs = [t.sub for t in (sc.spheres, sc.triangles)
+            if t is not None and t.sub is not None]
     tree_bytes = sum(t.numel() * t.element_size() for tree in (
         sc.spheres, sc.volumes, sc.triangles) if tree is not None
         for t in (tree.nodes_f, tree.nodes_i, tree.chunk_len, tree.geo,
                   tree.nid, tree.ordinal) if t is not None)
-    bound = _bound(ops, (BYTES_OCC_VOL_RAY if vol else BYTES_OCC_RAY)
-                   * n_shadow + tree_bytes)
+    sub_bytes = sum(v.numel() * v.element_size() for v in (
+        *boxes, *(w for sub in subs for w in (sub.words, sub.order)))
+        if v is not None)
+    ray_bytes = (BYTES_OCC_VOL_RAY if vol else BYTES_OCC_RAY) * n_shadow
+    bound = _bound(_occ_ops(sc, tally, n_shadow),
+                   ray_bytes + tree_bytes + sub_bytes)
+    dense = _bound(_occ_ops(sc, tally, n_shadow, dense=True),
+                   ray_bytes + tree_bytes)
     with torch.no_grad():
         ker = BK.env_radiance(sc, sky, key, n_pix, spp, width,
                               max_depth=depth)
@@ -1670,15 +1699,17 @@ def _env_route_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
     if not bool(torch.isfinite(ker).all()):
         raise AssertionError(f"{label}: env radiance not finite")
     return dict(ms=sum(ms), ms_launch=ms, per_launch=per_launch,
-                plain_ms=plain_ms, bound=bound, n_shadow=n_shadow,
-                n_blocked=n_blocked, n_fog=n_fog, tally=tally, err=err,
-                route_ms=route_ms, n_rays=n_pix * spp)
+                plain_ms=plain_ms, bound=bound, dense=dense,
+                boxes_ms=boxes_ms, n_shadow=n_shadow, n_blocked=n_blocked,
+                n_fog=n_fog, tally=tally, err=err, route_ms=route_ms,
+                n_rays=n_pix * spp)
 
 
-# #8's time a render in PERF.md's kernel table (H100 80GB HBM3, 700 W),
-# which the walk of the small trees, #5's alone, leaves as it was
-OCC_ROW_MS = {"sky_bvh_stress": "3.912-3.949", "sky_sheet64": "6.531-6.587",
-              "sky_zoo": "0.753-0.894"}
+# #8's time a render in PERF.md's kernel table (H100 80GB HBM3, 700 W):
+# the small trees' any-hit walk (the dense leaf test took 3.912-3.949,
+# 6.531-6.587 and 0.753-0.894 ms; sky_zoo's chunk of 47 keeps it)
+OCC_ROW_MS = {"sky_bvh_stress": "1.692-1.712", "sky_sheet64": "1.704-1.826",
+              "sky_zoo": "0.570-1.211"}
 
 
 def _print_env_route(phase: str, label: str, size: str, r: dict,
@@ -1697,12 +1728,17 @@ def _print_env_route(phase: str, label: str, size: str, r: dict,
           f"{OCC_ROW_MS.get(label, 'none')} ms) over its "
           f"{len(r['ms_launch'])} launches ("
           + ", ".join(f"{x:.4f}" for x in r["ms_launch"]) + " ms; "
-          f"{r['per_launch']} shadow rays); plain {r['plain_ms']:.2f} ms; "
+          f"{r['per_launch']} shadow rays); the small trees' boxes "
+          f"{r['boxes_ms']:.4f} ms a render; plain {r['plain_ms']:.2f} ms; "
           f"bound {r['bound'][0]:.5f} ms ({r['bound'][1]}; per shadow ray "
-          f"{t['nodes'] / n:.2f} node visits, {t['sphere_tests'] / n:.1f} "
-          f"sphere, {t['volume_tests'] / n:.3f} volume and "
-          f"{t['triangle_tests'] / n:.1f} triangle tests); the plain "
-          f"route's render {r['route_ms']:.1f} ms; {card}")
+          f"{t['nodes'] / n:.2f} node visits, {t['sub_nodes'] / n:.2f} in "
+          f"the small trees, {t['sphere_tests_sub'] / n:.2f} sphere, "
+          f"{t['volume_tests'] / n:.3f} volume and "
+          f"{t['triangle_tests_sub'] / n:.2f} triangle tests, none "
+          f"answered otherwise than by the dense walk), the dense leaf "
+          f"test's {r['dense'][0]:.5f} ms ({t['sphere_tests'] / n:.1f} "
+          f"sphere and {t['triangle_tests'] / n:.1f} triangle tests); the "
+          f"plain route's render {r['route_ms']:.1f} ms; {card}")
 
 
 def _env_grad_check(label, sc, sky, key, n_pix: int, spp: int, width: int,
@@ -1757,7 +1793,7 @@ def env_phase(dev, card: str) -> dict:
                                                         select_engine)
     from raytracingrust_tpu_torch.utils import rng
 
-    regs = _ptxas("occlusion")
+    regs = _ptxas_variants(("occlusion",))
     t0 = time.perf_counter()
     shapes = env_scenes()
     write_s = time.perf_counter() - t0
@@ -3215,7 +3251,7 @@ def _ptxas_variants(names=("megakernel", "radiance_grad",
     of the sources ``names``, from the compiler's report: #1, #3 and #4 by
     default (kExt, kSky, kTri as the template's bools; #4 has kExt, kTri,
     kWarp); #5's "bvh_forward" (kRecord, kExt, kSky, kMv; the views kSky,
-    kMv)."""
+    kMv); #8's "occlusion" (kVol)."""
     import re
 
     from raytracingrust_tpu_torch.ops import _build
@@ -3232,7 +3268,8 @@ def _ptxas_variants(names=("megakernel", "radiance_grad",
             if fn is None:
                 continue
             flags = re.search(r"(bvh_radiance_kernel|bvh_view_kernel|"
-                              r"radiance_kernel|grad_kernel|mse_kernel)"
+                              r"radiance_kernel|grad_kernel|mse_kernel|"
+                              r"occlusion_kernel)"
                               r"IL?b([01])E((?:L?b[01]E)*)", fn)
             if "stack frame" in ln:
                 stack = ln.strip()
@@ -3598,8 +3635,8 @@ def tri_phase(dev, card: str) -> list:
 
 
 def main() -> int:
-    """Every phase; with the one argument "7", "12" or "14", the build and
-    that phase alone, with its report entries and no last line."""
+    """Every phase; with the one argument "7", "9", "12" or "14", the build
+    and that phase alone, with its report entries and no last line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3632,6 +3669,7 @@ def main() -> int:
     print(f"phase 1 build ({len(_build.SOURCES)} sources in parallel): "
           f"{build_s:.3f} s; {regs}")
     alone = {"7": lambda dev, card: [bvh_phase(dev, card)],
+             "9": lambda dev, card: [env_phase(dev, card)],
              "12": fog_phase, "14": tri_phase}
     if len(sys.argv) == 2 and sys.argv[1] in alone:  # for working on it
         os.makedirs(OUT_DIR, exist_ok=True)

@@ -8,8 +8,8 @@
 // ray's nearest hit so far; and the crossing scan of a mesh volume's
 // boundary, which the JAX kernel makes densely (_mv_min_t over every
 // boundary triangle) and which here walks the volume's own small tree
-// (mv_walk).  Inside a chunk of the sphere or triangle tree #5 walks the
-// chunk's own small tree (sub_walk), where the JAX kernel and #8 test every
+// (mv_walk).  Inside a chunk of the sphere or triangle tree #5 and #8 walk
+// the chunk's own small tree (sub_walk), where the JAX kernel tests every
 // slot of the chunk.  The arithmetic is ops/bvh_kernel.py's plain version's,
 // operation for operation: the sphere root by true division, the volume's
 // boundary window and free flight, the direct cross-product
@@ -420,7 +420,15 @@ constexpr int kSubDense = 64;
 //   v0 + u_c e1 + v_c e2, which the accepted u_c, v_c put inside the
 //   triangle: below e for any angle above about 2^-12 rad.
 // So p lies in every box on the way to s's leaf, grown by less than e.
-template <int kKind>
+//
+// kAnyHit (#8's shadow rays): the walk ends at the first slot, in the
+// order it tests them, whose candidate lies below tb, and leaves it in
+// (c_best, c_win); without one it leaves them as they were.  So the chunk
+// has a candidate below tb under this walk exactly when it has one under
+// the dense test: a slot found here is found by the dense test, with the
+// same arithmetic against the same bound, and the dense test's candidates
+// all lie in leaves this walk enters.
+template <int kKind, bool kAnyHit = false>
 __device__ __forceinline__ void sub_walk(const Tree& tree,
                                          const SubTree& sub, int chunk,
                                          int leaf, const Ray& r, float tb,
@@ -464,7 +472,12 @@ __device__ __forceinline__ void sub_walk(const Tree& tree,
       const float ti = kKind == kSphereTree
                            ? sphere_t(tree.geo, s, r, tb)
                            : triangle_t(tree.geo, s, r, tb);
-      if (ti < c_best || (ti == c_best && s < c_win)) {
+      if (kAnyHit && ti < tb) {  // the first candidate ends the walk
+        c_best = ti;
+        c_win = s;
+        return;
+      }
+      if (!kAnyHit && (ti < c_best || (ti == c_best && s < c_win))) {
         c_best = ti;
         c_win = s;
       }
@@ -477,9 +490,11 @@ __device__ __forceinline__ void sub_walk(const Tree& tree,
 // replaces (t_best, win) only when strictly nearer (_merge_leaf_rows).
 // kAnyHit: the walk ends at the first candidate nearer than t_best, the
 // lowest slot of the first leaf that has one (the shadow-ray test).  `fl`
-// is read by a volume tree's walk only.  kSub (#5's sphere and triangle
-// trees): inside a chunk of more than kSubDense slots the small tree's walk
-// (sub_walk) in place of the dense loop over its slots.
+// is read by a volume tree's walk only.  kSub (the sphere and triangle
+// trees of #5 and #8): inside a chunk of more than kSubDense slots the
+// small tree's walk (sub_walk) in place of the dense loop over its slots;
+// with kAnyHit its any-hit form, whose candidate, the first it finds,
+// ends the walk as the dense loop's would.
 template <int kKind, bool kAnyHit = false, bool kSub = false>
 __device__ __forceinline__ void walk(const Tree& tree, int leaf,
                                      const Ray& r, float& t_best, int& win,
@@ -514,7 +529,8 @@ __device__ __forceinline__ void walk(const Tree& tree, int leaf,
       int c_win = -1;
       if constexpr (kSub) {
         if (n > kSubDense) {
-          sub_walk<kKind>(tree, sub, chunk, leaf, r, tb, c_best, c_win);
+          sub_walk<kKind, kAnyHit>(tree, sub, chunk, leaf, r, tb, c_best,
+                                   c_win);
           n = 0;  // no dense loop
         }
       }

@@ -29,6 +29,17 @@
 // accepted candidate whatever else it finds, and without one both end with
 // t_best = +inf.
 //
+// The small trees.  Inside a chunk of more than kSubDense slots of the
+// sphere or the triangle tree the ray walks the chunk's small tree in its
+// any-hit form (bvh_walk.cuh sub_walk, #5's walk, ending at the first
+// candidate below t_best), where the TPU kernel tests all of the chunk's
+// slots: the chunk has a candidate under that walk exactly when it has one
+// under the dense test (sub_walk's comment argues it: the padded boxes keep
+// every slot the dense test accepts, and each slot is tested with the same
+// arithmetic against the same bound, +inf), so the answer stays the dense
+// walk's.  The volume tree (at most 8 volumes in one chunk) keeps the dense
+// loop.
+//
 // Design: one thread a ray, its state in registers; the volume tree is
 // walked only by rays the sphere tree did not occlude, the triangle tree
 // only by rays neither did.  The variant without volumes (template flag
@@ -40,7 +51,10 @@
 // What bounds it on this card: FP32 work per node visit and primitive test
 // (the data it must move, 25 bytes a ray, 29 with volumes, and the trees
 // once, is small), and divergence between the rays of a warp, whose shadow
-// directions are drawn from the sky independently of each other.
+// directions are drawn from the sky independently of each other.  A ray
+// that sees the sky, whose NEE term counts, crosses every chunk along its
+// line without a candidate: the dense test costs it every slot of each,
+// the small trees the few leaves its line reaches.
 //
 // Build (see ops/_build.py):
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 --fmad=false
@@ -59,9 +73,9 @@ constexpr int kNeeVolCol = 2;
 
 template <bool kVol>
 __global__ void __launch_bounds__(kThreads)
-occlusion_kernel(Tree sph, Tree vol, Tree tri, int leaf,
-                 const int* __restrict__ ray_ids, uint32_t k0, uint32_t k1,
-                 uint32_t stream, const float* __restrict__ o,
+occlusion_kernel(Tree sph, Tree vol, Tree tri, int leaf, SubTree s_sub,
+                 SubTree t_sub, const int* __restrict__ ray_ids, uint32_t k0,
+                 uint32_t k1, uint32_t stream, const float* __restrict__ o,
                  const float* __restrict__ d, int n_rays,
                  unsigned char* __restrict__ out) {
   const long long gid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -80,20 +94,25 @@ occlusion_kernel(Tree sph, Tree vol, Tree tri, int leaf,
   r.idz = 1.0f / r.dz;
   float t_best = INFINITY;
   int win = -1;
-  walk<kSphereTree, true>(sph, leaf, r, t_best, win);
+  walk<kSphereTree, true, true>(sph, leaf, r, t_best, win, Flight{}, s_sub);
   if (kVol && !(t_best < INFINITY))
     walk<kVolumeTree, true>(vol, leaf, r, t_best, win,
                             Flight{k0, k1, (uint32_t)__ldg(ray_ids + i),
                                    stream, kNeeVolCol, sqrtf(r.a)});
   if (!(t_best < INFINITY))
-    walk<kTriangleTree, true>(tri, leaf, r, t_best, win);
+    walk<kTriangleTree, true, true>(tri, leaf, r, t_best, win, Flight{},
+                                    t_sub);
   out[i] = t_best < INFINITY ? 1 : 0;
 }
 
 }  // namespace
 
 // Plain C entry, bound with ctypes (ops/occlusion.py).  The volume tree
-// (v_*, v_nodes > 0) needs the rays' ids, the key and the NEE stream.
+// (v_*, v_nodes > 0) needs the rays' ids, the key and the NEE stream.  The
+// small trees of the sphere and the triangle tree (s_sub_*, t_sub_*: padded
+// boxes, words and leaf order, see bvh_walk.cuh SubTree; `sub_stride` nodes
+// a chunk) are required for each of those trees that has nodes, as in
+// rtrt_bvh_radiance.
 // Launches on `stream` and returns cudaGetLastError() of the launch.
 extern "C" int rtrt_occlusion(
     const float* s_nodes_f, const int* s_nodes_i, const int* s_len,
@@ -104,11 +123,18 @@ extern "C" int rtrt_occlusion(
     const int* t_nodes_i, const int* t_len, const float* t_geo,
     const int* t_mat, int t_nodes, int leaf, int n_vol, const int* ray_ids,
     uint32_t k0, uint32_t k1, uint32_t nee_stream, const float* o,
-    const float* d, int n_rays, unsigned char* out, void* stream) {
+    const float* d, int n_rays, unsigned char* out,
+    const float* s_sub_boxes, const int* s_sub_words,
+    const unsigned char* s_sub_order, const float* t_sub_boxes,
+    const int* t_sub_words, const unsigned char* t_sub_order, int sub_stride,
+    void* stream) {
   if (s_nodes < 0 || v_nodes < 0 || t_nodes < 0 ||
       s_nodes + v_nodes + t_nodes < 1 || leaf < 1 || n_rays < 0 ||
       n_vol < 0 || n_vol > 8 ||
-      (v_nodes > 0 && (!v_nid || !v_ord || !ray_ids || n_vol < 1)))
+      (v_nodes > 0 && (!v_nid || !v_ord || !ray_ids || n_vol < 1)) ||
+      sub_stride < 1 || sub_stride > 255 ||
+      (s_nodes > 0 && (!s_sub_boxes || !s_sub_words || !s_sub_order)) ||
+      (t_nodes > 0 && (!t_sub_boxes || !t_sub_words || !t_sub_order)))
     return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return 0;
   const Tree sph{s_nodes_f, s_nodes_i, s_len, s_geo, s_mat,
@@ -117,12 +143,18 @@ extern "C" int rtrt_occlusion(
                  v_nid,     v_ord,     v_nodes};
   const Tree tri{t_nodes_f, t_nodes_i, t_len, t_geo, t_mat,
                  nullptr,   nullptr,   t_nodes};
+  const SubTree s_sub{reinterpret_cast<const float4*>(s_sub_boxes),
+                      s_sub_words, s_sub_order, sub_stride};
+  const SubTree t_sub{reinterpret_cast<const float4*>(t_sub_boxes),
+                      t_sub_words, t_sub_order, sub_stride};
   const cudaStream_t st = (cudaStream_t)stream;
   if (v_nodes > 0)
     occlusion_kernel<true><<<blocks_for(n_rays), kThreads, 0, st>>>(
-        sph, vol, tri, leaf, ray_ids, k0, k1, nee_stream, o, d, n_rays, out);
+        sph, vol, tri, leaf, s_sub, t_sub, ray_ids, k0, k1, nee_stream, o, d,
+        n_rays, out);
   else
     occlusion_kernel<false><<<blocks_for(n_rays), kThreads, 0, st>>>(
-        sph, vol, tri, leaf, ray_ids, k0, k1, nee_stream, o, d, n_rays, out);
+        sph, vol, tri, leaf, s_sub, t_sub, ray_ids, k0, k1, nee_stream, o, d,
+        n_rays, out);
   return (int)cudaGetLastError();
 }

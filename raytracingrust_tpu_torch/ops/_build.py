@@ -76,7 +76,9 @@ _SIGNATURES = {
                                   + [_P] * 7, _I32),
     "rtrt_occlusion": ([_P] * 5 + [_I32] + [_P] * 7 + [_I32] + [_P] * 5
                        + [_I32, _I32, _I32, _P, _U32, _U32, _U32, _P, _P,
-                          _I32, _P, _P], _I32),
+                          _I32, _P]
+                       + [_P] * 6 + [_I32]  # the small trees
+                       + [_P], _I32),
     "rtrt_error_string": ([_I32], ctypes.c_char_p),
 }
 

@@ -53,12 +53,13 @@ rays and tests a leaf when any of them hits it; the nearest hit is the same
 except where a ray's box test and its primitive test disagree at rounding.
 Inside a chunk of the sphere or triangle tree the kernel walks a small
 tree over the chunk's slots (ops/bvh.build_sub_trees; boxes from the rows
-each launch reads, :func:`sub_boxes`) and tests only the slots of the
+each render reads, :func:`sub_boxes`) and tests only the slots of the
 small leaves the ray's line reaches (a chunk of at most SUB_DENSE slots
 takes the dense test): the chunk's winner is the dense leaf test's bit for
-bit.  The plain version keeps the dense leaf test; :func:`_sub_leaf` is
-the kernel's twin inside a chunk, which the tests and the tallies
-(``_walk_all``, :func:`_twin_check`) run beside it.
+bit.  The shadow-ray kernel (#8, ops/occlusion.py) walks them too, in
+their any-hit form.  The plain version keeps the dense leaf test;
+:func:`_sub_leaf` is the kernels' twin inside a chunk, which the tests and
+the tallies (``_walk_all``, :func:`_twin_check`) run beside it.
 
 A sky map (``sky``, bg_kind SKYMAP) adds, on a miss, the throughput
 times the sky's nearest texel (``Background.sample``; the JAX
@@ -103,6 +104,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import dataclasses
+import functools
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -397,6 +399,15 @@ def sub_boxes(tree: Tree) -> torch.Tensor:
     return torch.cat([lo - pad, zero, hi + pad, zero], 1).contiguous()
 
 
+def scene_sub_boxes(sc: "BvhScene") -> tuple:
+    """(:func:`sub_boxes` of the sphere tree, of the triangle tree), None
+    for an absent tree or one without small trees: what every launch of
+    one render reads (:func:`env_radiance` hands them to #5's record walk
+    and to each of #8's launches)."""
+    return tuple(None if t is None or t.sub is None else sub_boxes(t)
+                 for t in (sc.spheres, sc.triangles))
+
+
 def _tree(t: Optional[ChunkTree], rows: torch.Tensor, mat: torch.Tensor,
           device, nid=None, n_solid=0, sub=None) -> Optional[Tree]:
     if t is None:
@@ -622,12 +633,16 @@ def _triangle_leaf(tree, s, o, d, a, t_best):
 
 
 def _sub_leaf(tree: Tree, leaf, boxes, chunk, o, d, inv_d, a, tb, tally,
-              name):
-    """The plain twin of the kernel's walk inside a chunk (bvh_walk.cuh
+              name, any_hit=False):
+    """The plain twin of the kernels' walk inside a chunk (bvh_walk.cuh
     ``sub_walk``) for rays (o, d, 1 / d, a, their bound ``tb``), each in
     the chunk of ``chunk`` (R,) that its walk entered: -> (R,) each one's
     nearest candidate t in that chunk, inf if none, and (R,) its slot, the
-    lowest among equal t (the slot count if none).
+    lowest among equal t (the slot count if none).  ``any_hit`` (#8's
+    form): instead the first candidate below ``tb`` in the kernel's order,
+    the leaves by node (the stackless walk's order) and each leaf's slots
+    in leaf order, and its slot; the tally then counts the node visits and
+    the tests up to that candidate, where the kernel stops.
 
     A node's box grows by e on each side, the cone pad, SUB_CONE of the
     farthest of its planes from the ray's origin (NaN planes not counted),
@@ -650,7 +665,7 @@ def _sub_leaf(tree: Tree, leaf, boxes, chunk, o, d, inv_d, a, tb, tally,
     words = sub.words.long()
     ray = torch.arange(tb.shape[0], device=tb.device)
     node = n0.clone()  # global node indices
-    hit_ray, hit_word = [], []
+    hit_ray, hit_word, hit_node, seen_ray, seen_node = [], [], [], [], []
     if tally is not None:
         tally["sub_chunks"] += ray.numel()
     while ray.numel():
@@ -665,11 +680,15 @@ def _sub_leaf(tree: Tree, leaf, boxes, chunk, o, d, inv_d, a, tb, tally,
         entry = torch.where(nan, -inf, torch.minimum(near, far)).amax(1)
         exit_ = torch.where(nan, inf, torch.maximum(near, far)).amin(1)
         go = (entry <= exit_) & (entry <= tb[ray]) & (exit_ >= T_MIN)
-        if tally is not None:
+        if any_hit:
+            seen_ray.append(ray)
+            seen_node.append(node)
+        elif tally is not None:
             tally["sub_nodes"] += ray.numel()
         is_leaf = (w >> 16) > 0
         hit_ray.append(ray[go & is_leaf])
         hit_word.append(w[go & is_leaf])
+        hit_node.append(node[go & is_leaf])
         inner = go & ~is_leaf
         ray, kid = ray[inner], node[inner] + 1  # the first child
         node = torch.cat([kid, n0[ray] + (words[kid] & 0xFF)])  # its skip
@@ -679,6 +698,8 @@ def _sub_leaf(tree: Tree, leaf, boxes, chunk, o, d, inv_d, a, tb, tally,
     first = torch.full(tb.shape, big, device=tb.device)
     ray, w = torch.cat(hit_ray), torch.cat(hit_word)
     if ray.numel() == 0:
+        if any_hit and tally is not None:
+            tally["sub_nodes"] += sum(v.numel() for v in seen_ray)
         return t_min, first
     start, count = (w >> 8) & 0xFF, w >> 16
     lane = torch.arange(int(count.max()), device=tb.device)
@@ -688,6 +709,10 @@ def _sub_leaf(tree: Tree, leaf, boxes, chunk, o, d, inv_d, a, tb, tally,
               tb[ray])
     valid = lane < count[:, None]
     ti = torch.where(valid, ti, inf)
+    if any_hit:
+        return _sub_any_hit(ray, torch.cat(hit_node), count, lane, slot, ti,
+                            tb, torch.cat(seen_ray), torch.cat(seen_node),
+                            big, tally, name)
     t_min.scatter_reduce_(0, ray, ti.amin(1), "amin")
     lowest = torch.where(valid & (ti == t_min[ray][:, None]), slot,
                          big).amin(1)
@@ -695,6 +720,37 @@ def _sub_leaf(tree: Tree, leaf, boxes, chunk, o, d, inv_d, a, tb, tally,
     if tally is not None:
         tally[name] += int(count.sum())
     return t_min, first
+
+
+def _sub_any_hit(ray, node, count, lane, slot, ti, tb, seen_ray, seen_node,
+                 no_slot, tally, name):
+    """:func:`_sub_leaf`'s any-hit answer from the leaves its rays entered
+    (each leaf's ray, node, member count, and its slots and their t in
+    leaf order, by lane) and the (ray, node) pairs they visited: each ray's
+    first candidate below its bound, leaves by node and then lanes, as the
+    kernel's walk tests them; -> (its t, inf if none; its slot, ``no_slot``
+    if none).  The tally counts the visits to nodes up to that
+    candidate's leaf and the tests up to it (all, without one)."""
+    n_rays, n_lanes = tb.shape[0], lane.shape[0]
+    cand = (lane < count[:, None]) & (ti < tb[ray][:, None])
+    first_lane = torch.where(cand, lane, n_lanes).amin(1)
+    stop = torch.full((n_rays,), 1 << 62, dtype=node.dtype,
+                      device=tb.device)  # the leaf it stops in: none
+    stop.scatter_reduce_(0, ray[first_lane < n_lanes],
+                         node[first_lane < n_lanes], "amin")
+    at = (first_lane < n_lanes) & (node == stop[ray])  # each ray's, if any
+    t_hit = torch.full_like(tb, float("inf"))
+    slot_hit = torch.full((n_rays,), no_slot, dtype=slot.dtype,
+                          device=tb.device)
+    pick = first_lane[at][:, None]
+    t_hit[ray[at]] = ti[at].gather(1, pick)[:, 0]
+    slot_hit[ray[at]] = slot[at].gather(1, pick)[:, 0]
+    if tally is not None:
+        tested = torch.where(node < stop[ray], count,
+                             torch.where(at, first_lane + 1, 0))
+        tally[name] += int(tested.sum())
+        tally["sub_nodes"] += int((seen_node <= stop[seen_ray]).sum())
+    return t_hit, slot_hit
 
 
 def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
@@ -713,7 +769,8 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
     its ``t_best``, and the tally counts its tests up to the first such
     slot (the occlusion kernel's walk).  ``entries``: a list that
     receives, for each leaf the walk tests, (its rays, the chunk, their
-    bound, the leaf's nearest t, its slot), for :func:`_twin_check`."""
+    bound, the leaf's nearest t, its slot, the slots each tests), for
+    :func:`_twin_check`."""
     k_nodes = tree.links.shape[0]
     cursor = torch.where(alive, 0, k_nodes)
     nf = tree.nodes_f
@@ -754,13 +811,14 @@ def _walk(tree: Tree, leaf, o, d, inv_d, a, alive, t_best, win, tally,
         better = t_min < tb
         t_best[rays] = torch.where(better, t_min, tb)
         win[rays] = torch.where(better, base + first, win[rays])
+        if tally is not None or entries is not None:
+            # any-hit: a ray tests the slots up to its first candidate
+            tested = (torch.where(ti < tb[:, None], lane + 1, n).min(
+                dim=1).values if any_hit
+                else torch.full_like(t_min, n, dtype=torch.long))
         if entries is not None:
-            entries.append((rays, chunk, tb, t_min, base + first))
-        if tally is not None:  # any-hit: tests up to its first candidate
-            tested = torch.full_like(t_min, n, dtype=torch.long)
-            if any_hit:
-                tested = torch.where(ti < tb[:, None], lane + 1, n).min(
-                    dim=1).values
+            entries.append((rays, chunk, tb, t_min, base + first, tested))
+        if tally is not None:
             tally[name] += int(tested.sum())
             if tree.nid is not None:  # the windows a ray crosses: draws
                 window = _volume_window(tree, slice(base, base + n),
@@ -778,11 +836,12 @@ def _walk_all(sc: BvhScene, o, d, a, alive, u_vol, tally, any_hit=False):
     slot of each tree, -1 where it has none).  ``any_hit``: the occlusion
     test's walk, where a ray occluded by one tree walks no other.  With a
     tally, every leaf of a tree with small trees is also walked by the twin
-    of #5's walk (:func:`_twin_check`) from the same bound, for the work
-    the kernel does: "sub_chunks", "sub_nodes", and its tests as
-    "sphere_tests_sub" and "triangle_tests_sub"; "sub_mismatch" counts the
-    leaves where it finds another t or winner than the dense walk (none,
-    if the pads hold)."""
+    of the kernels' walk (:func:`_twin_check`; with ``any_hit`` #8's form)
+    from the same bound, for the work the kernel does: "sub_chunks",
+    "sub_nodes", and its tests as "sphere_tests_sub" and
+    "triangle_tests_sub"; "sub_mismatch" counts the leaves where it finds
+    another t or winner than the dense walk, or with ``any_hit`` another
+    answer to "a candidate below the bound" (none, if the pads hold)."""
     inv_d = [1.0 / v for v in d]
     t_best = torch.full_like(a, float("inf"))
     wins = []
@@ -794,32 +853,37 @@ def _walk_all(sc: BvhScene, o, d, a, alive, u_vol, tally, any_hit=False):
         win = torch.full(a.shape, -1, dtype=torch.long, device=a.device)
         if tree is not None:
             live = alive & ~(t_best < float("inf")) if any_hit else alive
-            twin = (tally is not None and tree.sub is not None
-                    and not any_hit)
+            twin = tally is not None and tree.sub is not None
             entries = [] if twin else None
             _walk(tree, leaf, o, d, inv_d, a, live, t_best, win, tally,
                   name, any_hit=any_hit, extra=extra, entries=entries)
             if entries:
-                _twin_check(tree, leaf, o, d, inv_d, a, entries, tally, name)
+                _twin_check(tree, leaf, o, d, inv_d, a, entries, tally, name,
+                            any_hit)
         wins.append(win)
     return t_best, wins
 
 
-def _twin_check(tree: Tree, leaf, o, d, inv_d, a, entries, tally, name):
-    """The twin of #5's walk inside the chunks (:func:`_sub_leaf`) on every
-    leaf of more than SUB_DENSE slots that the dense walk tested
+def _twin_check(tree: Tree, leaf, o, d, inv_d, a, entries, tally, name,
+                any_hit=False):
+    """The twin of the kernels' walk inside the chunks (:func:`_sub_leaf`)
+    on every leaf of more than SUB_DENSE slots that the dense walk tested
     (``_walk``'s ``entries``), from the same bound, up to SUB_ENTRIES
     (ray, chunk) entries at a time: its work goes to the tally
     ("sub_chunks", "sub_nodes", ``name`` + "_sub", where a smaller leaf,
-    which #5 tests densely too, counts its dense tests), and
+    which the kernels test densely too, counts the dense walk's tests), and
     "sub_mismatch" counts the leaves where its nearest t or its slot differ
     from the dense test's.  Equal at every leaf from the same bound,
-    the twin's walk and the dense walk end with the same t and winner."""
+    the twin's walk and the dense walk end with the same t and winner.
+    ``any_hit`` (#8's walk): the twin's any-hit form, and a mismatch is a
+    leaf where one of the two finds a candidate below the bound and the
+    other none; equal at every leaf, the two walks give every ray the same
+    answer."""
     n = tree.chunk_len.tolist()
     boxes, work, batch, size = sub_boxes(tree), collections.Counter(), [], 0
     for i, e in enumerate(entries):
         if n[e[1]] <= SUB_DENSE:
-            work[name] += n[e[1]] * e[0].numel()
+            work[name] += int(e[5].sum())
         else:
             batch.append(e)
             size += e[0].numel()
@@ -831,10 +895,13 @@ def _twin_check(tree: Tree, leaf, o, d, inv_d, a, entries, tally, name):
             got_t, got_first = _sub_leaf(
                 tree, leaf, boxes, chunk,
                 *([v[rays] for v in x] for x in (o, d, inv_d)), a[rays], tb,
-                work, name)
-            work["sub_mismatch"] += int(
-                ((got_t.view(torch.int32) != t_min.view(torch.int32))
-                 | ((t_min < float("inf")) & (got_first != first))).sum())
+                work, name, any_hit)
+            if any_hit:
+                differ = (got_t < tb) != (t_min < tb)
+            else:
+                differ = ((got_t.view(torch.int32) != t_min.view(torch.int32))
+                          | ((t_min < float("inf")) & (got_first != first)))
+            work["sub_mismatch"] += int(differ.sum())
             batch, size = [], 0
     for key in ("sub_chunks", "sub_nodes", "sub_mismatch"):
         tally[key] += work[key]
@@ -1270,32 +1337,35 @@ def _mv_args(sc: BvhScene) -> list:
         mv.bounds, mv.nid, mv.mat)] + [n, mv.tree.leaf_size]
 
 
-def _sub_args(sc: BvhScene) -> tuple:
+def _sub_args(sc: BvhScene, boxes=None) -> tuple:
     """(the small trees of the sphere and the triangle tree as pointers:
     boxes from the rows the launch reads, words, leaf order, null for an
     absent tree; their stride; the boxes, which the caller keeps alive
-    until the launch is queued), after checking them."""
+    until the launch is queued), after checking them.  ``boxes``: the
+    trees' boxes as :func:`scene_sub_boxes` gives them, computed for the
+    launch if None.  A tree without small trees is refused: #5 and #8 have
+    no dense walk of its chunks to fall back to."""
     args, strides, boxes_kept = [], set(), []
-    for t in (sc.spheres, sc.triangles):
+    for t, given in zip((sc.spheres, sc.triangles), boxes or (None, None)):
         if t is None:
             args += [ctypes.c_void_p(0)] * 3
             continue
         if t.sub is None:
-            raise ValueError("#5 walks the small trees inside the chunks: "
-                             "pack the scene with ops/bvh_kernel.pack")
+            raise ValueError("#5 and #8 walk the small trees inside the "
+                             "chunks: pack the scene with ops/bvh_kernel.pack")
         n = t.chunk_len.shape[0] * t.sub.stride
-        boxes = sub_boxes(t)
+        box = sub_boxes(t) if given is None else given
         dev = t.geo.device
-        K._check(boxes, "small-tree boxes", torch.float32, (n, 8), dev)
+        K._check(box, "small-tree boxes", torch.float32, (n, 8), dev)
         K._check(t.sub.words, "small-tree words", torch.int32, (n,), dev)
         K._check(t.sub.order, "small-tree order", torch.uint8,
                  (t.geo.shape[0],), dev)
-        if boxes.data_ptr() % 16:
+        if box.data_ptr() % 16:
             raise ValueError("small-tree boxes must be 16-byte aligned")
         args += [ctypes.c_void_p(v.data_ptr())
-                 for v in (boxes, t.sub.words, t.sub.order)]
+                 for v in (box, t.sub.words, t.sub.order)]
         strides.add(t.sub.stride)
-        boxes_kept.append(boxes)
+        boxes_kept.append(box)
     if len(strides) > 1:
         raise ValueError(f"small trees of strides {strides}")
     return args, (strides.pop() if strides else 1), boxes_kept
@@ -1315,14 +1385,15 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
                       spp: int, width: int, *, max_depth: int, bg_kind: int,
                       clay: bool, record: bool = False,
                       sky: Optional[B.Background] = None,
-                      debug: Optional[str] = None):
+                      debug: Optional[str] = None, boxes=None):
     """Per-ray radiance (n_rays, 3) from the CUDA kernel for rays
     0 .. n_rays - 1, where ray id = pixel * spp + sample and pixels run
     row-major over ``width``.  With ``record``, the record variant:
     -> (radiance, codes (max_depth, n_rays) int32).  ``sky``: the SKYMAP
     background on the card, looked up in the kernel (its sky-map
     variant).  ``debug``: "normal" or "random", the inspection view's
-    kernel instead."""
+    kernel instead.  ``boxes``: the small trees' boxes
+    (:func:`scene_sub_boxes`), computed here if None."""
     global LAUNCHES, SKY_LAUNCHES, VIEW_LAUNCHES, RECORD_LAUNCHES
     global MV_LAUNCHES
     from . import _build
@@ -1345,7 +1416,7 @@ def radiance_bvh_cuda(sc: BvhScene, key: tuple[int, int], n_rays: int,
     leaf = _leaf_size(sc)
     args = (_tree_args(sc.spheres, 4) + _tree_args(sc.volumes, 4, True)
             + _tree_args(sc.triangles, 12))
-    subs, stride, _boxes = _sub_args(sc)
+    subs, stride, _boxes = _sub_args(sc, boxes)
     view = {None: 0, "normal": 1, "random": 2}[debug]
     out = torch.empty((n_rays, 3), dtype=torch.float32, device=dev)
     codes = (torch.empty((max_depth, n_rays), dtype=torch.int32, device=dev)
@@ -1399,12 +1470,14 @@ def requires_grad(sc: BvhScene) -> bool:
         v is not None and v.requires_grad for v in _rows(sc))
 
 
-def _record(sc: BvhScene, key, n_pixels: int, spp: int, width: int, **opts):
+def _record(sc: BvhScene, key, n_pixels: int, spp: int, width: int,
+            boxes=None, **opts):
     """(radiance, codes) of pixels 0 .. n_pixels - 1: the record variant on
-    a CUDA device, the plain record walk on the CPU."""
+    a CUDA device (over the small trees' ``boxes`` if given), the plain
+    record walk on the CPU."""
     if K.select_engine(sc.device) == "cuda":
         return radiance_bvh_cuda(sc, key, n_pixels * spp, spp, width,
-                                 record=True, **opts)
+                                 record=True, boxes=boxes, **opts)
     ray_ids, px, py = K.prep_rays(torch.arange(n_pixels), spp, width)
     return radiance_bvh_plain(sc, key, ray_ids, px, py, record=True, **opts)
 
@@ -1563,7 +1636,9 @@ def env_radiance(sc: BvhScene, sky: B.Background, key: tuple[int, int],
     table and primitive rows (#6, #7 under autograd) and in ``sky``'s
     texels; the walk and the shadow rays are discrete.  ``plain``: the
     plain walk, fetch and occlusion test on ``sc``'s device, the route the
-    kernels are held to."""
+    kernels are held to.  On the card the small trees' boxes
+    (:func:`scene_sub_boxes`) are computed once, from the rows this render
+    reads, for the record walk and every launch of #8."""
     from .occlusion import occluded, occluded_plain
 
     opts = dict(max_depth=max_depth, bg_kind=B.UNIFORM, clay=clay)
@@ -1573,9 +1648,13 @@ def env_radiance(sc: BvhScene, sky: B.Background, key: tuple[int, int],
                 torch.arange(n_pixels, device=sc.device), spp, width)
             _, codes = radiance_bvh_plain(sc, key, ray_ids, px, py,
                                           record=True, **opts)
+            test = occluded_plain
         else:
-            _, codes = _record(sc, key, n_pixels, spp, width, **opts)
-    test = occluded_plain if plain else occluded
+            boxes = (scene_sub_boxes(sc)
+                     if K.select_engine(sc.device) == "cuda" else None)
+            _, codes = _record(sc, key, n_pixels, spp, width, boxes=boxes,
+                               **opts)
+            test = functools.partial(occluded, boxes=boxes)
     return replay(sc, codes, key, n_pixels, spp, width, max_depth=max_depth,
                   bg_kind=B.SKYMAP, clay=clay, plain=plain, sky=sky,
                   occlude=(lambda o, d, ids, stream: test(

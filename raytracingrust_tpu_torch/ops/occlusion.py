@@ -12,7 +12,11 @@ through it ends inside it, drawn from column ``2 + ordinal`` of the
 bounce's NEE stream (``1 + max_depth + b``, render/integrator.py), so the
 test reads each ray's global id and the key.  A ray leaves the walk at its
 first candidate; the answer equals the TPU kernel's closest-hit
-``t_best < inf`` (csrc/occlusion.cu says why).
+``t_best < inf`` (csrc/occlusion.cu says why).  The kernel walks the small
+trees inside the chunks of the sphere and the triangle tree
+(ops/bvh_kernel.sub_boxes), and refuses a scene packed without them; the
+plain version tests every slot of a chunk, and its tally runs the small
+trees' any-hit twin beside it (bvh_kernel._twin_check).
 
 Rays are (3, R) float32 origins and directions, component-major, with
 (R,) int32 ray ids.  On a CPU tensor :func:`occluded` runs the plain
@@ -28,7 +32,8 @@ import torch
 
 from ..utils.rng import ray_uniforms
 from . import megakernel as K
-from .bvh_kernel import BvhScene, _leaf_size, _tree_args, _walk_all
+from .bvh_kernel import (BvhScene, _leaf_size, _sub_args, _tree_args,
+                         _walk_all)
 
 # the NEE stream's columns: the sky direction's two, then one a volume
 NEE_VOL_COL = 2
@@ -65,7 +70,9 @@ def occluded_plain(sc: BvhScene, o: torch.Tensor, d: torch.Tensor,
     ``ray_ids``, ``key`` and the NEE ``stream`` give the volumes'
     uniforms; a scene without volumes needs none of them.  ``tally``, for
     measurement only, is a ``collections.Counter`` that receives the walk's
-    node visits and sphere, volume and triangle tests."""
+    node visits and sphere, volume and triangle tests, and those of the
+    small trees' any-hit walk, which the kernel makes, with
+    "sub_mismatch" (bvh_kernel._walk_all)."""
     r = _check_rays(sc, o, d, ray_ids, key)
     o3, d3 = list(o.unbind(0)), list(d.unbind(0))
     a = K._dot3(*d3, *d3)
@@ -80,8 +87,11 @@ def occluded_plain(sc: BvhScene, o: torch.Tensor, d: torch.Tensor,
 
 
 def occluded_cuda(sc: BvhScene, o: torch.Tensor, d: torch.Tensor,
-                  ray_ids=None, key=None, stream: int = 0) -> torch.Tensor:
-    """Kernel #8: as :func:`occluded_plain`, on the card."""
+                  ray_ids=None, key=None, stream: int = 0, *,
+                  boxes=None) -> torch.Tensor:
+    """Kernel #8: as :func:`occluded_plain`, on the card.  ``boxes``: the
+    small trees' boxes (bvh_kernel.scene_sub_boxes), which a render
+    computes once for all its launches; computed here if None."""
     global LAUNCHES
     from . import _build
 
@@ -94,6 +104,7 @@ def occluded_cuda(sc: BvhScene, o: torch.Tensor, d: torch.Tensor,
     leaf = _leaf_size(sc)
     args = (_tree_args(sc.spheres, 4) + _tree_args(sc.volumes, 4, True)
             + _tree_args(sc.triangles, 12))
+    subs, stride, _boxes = _sub_args(sc, boxes)
     out = torch.empty((r,), dtype=torch.bool, device=sc.device)
     if r == 0:
         return out
@@ -105,6 +116,7 @@ def occluded_cuda(sc: BvhScene, o: torch.Tensor, d: torch.Tensor,
             ctypes.c_void_p(0 if ray_ids is None else ray_ids.data_ptr()),
             k0, k1, int(stream), ctypes.c_void_p(o.data_ptr()),
             ctypes.c_void_p(d.data_ptr()), r, ctypes.c_void_p(out.data_ptr()),
+            *subs, stride,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     if err:
         raise RuntimeError(f"rtrt_occlusion launch failed: CUDA error {err} "
@@ -114,8 +126,9 @@ def occluded_cuda(sc: BvhScene, o: torch.Tensor, d: torch.Tensor,
 
 
 def occluded(sc: BvhScene, o: torch.Tensor, d: torch.Tensor, ray_ids=None,
-             key=None, stream: int = 0) -> torch.Tensor:
-    """#8 on a CUDA device, its plain version on the CPU."""
-    cuda = K.select_engine(sc.device) == "cuda"
-    return (occluded_cuda if cuda else occluded_plain)(sc, o, d, ray_ids,
-                                                       key, stream)
+             key=None, stream: int = 0, *, boxes=None) -> torch.Tensor:
+    """#8 on a CUDA device (over the small trees' ``boxes`` if given), its
+    plain version on the CPU."""
+    if K.select_engine(sc.device) == "cuda":
+        return occluded_cuda(sc, o, d, ray_ids, key, stream, boxes=boxes)
+    return occluded_plain(sc, o, d, ray_ids, key, stream)

@@ -580,16 +580,41 @@ def _shadow_rays(sc, sky, key, n_pix, spp, w, depth):
     return rays
 
 
+def _family_rays(scene, device, seed):
+    """tests/test_torch_occlusion_subtree.py's grazing, surface and
+    axis-parallel families over the scene's sphere and triangle trees, as
+    shadow rays on ``device``: [(name, o, d, ray ids)]."""
+    from test_torch_occlusion_subtree import occlusion_families
+
+    fams = occlusion_families(TB.pack(scene, 8, 8, "cpu"),
+                              np.random.default_rng(seed))
+    out = []
+    for name, (o, d) in fams.items():
+        o, d = (torch.tensor(np.asarray(v, np.float32).T.copy(),
+                             device=device) for v in (o, d))
+        ids = torch.arange(o.shape[1], dtype=torch.int32, device=device)
+        out.append((name, o, d, ids))
+    return out
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("make", [_stress, _sheet], ids=["stress", "sheet"])
+@pytest.mark.parametrize("make", [_stress, _sheet, _cloud, _field],
+                         ids=["stress", "sheet", "cloud", "field"])
 def test_occlusion_kernel_matches_plain_on_card(cuda_device, make):
     """#8 equals its plain version on every shadow ray of every bounce of
-    an env render at 64x48, and refuses CPU tensors."""
+    an env render at 64x48 and on the grazing, surface and axis-parallel
+    families over the scene's trees (chunks of more than 64 slots: #8
+    walks their small trees; the tally's twin answers as the dense walk);
+    it refuses CPU tensors and a tree without small trees."""
+    import collections
+
     from raytracingrust_tpu_torch.ops import occlusion as TO
 
     scene = _env(make())
     w, h = 64, 48
     sc, key, spp, _ = _record_inputs(scene, w, h, 5, cuda_device)
+    assert max(t.chunk_len.max() for t in (sc.spheres, sc.triangles)
+               if t is not None) > TB.SUB_DENSE
     sky = scene.to(cuda_device).background
     rays = _shadow_rays(sc, sky, key, w * h, spp, w,
                         scene.settings.max_ray_depth)
@@ -602,19 +627,33 @@ def test_occlusion_kernel_matches_plain_on_card(cuda_device, make):
         blocked, total = blocked + int(got.sum()), total + got.numel()
     assert TO.LAUNCHES == before + len(rays)
     assert 0 < blocked < total  # both outcomes
+    tally = collections.Counter()
+    for name, o, d, ids in _family_rays(scene, cuda_device, 6):
+        got = TO.occluded_cuda(sc, o, d, ids, key, 1)
+        want = TO.occluded_plain(sc, o, d, ids, key, 1, tally=tally)
+        assert torch.equal(got, want), (name, int((got != want).sum()))
+    assert tally["sub_mismatch"] == 0 and tally["sub_nodes"] > 0
     cpu = TB.pack(scene, w, h, "cpu")
     with pytest.raises(ValueError, match="CUDA"):
         TO.occluded_cuda(cpu, rays[0][0].cpu(), rays[0][1].cpu())
+    for name in ("spheres", "triangles"):
+        tree = getattr(sc, name)
+        if tree is not None:
+            bare = sc._replace(**{name: tree._replace(sub=None)})
+            with pytest.raises(ValueError, match="small trees"):
+                TO.occluded_cuda(bare, *rays[0][:2])
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("make", [_stress, _sheet], ids=["stress", "sheet"])
-def test_env_radiance_matches_plain_route_on_card(cuda_device, make):
+def test_env_radiance_matches_plain_route_on_card(cuda_device, make,
+                                                  monkeypatch):
     """The env radiance through the record kernel, #6 and #8 equals the
-    all-plain route bit for bit; the gradient in the packed tensors and the
-    sky's texels through the kernels (#7 as the fetch's backward) agrees
-    with autograd through the plain route within rtol 2e-3 of each entry
-    plus 2e-5 of the largest."""
+    all-plain route bit for bit, the small trees' boxes computed once for
+    the render's launches (one call of sub_boxes a tree); the gradient in
+    the packed tensors and the sky's texels through the kernels (#7 as the
+    fetch's backward) agrees with autograd through the plain route within
+    rtol 2e-3 of each entry plus 2e-5 of the largest."""
     from raytracingrust_tpu_torch.ops import fetch as TF
     from raytracingrust_tpu_torch.ops import occlusion as TO
 
@@ -625,12 +664,19 @@ def test_env_radiance_matches_plain_route_on_card(cuda_device, make):
     sky = scene.to(cuda_device).background
     args = (key, w * h, spp, w)
     counts = (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES, TO.LAUNCHES)
+    boxes_of, calls = TB.sub_boxes, []
+    monkeypatch.setattr(TB, "sub_boxes",
+                        lambda t: calls.append(t) or boxes_of(t))
     with torch.no_grad():
         ker = TB.env_radiance(sc, sky, *args, max_depth=depth)
+    monkeypatch.setattr(TB, "sub_boxes", boxes_of)
+    assert len(calls) == sum(t is not None for t in (sc.spheres,
+                                                     sc.triangles))
+    with torch.no_grad():
         plain = TB.env_radiance(sc, sky, *args, max_depth=depth, plain=True)
     assert (TB.RECORD_LAUNCHES, TF.FETCH_LAUNCHES) == (counts[0] + 1,
                                                        counts[1] + 1)
-    assert TO.LAUNCHES > counts[2]
+    assert TO.LAUNCHES > counts[2] + 1
     assert torch.equal(ker.view(torch.int32), plain.view(torch.int32))
     assert bool(torch.isfinite(ker).all()) and ker.abs().sum() > 0
 
@@ -769,14 +815,21 @@ def test_zoo_kernels_match_plain_on_card(cuda_device, depth, make):
 
 
 @pytest.mark.gpu
-def test_sky_zoo_occlusion_and_env_on_card(cuda_device):
-    """The zoo under a sky with importance sampling at 64x48 depth 4: #8
-    equals its plain version on every shadow ray, some blocked by the fog
-    alone; the env radiance through the kernels equals the all-plain route
-    bit for bit."""
+@pytest.mark.parametrize("make", [lambda: _zoo(depth=4), _cloud_zoo],
+                         ids=["zoo", "cloud"])
+def test_sky_zoo_occlusion_and_env_on_card(cuda_device, make):
+    """The zoo (its chunk of 47 under the dense loop) and the 420 spheres
+    with the zoo's kinds (chunks of more than 64 slots: the small trees)
+    under a sky with importance sampling at 64x48 depth 4: #8 equals its
+    plain version on every shadow ray, some blocked by the fog alone, and
+    on the grazing, surface and axis-parallel families over the spheres,
+    their free flights drawn by their ids; the env radiance through the
+    kernels equals the all-plain route bit for bit."""
+    import collections
+
     from raytracingrust_tpu_torch.ops import occlusion as TO
 
-    scene = _env(_zoo(depth=4))
+    scene = _env(make())
     w, h = 64, 48
     sc, key, spp, _ = _record_inputs(scene, w, h, 5, cuda_device)
     sky = scene.to(cuda_device).background
@@ -789,6 +842,12 @@ def test_sky_zoo_occlusion_and_env_on_card(cuda_device):
                                                   stream))
         fog_only += int((got & ~TO.occluded_plain(solid, o, d)).sum())
     assert fog_only > 0
+    tally = collections.Counter()
+    for name, o, d, ids in _family_rays(scene, cuda_device, 7):
+        got = TO.occluded_cuda(sc, o, d, ids, key, 2)
+        want = TO.occluded_plain(sc, o, d, ids, key, 2, tally=tally)
+        assert torch.equal(got, want), (name, int((got != want).sum()))
+    assert tally["sub_mismatch"] == 0 and tally["volume_tests"] > 0
     with torch.no_grad():
         ker = TB.env_radiance(sc, sky, key, w * h, spp, w, max_depth=4)
         plain = TB.env_radiance(sc, sky, key, w * h, spp, w, max_depth=4,

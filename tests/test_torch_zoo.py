@@ -9,12 +9,16 @@ test through fog, and the helpers they share (``cbrt01``,
 
 On the CPU the port runs the plain versions; the CUDA kernels are held to
 them on the card by tests/test_torch_gpu.py and chip_smoke.py.  The JAX
-references run in interpret mode, under jax.jit or op by op, at 24x16 and
-below and at depth 3 at most; a module fixture builds the zoo once.
+references run in interpret mode at 24x16 and below and at depth 3 at
+most; a module fixture builds the zoo once, another lowers every JAX
+reference under jax.jit, then compiles them together on threads at XLA's
+backend optimisation level 0 (the same IEEE operations, less LLVM work)
+and runs each once.
 """
 
 import dataclasses
 import os
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -107,6 +111,163 @@ def zoos():
     return {d: (zoo(J, depth=d), zoo(T, depth=d)) for d in (1, 3)}
 
 
+def _cbrt_uniforms():
+    u = np.random.default_rng(0).random(200_000).astype(np.float32)
+    u[:2] = [0.0, 2.0 ** -23]
+    return u
+
+
+def _image_of(j, w, h, engine):
+    """jnp image of the JAX scene ``j`` (its albedos and the key as
+    arguments, the rest of the scene constants)."""
+    def image(albedo, key):
+        return j_render(JG.apply_params(j, {"albedo": albedo}), w, h,
+                        key=key, engine=engine)
+    return image
+
+
+def _record_of(j, depth):
+    """The JAX record kernel's codes (W*H*2 rays, spp 2), flat, of the
+    key words."""
+    cb = j.cbvh
+    ray_ids, px, py, rows, n = PK._prep_rays(
+        jnp.arange(W * H, dtype=jnp.int32), 2, W)
+    mix, d_mix, m_pad = PK._mixn_cfg(j)
+    run = PK._bvh_call(depth, PK._bvh_kinds(j), j.background.kind, False,
+                       rows, True, cb.n_sph_chunks, cb.n_tri_chunks,
+                       cb.sph_nodes, cb.tri_nodes,
+                       n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
+                       n_vol=j.spheres.num_volumes, record=True, mix=mix,
+                       d_mix=d_mix, m_pad=m_pad)
+    fp, scal, tens = PK._bvh_prep(j, W, H, mix, (), m_pad=m_pad)
+
+    def record(words):
+        *_, rec = run(words, fp, scal, tens, ray_ids, px, py)
+        return PK._bvh_rec_flat(rec, rows, depth, n)
+    return record
+
+
+def _replay_of(j, codes):
+    """(radiance, VJP in every PARAM_PATHS leaf) of JAX ``replay_radiance``
+    over the port's ``codes`` (max_depth, R), of the cotangent."""
+    n = codes.shape[1]
+    jids, jpx, jpy, *_ = PK._prep_rays(jnp.arange(W * H, dtype=jnp.int32),
+                                       2, W)
+    flat = lambda v: jnp.asarray(v).reshape(-1)[:n]
+    rec = jnp.asarray(codes.T)
+
+    def replay_and_grads(params, cts):
+        want, vjp = jax.vjp(lambda p: replay_radiance(
+            JG.apply_params(j, p), rec, _words(), flat(jids), flat(jpx),
+            flat(jpy), W, H), params)
+        return want, vjp(cts)[0]
+    return replay_and_grads
+
+
+def fog_builder(mod, bg):
+    """tests/test_env_is_kernel.py's fog scene under a small sky."""
+    sky = np.full((16, 32, 3), 0.05, np.float32)
+    sky[2:4, 5:8] = 25.0
+    b = mod.SceneBuilder()
+    b.camera = mod.Camera.create((0, 1, 4), (0, 0.5, 0), (0, 1, 0), 55.0,
+                                 1.0)
+    b.settings = mod.RenderSettings(samples_per_pixel=1, max_ray_depth=3,
+                                    env_importance_sampling=True)
+    iso = b.add_material(mod.Isotropic((0.6, 0.6, 0.6)))
+    lam = b.add_material(mod.Lambertian((0.7, 0.6, 0.5)))
+    vi = b.add_sphere((0, 0.5, 0), 1.0, iso)
+    b.add_volume(vi, 0.6)
+    b.add_sphere((2, 0.5, 0), 0.4, lam)
+    b.background = bg.skymap_from_array(sky)
+    return b
+
+
+def _fog_rays():
+    """128 seeded shadow rays (o, d, ids) and the NEE stream."""
+    gen = np.random.default_rng(9)
+    o = gen.uniform(-2.0, 2.0, (128, 3)).astype(np.float32)
+    d = gen.standard_normal((128, 3)).astype(np.float32)
+    return o, d, np.arange(128, dtype=np.int32), nee_stream(1, 3)
+
+
+ML_W, ML_H = 16, 12  # make_loss's frame
+ML_NAMES = ["albedo", "emission", "sphere_center", "sphere_radius"]
+FOG_KEY = 5
+
+
+@pytest.fixture(scope="module")
+def jax_refs(zoos):
+    """Every JAX reference of this file: cbrt01; the zoo's images at depth
+    1 (both engines, seed SEED) and depth 3 (the packet kernel at seed 0,
+    the XLA engine at seeds 0 and 1); the nested mixes' images at depth 1
+    and 3; the record kernel's codes at depth 3; ``replay_radiance`` and
+    its VJP over the port's codes; make_loss's image and (compiled, run by
+    its test) jax.grad of its loss of a target; the occlusion kernel
+    through fog.  Each lowered under jax.jit, then all compiled together
+    on threads at XLA's backend optimisation level 0, then run once."""
+    from raytracingrust_tpu.models.backgrounds import Background as JBg
+
+    jobs = {}
+
+    def add(name, fn, *args):
+        jobs[name] = (jax.jit(fn).lower(*args), args)
+
+    add("cbrt01", jrng.cbrt01, jnp.asarray(_cbrt_uniforms()))
+    for depth, engine, seed in ((1, "pallas_bvh", SEED), (1, "xla", SEED),
+                                (3, "pallas_bvh", 0), (3, "xla", 0),
+                                (3, "xla", 1)):
+        j = zoos[depth][0]
+        add(("zoo", depth, engine, seed), _image_of(j, W, H, engine),
+            j.materials.albedo, jnp.asarray(jrng.base_key(seed)))
+    mixn = {}
+    for depth in (1, 3):
+        j = mixn[depth] = mixn_builder(J, depth).build(with_bvh=True)
+        add(("mixn", depth), _image_of(j, 12, 12, "pallas_bvh"),
+            j.materials.albedo, jnp.asarray(jrng.base_key(0)))
+    add("record", _record_of(zoos[3][0], 3), _words())
+
+    t = zoos[3][1]
+    ids, px, py = TK.prep_rays(torch.arange(W * H), 2, W)
+    with torch.no_grad():
+        _, codes = BK.radiance_bvh_plain(
+            BK.pack(t, W, H, "cpu"), trng.base_key(SEED), ids, px, py,
+            record=True, max_depth=3, bg_kind=t.background.kind,
+            clay=False)
+    codes = codes.numpy()
+    cts = np.random.default_rng(0).standard_normal(
+        (codes.shape[1], 3)).astype(np.float32)
+    j = zoos[3][0]
+    add("replay", _replay_of(j, codes),
+        JG.extract_params(j, list(TG.PARAM_PATHS)), jnp.asarray(cts))
+
+    j = zoo(J, spp=1, depth=2)
+    add("ml_image", _image_of(j, ML_W, ML_H, "pallas_bvh"),
+        j.materials.albedo, jnp.asarray(jrng.base_key(SEED)))
+    add("ml_grad", lambda params, target: jax.grad(JG.make_loss(
+        j, target, ML_W, ML_H, seed=SEED, engine="pallas_bvh"))(params),
+        JG.extract_params(j, ML_NAMES),
+        jnp.zeros((ML_H, ML_W, 3), jnp.float32))
+
+    fog = fog_builder(J, JBg).build(with_bvh=True)
+    o, d, fog_ids, stream = _fog_rays()
+    words = jnp.asarray(np.array(trng.base_key(FOG_KEY), np.uint32).view(
+        np.int32))
+    add("occlusion", lambda o, d, ids: PK.occlusion_bvh(
+        fog, o, d, stream, words, ids, interpret=True), jnp.asarray(o),
+        jnp.asarray(d), jnp.asarray(fog_ids))
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        compiled = dict(zip(jobs, ex.map(
+            lambda job: job[0].compile(compiler_options={
+                "xla_backend_optimization_level": 0}), jobs.values())))
+    out = {"mixn_scenes": mixn, "codes": codes, "cts": cts,
+           "ml_grad": compiled.pop("ml_grad")}
+    for name, fn in compiled.items():
+        got = fn(*jobs[name][1])
+        out[name] = jax.tree_util.tree_map(np.asarray, got)
+    return out
+
+
 def port_image(scene, w=W, h=H, seed=0):
     """The BVH route's image (the dispatch takes the zoo, a sphere scene
     of the brute kernels' size, to #1; the nested mixes to #5)."""
@@ -122,7 +283,7 @@ def _ulps(a, b):
 
 # ------------------------------------------------------- (a) the helpers
 
-def test_cbrt01_and_resolve_mix_against_jax():
+def test_cbrt01_and_resolve_mix_against_jax(jax_refs):
     """``resolve_mix`` is bit for bit JAX's on numpy-seeded ids and coins
     over the zoo's table (its mix and every other row).  ``cbrt01`` is
     JAX's formula, ``exp(log(max(u, 1e-38)) * (1/3))``, but PyTorch's CPU
@@ -132,9 +293,8 @@ def test_cbrt01_and_resolve_mix_against_jax():
     flushes the subnormal 1e-38 to zero (cbrt01 = 0) where PyTorch keeps it
     (2.2e-13).  On the card the kernels and PyTorch share CUDA's logf and
     expf, which chip_smoke.py holds bit for bit."""
-    u = np.random.default_rng(0).random(200_000).astype(np.float32)
-    u[:2] = [0.0, 2.0 ** -23]
-    want = np.asarray(jax.jit(jrng.cbrt01)(jnp.asarray(u)))
+    u = _cbrt_uniforms()
+    want = jax_refs["cbrt01"]
     # PyTorch's CPU log can be wrong on the first parallel call of a
     # process: one worker thread's chunk comes out up to ~1,500 ulp off,
     # in about one process in five; every later call is within 1 ulp.  So
@@ -196,19 +356,19 @@ def test_volume_tree_equals_jax():
 # ------------------------------------------------------- (b) the renders
 
 @pytest.mark.parametrize("engine", ["xla", "pallas_bvh"])
-def test_zoo_depth1_within_four_ulp(zoos, engine):
+def test_zoo_depth1_within_four_ulp(zoos, jax_refs, engine):
     """Primary visibility of the zoo (the fog sphere's free flight, the mix
     resolved at the hit, the gradient background) against both JAX
     engines: at most four ulp apart, as test_gradient_background_depth1_
     within_four_ulp (the background's 1/sqrt against rsqrt), measured 2."""
-    j, t = zoos[1]
+    t = zoos[1][1]
     got = port_image(t, seed=SEED)
-    want = np.asarray(j_render(j, W, H, seed=SEED, engine=engine))
+    want = jax_refs["zoo", 1, engine, SEED]
     assert (got > 0).any()
     np.testing.assert_array_max_ulp(got, want, maxulp=4)
 
 
-def test_zoo_depth3_within_jax_bounds(zoos):
+def test_zoo_depth3_within_jax_bounds(zoos, jax_refs):
     """At depth 3 against the JAX packet kernel (interpret mode): the
     port's bounds, at most 0.08 of the channels flipped and a mean abs diff
     under 4e-2 (measured 0.044 and 0.0096 at seed 0).  Against the XLA
@@ -216,23 +376,22 @@ def test_zoo_depth3_within_jax_bounds(zoos):
     between its two engines here), so it is held to bench.py::run_parity's
     criterion: the mean abs diff within 1.5 times the XLA engine's own
     seed-to-seed mean abs diff (measured 0.0275 against 0.117)."""
-    j, t = zoos[3]
+    t = zoos[3][1]
     got = port_image(t)
-    want = np.asarray(j_render(j, W, H, seed=0, engine="pallas_bvh"))
+    want = jax_refs["zoo", 3, "pallas_bvh", 0]
     assert_within_jax_bounds(want, got, frac=0.08)
-    xa = np.asarray(j_render(j, W, H, seed=0, engine="xla"))
-    xb = np.asarray(j_render(j, W, H, seed=1, engine="xla"))
+    xa, xb = (jax_refs["zoo", 3, "xla", s] for s in (0, 1))
     assert np.abs(got - xa).mean() <= 1.5 * np.abs(xa - xb).mean()
 
 
-def test_nested_mixes_triangles_and_fog_vs_jax():
+def test_nested_mixes_triangles_and_fog_vs_jax(jax_refs):
     """Mixes nested two deep on a triangle sheet and a sphere, with a fog
     sphere: the material table equal to JAX's array for array (a nested
     mix's children after it), at depth 1 within four ulp of the JAX packet
     kernel (interpret mode), at depth 3 within the port's bounds of it."""
     for depth in (1, 3):
-        j, t = (mixn_builder(mod, depth).build(with_bvh=True)
-                for mod in (J, T))
+        j = jax_refs["mixn_scenes"][depth]
+        t = mixn_builder(T, depth).build(with_bvh=True)
         assert PK._mix_depth(j) == 2 and t.spheres.num_volumes == 1
         for name in ("kind", "mix_first", "mix_second", "mix_factor",
                      "albedo", "emission", "ir", "fuzz"):
@@ -240,7 +399,7 @@ def test_nested_mixes_triangles_and_fog_vs_jax():
                 getattr(t.materials, name).numpy(),
                 np.asarray(getattr(j.materials, name)), err_msg=name)
         got = port_image(t, 12, 12)
-        want = np.asarray(j_render(j, 12, 12, seed=0, engine="pallas_bvh"))
+        want = jax_refs["mixn", depth]
         if depth == 1:
             np.testing.assert_array_max_ulp(got, want, maxulp=4)
         else:
@@ -254,7 +413,7 @@ def _words(seed=SEED):
         np.int32))
 
 
-def test_zoo_record_codes_match_jax(zoos):
+def test_zoo_record_codes_match_jax(zoos, jax_refs):
     """The plain record walk's codes on the zoo (spp 2, depth 3) against
     the JAX record kernel's (interpret mode), volume span included (volume
     slots from the sphere tree's slot count).  Bounce 0 is equal bit for
@@ -263,21 +422,9 @@ def test_zoo_record_codes_match_jax(zoos):
     already ended, which may record a winner where the port records -1 (its
     replay ignores them), and a lobe's transcendental ulp may flip a path:
     at least 0.9 of all entries are equal (measured 0.957 at spp 1)."""
-    j, t = zoos[3]
-    cb = j.cbvh
+    t = zoos[3][1]
     depth = 3
-    ray_ids, px, py, rows, n = PK._prep_rays(
-        jnp.arange(W * H, dtype=jnp.int32), 2, W)
-    mix, d_mix, m_pad = PK._mixn_cfg(j)
-    run = PK._bvh_call(depth, PK._bvh_kinds(j), j.background.kind, False,
-                       rows, True, cb.n_sph_chunks, cb.n_tri_chunks,
-                       cb.sph_nodes, cb.tri_nodes,
-                       n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
-                       n_vol=j.spheres.num_volumes, record=True, mix=mix,
-                       d_mix=d_mix, m_pad=m_pad)
-    fp, scal, tens = PK._bvh_prep(j, W, H, mix, (), m_pad=m_pad)
-    *_, rec = run(_words(), fp, scal, tens, ray_ids, px, py)
-    want = np.asarray(PK._bvh_rec_flat(rec, rows, depth, n)).T
+    want = jax_refs["record"].T
     ids, tpx, tpy = TK.prep_rays(torch.arange(W * H), 2, W)
     sc = BK.pack(t, W, H, "cpu")
     with torch.no_grad():
@@ -296,18 +443,19 @@ def test_zoo_record_codes_match_jax(zoos):
     assert (got == want).mean() >= 0.9
 
 
-def test_zoo_replay_matches_jax(zoos):
+def test_zoo_replay_matches_jax(zoos, jax_refs):
     """The port's replay (plain fetch in raw mode, the mix re-resolved, the
     fog's free flight recomputed) on its own codes against JAX
-    ``replay_radiance`` on the same codes, op by op, on the zoo at spp 2
-    depth 3: radiance within atol 1e-5 on every ray, and the VJP of a
-    numpy-seeded cotangent in every PARAM_PATHS leaf within rtol 1e-3 of
-    each entry plus 1e-5 of the largest.  (Under jax.jit XLA's fused
+    ``replay_radiance`` on the same codes, under jax.jit at XLA's backend
+    optimisation level 0 (``jax_refs``), on the zoo at spp 2 depth 3:
+    radiance within atol 1e-5 on every ray, and the VJP of a numpy-seeded
+    cotangent in every PARAM_PATHS leaf within rtol 1e-3 of each entry
+    plus 1e-5 of the largest.  (At the default level XLA's fused
     arithmetic moves a path that hits the mix sphere by 3e-5 of its
-    radiance, and its center gradient by 1.5%; op by op the two replays
-    agree bit for bit on those rays.)  The replay's forward equals the
-    walk's radiance bit for bit."""
-    j, t = zoos[3]
+    radiance, and its center gradient by 1.5%; op by op, and at level 0,
+    the two replays agree within these bounds.)  The replay's forward
+    equals the walk's radiance bit for bit."""
+    t = zoos[3][1]
     ids, px, py = TK.prep_rays(torch.arange(W * H), 2, W)
     opts = dict(max_depth=3, bg_kind=t.background.kind, clay=False)
     sc0 = BK.pack(t, W, H, "cpu")
@@ -317,23 +465,15 @@ def test_zoo_replay_matches_jax(zoos):
         again = BK.replay(sc0, codes, trng.base_key(SEED), W * H, 2, W,
                           **opts)
     np.testing.assert_array_equal(again.numpy(), rad.numpy())
-    n = rad.shape[0]
-    cts = np.random.default_rng(0).standard_normal((n, 3)).astype(
-        np.float32)
-    jids, jpx, jpy, *_ = PK._prep_rays(jnp.arange(W * H, dtype=jnp.int32),
-                                       2, W)
-    flat = lambda v: jnp.asarray(v).reshape(-1)[:n]
-    rec = jnp.asarray(codes.numpy().T)
-    want, vjp = jax.vjp(lambda s: replay_radiance(
-        s, rec, _words(), flat(jids), flat(jpx), flat(jpy), W, H), j)
-    (d_scene,) = vjp(jnp.asarray(cts))
+    np.testing.assert_array_equal(codes.numpy(), jax_refs["codes"])
+    cts = jax_refs["cts"]
+    want, want_grads = jax_refs["replay"]
     params = {k: v.clone().requires_grad_(True) for k, v in
               TG.extract_params(t, list(TG.PARAM_PATHS)).items()}
     sc = BK.pack(TG.apply_params(t, params), W, H, "cpu")
     got = BK.replay(sc, codes, trng.base_key(SEED), W * H, 2, W, **opts)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=0, atol=1e-5)
-    want_grads = JG.extract_params(d_scene, list(TG.PARAM_PATHS))
     grads = torch.autograd.grad(got, list(params.values()), torch.tensor(cts),
                                 allow_unused=True)
     live = 0
@@ -349,7 +489,7 @@ def test_zoo_replay_matches_jax(zoos):
     assert np.abs(np.asarray(want_grads["sphere_center"])[-1]).max() > 0
 
 
-def test_zoo_make_loss_matches_jax_pallas_bvh():
+def test_zoo_make_loss_matches_jax_pallas_bvh(jax_refs):
     """Port ``make_loss`` gradients on the zoo (16x12 spp 1 depth 2) in the
     albedos (the mix's two leaves and the fog's phase material among them),
     emissions and every sphere's center and radius against jax.grad of JAX ``make_loss(engine="pallas_bvh")``
@@ -359,17 +499,16 @@ def test_zoo_make_loss_matches_jax_pallas_bvh():
     two forwards by more than 1e-4 (a path flipped by a transcendental's
     ulp; 5 of 192) is left out of both losses: its target is each
     package's own render there."""
-    w, h = 16, 12
+    w, h = ML_W, ML_H
     j, t = (zoo(mod, spp=1, depth=2) for mod in (J, T))
-    names = ["albedo", "emission", "sphere_center", "sphere_radius"]
+    names = ML_NAMES
     target = np.random.default_rng(1).random((h, w, 3)).astype(np.float32)
-    img_j = np.asarray(j_render(j, w, h, seed=SEED, engine="pallas_bvh"))
+    img_j = jax_refs["ml_image"]
     img_t = port_image(t, w, h, seed=SEED)
     flip = (np.abs(img_j - img_t) > 1e-4).any(-1)
     assert flip.sum() <= 8, flip.sum()
-    want = jax.jit(jax.grad(JG.make_loss(
-        j, np.where(flip[..., None], img_j, target), w, h, seed=SEED,
-        engine="pallas_bvh")))(JG.extract_params(j, names))
+    want = jax_refs["ml_grad"](JG.extract_params(j, names), jnp.asarray(
+        np.where(flip[..., None], img_j, target)))
     _, got = TG.render_and_grad(t, np.where(flip[..., None], img_t, target),
                                 names, w, h, seed=SEED, device="cpu",
                                 engine="bvh")
@@ -383,43 +522,18 @@ def test_zoo_make_loss_matches_jax_pallas_bvh():
 
 # ------------------------------------------------------ (d) fog occlusion
 
-def test_occluded_plain_through_fog_matches_jax_kernel():
+def test_occluded_plain_through_fog_matches_jax_kernel(jax_refs):
     """``occluded_plain`` against the JAX occlusion kernel (interpret mode)
     on tests/test_env_is_kernel.py's fog scene: 128 seeded rays, each
     volume's free flight drawn from column 2 of the NEE stream by the ray's
     id; bit for bit, with rays blocked by the fog alone among them."""
-    from raytracingrust_tpu.models.backgrounds import Background as JBg
     from raytracingrust_tpu_torch.models.backgrounds import Background as TBg
 
-    sky = np.full((16, 32, 3), 0.05, np.float32)
-    sky[2:4, 5:8] = 25.0
-    scenes = []
-    for mod, bg in ((J, JBg), (T, TBg)):
-        b = mod.SceneBuilder()
-        b.camera = mod.Camera.create((0, 1, 4), (0, 0.5, 0), (0, 1, 0),
-                                     55.0, 1.0)
-        b.settings = mod.RenderSettings(samples_per_pixel=1, max_ray_depth=3,
-                                        env_importance_sampling=True)
-        iso = b.add_material(mod.Isotropic((0.6, 0.6, 0.6)))
-        lam = b.add_material(mod.Lambertian((0.7, 0.6, 0.5)))
-        vi = b.add_sphere((0, 0.5, 0), 1.0, iso)
-        b.add_volume(vi, 0.6)
-        b.add_sphere((2, 0.5, 0), 0.4, lam)
-        b.background = bg.skymap_from_array(sky)
-        scenes.append(b.build(with_bvh=True))
-    j, t = scenes
+    t = fog_builder(T, TBg).build(with_bvh=True)
     assert select_engine(t) == "env"
-    r = 128
-    key = trng.base_key(5)
-    gen = np.random.default_rng(9)
-    o = gen.uniform(-2.0, 2.0, (r, 3)).astype(np.float32)
-    d = gen.standard_normal((r, 3)).astype(np.float32)
-    ids = np.arange(r, dtype=np.int32)
-    stream = nee_stream(1, 3)
-    want = np.asarray(PK.occlusion_bvh(
-        j, jnp.asarray(o), jnp.asarray(d), stream,
-        jnp.asarray(np.array(key, np.uint32).view(np.int32)),
-        jnp.asarray(ids), interpret=True))
+    key = trng.base_key(FOG_KEY)
+    o, d, ids, stream = _fog_rays()
+    want = jax_refs["occlusion"]
     sc = BK.pack(t, 8, 8, "cpu")
     args = (torch.tensor(o.T.copy()), torch.tensor(d.T.copy()))
     got = OC.occluded(sc, *args, torch.tensor(ids), key, stream).numpy()
