@@ -198,6 +198,34 @@ non-zero exit, and prints no result:
    comparison: tri_brute built with its BVH on #5 (its kernel, warm
    render and fit step on the record walk and the replay).
    ``python3 chip_smoke.py 14`` runs the build and this phase alone.
+15. the generic engine ("xla": render/integrator.py, eager PyTorch on the
+   card, no kernel of csrc/: every render on it must launch none) at full
+   frame through ``render_linear``, ``diff.inverse.fit`` and CLI
+   ``render``, ``fit`` and ``info``, each render's warm wall, primary
+   Mrays/s and peak memory printed with the card's name and power limit:
+   (a) scenes/benchmark.json at 1000x1000 spp 8 forced to "xla" against
+   #1 on the same key: at depth 1 at most XLA_PIXEL_SHARE of the pixels
+   differ, at depth 6 the mean abs diff at most 1.5 times #1's own between
+   two seeds; (b) scenes/bvh_stress.json at 1000x1000 spp 8 depth 4,
+   built with its BVH and forced to "xla" (the flat BVH's walk) and built
+   without it (the dispatch's "xla", the dense scan; its CLI render and
+   info): at depth 1 at most XLA_PIXEL_SHARE of the pixels differ between
+   the two (at depth 4 the share is printed: a bounced ray's all-pairs
+   quadratic may accept its own sphere at t ~ 1e-4, which the direct form
+   then rejects, so the dense scan reports a miss where the walk finds the
+   next hit, as the JAX package's two routes do), each held to #5 as (a)
+   holds to #1; (c) the zoo under phase 9's sky
+   with importance sampling at 600x400 spp 16 depth 8, without its BVH
+   ("xla") against the env path with it, as (a); (d) the depth-13 fit of
+   scenes/cornell_spheres.json without its BVH at 512x512 spp 8: CLI
+   ``fit`` for 2 steps, ``diff.inverse.fit``'s warm step and its peak
+   memory, the gradients finite and nonzero, a directional FD probe
+   within 5%; (e) at 256x256 the Normal and Random views of
+   benchmark.json without its BVH within 2 ulp of 1 of #5's views with it
+   on at least XLA_VIEW_SHARE of the pixels, an empty scene rendering its
+   background, and a cube of fog under the sky with importance sampling
+   rendering finite.  ``python3 chip_smoke.py 15`` runs the build and
+   this phase alone.
 
 The line before the last is the kernel report as JSON: each kernel's
 launches on its own path (the forward kernel's in the CLI renders of
@@ -3634,9 +3662,368 @@ def tri_phase(dev, card: str) -> list:
     ]
 
 
+
+# ---- phase 15: the generic engine ("xla", eager PyTorch on the card)
+XLA_BENCH = (1000, 1000, 8, 6)   # width, height, spp, depth
+XLA_STRESS = (1000, 1000, 8, 4)
+XLA_ENV = (600, 400, 16, 8)
+XLA_FIT = (512, 512, 8, 13)
+XLA_SMALL = (256, 256, 8)
+# pixels that may differ between two routes of the same rays: a near tie
+# of two primitives' t that the all-pairs quadratic and the direct form
+# order differently
+XLA_PIXEL_SHARE = 1e-3
+# after bounces a near tie sends a ray down another path: two searches of
+# the same rays are held as the JAX package holds its dense scan and flat
+# walk (tests/test_bvh.py::_assert_renders_match): at most this share of
+# channels not close (rtol 1e-5, atol 1e-6), a mean abs gap under the next
+XLA_CHANNEL_SHARE = 1e-2
+XLA_MEAN_GAP = 5e-3
+XLA_FIT_STEPS = 2
+# the views against #5's: within 2 ulp of 1 on at least this share of
+# pixels
+XLA_VIEW_SHARE = 0.999
+
+
+def _no_kernel(label: str) -> None:
+    """Raises unless no kernel of the port launched since the last
+    :func:`_reset_launches`: the generic engine runs no kernel of csrc/."""
+    fired = {k: v for k, v in _launches().items() if v}
+    if fired:
+        raise AssertionError(f"{label}: the generic engine launched {fired}")
+
+
+def _route_render(scene, w: int, h: int, dev, label: str, engine=None,
+                  seed: int = 0, kernel: bool = False) -> tuple:
+    """(image, wall s, peak GB) of one ``render_linear`` on ``engine``
+    (None: the dispatch's), synchronised; the image must be finite.  The
+    generic engine must launch no kernel; ``kernel``: the route must
+    launch one."""
+    import torch
+
+    from raytracingrust_tpu_torch.render.render import render_linear
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_launches()
+    t0 = time.perf_counter()
+    img = render_linear(scene, w, h, seed=seed, device=dev, engine=engine)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if kernel:
+        if not any(_launches().values()):
+            raise AssertionError(f"{label}: no kernel launched")
+    else:
+        _no_kernel(label)
+    if not bool(torch.isfinite(img).all()):
+        raise AssertionError(f"{label}: image not finite")
+    return img, wall, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _pixels_differ(a, b) -> float:
+    """The share of pixels of two (H, W, 3) images not equal bit for bit."""
+    import torch
+
+    return (a.view(torch.int32) != b.view(torch.int32)).any(
+        dim=-1).float().mean().item()
+
+
+def _renders_match(label: str, a, b) -> tuple:
+    """The JAX package's criterion for two searches of the same rays
+    (XLA_CHANNEL_SHARE, XLA_MEAN_GAP) -> (share of channels not close, mean
+    abs gap)."""
+    import torch
+
+    share = (~torch.isclose(a, b, rtol=1e-5, atol=1e-6)).float().mean().item()
+    gap = (a - b).abs().mean().item()
+    if not (share <= XLA_CHANNEL_SHARE and gap < XLA_MEAN_GAP):
+        raise AssertionError(f"{label}: {share:.5%} of channels not close "
+                             f"(at most {XLA_CHANNEL_SHARE:.0%}), mean abs "
+                             f"gap {gap:.3e} (under {XLA_MEAN_GAP})")
+    return share, gap
+
+
+def _held_to_noise(label: str, got, want, other) -> tuple:
+    """bench.py::run_parity's full-depth criterion: the mean abs diff of
+    ``got`` from ``want`` at most 1.5 times ``want``'s own from ``other``
+    (another key).  -> (the diff, the noise)."""
+    diff = (got - want).abs().mean().item()
+    noise = (want - other).abs().mean().item()
+    if not diff <= 1.5 * noise:
+        raise AssertionError(f"{label}: mean abs diff {diff:.3e} over 1.5x "
+                             f"the seed noise {noise:.3e}")
+    return diff, noise
+
+
+def _mrays(w: int, h: int, spp: int, wall: float) -> float:
+    return w * h * spp / wall / 1e6
+
+
+def xla_phase(dev, card: str) -> None:
+    """Phase 15: the generic engine through render_linear, diff.inverse.fit
+    and CLI render, fit and info, at full frame, held to the kernels'
+    routes on the same rays."""
+    import numpy as np
+    import torch
+
+    from raytracingrust_tpu_torch import cli
+    from raytracingrust_tpu_torch.diff import grad as G
+    from raytracingrust_tpu_torch.diff.inverse import fit
+    from raytracingrust_tpu_torch.io.png import read_png
+    from raytracingrust_tpu_torch.models.backgrounds import Background
+    from raytracingrust_tpu_torch.models.scene import SceneBuilder
+    from raytracingrust_tpu_torch.render.integrator import uses_flat_bvh
+    from raytracingrust_tpu_torch.render.render import select_engine
+    from raytracingrust_tpu_torch.utils import rng
+
+    if not os.path.exists(SKY):
+        procedural_sky(SKY)
+
+    def load(path, with_bvh, **settings):
+        b = SceneBuilder.from_file(path)
+        b.settings = dataclasses.replace(b.settings, **settings)
+        return b.build(with_bvh=with_bvh)
+
+    def info(path):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            if cli.main(["info", path]) != 0:
+                raise AssertionError(f"cli info {path} failed")
+        return json.loads(buf.getvalue())
+
+    # ---- (a) benchmark.json on "xla" against #1 on the same rays
+    w, h, spp, depth = XLA_BENCH
+    one = load(BENCH, False, samples_per_pixel=spp, max_ray_depth=1)
+    xa, _, _ = _route_render(one, w, h, dev, "(a) xla d1", engine="xla")
+    xb, _, _ = _route_render(one, w, h, dev, "(a) #1 d1", engine="brute",
+                             kernel=True)
+    share = _pixels_differ(xa, xb)
+    if share > XLA_PIXEL_SHARE:
+        raise AssertionError(f"(a) depth 1: {share:.5%} of pixels differ")
+    full = load(BENCH, False, samples_per_pixel=spp, max_ray_depth=depth)
+    img, wall, peak = _route_render(full, w, h, dev, "(a) xla", engine="xla")
+    b0, b_wall, _ = _route_render(full, w, h, dev, "(a) #1", engine="brute",
+                                  kernel=True)
+    b1, _, _ = _route_render(full, w, h, dev, "(a) #1 seed 1",
+                             engine="brute", seed=1, kernel=True)
+    diff, noise = _held_to_noise("(a) benchmark", img, b0, b1)
+    print(f"phase 15 (a) benchmark {w}x{h} spp {spp} depth {depth} on "
+          f"\"xla\" (the dense scan): warm {wall:.3f} s, "
+          f"{_mrays(w, h, spp, wall):.2f} Mrays/s, peak {peak:.2f} GB "
+          f"(#1 {b_wall:.4f} s); depth 1: {share:.5%} of pixels differ "
+          f"from #1; depth {depth}: mean abs diff from #1 {diff:.3e}, #1's "
+          f"seed noise {noise:.3e}; {card}")
+
+    # ---- (b) bvh_stress: the flat BVH's walk and the dense scan
+    w, h, spp, depth = XLA_STRESS
+    walk_sc = load(STRESS, True)
+    if not uses_flat_bvh(walk_sc) or select_engine(walk_sc) != "bvh":
+        raise AssertionError("(b) bvh_stress with its BVH: not #5 and the "
+                             "flat walk")
+    dense_json = _write_scene(STRESS, "bvh_stress_dense.json",
+                            enable_bvh_tree=False)
+    dense_sc = load(dense_json, None)
+    if dense_sc.cbvh is not None or select_engine(dense_sc) != "xla":
+        raise AssertionError("(b) bvh_stress without its BVH: not \"xla\"")
+    # primary rays first (each route's first run): the two routes must
+    # pick the same winners
+    one = [_route_render(dataclasses.replace(sc, settings=dataclasses.replace(
+        sc.settings, max_ray_depth=1)), w, h, dev, "(b) depth 1",
+        engine="xla")[0] for sc in (walk_sc, dense_sc)]
+    share1 = _pixels_differ(*one)
+    if share1 > XLA_PIXEL_SHARE:
+        raise AssertionError(f"(b) walk vs dense at depth 1: {share1:.5%} "
+                             "of pixels differ")
+    walk, w_wall, w_peak = _route_render(walk_sc, w, h, dev, "(b) walk",
+                                         engine="xla")
+    got = info(dense_json)
+    if not (got["render_engine"].startswith("xla: the generic engine")
+            and "dense scan" in got["render_engine"]
+            and got["fit_engine"].startswith("xla")):
+        raise AssertionError(f"(b) cli info: {got['render_engine']} / "
+                             f"{got['fit_engine']}")
+    png = os.path.join(OUT_DIR, "xla_stress_dense.png")
+    _reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        _cli_render(dense_json, png, ("--width", str(w), "--height", str(h)))
+    cli_wall = time.perf_counter() - t0
+    _no_kernel("(b) cli render")
+    _check_png(png, w, h, "(b) cli render")
+    dense, d_wall, d_peak = _route_render(dense_sc, w, h, dev, "(b) dense")
+    share = _pixels_differ(walk, dense)
+    ch_share, gap = _renders_match(f"(b) walk vs dense at depth {depth}",
+                                   walk, dense)
+    k0, k_wall, _ = _route_render(walk_sc, w, h, dev, "(b) #5",
+                                  kernel=True)
+    k1, _, _ = _route_render(walk_sc, w, h, dev, "(b) #5 seed 1", seed=1,
+                             kernel=True)
+    dw, noise = _held_to_noise("(b) walk", walk, k0, k1)
+    dd, _ = _held_to_noise("(b) dense", dense, k0, k1)
+    print(f"phase 15 (b) bvh_stress {w}x{h} spp {spp} depth {depth} on "
+          f"\"xla\": the flat BVH's walk warm {w_wall:.3f} s, "
+          f"{_mrays(w, h, spp, w_wall):.2f} Mrays/s, peak {w_peak:.2f} GB; "
+          f"the dense scan (built without its BVH; CLI render {cli_wall:.3f}"
+          f" s) warm {d_wall:.3f} s, {_mrays(w, h, spp, d_wall):.2f} "
+          f"Mrays/s, peak {d_peak:.2f} GB; pixels that differ between "
+          f"them: {share1:.5%} at depth 1, {share:.5%} at depth {depth} (a "
+          f"bounced ray's spurious hit on its own sphere in the dense scan's "
+          f"expanded quadratic), {ch_share:.5%} of channels not close and a "
+          f"mean abs gap of {gap:.3e} at depth {depth} (held to "
+          f"{XLA_CHANNEL_SHARE:.0%} and {XLA_MEAN_GAP}); mean abs diff from "
+          f"#5 {dw:.3e} (walk), {dd:.3e} (dense), #5's seed noise "
+          f"{noise:.3e} (#5 {k_wall:.4f} s); {card}")
+
+    # ---- (c) the zoo under the sky with env-IS: "xla" and the env path
+    w, h, spp, depth = XLA_ENV
+    sky_zoo = _write_scene(ZOO, "xla_sky_zoo.json", sky=True,
+                           samples_per_pixel=spp, max_ray_depth=depth)
+    flat_sc, env_sc = load(sky_zoo, False), load(sky_zoo, True)
+    if select_engine(flat_sc) != "xla" or select_engine(env_sc) != "env":
+        raise AssertionError("(c) routes: not \"xla\" and \"env\"")
+    _route_render(flat_sc, w, h, dev, "(c) xla cold")
+    img, wall, peak = _route_render(flat_sc, w, h, dev, "(c) xla")
+    e0, e_wall, _ = _route_render(env_sc, w, h, dev, "(c) env",
+                                  kernel=True)
+    e1, _, _ = _route_render(env_sc, w, h, dev, "(c) env seed 1", seed=1,
+                             kernel=True)
+    diff, noise = _held_to_noise("(c) sky_zoo", img, e0, e1)
+    print(f"phase 15 (c) sky_zoo {w}x{h} spp {spp} depth {depth}, HDRI "
+          f"importance sampling, on \"xla\": warm {wall:.3f} s, "
+          f"{_mrays(w, h, spp, wall):.2f} Mrays/s, peak {peak:.2f} GB; mean "
+          f"abs diff from the env path {diff:.3e}, its seed noise "
+          f"{noise:.3e} (env {e_wall:.4f} s); {card}")
+
+    # ---- (d) the depth-13 Cornell fit without its BVH
+    w, h, spp, depth = XLA_FIT
+    cornell_json = _write_scene(CORNELL, "xla_cornell.json",
+                              samples_per_pixel=spp, max_ray_depth=depth,
+                              enable_bvh_tree=False)
+    scene = load(cornell_json, None)
+    if select_engine(scene, grad=True) != "xla":
+        raise AssertionError("(d) the depth-13 fit without its BVH: not "
+                             "\"xla\"")
+    if not info(cornell_json)["fit_engine"].startswith("xla"):
+        raise AssertionError("(d) cli info: not \"xla\"")
+    target_png = os.path.join(OUT_DIR, "xla_cornell_target.png")
+    with contextlib.redirect_stdout(io.StringIO()):
+        _cli_render(_write_scene(cornell_json, "xla_cornell_dim.json",
+                                 dim=True),
+                    target_png, ("--width", str(w), "--height", str(h)))
+    _reset_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["fit", cornell_json, target_png, "--params",
+                       CLI_FIT_PARAMS, "--steps", str(XLA_FIT_STEPS),
+                       "--seed", "0"])
+    cli_fit_wall = time.perf_counter() - t0
+    text = buf.getvalue()
+    _no_kernel("(d) cli fit")
+    final = float(text.split("final loss")[1].split()[0]) if rc == 0 else \
+        float("nan")
+    if rc != 0 or not np.isfinite(final):
+        raise AssertionError(f"(d) cli fit returned {rc}\n{text}")
+    target = (read_png(target_png)[..., :3].astype(np.float32) / 255.0) ** 2
+    th, tw = target.shape[:2]
+    names = list(G.PARAM_PATHS)[:4]  # albedo, fuzz, ir, emission
+    grads = {}
+
+    def keep_grads(i, value, params):
+        grads.update({k: torch.zeros_like(p) if p.grad is None
+                      else p.grad.clone() for k, p in params.items()})
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()  # warm: the CLI fit ran the same steps
+    fit(scene, target, names, tw, th, steps=1, seed=1, device=dev,
+        callback=keep_grads)
+    torch.cuda.synchronize()
+    step = time.perf_counter() - t0
+    fit_peak = torch.cuda.max_memory_allocated() / 1e9
+    _no_kernel("(d) fit")
+    if not all(bool(torch.isfinite(g).all()) for g in grads.values()) or \
+            not all(grads[k].abs().sum().item() > 0
+                    for k in ("albedo", "emission")):
+        raise AssertionError("(d) gradients not finite or zero")
+    ad, fd = _fd_probe("(d) cornell depth 13", scene, dev, tw, th,
+                       rng.base_key(5), ("albedo", "emission"),
+                       np.random.default_rng(15))
+    print(f"phase 15 (d) cornell_spheres {tw}x{th} spp {spp} depth {depth} "
+          f"built without its BVH, fit on \"xla\" (a backward a tile of "
+          f"{G.FIT_TILE_RAYS} rays): CLI fit {XLA_FIT_STEPS} steps "
+          f"{cli_fit_wall:.3f} s (final loss {final:.6f}); diff.inverse.fit "
+          f"step warm {step:.3f} s, "
+          f"{_mrays(tw, th, spp, step):.3f} Mrays/s fwd+bwd, peak "
+          f"{fit_peak:.2f} GB; gradients finite and nonzero; FD probe AD "
+          f"{ad:.6e} FD {fd:.6e}; {card}")
+
+    # ---- (e) views, an empty scene, fog in a mesh under HDRI IS
+    w, h, spp = XLA_SMALL
+    for mode in ("Normal", "Random"):
+        no_bvh = load(BENCH, False, samples_per_pixel=spp, mode=mode)
+        if select_engine(no_bvh) != "xla":
+            raise AssertionError(f"(e) {mode} view without BVH: not xla")
+        got, wall, _ = _route_render(no_bvh, w, h, dev, f"(e) {mode}")
+        want, k_wall, _ = _route_render(load(BENCH, True,
+                                             samples_per_pixel=spp,
+                                             mode=mode),
+                                        w, h, dev, f"(e) {mode} #5",
+                                        engine="bvh", kernel=True)
+        # 2 ulp of 1, the colours' scale: a normal's 1 / sqrt here and
+        # its reciprocal there round apart by an ulp of the unit vector
+        close = ((got - want).abs().amax(dim=-1) <= 2.0 * 2.0 ** -23
+                 ).float().mean().item()
+        if close < XLA_VIEW_SHARE:
+            raise AssertionError(f"(e) {mode}: {close:.5%} of pixels within "
+                                 "2 ulp of #5's")
+        print(f"phase 15 (e) the {mode} view of benchmark {w}x{h} spp {spp} "
+              f"without its BVH on \"xla\": {wall:.3f} s; {close:.5%} of "
+              f"pixels within 2 ulp of 1 of #5's view with it "
+              f"({k_wall:.4f} s); {card}")
+    empty = SceneBuilder()
+    empty.settings = dataclasses.replace(empty.settings,
+                                         samples_per_pixel=spp)
+    empty.background = Background.uniform((0.3, 0.5, 0.7))
+    empty_sc = empty.build()
+    if select_engine(empty_sc) != "xla":
+        raise AssertionError("(e) the empty scene: not \"xla\"")
+    img, wall, _ = _route_render(empty_sc, w, h, dev, "(e) empty")
+    bg = torch.tensor([0.3, 0.5, 0.7], device=dev).expand_as(img)
+    if not torch.equal(img, bg):
+        raise AssertionError("(e) the empty scene: not its background")
+    cube = os.path.join(OUT_DIR, "xla_fog_cube.obj")
+    _cube_obj(cube, (0.0, 0.3, -1.0), 0.45)
+    with open(BENCH) as f:
+        d = json.load(f)
+    d["materials"].append({"type": "Isotropic",
+                           "color": {"r": 0.8, "g": 0.8, "b": 0.9}})
+    d["objects"].append({"type": "Volume", "neg_inv_density": -0.5,
+                         "boundary": {"type": "Mesh", "path": cube,
+                                      "material": len(d["materials"]) - 1}})
+    d["background"] = {"type": "SkyMap", "path": SKY}
+    d["settings"].update(samples_per_pixel=spp, enable_bvh_tree=True,
+                         env_importance_sampling=True)
+    fog_json = os.path.join(OUT_DIR, "xla_fog_env.json")
+    with open(fog_json, "w") as f:
+        json.dump(d, f)
+    fog = load(fog_json, None)
+    if fog.num_mesh_volumes != 1 or select_engine(fog) != "xla":
+        raise AssertionError("(e) fog in a mesh under env-IS: not \"xla\"")
+    img, f_wall, _ = _route_render(fog, w, h, dev, "(e) fog env-IS")
+    if img.std().item() == 0.0:
+        raise AssertionError("(e) fog in a mesh under env-IS: flat")
+    print(f"phase 15 (e) an empty scene {w}x{h} spp {spp} on \"xla\": its "
+          f"background on every pixel, {wall:.3f} s; benchmark with a cube "
+          f"of fog under the sky with HDRI importance sampling on \"xla\": "
+          f"finite, {f_wall:.3f} s; {card}")
+
+
 def main() -> int:
-    """Every phase; with the one argument "7", "9", "12" or "14", the build
-    and that phase alone, with its report entries and no last line."""
+    """Every phase; with the one argument "7", "9", "12", "14" or "15", the
+    build and that phase alone, with its report entries and no last
+    line."""
     import torch
 
     if not torch.cuda.is_available():
@@ -3670,7 +4057,8 @@ def main() -> int:
           f"{build_s:.3f} s; {regs}")
     alone = {"7": lambda dev, card: [bvh_phase(dev, card)],
              "9": lambda dev, card: [env_phase(dev, card)],
-             "12": fog_phase, "14": tri_phase}
+             "12": fog_phase, "14": tri_phase,
+             "15": lambda dev, card: xla_phase(dev, card) or []}
     if len(sys.argv) == 2 and sys.argv[1] in alone:  # for working on it
         os.makedirs(OUT_DIR, exist_ok=True)
         if not os.path.exists(SKY):
@@ -4163,6 +4551,7 @@ def main() -> int:
     fog = timed(12, fog_phase)
     brute = timed(13, brute_phase, zoo_bvh)
     tri = timed(14, tri_phase)
+    timed(15, xla_phase)  # no kernel: the generic engine
 
     report = {"kernels": [
         # the CLI renders of phase 4; times at benchmark 512x512

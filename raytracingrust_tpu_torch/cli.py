@@ -9,7 +9,9 @@
     rtrt-torch info scene.json
 
 ``--device cuda`` (the default) runs the CUDA kernels and fails when no GPU
-is present; ``--device cpu`` runs their plain PyTorch versions.
+is present; ``--device cpu`` runs their plain PyTorch versions.  A scene
+that no kernel takes runs on the generic engine ("xla", eager PyTorch) on
+either device; ``info`` names each route.
 """
 
 from __future__ import annotations
@@ -114,6 +116,7 @@ def _engines(scene) -> tuple[str, str]:
     from .ops.bvh_kernel import VIEWS
     from .ops.megakernel import scene_opts
     from .ops.mse_loss import supports_fused_mse
+    from .render.integrator import uses_flat_bvh
     from .render.render import select_engine
 
     view = VIEWS.get(scene.settings.mode)
@@ -136,6 +139,11 @@ def _engines(scene) -> tuple[str, str]:
                      "the replay with the sky over #6 and #7" if sky else
                      "bvh: record mode of #5, then the replay over #6 and "
                      "#7"),
+             "xla": ("xla: the generic engine (eager PyTorch), "
+                     + ("the flat BVH's walk" if uses_flat_bvh(scene)
+                        else "the dense scan"),
+                     "xla: the generic engine under autograd, a backward a "
+                     "tile"),
              "brute": ("brute: kernel #1" + brute,
                        "fused: kernel #4" + brute if supports_fused_mse(scene)
                        else "brute: #1 forward, #3 backward" + brute)}

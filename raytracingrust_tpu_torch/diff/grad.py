@@ -22,8 +22,13 @@ from ..models.scene import Scene
 from ..ops.megakernel import (brute_kinds, pack_fparams, pack_tri,
                                pack_tri_boxes, scene_opts)
 from ..ops.mse_loss import mse_loss, supports_fused_mse
-from ..render.render import render_linear, resolve_device, resolve_engine
+from ..render.render import (render_linear, resolve_device, resolve_engine,
+                             xla_pixel_radiance)
 from ..utils import rng
+
+# rays a tile of a fit's loss on the generic engine: each tile's graph lives
+# only through its own backward (about 3 KB a ray at depth 13)
+FIT_TILE_RAYS = 1 << 20
 
 # Trainable leaf names -> (sub-object, field) paths
 PARAM_PATHS = {
@@ -78,7 +83,11 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
     Otherwise, and for every scene that takes the BVH kernel, it is
     ``render_linear`` plus the mean in PyTorch: a brute scene under a sky
     map takes the forward kernel and, backward, the radiance gradient
-    kernel (the JAX package's fused kernel excludes sky maps too).
+    kernel (the JAX package's fused kernel excludes sky maps too).  On the
+    generic engine ("xla") it is :func:`tiled_mse`: the squared errors are
+    a sum over pixels, so each tile of FIT_TILE_RAYS rays is rendered and
+    differentiated on its own and its graph freed, and the leaves' gradient
+    is the tiles' sum.
     ``device`` and ``engine`` as in ``render_linear`` (None means cuda and
     the dispatch's route)."""
     if mesh is not None:
@@ -95,7 +104,17 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
         return rng.base_key(seed) if key is None else tuple(
             int(w) for w in key)
 
-    if (resolve_engine(scene, engine, grad=True) == "brute"
+    route = resolve_engine(scene, engine, grad=True)
+    if route == "xla" and tuple(target.shape) == (height, width, 3):
+        flat = target.reshape(-1, 3)
+
+        def loss(params: dict, key=None):
+            return tiled_mse(scene_of, params, flat, width, height,
+                             key_of(key))
+
+        return loss
+
+    if (route == "brute"
             and supports_fused_mse(scene)
             and tuple(target.shape) == (height, width, 3)):
         s = scene.settings
@@ -118,6 +137,54 @@ def make_loss(scene: Scene, target, width: int, height: int, *,
         return torch.mean((img - target) ** 2)
 
     return loss
+
+
+class _Preset(torch.autograd.Function):
+    """A value whose gradient in the leaves was computed already."""
+
+    @staticmethod
+    def forward(ctx, value, grads, *leaves):
+        ctx.grads = grads
+        return value.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return (None, None, *(None if x is None else g * x
+                              for x in ctx.grads))
+
+
+def tiled_mse(scene_of, params: dict, target: torch.Tensor, width: int,
+              height: int, key):
+    """Mean squared error of the generic engine's image against ``target``
+    (width * height, 3), tile by tile: under autograd each tile's squared
+    errors (FIT_TILE_RAYS rays a tile) are differentiated in ``params`` at
+    once (a backward a tile, its graph then freed) and the result carries
+    the sum of the tiles' gradients into ``params``, so a full frame never
+    holds more than one tile's graph.  ``scene_of(params)`` -> the scene
+    on ``target``'s device."""
+    leaves = list(params.values())
+    grad = torch.is_grad_enabled() and any(p.requires_grad for p in leaves)
+    n_pix = width * height
+    spp = scene_of(params).settings.samples_per_pixel
+    tile = max(1, FIT_TILE_RAYS // max(spp, 1))
+    ids = torch.arange(n_pix, device=target.device)
+    total = target.new_zeros(())
+    grads = [None] * len(leaves)
+    scale = 1.0 / (n_pix * 3)
+    for p0 in range(0, n_pix, tile):
+        at = ids[p0:p0 + tile]
+        with torch.set_grad_enabled(grad):
+            mean = xla_pixel_radiance(scene_of(params), at, width, height,
+                                      key, FIT_TILE_RAYS)
+            part = ((mean - target[at]) ** 2).sum() * scale
+            if grad:
+                gs = torch.autograd.grad(part, leaves, allow_unused=True)
+                grads = [g if acc is None else acc if g is None else acc + g
+                         for acc, g in zip(grads, gs)]
+        total = total + part.detach()
+    if not grad:
+        return total
+    return _Preset.apply(total, tuple(grads), *leaves)
 
 
 def render_and_grad(scene: Scene, target, names, width: int, height: int,

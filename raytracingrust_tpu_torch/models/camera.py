@@ -52,6 +52,15 @@ class Camera:
         lower_left = self.lookfrom - horizontal / 2.0 + vertical / 2.0 - w
         return self.lookfrom, horizontal, vertical, lower_left
 
+    def get_rays(self, s: torch.Tensor, t: torch.Tensor):
+        """Batched RayOrigin::get_ray (lib/core/camera.rs:19-24): (...,)
+        uv in [0, 1] -> (origins, directions), each (..., 3); directions
+        are not normalized, as in the reference."""
+        origin, horizontal, vertical, lower_left = self.ray_origin()
+        d = (lower_left + s[..., None] * horizontal
+             - t[..., None] * vertical - origin)
+        return origin.expand(d.shape), d
+
     def to_json(self) -> dict:
         def v3(a):
             return {"x": float(a[0]), "y": float(a[1]), "z": float(a[2])}

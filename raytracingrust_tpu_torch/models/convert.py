@@ -25,11 +25,11 @@ from .backgrounds import Background
 from .camera import Camera
 from .materials import MaterialTable
 from .scene import (MeshVolumeTable, RenderSettings, Scene, SphereArray,
-                    TriangleArray)
+                    TriangleArray, with_bvhs)
 
 
 def scene_from_arrays(arrays: dict[str, np.ndarray], settings: RenderSettings,
-                      background_kind: int) -> Scene:
+                      background_kind: int, with_bvh: bool = False) -> Scene:
     def t(name, dtype):
         return torch.as_tensor(np.array(arrays[name], dtype))
 
@@ -62,5 +62,6 @@ def scene_from_arrays(arrays: dict[str, np.ndarray], settings: RenderSettings,
     if "mesh_volumes.neg_inv_density" in arrays:
         mesh_volumes = MeshVolumeTable(t("mesh_volumes.neg_inv_density", f32),
                                        t("mesh_volumes.material", i32))
-    return Scene(camera, background, spheres, materials, settings, triangles,
-                 mesh_volumes=mesh_volumes)
+    scene = Scene(camera, background, spheres, materials, settings, triangles,
+                  mesh_volumes=mesh_volumes)
+    return with_bvhs(scene) if with_bvh else scene

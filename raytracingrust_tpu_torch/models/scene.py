@@ -7,16 +7,17 @@ and the BVH holds it in a tree of its own; over a mesh its triangles carry
 the volume's ordinal (``TriangleArray.volume``), stay out of the surface
 triangle tree, and the volume's density and phase material go to a
 :class:`MeshVolumeTable`.  ``build(with_bvh=None)`` builds the
-chunk-leaf BVH when ``settings.enable_bvh_tree`` asks for it; the render
-path sends a scene to the BVH kernel only when the brute kernel cannot take
-it (render/render.select_engine).
+chunk-leaf BVH and the flat BVH when ``settings.enable_bvh_tree`` asks for
+them; the render path sends a scene to the BVH kernel only when the brute
+kernel cannot take it, and to the generic engine when neither can
+(render/render.select_engine).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -127,6 +128,52 @@ class MeshVolumeTable:
         return self.neg_inv_density.shape[0]
 
 
+class FlatNodes(NamedTuple):
+    """The flat BVH's nodes on one device, boxes aside: ``prim[i]`` a
+    leaf's global primitive id ([0, N) spheres, [N, N + T) triangles), -1
+    for an inner node; a walk whose ray hits node i's box goes on to
+    ``hit_link[i]``, one that misses it to ``miss_link[i]``; ``levels``,
+    deepest first, the (inner nodes, their first children, their second
+    children) of each level, which ops/traverse.node_boxes reduces: one
+    fewer than the tree's levels."""
+
+    prim: torch.Tensor       # (K,) int64
+    hit_link: torch.Tensor   # (K,) int64
+    miss_link: torch.Tensor  # (K,) int64
+    levels: tuple
+
+
+class FlatBVH:
+    """The flat skip-link BVH (the JAX ``FlatBVH``; the reference's
+    unfinished ``LinearBvhTree``, lib/core/bvh.rs:201-293), one primitive
+    a leaf, DFS order, ending at node K.  Only the generic engine's walk
+    reads it, so it is built from the scene's rows on its first walk
+    (:meth:`nodes`, ops/bvh.build_flat_bvh) and kept per device: a scene
+    that a kernel takes never pays for its build.  It keeps no boxes: the
+    walk takes them from the rows the scene holds then
+    (ops/traverse.node_boxes), so a fit that moves a primitive moves its
+    leaf's box and every box above it."""
+
+    def __init__(self):
+        self._on: dict = {}
+
+    def nodes(self, scene: "Scene") -> FlatNodes:
+        dev = scene.spheres.center.device
+        if dev not in self._on:
+            if "host" not in self._on:
+                from ..ops.bvh import build_flat_bvh
+                self._on["host"] = build_flat_bvh(
+                    _tensors_to(scene.spheres, "cpu", detach=True),
+                    _tensors_to(scene.triangles, "cpu", detach=True))
+            host = self._on["host"]
+            self._on[dev] = host._replace(
+                prim=host.prim.to(dev), hit_link=host.hit_link.to(dev),
+                miss_link=host.miss_link.to(dev),
+                levels=tuple(tuple(x.to(dev) for x in lv)
+                             for lv in host.levels))
+        return self._on[dev]
+
+
 @dataclasses.dataclass(frozen=True)
 class ChunkTree:
     """One chunk-leaf skip-link tree (ops/bvh.py), host numpy arrays.  A
@@ -186,9 +233,10 @@ class ChunkedBVH:
     sub_trees: tuple = ()
 
 
-def _tensors_to(obj, device):
+def _tensors_to(obj, device, detach: bool = False):
     return dataclasses.replace(obj, **{
-        f.name: getattr(obj, f.name).to(device)
+        f.name: (getattr(obj, f.name).detach() if detach
+                 else getattr(obj, f.name)).to(device)
         for f in dataclasses.fields(obj)
         if isinstance(getattr(obj, f.name), torch.Tensor)})
 
@@ -204,6 +252,7 @@ class Scene:
         default_factory=TriangleArray.empty)
     cbvh: Optional[ChunkedBVH] = None  # built by SceneBuilder.build
     mesh_volumes: Optional[MeshVolumeTable] = None
+    bvh: Optional[FlatBVH] = None  # set beside cbvh, built lazily
 
     @property
     def num_primitives(self) -> int:
@@ -224,6 +273,17 @@ class Scene:
             triangles=_tensors_to(self.triangles, device),
             mesh_volumes=None if self.mesh_volumes is None else
             _tensors_to(self.mesh_volumes, device))
+
+
+def with_bvhs(scene: Scene) -> Scene:
+    """``scene`` with both its BVHs: the chunk-leaf one (with its small
+    trees) that the kernels walk, built from its arrays, and the flat one
+    that the generic engine walks, built on that walk's first call."""
+    from ..ops.bvh import build_chunked_bvh, with_sub_trees
+    sph, tri = scene.spheres, scene.triangles
+    return dataclasses.replace(
+        scene, cbvh=with_sub_trees(build_chunked_bvh(sph, tri), sph, tri),
+        bvh=FlatBVH())
 
 
 class SceneBuilder:
@@ -304,14 +364,10 @@ class SceneBuilder:
                                  dtype=torch.int32))
         if with_bvh is None:
             with_bvh = self.settings.enable_bvh_tree
-        cbvh = None
-        if with_bvh:
-            from ..ops.bvh import build_chunked_bvh, with_sub_trees
-            cbvh = with_sub_trees(build_chunked_bvh(spheres, triangles),
-                                  spheres, triangles)
-        return Scene(self.camera, self.background, spheres,
-                     build_table(self.materials), self.settings, triangles,
-                     cbvh, mesh_volumes)
+        scene = Scene(self.camera, self.background, spheres,
+                      build_table(self.materials), self.settings, triangles,
+                      mesh_volumes=mesh_volumes)
+        return with_bvhs(scene) if with_bvh else scene
 
     def to_json(self) -> dict:
         objs = []

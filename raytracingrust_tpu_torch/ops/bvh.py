@@ -1,6 +1,10 @@
-"""Chunk-leaf skip-link BVH builder, on the host in numpy
-(raytracingrust_tpu/ops/bvh.py: ``primitive_bounds``,
-``_build_chunked_topology``, ``build_chunked_bvh``).
+"""Skip-link BVH builders, on the host in numpy
+(raytracingrust_tpu/ops/bvh.py: ``primitive_bounds``, ``_build_topology``,
+``build_bvh``, ``_build_chunked_topology``, ``build_chunked_bvh``).
+
+Two trees over the same primitive boxes: the flat BVH (:func:`build_flat_bvh`,
+one primitive a leaf), which the generic engine's walk reads
+(ops/traverse.py), and the chunk-leaf BVH, which the kernels read.
 
 The build policy is the reference's (BvhNode::from_list,
 lib/core/bvh.rs:59-144): recursive median split on the axis of greatest
@@ -118,6 +122,40 @@ def build_chunked_topology(mins: np.ndarray, maxs: np.ndarray,
     return (np.stack(nodes_f).astype(np.float32),
             np.stack([hit, miss, chunk], axis=1).astype(np.int32),
             perm.reshape(-1))
+
+
+def build_flat_bvh(spheres, triangles):
+    """-> FlatNodes over every primitive, spheres [0, N) then triangles
+    [N, N + T), mesh-volume boundaries included (the JAX ``build_bvh``:
+    its ``_build_topology`` is :func:`build_chunked_topology` with leaves
+    of one primitive, the same split and DFS order), on the CPU; None for
+    an empty scene.  A leaf's hit link is its skip link; an inner node's is
+    its first child, the next node, whose skip link is its second child."""
+    import torch
+
+    from ..models.scene import FlatNodes
+
+    mins, maxs = primitive_bounds(spheres, triangles)
+    n = mins.shape[0]
+    if n == 0:
+        return None
+    _, ni, perm = build_chunked_topology(mins, maxs, 1)
+    leaf = ni[:, 2] >= 0
+    prim = np.where(leaf, perm[np.maximum(ni[:, 2], 0)], -1)
+    miss = ni[:, 1].astype(np.int64)
+    inner = np.flatnonzero(~leaf)
+    level = np.zeros(prim.shape[0], np.int64)
+    for i in inner:  # DFS order: a parent before its children
+        level[i + 1] = level[miss[i + 1]] = level[i] + 1
+    levels = []
+    for lv in range(int(level[inner].max(initial=-1)), -1, -1):
+        at = inner[level[inner] == lv]
+        levels.append(tuple(torch.from_numpy(x) for x in
+                            (at, at + 1, miss[at + 1])))
+    return FlatNodes(prim=torch.from_numpy(prim.astype(np.int64)),
+                     hit_link=torch.from_numpy(ni[:, 0].astype(np.int64)),
+                     miss_link=torch.from_numpy(miss),
+                     levels=tuple(levels))
 
 
 def build_mv_trees(triangles, leaf_size: int = MV_LEAF) -> tuple:

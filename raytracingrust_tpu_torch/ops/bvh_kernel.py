@@ -189,42 +189,37 @@ def unsupported_bvh(scene: Scene) -> str | None:
     """Why the BVH kernel cannot take the scene, or None (the JAX
     ``supports_bvh``).  A sky map passes in every mode: with importance
     sampling its path is :func:`env_radiance`; the JAX gate keeps the views
-    of a sky map on its XLA integrator, which the port lacks, so #5 serves
-    them.  Mesh volumes pass up to MAX_BVH_MESH_VOLUMES, but not under
-    importance sampling, whose shadow rays (#8) do not model their
-    stochastic occlusion: the JAX package renders those with its XLA
-    integrator (ROADMAP A6)."""
+    of a sky map on its XLA integrator, and here #5 serves them.  Mesh
+    volumes pass up to MAX_BVH_MESH_VOLUMES, but not under importance
+    sampling, whose shadow rays (#8) do not model their stochastic
+    occlusion.  What this gate refuses takes the generic engine ("xla",
+    render/integrator.py), as the JAX package's XLA integrator takes it."""
     n_mv = scene.num_mesh_volumes
+    xla = ": the scene takes the generic engine (\"xla\")"
     if scene.cbvh is None:
-        if n_mv:
-            return (f"{n_mv} mesh volumes without the scene's BVH need the "
-                    "XLA integrator, not ported yet (ROADMAP A6): build the "
-                    "scene with with_bvh=True (or enable_bvh_tree)")
-        return ("the scene was built without its BVH: build it with "
-                "with_bvh=True (or enable_bvh_tree)")
+        return ("the scene was built without its BVH (with_bvh=True, or "
+                "enable_bvh_tree, builds it)" + xla)
     if scene.num_primitives == 0:
-        return "the scene has no primitive"
+        return "the scene has no primitive" + xla
     if scene.spheres.num_volumes > MAX_BVH_VOLUMES:
         return (f"{scene.spheres.num_volumes} volumes: the BVH kernel takes "
                 f"at most {MAX_BVH_VOLUMES}, each drawing a uniform of its "
-                "own a bounce (as the JAX package)")
+                "own a bounce (as the JAX package)" + xla)
     if n_mv > MAX_BVH_MESH_VOLUMES:
         return (f"{n_mv} mesh volumes: the BVH kernel takes at most "
                 f"{MAX_BVH_MESH_VOLUMES}, each drawing a uniform of its own "
-                "a bounce (as the JAX package); more need the XLA "
-                "integrator, not ported yet (ROADMAP A6)")
+                "a bounce (as the JAX package)" + xla)
     if n_mv and len(scene.cbvh.mv_spans) != n_mv:
         return "the scene's BVH lacks its mesh volumes' slots (mv_spans)"
     if n_mv and env_is_active(scene):
-        return ("HDRI importance sampling with mesh volumes needs the XLA "
-                "integrator, not ported yet (ROADMAP A6): the shadow-ray "
+        return ("HDRI importance sampling with mesh volumes: the shadow-ray "
                 "kernel does not model a mesh volume's stochastic "
-                "occlusion, as in the JAX package")
+                "occlusion, as in the JAX package" + xla)
     if scene.materials.has_mix and (mix_depth(scene.materials)
                                     > M.MAX_MIX_DEPTH):
         return (f"mixes nested deeper than {M.MAX_MIX_DEPTH} levels (or a "
                 "cycle): a hit resolves one level a coin, as the JAX "
-                "package")
+                "package" + xla)
     if scene.settings.mode not in (MODE_FULL, MODE_CLAY, *VIEWS):
         return f"unknown render mode {scene.settings.mode!r}"
     return None

@@ -75,7 +75,7 @@ from ..models import backgrounds as B
 from ..models import materials as M
 from ..models.scene import MODE_CLAY, MODE_FULL, Scene
 from ..utils import vec
-from ..utils.rng import cbrt01, ray_uniforms
+from ..utils.rng import cbrt01, ray_uniforms, unit_sphere_surface
 from ..utils.types import T_MIN
 from .shade import mix_depth
 
@@ -134,8 +134,6 @@ _FACTOR, _LEAF_B = 12, 13
 _MAT = 8  # floats of one leaf's material
 # rays per step of the plain version: bounds its temporaries
 TILE_RAYS = 1 << 22
-# 2 * float32(pi), the float32 constant of the sphere sample's angle
-_TWO_PI = float(np.float32(2.0) * np.float32(np.pi))
 
 # the gradient kernels' per-thread tape, in bounces
 # (pallas_megakernel.UNROLL_MAX_DEPTH, the JAX fit path's depth gate)
@@ -210,14 +208,15 @@ def scene_opts(scene: Scene) -> dict:
                 n_vol=scene.spheres.num_volumes, iso=iso, n_tm=n_tm)
 
 
-def unsupported(scene: Scene) -> str | None:
+def unsupported(scene: Scene, tri_mats: bool = True) -> str | None:
     """Why the scene lies outside the kernels' envelope, or None: the JAX
     ``supports``, and at most MAX_TRI_MATS materials on the triangles (the
-    gradient kernels' shared rows; the JAX kernel has no such limit)."""
+    kernels' shared rows; the JAX kernel has no such limit), which
+    ``tri_mats`` False leaves out."""
     n, n_tri = len(scene.spheres), len(scene.triangles)
-    xla = ("; without its BVH the scene needs the XLA integrator, not "
-           "ported yet (ROADMAP A6); built with it (with_bvh=True, or "
-           "enable_bvh_tree) it takes the BVH kernel")
+    xla = ("; without its BVH the scene takes the generic engine "
+           "(\"xla\"); built with it (with_bvh=True, or enable_bvh_tree) it "
+           "takes the BVH kernel")
     if n > MAX_SPHERES:
         return (f"{n} spheres: the brute kernels take at most {MAX_SPHERES}"
                 + xla)
@@ -226,34 +225,33 @@ def unsupported(scene: Scene) -> str | None:
                 f"{MAX_TRIS}" + xla)
     if n + n_tri == 0:
         return ("the scene has no primitive: the brute kernels take at "
-                "least one (as the JAX package; its XLA integrator renders "
-                "the background, not ported yet: ROADMAP A6)")
+                "least one (as the JAX package); the generic engine (\"xla\") "
+                "renders the background")
     if scene.num_mesh_volumes:
         return ("mesh volumes take the BVH kernel's crossing scan (the JAX "
-                "brute kernel excludes them too): build the scene with its "
-                "BVH")
-    if n_tri and tri_slots(scene)[0].shape[0] > MAX_TRI_MATS:
+                "brute kernel excludes them too)" + xla)
+    if tri_mats and n_tri and tri_slots(scene)[0].shape[0] > MAX_TRI_MATS:
         return (f"the triangles use more than {MAX_TRI_MATS} materials: the "
-                "brute kernels keep their gradient rows in shared memory"
-                + xla)
+                "brute kernels keep their rows in shared memory; built with "
+                "its BVH (with_bvh=True, or enable_bvh_tree) the scene takes "
+                "the BVH kernel, and a fit without it the generic engine "
+                "(\"xla\"), as in the JAX package")
     if scene.materials.has_mix and mix_depth(scene.materials) > 1:
         return ("mixes nested more than one level deep: the brute kernels "
                 "shade single-level mixes (as the JAX package); a scene "
                 "built with its BVH takes the BVH kernel's resolution "
-                "chain, one without it needs the XLA integrator, not ported "
-                "yet (ROADMAP A6)")
+                "chain, one without it the generic engine (\"xla\")")
     if (scene.settings.env_importance_sampling
             and scene.background.kind == B.SKYMAP
             and scene.settings.mode == MODE_FULL):
         return ("HDRI importance sampling: the brute kernels look a miss up "
                 "in the sky only (as the JAX package); the env path takes "
-                "the scene with its BVH, without it the XLA integrator, not "
-                "ported yet (ROADMAP A6)")
+                "the scene with its BVH, the generic engine (\"xla\") "
+                "without it")
     if scene.settings.mode not in (MODE_FULL, MODE_CLAY):
         return (f"the {scene.settings.mode} view is not a brute-kernel mode "
                 "(as in the JAX package): the BVH kernel renders it with the "
-                "scene's BVH; without it the XLA integrator, not ported yet "
-                "(ROADMAP A6)")
+                "scene's BVH, the generic engine (\"xla\") without it")
     return None
 
 
@@ -536,13 +534,7 @@ def bounce_tail(fp, bg_kind, clay, o, d, thr, rad, alive, a, hit, pt, n,
     sgn = torch.where(front, 1.0, -1.0)
     nx, ny, nz = nx * sgn, ny * sgn, nz * sgn
 
-    # unit-sphere-surface sample
-    zs = 1.0 - 2.0 * u1
-    rs = torch.sqrt(torch.clamp(1.0 - zs * zs, min=0.0))
-    phi = _TWO_PI * u2
-    sx = rs * torch.cos(phi)
-    sy = rs * torch.sin(phi)
-    sz = zs
+    sx, sy, sz = unit_sphere_surface(u1, u2).unbind(-1)
 
     ldx, ldy, ldz = nx + sx, ny + sy, nz + sz
     deg = ((ldx.abs() < 1e-8) & (ldy.abs() < 1e-8)

@@ -47,7 +47,8 @@ def _check_rays(sc: BvhScene, o, d, ray_ids, key) -> int:
         raise ValueError("occlusion: the scene has no tree")
     if sc.mesh_vols is not None:
         raise ValueError("occlusion: the shadow-ray test does not model a "
-                         "mesh volume's stochastic occlusion (ROADMAP A6)")
+                         "mesh volume's stochastic occlusion: such a scene "
+                         "takes the generic engine (\"xla\")")
     r = o.shape[-1]
     for name, v in (("o", o), ("d", d)):
         K._check(v, name, torch.float32, (3, r), sc.device)

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from .types import PI
+
 CIPHER_BLOCK = 256
 THREEFRY_ROUNDS = 13
 
@@ -60,17 +62,27 @@ def base_key(seed: int) -> tuple[int, int]:
 
 def ray_uniforms(key: tuple[int, int], ray_ids: torch.Tensor, stream: int,
                  n: int) -> torch.Tensor:
-    """(R, n) float32 uniforms of one stream for global ``ray_ids`` (R,)."""
+    """(R, n) float32 uniforms of one stream for global ``ray_ids`` (R,).
+    The stream's ciphers run side by side, one (R, ciphers) tensor."""
     n_ciphers = -(-n // 2)
     if n_ciphers > CIPHER_BLOCK:
         raise ValueError(f"{n} uniforms exceed the stream's cipher block")
-    x0 = ray_ids.to(torch.int64) & _MASK
+    x0 = (ray_ids.to(torch.int64) & _MASK)[:, None]
     base = (int(stream) * CIPHER_BLOCK) & _MASK
-    cols = []
-    for j in range(n_ciphers):
-        a0, a1 = threefry2x32(key[0], key[1], x0, (base + j) & _MASK)
-        cols += [bits_to_uniform(a0), bits_to_uniform(a1)]
-    return torch.stack(cols[:n], dim=-1)
+    x1 = (base + torch.arange(n_ciphers, device=ray_ids.device)) & _MASK
+    a0, a1 = threefry2x32(key[0], key[1], x0, x1[None, :])
+    cols = torch.stack([bits_to_uniform(a0), bits_to_uniform(a1)], dim=-1)
+    return cols.reshape(ray_ids.shape[0], 2 * n_ciphers)[:, :n].contiguous()
+
+
+def unit_sphere_surface(u1: torch.Tensor, u2: torch.Tensor) -> torch.Tensor:
+    """(..., 3) uniform directions on the unit sphere from two uniforms
+    (the distribution of lib/utils/sample.rs:71-79, without its rejection
+    loop): z = 1 - 2 u1, the azimuth 2 pi u2."""
+    z = 1.0 - 2.0 * u1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = (2.0 * PI) * u2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
 
 
 def cbrt01(u: torch.Tensor) -> torch.Tensor:
@@ -79,3 +91,9 @@ def cbrt01(u: torch.Tensor) -> torch.Tensor:
     isotropic lobe of every engine shares so their directions agree bit for
     bit; csrc/radiance.cuh computes the same with ``logf`` and ``expf``."""
     return torch.exp(torch.log(torch.clamp(u, min=1e-38)) * (1.0 / 3.0))
+
+
+def unit_sphere_volume(u1, u2, u3) -> torch.Tensor:
+    """(..., 3) uniform points in the unit ball (lib/utils/sample.rs:40-57):
+    a direction times the cube root of a third uniform."""
+    return unit_sphere_surface(u1, u2) * cbrt01(u3)[..., None]

@@ -40,7 +40,7 @@ from raytracingrust_tpu_torch.render.render import (render_linear,
                                                     select_engine)
 from raytracingrust_tpu_torch.utils import rng as trng
 from test_torch_gpu import brute_ext_builder
-from test_torch_scene import scene_arrays
+from test_torch_scene import assert_takes_xla, scene_arrays
 
 W, H, SPP = 8, 6, 2
 ZOO = "scenes/material_zoo.json"
@@ -225,15 +225,17 @@ def test_gate_equals_jax_supports():
         j, t = jv[name].build(with_bvh=False), tv[name].build(with_bvh=False)
         why = TK.unsupported(t)
         assert (why is None) == PK.supports(j), (name, why)
-    assert "ROADMAP A6" in TK.unsupported(tv["nested mix"].build(False))
+    assert '"xla"' in TK.unsupported(tv["nested mix"].build(False))
+    assert_takes_xla(tv["nested mix"].build(False))
 
 
 def test_routes_equal_jax(monkeypatch):
     """The port's ``select_engine`` gives JAX ``select_engine``'s route
     (with the TPU it dispatches for) on every scene of the gate's list,
     with and without its BVH: "pallas" is "brute", "pallas_bvh" is "bvh";
-    where JAX falls back to its XLA integrator the port raises naming
-    ROADMAP A6, and env-IS takes the port's "env" path with its BVH.  A
+    where JAX falls back to its XLA integrator the port takes its generic
+    engine ("xla") too, and env-IS takes the port's "env" path with its
+    BVH.  A
     triangle scene built without its BVH takes the brute kernels, as in
     JAX."""
     monkeypatch.setattr(jax, "devices", lambda *a: [types.SimpleNamespace(
@@ -248,8 +250,7 @@ def test_routes_equal_jax(monkeypatch):
                 assert select_engine(t) == "env"
                 continue
             if want == "xla":
-                with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-                    select_engine(t)
+                assert_takes_xla(t)
                 continue
             assert select_engine(t) == names[want], (name, bvh, want)
             if name != "view":  # a view has no gradient

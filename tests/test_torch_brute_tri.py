@@ -43,7 +43,7 @@ from raytracingrust_tpu_torch.render.render import (render_linear,
                                                     select_engine)
 from raytracingrust_tpu_torch.utils import rng as trng
 from test_torch_gpu import brute_tri_builder
-from test_torch_scene import scene_arrays
+from test_torch_scene import assert_takes_xla, scene_arrays
 
 W, H, SPP = 8, 6, 2
 # (builder name, sky): the scenes of the depth-1 checks
@@ -307,9 +307,9 @@ def test_gate_and_routes_equal_jax(monkeypatch):
     """``unsupported`` admits each scene JAX ``supports`` admits, and the
     port's ``select_engine`` takes JAX's route on a TPU ("pallas" is
     "brute", "pallas_bvh" "bvh"), with and without the BVH; the one
-    difference, 1,025 triangles without the BVH (JAX's XLA integrator,
-    ROADMAP A6), stays on the brute kernels up to MAX_TRIS, whose next
-    triangle both refuse (the port naming A6).  A fit of a triangle scene
+    difference, 1,025 triangles without the BVH (JAX's XLA integrator),
+    stays on the brute kernels up to MAX_TRIS, whose next triangle both
+    refuse (the port then takes its generic engine, "xla").  A fit of a triangle scene
     without its BVH takes #3/#4 here (JAX's ``resolve_fit_engine`` sends it
     to XLA: Mosaic cannot compile the brute kernel's VJP)."""
     monkeypatch.setattr(jax, "devices", lambda *a: [types.SimpleNamespace(
@@ -334,8 +334,7 @@ def test_gate_and_routes_equal_jax(monkeypatch):
     j, t = (_many(mod, TK.MAX_TRIS + 1).build(with_bvh=False)
             for mod in (J, T))
     assert not PK.supports(j)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        select_engine(t)
+    assert_takes_xla(t)
 
 
 # ---------------------------------------------------------------- renders

@@ -29,9 +29,11 @@ from raytracingrust_tpu_torch.models import backgrounds as TBg
 from raytracingrust_tpu_torch.ops import bvh_kernel as BK
 from raytracingrust_tpu_torch.ops import megakernel as TK
 from raytracingrust_tpu_torch.render.render import (render_linear,
+                                                    resolve_engine,
                                                     select_engine)
 from raytracingrust_tpu_torch.utils import rng
 from test_torch_bvh_build import STRESS, grid_builder, mesh_builder
+from test_torch_scene import assert_takes_xla
 
 
 def both(make, **kw):
@@ -203,9 +205,12 @@ def test_cpu_dispatch_and_cuda_wrapper_checks():
 
 
 def _refusal(make):
-    with pytest.raises(NotImplementedError) as e:
-        select_engine(make())
-    return str(e.value)
+    """The kernels' reasons for refusing the scene ``make()`` builds, which
+    takes the generic engine ("xla") instead, an 8x6 frame of it finite."""
+    scene = make()
+    assert_takes_xla(scene)
+    return " ".join(why for why in (TK.unsupported(scene),
+                                    BK.unsupported_bvh(scene)) if why)
 
 
 def test_select_engine_and_refusals(tmp_path):
@@ -214,9 +219,11 @@ def test_select_engine_and_refusals(tmp_path):
     included (as in the JAX package); so does a scene with triangles built
     without its BVH, a triangle-only one too; other scenes the BVH gate
     admits take #5, mixes, isotropic materials and sphere volumes
-    included; the rest raise, naming the ROADMAP item that ports them or
-    the JAX package's limit: 129 spheres without the BVH need the XLA
-    integrator (A6)."""
+    included; the rest take the generic engine ("xla"), the kernels' gates
+    naming why (129 spheres without the BVH, the JAX package's limits of 8
+    volumes and mixes nested 4 deep, a mesh volume without the BVH).
+    ``engine="xla"`` forces the generic engine on a scene a kernel takes;
+    an unknown engine raises ValueError."""
     small = grid_builder(T, n=3, depth=40)
     assert select_engine(small.build()) == "brute"  # a deep sphere chain
     assert select_engine(grid_builder(T, n=6).build()) == "bvh"
@@ -229,7 +236,7 @@ def test_select_engine_and_refusals(tmp_path):
     for many in (lambda: grid_builder(T, n=6).build(with_bvh=False),
                  lambda: row.build(with_bvh=False)):
         why = _refusal(many)
-        assert "ROADMAP A6" in why and "with_bvh=True" in why
+        assert '"xla"' in why and "with_bvh=True" in why
     assert select_engine(row.build(with_bvh=True)) == "bvh"
     tri = T.SceneBuilder()
     tri.add_mesh(T.models.mesh.Mesh.from_buffers(
@@ -279,7 +286,7 @@ def test_select_engine_and_refusals(tmp_path):
     assert select_engine(skymap) == "bvh"
     assert select_engine(grid_builder(T, n=6, mode="Normal").build()) == "bvh"
     # a mesh-bounded volume loads and takes #5's crossing scan; without
-    # its BVH it needs the XLA integrator (A6)
+    # its BVH the generic engine
     obj = tmp_path / "m.obj"
     obj.write_text("v 0 0 0\nv 1 0 0\nv 0 1 0\nv 0 0 1\n"
                    "f 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
@@ -289,7 +296,12 @@ def test_select_engine_and_refusals(tmp_path):
                                     "material": 0}}
     b = T.SceneBuilder.from_json(d)
     assert select_engine(b.build(with_bvh=True)) == "bvh"
-    assert "A6" in _refusal(lambda: b.build(with_bvh=False))
+    assert "without its BVH" in _refusal(lambda: b.build(with_bvh=False))
+    # engine="xla" forces the generic engine; an unknown engine raises
+    assert select_engine(small.build()) == "brute"
+    assert resolve_engine(small.build(), "xla") == "xla"
+    with pytest.raises(ValueError, match="unknown engine"):
+        resolve_engine(small.build(), "pallas_bvh")
 
 
 def test_bvh_path_refuses_gradients():

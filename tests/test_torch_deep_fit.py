@@ -3,9 +3,9 @@
 The brute path's gradient kernels record at most ``megakernel.MAX_DEPTH``
 bounces a ray, so a sphere scene the brute kernel renders takes the BVH
 route (the record walk and the replay, which have no depth cap) when a
-gradient is asked of a deeper render, and raises naming ROADMAP A6 when it
-was built without its BVH: the JAX package's ``resolve_fit_engine`` sends
-such chains to its BVH kernel too.  On the CPU the routes run their plain
+gradient is asked of a deeper render, and the generic engine ("xla") when
+it was built without its BVH: the JAX package's ``resolve_fit_engine``
+sends such chains to its BVH kernel too.  On the CPU the routes run their plain
 versions; tests/test_torch_gpu.py fits the same scene on the card.
 """
 
@@ -31,6 +31,7 @@ from raytracingrust_tpu_torch.ops import bvh_kernel as BK
 from raytracingrust_tpu_torch.ops import megakernel as TK
 from raytracingrust_tpu_torch.render.render import (render_linear,
                                                     select_engine)
+from test_torch_scene import assert_takes_xla
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CORNELL = os.path.join(ROOT, "scenes", "cornell_spheres.json")
@@ -47,15 +48,14 @@ def cornell(mod, depth=13, with_bvh=True):
 def test_deep_gradient_routing(tmp_path, capsys, monkeypatch):
     """Forward renders stay on the brute kernel at any depth; a gradient
     of a render deeper than 12 bounces takes "bvh" with the scene's BVH
-    and raises naming ROADMAP A6 without it; at 12 it stays brute.
+    and the generic engine ("xla") without it; at 12 it stays brute.
     ``render_linear`` under autograd takes the same route, and CLI ``info``
     names the same fit engine."""
     t = cornell(T)
     assert select_engine(t) == "brute"
     assert select_engine(t, grad=True) == "bvh"
     assert select_engine(cornell(T, depth=TK.MAX_DEPTH), grad=True) == "brute"
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        select_engine(cornell(T, with_bvh=False), grad=True)
+    assert_takes_xla(cornell(T, with_bvh=False), grad=True)
     assert select_engine(cornell(T, with_bvh=False)) == "brute"
 
     calls = []
@@ -72,10 +72,11 @@ def test_deep_gradient_routing(tmp_path, capsys, monkeypatch):
     with torch.no_grad():  # no gradient asked for: the brute kernel
         render_linear(t, 4, 3, device="cpu")
     assert len(calls) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        TG.render_and_grad(cornell(T, with_bvh=False),
-                           np.zeros((3, 4, 3), np.float32), ["albedo"], 4,
-                           3, device="cpu")
+    value, grads = TG.render_and_grad(
+        cornell(T, with_bvh=False), np.zeros((3, 4, 3), np.float32),
+        ["albedo"], 4, 3, device="cpu")
+    assert np.isfinite(value.item()) and bool(
+        torch.isfinite(grads["albedo"]).all())
 
     with open(BENCH) as f:
         d = json.load(f)
@@ -84,12 +85,12 @@ def test_deep_gradient_routing(tmp_path, capsys, monkeypatch):
     with open(deep, "w") as f:
         json.dump(d, f)
     for path, want in ((CORNELL, "bvh: record mode of #5"),
-                       (deep, "unsupported: gradients of paths deeper")):
+                       (deep, "xla: the generic engine under autograd")):
         assert cli.main(["info", path, "--depth", "13"]) == 0
         info = json.loads(capsys.readouterr().out)
         assert info["render_engine"] == "brute: kernel #1"
         assert info["fit_engine"].startswith(want), info["fit_engine"]
-    assert "ROADMAP A6" in info["fit_engine"]
+    assert info["fit_engine"].startswith("xla")
 
 
 @pytest.mark.parametrize("engine", ["auto", "pallas_bvh"])

@@ -43,6 +43,7 @@ from raytracingrust_tpu_torch.render.render import (render_linear,
                                                     select_engine)
 from raytracingrust_tpu_torch.utils import rng as trng
 from test_torch_bvh_build import sheet_buffers
+from test_torch_scene import assert_takes_xla
 
 def sun_sky(h=16, w=32):
     """tests/test_env_is_kernel.py::sun_sky: a dim sky, a small bright sun."""
@@ -383,13 +384,12 @@ def test_env_gradients_match_jax(jax_refs):
 
 def test_env_gate_and_refusals():
     """Env-IS scenes with their BVH take the env path at any size, fog
-    included; env-IS without a BVH raises, naming its ROADMAP item; a sky
+    included; env-IS without a BVH takes the generic engine ("xla"); a sky
     map without importance sampling (or in Clay mode, where the flag does
     not apply) takes #5's sky-map variant."""
     b = env_builder(T)
     assert select_engine(b.build(with_bvh=True)) == "env"
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        select_engine(b.build(with_bvh=False))
+    assert_takes_xla(b.build(with_bvh=False))
     naive = env_builder(T)
     naive.settings = dataclasses.replace(naive.settings,
                                          env_importance_sampling=False)

@@ -17,6 +17,7 @@ chip_smoke.py (phase 12).
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -49,7 +50,8 @@ from raytracingrust_tpu_torch.render.render import (render_linear,
                                                     select_engine)
 from raytracingrust_tpu_torch.utils import rng as trng
 from test_torch_bvh_render import assert_within_jax_bounds
-from test_torch_scene import assert_same_arrays, scene_arrays
+from test_torch_scene import (assert_same_arrays, assert_takes_xla,
+                              scene_arrays)
 
 W = H = 12
 CUBE_FACES = np.array([[0, 1, 3], [0, 3, 2], [4, 6, 7], [4, 7, 5], [0, 4, 5],
@@ -165,14 +167,88 @@ def port_image(scene, w=W, h=H, seed=0):
     return render_linear(scene, w, h, seed=seed, device="cpu").numpy()
 
 
+def _record_of(j, depth, spp):
+    """The JAX record kernel's codes (max_depth, rays) of ``j`` at W x H
+    and ``spp``, of the key words."""
+    cb = j.cbvh
+    ray_ids, px, py, rows, n = PK._prep_rays(
+        jnp.arange(W * H, dtype=jnp.int32), spp, W)
+    mix, d_mix, m_pad = PK._mixn_cfg(j)
+    run = PK._bvh_call(depth, PK._bvh_kinds(j), j.background.kind, False,
+                       rows, True, cb.n_sph_chunks, cb.n_tri_chunks,
+                       cb.sph_nodes, cb.tri_nodes,
+                       n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
+                       n_vol=j.spheres.num_volumes, record=True, mix=mix,
+                       mv_spans=cb.mv_spans, d_mix=d_mix, m_pad=m_pad)
+    fp, scal, tens = PK._bvh_prep(j, W, H, mix, cb.mv_spans, m_pad=m_pad)
+
+    def record(words):
+        *_, rec = run(words, fp, scal, tens, ray_ids, px, py)
+        return PK._bvh_rec_flat(rec, rows, depth, n).T
+    return record
+
+
+def _albedo_row(j):
+    """The first isotropic material row: the fog's phase albedo (in the
+    combo a mix leaf's)."""
+    return int(np.nonzero(np.asarray(j.materials.kind) == 4)[0][0])
+
+
+GRAD_CASES = {fog_builder: dict(depth=3, density=4.0, spp=4),
+              combo_builder: dict(depth=3)}
+GRAD_W = GRAD_H = 10
+RECORD_KEY = 3
+
+
 @pytest.fixture(scope="module")
 def refs():
-    """The fog scene at depth 1 and 3 (JAX, port), and the JAX packet
-    kernel's images: depth 1 at seed 0, depth 3 at seeds 0 and 1."""
+    """The fog scene at depth 1 and 3 (JAX, port), and every JAX reference
+    of this file through the packet kernel in interpret mode: the fog
+    scene's images (depth 1 at seed 0, depth 3 at seeds 0 and 1), its
+    record codes at depth 3, its Normal and Random views, and jax.grad of
+    sum(image^2) in the phase albedo of the fog and the combo scenes.  Each
+    lowered once under jax.jit, then all compiled together on threads at
+    XLA's backend optimisation level 0, then run once."""
     scenes = {d: both(fog_builder, depth=d) for d in (1, 3)}
-    images = {(d, s): np.asarray(j_render(scenes[d][0], W, H, seed=s,
-                                          engine="pallas_bvh"))
-              for d, s in ((1, 0), (3, 0), (3, 1))}
+    jobs = {}
+
+    def add(name, fn, *args):
+        jobs[name] = (jax.jit(fn).lower(*args), args)
+
+    def image(j, w=W, h=H):
+        return lambda key: j_render(j, w, h, key=key, engine="pallas_bvh")
+
+    key0 = jnp.asarray(jrng.base_key(0))
+    add((1, 0), image(scenes[1][0]), key0)
+    add((3, 0), image(scenes[3][0]), key0)
+    for mode in ("Normal", "Random"):
+        j = scenes[1][0]
+        add(mode, image(dataclasses.replace(j, settings=dataclasses.replace(
+            j.settings, mode=mode))), key0)
+    add("codes", _record_of(scenes[3][0], 3, 4), jnp.asarray(
+        np.array(trng.base_key(RECORD_KEY), np.uint32).view(np.int32)))
+    for make, kw in GRAD_CASES.items():
+        j = make(J, **kw).build(with_bvh=True)
+        row = _albedo_row(j)
+
+        def j_loss(albedo, j=j, row=row):
+            mats = dataclasses.replace(
+                j.materials, albedo=j.materials.albedo.at[row].set(albedo))
+            img = j_render(dataclasses.replace(j, materials=mats), GRAD_W,
+                           GRAD_H, seed=0, engine="pallas_bvh")
+            return jnp.sum(img ** 2)
+
+        add(("grad", make.__name__), jax.grad(j_loss),
+            jnp.asarray(np.asarray(j.materials.albedo)[row]))
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        compiled = dict(zip(jobs, ex.map(
+            lambda job: job[0].compile(compiler_options={
+                "xla_backend_optimization_level": 0}), jobs.values())))
+    images = {name: np.asarray(fn(*jobs[name][1]))
+              for name, fn in compiled.items()}
+    images[(3, 1)] = np.asarray(compiled[(3, 0)](jnp.asarray(
+        jrng.base_key(1))))
     return scenes, images
 
 
@@ -318,20 +394,8 @@ def test_record_codes_match_jax(refs):
     j, t = refs[0][3]
     cb = j.cbvh
     depth, spp = 3, 4
-    ray_ids, px, py, rows, n = PK._prep_rays(
-        jnp.arange(W * H, dtype=jnp.int32), spp, W)
-    mix, d_mix, m_pad = PK._mixn_cfg(j)
-    run = PK._bvh_call(depth, PK._bvh_kinds(j), j.background.kind, False,
-                       rows, True, cb.n_sph_chunks, cb.n_tri_chunks,
-                       cb.sph_nodes, cb.tri_nodes,
-                       n_vol_chunks=cb.n_vol_chunks, k_vol=cb.vol_nodes,
-                       n_vol=j.spheres.num_volumes, record=True, mix=mix,
-                       mv_spans=cb.mv_spans, d_mix=d_mix, m_pad=m_pad)
-    fp, scal, tens = PK._bvh_prep(j, W, H, mix, cb.mv_spans, m_pad=m_pad)
-    key = trng.base_key(3)
-    words = jnp.asarray(np.array(key, np.uint32).view(np.int32))
-    *_, rec = run(words, fp, scal, tens, ray_ids, px, py)
-    want = np.asarray(PK._bvh_rec_flat(rec, rows, depth, n)).T
+    key = trng.base_key(RECORD_KEY)
+    want = refs[1]["codes"]
     ids, tpx, tpy = TK.prep_rays(torch.arange(W * H), spp, W)
     sc = BK.pack(t, W, H, "cpu")
     with torch.no_grad():
@@ -364,28 +428,18 @@ def _albedo_loss(scene, row, w, h):
 
 
 @pytest.mark.parametrize("make", [fog_builder, combo_builder])
-def test_phase_albedo_gradient_vs_jax_and_fd(make):
+def test_phase_albedo_gradient_vs_jax_and_fd(refs, make):
     """The gradient of sum(image^2) in the fog's phase albedo (its own row;
     in the combo a mix leaf's) through the port's replay: within 5% of
     jax.grad through the JAX packet kernel (its record walk and replay),
     and within 5% of the central difference of the port's own primal,
     on every channel the gradient moves (as
     tests/test_mesh_volume.py::test_mesh_volume_bvh_grad_fd)."""
-    kw = dict(depth=3, density=4.0, spp=4) if make is fog_builder else \
-        dict(depth=3)
-    j, t = both(make, **kw)
-    w = h = 10
-    row = int(np.nonzero(np.asarray(j.materials.kind) == 4)[0][0])
-    a0 = np.asarray(j.materials.albedo)[row].copy()
-
-    def j_loss(albedo):
-        mats = dataclasses.replace(
-            j.materials, albedo=j.materials.albedo.at[row].set(albedo))
-        img = j_render(dataclasses.replace(j, materials=mats), w, h, seed=0,
-                       engine="pallas_bvh")
-        return jnp.sum(img ** 2)
-
-    want = np.asarray(jax.jit(jax.grad(j_loss))(jnp.asarray(a0)))
+    t = make(T, **GRAD_CASES[make]).build(with_bvh=True)
+    w, h = GRAD_W, GRAD_H
+    row = _albedo_row(t)
+    a0 = t.materials.albedo[row].numpy().copy()
+    want = refs[1][("grad", make.__name__)]
     loss = _albedo_loss(t, row, w, h)
     a = torch.tensor(a0, requires_grad=True)
     (got,) = torch.autograd.grad(loss(a), a)
@@ -423,7 +477,7 @@ def test_replay_forward_equals_walk():
         np.testing.assert_array_equal(again.numpy(), rad.numpy())
 
 
-def test_normal_view_vs_jax():
+def test_normal_view_vs_jax(refs):
     """The Normal and Random views of the fog scene against the JAX packet
     kernel's debug views.  A fog hit shows its dummy normal (1, 0, 0)
     turned to face the ray: every pixel whose samples hit only the fog or
@@ -433,15 +487,11 @@ def test_normal_view_vs_jax():
     frame: those pixels are held within 1e-5."""
     key = trng.base_key(0)
     for mode in ("Normal", "Random"):
-        j, t = (fog_builder(mod, depth=1).build(with_bvh=True)
-                for mod in (J, T))
-        j = dataclasses.replace(j, settings=dataclasses.replace(
-            j.settings, mode=mode))
+        t = fog_builder(T, depth=1).build(with_bvh=True)
         t = dataclasses.replace(t, settings=dataclasses.replace(
             t.settings, mode=mode))
         got = port_image(t).reshape(-1, 3)
-        want = np.asarray(j_render(j, W, H, seed=0,
-                                   engine="pallas_bvh")).reshape(-1, 3)
+        want = refs[1][mode].reshape(-1, 3)
         sc = BK.pack(t, W, H, "cpu")
         spp = t.settings.samples_per_pixel
         ids, px, py = TK.prep_rays(torch.arange(W * H), spp, W)
@@ -464,23 +514,20 @@ def test_normal_view_vs_jax():
 def test_routing():
     """A mesh-volume scene built with its BVH takes #5; the brute gate
     refuses it; without the BVH, with more than 4 mesh volumes or under
-    HDRI importance sampling it raises naming ROADMAP A6 (the JAX package's
-    XLA integrator)."""
+    HDRI importance sampling it takes the generic engine ("xla"), as the
+    JAX package's XLA integrator."""
     t = fog_builder(T).build(with_bvh=True)
     assert select_engine(t) == "bvh" and select_engine(t, grad=True) == "bvh"
     assert "mesh volumes" in TK.unsupported(t)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        select_engine(fog_builder(T).build(with_bvh=False))
+    assert_takes_xla(fog_builder(T).build(with_bvh=False))
     b = fog_builder(T)
     for i in range(4):
         b.add_volume(b.add_mesh(cube(T, (i - 2.0, 1.5, -3), 0.3, 0)), 1.0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        select_engine(b.build(with_bvh=True))
+    assert_takes_xla(b.build(with_bvh=True))
     b = fog_builder(T)
     b.settings = dataclasses.replace(b.settings, env_importance_sampling=True)
     b.background = TBg.skymap_from_array(np.ones((4, 8, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        select_engine(b.build(with_bvh=True))
+    assert_takes_xla(b.build(with_bvh=True))
     b.settings = dataclasses.replace(b.settings,
                                      env_importance_sampling=False)
     assert select_engine(b.build(with_bvh=True)) == "bvh"  # the sky variant

@@ -53,6 +53,15 @@ def scene_arrays(scene) -> dict:
     }
 
 
+def assert_takes_xla(scene, grad: bool = False):
+    """The scene takes the generic engine ("xla"), with a gradient asked
+    if ``grad``, and an 8x6 frame of it on that route on the CPU is
+    finite."""
+    assert select_engine(scene, grad=grad) == "xla"
+    img = render_linear(scene, 8, 6, device="cpu", engine="xla")
+    assert img.shape == (6, 8, 3) and bool(torch.isfinite(img).all())
+
+
 def assert_same_arrays(port: dict, ref: dict):
     assert port.keys() == ref.keys()
     for k in ref:
@@ -138,7 +147,7 @@ def test_envelope_refusals(tmp_path):
                         device="cpu")
     assert bool(torch.isfinite(img).all()) and img.max() > 0
     # fog inside a mesh loads and takes the BVH kernel's crossing scan;
-    # without the BVH it needs the XLA integrator (ROADMAP A6)
+    # without the BVH the generic engine ("xla")
     obj = tmp_path / "m.obj"
     obj.write_text("v 0 0 -2\nv 1 0 -2\nv 0 1 -2\nv 0 0 -3\n"
                    "f 1 3 2\nf 1 2 4\nf 1 4 3\nf 2 3 4\n")
@@ -152,8 +161,7 @@ def test_envelope_refusals(tmp_path):
                 background=b["background"])
     fog = TBuilder.from_json(mesh)
     assert select_engine(fog.build(with_bvh=True)) == "bvh"
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        render_linear(fog.build(with_bvh=False), 8, 6, device="cpu")
+    assert_takes_xla(fog.build(with_bvh=False))
     # cornell_spheres sets enable_bvh_tree; the brute path takes it
     cornell = TBuilder.from_file(SCENES["cornell_spheres"]).build()
     assert cornell.settings.enable_bvh_tree and TK.supports(cornell)

@@ -9,13 +9,16 @@ On the CPU the port runs the kernel's plain version (the sky lookup of
 a gradient, the record walk and the replay with the sky on a miss; the
 CUDA kernel is held to that plain version on the card by
 tests/test_torch_gpu.py.  The JAX references (its packet-traversal kernel
-in interpret mode, whose compiles are slow) run once, in module fixtures.
+in interpret mode, whose compiles are slow) are lowered once in a module
+fixture, compiled together on threads at XLA's backend optimisation level
+0 and run once.
 Mirrors tests/test_pallas_bvh.py::test_bvh_kernel_skymap_demo_scene_class
 and ::test_bvh_grad_skymap, and tests/test_debug_modes.py.
 """
 
 import dataclasses
 import json
+from concurrent.futures import ThreadPoolExecutor
 
 import pytest
 
@@ -23,11 +26,13 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite's workers share the host's cores
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 
 import raytracingrust_tpu as J
 from raytracingrust_tpu.models.mesh import Mesh as JMesh
 from raytracingrust_tpu.render.render import render_linear as j_render
+from raytracingrust_tpu.utils import rng as jrng
 import raytracingrust_tpu_torch as T
 from raytracingrust_tpu_torch import cli
 from raytracingrust_tpu_torch.io.exr import write_exr
@@ -38,6 +43,7 @@ from raytracingrust_tpu_torch.render.render import (render, render_linear,
                                                     select_engine)
 from test_torch_bvh_build import grid_builder, mesh_builder, sheet_buffers
 from test_torch_bvh_render import assert_within_jax_bounds
+from test_torch_scene import assert_takes_xla
 from test_torch_zoo import ZOO, _ulps
 
 W, H = 16, 12
@@ -75,12 +81,26 @@ def _with(scene, albedo, sky, mod):
         background=dataclasses.replace(scene.background, image=sky))
 
 
+VIEW_CASES = [(mode, bg) for mode in ("Normal", "Random")
+              for bg in ("uniform", "gradient", "sky")]
+
+
 @pytest.fixture(scope="module")
 def jax_refs():
-    """The JAX packet-traversal kernel (interpret mode) at 16x12 spp 2: at
-    depth 3 the image and the gradient of sum(image^2) in material 0's
-    albedo and the sky's texels, in one jitted VJP; at depth 1 the
-    image."""
+    """Every JAX reference of this file: the packet-traversal kernel
+    (interpret mode) at 16x12 spp 2, at depth 3 the image and the gradient
+    of sum(image^2) in material 0's albedo and the sky's texels, in one
+    VJP, at depth 1 the image; the views of ``view_builder``'s scene on
+    each background (the packet kernel's; for a sky map, which the JAX
+    gate keeps on its XLA integrator, that integrator's) and the zoo's on
+    the XLA integrator.  Each lowered once under jax.jit, then all
+    compiled together on threads at XLA's backend optimisation level 0,
+    then run once."""
+    jobs = {}
+
+    def add(name, fn, *args):
+        jobs[name] = (jax.jit(fn).lower(*args), args)
+
     j, _ = pair()
 
     def image(albedo, sky):
@@ -91,12 +111,31 @@ def jax_refs():
         img, vjp = jax.vjp(image, albedo, sky)
         return img, vjp(2.0 * img)
 
-    img, (g_a, g_s) = jax.jit(image_and_grads)(j.materials.albedo[0],
-                                               j.background.image)
+    add(3, image_and_grads, j.materials.albedo[0], j.background.image)
     j1, _ = pair(depth=1)
-    return {3: np.asarray(img), "albedo": np.asarray(g_a),
-            "sky": np.asarray(g_s),
-            1: np.asarray(j_render(j1, W, H, seed=0, engine="pallas_bvh"))}
+    key0 = jnp.asarray(jrng.base_key(0))
+    add(1, lambda key: j_render(j1, W, H, key=key, engine="pallas_bvh"),
+        key0)
+    key3 = jnp.asarray(jrng.base_key(3))
+    for mode, bg in VIEW_CASES:
+        jv = view_builder(J, mode, bg).build(with_bvh=True)
+        add((mode, bg), lambda key, jv=jv, bg=bg: j_render(
+            jv, 20, 16, key=key, engine="xla" if bg == "sky" else
+            "pallas_bvh"), key3)
+    for mode in ("Normal", "Random"):
+        jz = zoo_view(J, mode)
+        add(("zoo", mode), lambda key, jz=jz: j_render(
+            jz, 20, 16, key=key, engine="xla"), key3)
+
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        compiled = dict(zip(jobs, ex.map(
+            lambda job: job[0].compile(compiler_options={
+                "xla_backend_optimization_level": 0}), jobs.values())))
+    out = {name: jax.tree_util.tree_map(np.asarray, fn(*jobs[name][1]))
+           for name, fn in compiled.items()}
+    img, (g_a, g_s) = out.pop(3)
+    out.update({3: img, "albedo": g_a, "sky": g_s})
+    return out
 
 
 # ------------------------------------------------------------- the render
@@ -248,14 +287,14 @@ def view_builder(mod, mode, bg):
     return b
 
 
-def _check_view(j, t, engine, atol=1e-5):
-    """test_debug_modes.py::_check_mode's bound: at most 4 pixels of 320
-    differ by more than ``atol`` (the engines' winner arithmetic differs at
-    an ulp on borderline rays, and the normal's normalization: 1 / sqrt
-    here, rsqrt in the JAX kernel, a division in its XLA integrator)."""
+def _check_view(want, t, atol=1e-5):
+    """test_debug_modes.py::_check_mode's bound against the JAX image
+    ``want``: at most 4 pixels of 320 differ by more than ``atol`` (the
+    engines' winner arithmetic differs at an ulp on borderline rays, and
+    the normal's normalization: 1 / sqrt here, rsqrt in the JAX kernel, a
+    division in its XLA integrator)."""
     assert select_engine(t) == "bvh"
     got = render_linear(t, 20, 16, seed=3, device="cpu").numpy()
-    want = np.asarray(j_render(j, 20, 16, seed=3, engine=engine))
     neq = (np.abs(got - want) > atol).any(-1)
     assert neq.sum() <= 4, f"{neq.sum()} pixels differ"
     return got
@@ -263,19 +302,27 @@ def _check_view(j, t, engine, atol=1e-5):
 
 @pytest.mark.parametrize("bg", ["uniform", "gradient", "sky"])
 @pytest.mark.parametrize("mode", ["Normal", "Random"])
-def test_views_match_jax(mode, bg):
+def test_views_match_jax(jax_refs, mode, bg):
     """The views against the JAX packet-traversal kernel's (uniform and
     gradient backgrounds) and, for a sky map, which the JAX gate keeps on
     its XLA integrator, against that integrator's."""
-    j, t = (view_builder(m, mode, bg).build(with_bvh=True) for m in (J, T))
-    got = _check_view(j, t, "xla" if bg == "sky" else "pallas_bvh")
+    t = view_builder(T, mode, bg).build(with_bvh=True)
+    got = _check_view(jax_refs[(mode, bg)], t)
     if mode == "Random":  # a hit is black, a miss the background
         assert (got == 0).all(-1).any() and (got > 0).all(-1).any()
     else:
         assert got.std() > 0
 
 
-def test_zoo_view_matches_jax():
+def zoo_view(mod, mode):
+    """scenes/material_zoo.json at spp 2 in a view, with its BVH."""
+    b = mod.SceneBuilder.from_file(ZOO)
+    b.settings = dataclasses.replace(b.settings, samples_per_pixel=2,
+                                     mode=mode)
+    return b.build(with_bvh=True)
+
+
+def test_zoo_view_matches_jax(jax_refs):
     """The Normal view of scenes/material_zoo.json (a fog sphere, whose
     free flight draws from bounce stream 1, and a mix) and its Random view
     against the JAX XLA integrator's.  The zoo's spheres of radius 0.12
@@ -284,14 +331,9 @@ def test_zoo_view_matches_jax():
     the two JAX engines differ on 6; beyond 1e-4 none (measured), and a
     wrong winner's normal differs by far more, so the bound is 4 pixels
     beyond 1e-4."""
-    def zoo(mod, mode):
-        b = mod.SceneBuilder.from_file(ZOO)
-        b.settings = dataclasses.replace(b.settings, samples_per_pixel=2,
-                                         mode=mode)
-        return b.build(with_bvh=True)
-
-    _check_view(zoo(J, "Normal"), zoo(T, "Normal"), "xla", atol=1e-4)
-    got = _check_view(zoo(J, "Random"), zoo(T, "Random"), "xla")
+    _check_view(jax_refs[("zoo", "Normal")], zoo_view(T, "Normal"),
+                atol=1e-4)
+    got = _check_view(jax_refs[("zoo", "Random")], zoo_view(T, "Random"))
     assert (got == 0).all(-1).any()
 
 
@@ -300,10 +342,10 @@ def test_zoo_view_matches_jax():
 def test_gate_routes_sky_and_views():
     """A non-IS sky map (Full, Clay) and every view take #5 with the
     scene's BVH; a sky scene of the brute kernels' size takes #1 (Full,
-    Clay) with or without it, a view #5 with it and without it names A6;
-    a view asked for a gradient raises; a mesh-bounded volume under the
-    sky takes #5 without importance sampling and raises naming A6 with it
-    (the JAX package renders it with its XLA integrator)."""
+    Clay) with or without it, a view #5 with it and the generic engine
+    ("xla") without it; a view asked for a gradient raises; a mesh-bounded
+    volume under the sky takes #5 without importance sampling and the
+    generic engine with it (as the JAX package's XLA integrator)."""
     for mode in ("Full", "Clay", "Normal", "Random"):
         b = sky_builder(T, mode=mode)
         scene = b.build(with_bvh=True)
@@ -317,14 +359,12 @@ def test_gate_routes_sky_and_views():
             assert select_engine(small.build(with_bvh=False)) == "brute"
         else:
             assert select_engine(small.build(with_bvh=True)) == "bvh"
-            with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-                select_engine(small.build(with_bvh=False))
+            assert_takes_xla(small.build(with_bvh=False))
     for bg in ("uniform", "gradient"):
         b = grid_builder(T, n=2, depth=2, mode="Normal")
         b.background = _bg(T, bg)
         assert select_engine(b.build(with_bvh=True)) == "bvh"
-        with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-            select_engine(b.build(with_bvh=False))
+        assert_takes_xla(b.build(with_bvh=False))
     view = sky_builder(T, mode="Normal").build(with_bvh=True)
     with pytest.raises(ValueError, match="no gradient"):
         select_engine(view, grad=True)
@@ -336,8 +376,7 @@ def test_gate_routes_sky_and_views():
                       if o["kind"] == "mesh"), 1.0)
     assert select_engine(b.build(with_bvh=True)) == "bvh"
     b.settings = dataclasses.replace(b.settings, env_importance_sampling=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        select_engine(b.build(with_bvh=True))
+    assert_takes_xla(b.build(with_bvh=True))
 
 
 def test_cli_views_and_sky(tmp_path, capsys):
